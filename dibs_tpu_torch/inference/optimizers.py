@@ -1,0 +1,66 @@
+"""Optimizers for the SVGD transport updates.
+
+PyTorch twin of ``dibs_tpu/inference/optimizers.py``, as small stateless
+objects with the optax calling convention (``init(params) -> state``,
+``update(grads, state) -> (updates, state)``; apply with ``params +
+updates``):
+
+  * ``rmsprop``: ``nu <- gamma nu + (1 - gamma) g^2;  x <- x - lr g / sqrt(nu + eps)``
+    with ``eps`` inside the square root. ``torch.optim.RMSprop`` is not
+    equivalent: it adds ``eps`` outside the root and defaults gamma to 0.99.
+  * ``gd``: plain gradient descent.
+
+The rmsprop state is the tuple ``(ScaleByRmsState(nu),)``, the layout of the
+reference's optax chain (``opt_state[0].nu``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["ScaleByRmsState", "RMSProp", "GradientDescent", "get_optimizer"]
+
+
+class ScaleByRmsState(NamedTuple):
+    nu: torch.Tensor
+
+
+class RMSProp:
+    """Reference-parity RMSProp (eps inside the square root)."""
+
+    def __init__(self, stepsize: float, gamma: float = 0.9, eps: float = 1e-8):
+        self.stepsize = stepsize
+        self.gamma = gamma
+        self.eps = eps
+
+    def init(self, params: torch.Tensor):
+        return (ScaleByRmsState(nu=torch.zeros_like(params)),)
+
+    def update(self, grads: torch.Tensor, state):
+        nu = self.gamma * state[0].nu + (1.0 - self.gamma) * torch.square(grads)
+        scaled = grads / torch.sqrt(nu + self.eps)
+        return -self.stepsize * scaled, (ScaleByRmsState(nu=nu),)
+
+
+class GradientDescent:
+    """Plain SGD: ``x <- x - lr g``."""
+
+    def __init__(self, stepsize: float):
+        self.stepsize = stepsize
+
+    def init(self, params: torch.Tensor):
+        return ()
+
+    def update(self, grads: torch.Tensor, state):
+        return -self.stepsize * grads, state
+
+
+def get_optimizer(name: str, param: dict):
+    """Resolves the reference's string/param optimizer spec
+    (choices ``gd`` and ``rmsprop``)."""
+    if name == "rmsprop":
+        return RMSProp(param.get("stepsize", 0.005))
+    if name == "gd":
+        return GradientDescent(param.get("stepsize", 0.005))
+    raise ValueError(f"Unknown optimizer `{name}`")

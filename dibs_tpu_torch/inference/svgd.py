@@ -1,0 +1,251 @@
+"""SVGD engine and the marginal inference class (PyTorch twin of
+``dibs_tpu/inference/svgd.py``; ``JointDiBS`` waits for the joint slice).
+
+All mutable quantities live in an :class:`SVGDState`; one SVGD step is a
+``state -> state`` function built once per run and driven by a plain eager
+loop. The state carries an integer ``seed`` instead of a JAX key: step ``t``
+draws its hard MC graphs from the counter-based stream ``2 t`` and its soft
+acyclicity samples from stream ``2 t + 1`` of that seed, inside the sampler
+kernel. ``step(state, noise)`` can instead take the Logistic noise as the
+pair ``(eps_hard [P, M, d, d], eps_soft [P, K, d, d])``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from dibs_tpu_torch.inference.estimators import EstimatorConfig, make_estimators
+from dibs_tpu_torch.inference.optimizers import get_optimizer
+from dibs_tpu_torch.inference.transport import marginal_transport
+from dibs_tpu_torch.kernel import AdditiveFrobeniusSEKernel
+from dibs_tpu_torch.metrics import ParticleDistribution
+from dibs_tpu_torch.ops import edges as edge_ops
+
+__all__ = ["SVGDState", "DiBS", "MarginalDiBS"]
+
+
+class SVGDState(NamedTuple):
+    """Complete carry of an SVGD run (``theta`` / ``opt_state_theta`` are
+    ``None`` for marginal inference)."""
+
+    t: int  # step counter
+    seed: int  # key of the counter-based noise streams
+    z: torch.Tensor  # [n_particles, d, k, 2]
+    theta: Any
+    opt_state_z: Any
+    opt_state_theta: Any
+    sf_baseline: torch.Tensor  # [n_particles]
+
+
+def _check_precision():
+    """Every path held to the float32 reference runs with TF32 off."""
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "TF32 matmuls are enabled; the port is held to full float32 "
+            "(torch.set_float32_matmul_precision('highest'))")
+
+
+class DiBS:
+    """Shared backbone: config, data, latent->graph maps."""
+
+    def __init__(self, *, x, interv_mask, log_graph_prior,
+                 batched_node_log_joint_prob, alpha_linear, beta_linear=1.0,
+                 tau=1.0, n_grad_mc_samples=128, n_acyclicity_mc_samples=32,
+                 grad_estimator_z="score", score_function_baseline=0.0,
+                 latent_prior_std=None, acyclicity="notears",
+                 acyclicity_constraint="sampled", verbose=False,
+                 device="cpu"):
+        self.device = torch.device(device)
+        self.x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        self.interv_mask = torch.as_tensor(interv_mask).to(self.device)
+        self.n_vars = self.x.shape[-1]
+        self.log_graph_prior = log_graph_prior
+        self.batched_node_log_joint_prob = batched_node_log_joint_prob
+        self.cfg = EstimatorConfig(
+            alpha_linear=alpha_linear, beta_linear=beta_linear, tau=tau,
+            n_grad_mc_samples=n_grad_mc_samples,
+            n_acyclicity_mc_samples=n_acyclicity_mc_samples,
+            grad_estimator_z=grad_estimator_z,
+            score_function_baseline=score_function_baseline,
+            latent_prior_std=latent_prior_std, acyclicity=acyclicity,
+            acyclicity_constraint=acyclicity_constraint)
+        self.latent_prior_std = latent_prior_std
+        self.verbose = verbose
+        self.est = make_estimators(
+            cfg=self.cfg, log_graph_prior=log_graph_prior,
+            batched_node_log_joint_prob=batched_node_log_joint_prob,
+            x=self.x, interv_mask=self.interv_mask)
+
+    def alpha(self, t):
+        return self.cfg.alpha(t)
+
+    def beta(self, t):
+        return self.cfg.beta(t)
+
+    def particle_to_g_lim(self, z):
+        return edge_ops.particle_to_g_lim(z)
+
+    def edge_probs(self, z, t):
+        return edge_ops.edge_probs(z, self.cfg.alpha(t))
+
+    def edge_log_probs(self, z, t):
+        return edge_ops.edge_log_probs(z, self.cfg.alpha(t))
+
+    def _resolve_latent_std(self, n_dim):
+        return self.latent_prior_std or (1.0 / math.sqrt(n_dim))
+
+    def _init_sf_baseline(self, n_particles):
+        """``-inf`` (= off) in the log-space EMA when the control variate is
+        enabled, zeros otherwise."""
+        if self.cfg.score_function_baseline > 0.0:
+            return torch.full((n_particles,), -math.inf, device=self.device)
+        return torch.zeros(n_particles, device=self.device)
+
+    def _run(self, state: SVGDState, steps: int, callback,
+             callback_every: Optional[int], step_fn) -> SVGDState:
+        callback_every = callback_every or steps
+        for i in range(steps):
+            state = step_fn(state)
+            if callback and ((i + 1) % callback_every == 0 or i + 1 == steps):
+                callback(dibs=self, t=state.t, zs=state.z)
+        return state
+
+
+class MarginalDiBS(DiBS):
+    """SVGD inference of the marginal DAG posterior ``p(G | D)``.
+
+    Defaults as the reference: SE kernel with ``h=5``, rmsprop(0.005),
+    ``alpha_linear=1``, the score-function estimator. ``device`` places the
+    data, the particles and every kernel launch.
+    """
+
+    def __init__(self, *, x, graph_model, likelihood_model, interv_mask=None,
+                 kernel=AdditiveFrobeniusSEKernel, kernel_param=None,
+                 optimizer="rmsprop", optimizer_param=None, alpha_linear=1.0,
+                 beta_linear=1.0, tau=1.0, n_grad_mc_samples=128,
+                 n_acyclicity_mc_samples=32, grad_estimator_z="score",
+                 score_function_baseline=0.0, latent_prior_std=None,
+                 acyclicity="notears", acyclicity_constraint="sampled",
+                 verbose=False, device="cpu"):
+        if kernel_param is None:
+            kernel_param = {"h": 5.0}
+        if optimizer_param is None:
+            optimizer_param = {"stepsize": 0.005}
+        if interv_mask is None:
+            interv_mask = torch.zeros(tuple(x.shape), dtype=torch.int32)
+        batched = getattr(likelihood_model,
+                          "batched_interventional_node_log_marginal_probs",
+                          None)
+        if batched is None:
+            raise ValueError("the likelihood model needs the batched per-node "
+                             "hook batched_interventional_node_log_marginal_"
+                             "probs (e.g. BGe)")
+        super().__init__(
+            x=x, interv_mask=interv_mask,
+            log_graph_prior=graph_model.unnormalized_log_prob_soft,
+            batched_node_log_joint_prob=batched, alpha_linear=alpha_linear,
+            beta_linear=beta_linear, tau=tau,
+            n_grad_mc_samples=n_grad_mc_samples,
+            n_acyclicity_mc_samples=n_acyclicity_mc_samples,
+            grad_estimator_z=grad_estimator_z,
+            score_function_baseline=score_function_baseline,
+            latent_prior_std=latent_prior_std, acyclicity=acyclicity,
+            acyclicity_constraint=acyclicity_constraint, verbose=verbose,
+            device=device)
+        self.likelihood_model = likelihood_model
+        self.graph_model = graph_model
+        self.kernel = kernel(**kernel_param) if isinstance(kernel, type) else kernel
+        self.opt = (get_optimizer(optimizer, optimizer_param)
+                    if isinstance(optimizer, str) else optimizer)
+
+    # --- functional engine ---
+
+    def init_state(self, *, seed: int, n_particles: int,
+                   n_dim_particles=None) -> SVGDState:
+        """Initial particles ``z ~ N(0, sigma_z^2)`` from a ``torch.Generator``
+        seeded with ``seed``, plus the optimizer state."""
+        n_dim = n_dim_particles or self.n_vars
+        std = self._resolve_latent_std(n_dim)
+        gen = torch.Generator().manual_seed(seed)
+        z = torch.randn((n_particles, self.n_vars, n_dim, 2),
+                        generator=gen).to(self.device) * std
+        return SVGDState(t=0, seed=seed, z=z, theta=None,
+                         opt_state_z=self.opt.init(z), opt_state_theta=None,
+                         sf_baseline=self._init_sf_baseline(n_particles))
+
+    def _make_phi(self, latent_prior_std) -> Callable:
+        """``phi(state, noise=None) -> (phi_z, sf_baseline)``: the transport
+        of one step, before the optimizer."""
+        est, kernel = self.est, self.kernel
+
+        def phi(state: SVGDState, noise=None):
+            eps_hard, eps_soft = (None, None) if noise is None else noise
+            stream = 2 * state.t
+            dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
+                state.z, state.sf_baseline, state.t, state.seed, stream,
+                eps=eps_hard)
+            dz_prior = est.eltwise_grad_latent_prior(
+                state.z, state.t, state.seed, stream + 1, latent_prior_std,
+                eps=eps_soft)
+            return marginal_transport(kernel, state.z, dz_prior + dz_lik), \
+                sf_baseline
+
+        return phi
+
+    def _make_step(self, latent_prior_std) -> Callable:
+        """``step(state, noise=None) -> state``."""
+        phi_fn, opt = self._make_phi(latent_prior_std), self.opt
+
+        def step(state: SVGDState, noise=None) -> SVGDState:
+            _check_precision()
+            with torch.no_grad():
+                phi_z, sf_baseline = phi_fn(state, noise)
+                updates, opt_state_z = opt.update(phi_z, state.opt_state_z)
+                return SVGDState(t=state.t + 1, seed=state.seed,
+                                 z=state.z + updates, theta=None,
+                                 opt_state_z=opt_state_z,
+                                 opt_state_theta=None,
+                                 sf_baseline=sf_baseline)
+
+        return step
+
+    def sample(self, *, seed: int, n_particles: int, steps: int,
+               n_dim_particles=None, callback=None, callback_every=None,
+               return_state=False):
+        """Runs SVGD and returns hard graphs ``[n_particles, d, d]`` (int32),
+        plus the final :class:`SVGDState` with ``return_state=True``."""
+        state = self.init_state(seed=seed, n_particles=n_particles,
+                                n_dim_particles=n_dim_particles)
+        return self.resume(state, steps=steps, callback=callback,
+                           callback_every=callback_every,
+                           return_state=return_state)
+
+    def resume(self, state: SVGDState, *, steps, callback=None,
+               callback_every=None, return_state=False):
+        """Continues a run from ``state`` for ``steps`` more steps."""
+        step_fn = self._make_step(self._resolve_latent_std(state.z.shape[2]))
+        state = self._run(state, steps, callback, callback_every, step_fn)
+        g_final = self.particle_to_g_lim(state.z)
+        if return_state:
+            return g_final, state
+        return g_final
+
+    # --- posterior wrappers ---
+
+    def get_empirical(self, g) -> ParticleDistribution:
+        """Empirical distribution: deduplicated graphs weighted by counts."""
+        n_particles = g.shape[0]
+        unique, counts = torch.unique(g, dim=0, return_counts=True)
+        logp = torch.log(counts.to(torch.float32)) - math.log(n_particles)
+        return ParticleDistribution(logp=logp, g=unique)
+
+    def get_mixture(self, g) -> ParticleDistribution:
+        """DiBS+ mixture: weights proportional to the marginal posterior."""
+        logp = self.batched_node_log_joint_prob(
+            g.to(torch.float32), None, self.x, self.interv_mask,
+            None).double().sum(-1).float()
+        logp = logp - torch.logsumexp(logp, dim=0)
+        return ParticleDistribution(logp=logp, g=g)

@@ -37,8 +37,10 @@ setup(
     version="0.1.0",
     description="TPU-native DiBS: differentiable Bayesian structure learning "
                 "with SVGD on JAX/XLA/Pallas",
-    packages=find_packages(include=["dibs_tpu", "dibs_tpu.*"]),
-    package_data={"dibs_tpu.native": ["*.so", "*.cpp", "Makefile"]},
+    packages=find_packages(include=["dibs_tpu", "dibs_tpu.*",
+                                    "dibs_tpu_torch", "dibs_tpu_torch.*"]),
+    package_data={"dibs_tpu.native": ["*.so", "*.cpp", "Makefile"],
+                  "dibs_tpu_torch": ["csrc/*.cu", "csrc/*.h"]},
     python_requires=">=3.10",
     install_requires=[
         "jax>=0.4.30",
