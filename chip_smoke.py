@@ -10,17 +10,31 @@ Phases, one line each; any failure exits non-zero:
 1. environment: CUDA present, card name, compute capability, power limit,
    TF32 off;
 2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed);
-3. kernel vs plain twin on the card at the main path's shapes and more,
-   with each kernel's and twin's median time (CUDA events, 50 runs);
+3. kernel vs plain twin on the card at the main paths' shapes and more,
+   with each kernel's and twin's median time (CUDA events), its bound (the
+   least time an H100 SXM could take for the same work) and, where one
+   PyTorch call computes the same function, that call's time; the fused
+   linear-Gaussian kernels at the headline shape and at config 4's
+   interventional d=30, N=600;
 4. in-kernel RNG: sample means of the hard and soft samplers against their
    expectations;
-5. end to end: ``MarginalDiBS`` on a d=20 Erdos-Renyi BGe problem (N=100,
-   P=30, k=20, M=128, K=32) with the ``score`` and ``score_rb``
+5. end to end, marginal: ``MarginalDiBS`` on a d=20 Erdos-Renyi BGe problem
+   (N=100, P=30, k=20, M=128, K=32) with the ``score`` and ``score_rb``
    estimators; launch counts of every kernel, steps/s, AUROC, and the
    first 20 steps teacher-forced, their transport held against the plain
-   twins (run on the CPU, which is where the port sends plain tensors).
+   twins (run on the CPU, which is where the port sends plain tensors);
+6. end to end, joint: ``JointDiBS`` with ``LinearGaussian`` at
+   ``benchmarks/run_benchmarks.py``'s config 2 (d=20 scale-free, N=100,
+   P=30, k=20, M=128, K=32, the reparameterization estimator with shared
+   noise) for 1000 steps through the one-pass fused kernel and 1000 through
+   the two-pass pair; launch counts, steps/s, mixture AUROC > 0.6, and the
+   first 20 one-pass steps teacher-forced against the CPU's plain versions;
+7. profile: ``torch.profiler`` over 50 steady steps of the marginal
+   (``score``) and the joint step: wall and device time per step, the
+   device's busy share, kernel launches per step, the top kernels.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
+The second-to-last line is a JSON summary of the kernels, the line before it
+the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -36,6 +50,7 @@ import numpy as np
 import torch
 
 P, D, K_LAT, M, K_ACYC, N_OBS, STEPS = 30, 20, 20, 128, 32, 100, 1000
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 
 
 def log(msg):
@@ -64,6 +79,14 @@ def cuda_median_ms(fn, reps=50):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound_ms(flops, n_bytes):
+    """Least time on an H100 SXM: the larger of float32 operations at
+    67 TFLOP/s and bytes at 3.35 TB/s. Returns ``(ms, bound_by)``."""
+    t_ops, t_bytes = flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def logistic(rng, shape):
@@ -154,8 +177,11 @@ def phase_kernels(dev, results):
         f"Philox kernel vs twin {philox_err:.3g}; hard [30,128,20,20] "
         f"kernel {t_g:.4f} ms twin {t_gp:.4f} ms; soft [30,32,20,20] "
         f"kernel {t_gs:.4f} ms twin {t_gsp:.4f} ms")
+    # elementwise: scores read once, [P, M, d, d] samples written once
+    b_ms, b_by = bound_ms(3 * P * M * D * D, 4 * (P * D * D + P * M * D * D))
     results["gumbel_graphs"] = dict(max_abs_err=max(err_g, philox_err),
-                                    ms=t_g, plain_ms=t_gp)
+                                    ms=t_g, plain_ms=t_gp, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
 
     # --- BGe determinant pairs ---
     err_b, err_64 = 0.0, 0.0
@@ -198,12 +224,28 @@ def phase_kernels(dev, results):
         if d == D and not collinear:
             t_b = cuda_median_ms(lambda: bge_logdet_pairs(r_mats, gs_t))
             t_bp = cuda_median_ms(lambda: bge_logdet_pairs_plain(r_mats, gs_t))
+            # the same function as one library call: slogdet of the masked
+            # [Pa, Pa] and [Pa u j, Pa u j] matrices, masked outside the call
+            par = gs_t.transpose(1, 2)  # [B, j, r] parent masks
+            eye = torch.eye(d, device=dev)
+            masks = torch.cat([par, torch.clamp(par + eye, max=1.0)])
+            outer = masks[..., :, None] * masks[..., None, :]
+            stacked = (outer * r_mats[None] + (1 - outer) * eye).reshape(
+                -1, d, d).contiguous()
+            t_lib = cuda_median_ms(lambda: torch.linalg.slogdet(stacked))
+            # what this data needs: a k^3/3 elimination plus its k^2 border
+            # per (graph, node) with k parents
+            k = par.sum(-1).double()
+            b_ms, b_by = bound_ms(float((2 * (k ** 3 / 3 + k ** 2)).sum()),
+                                  4 * (d ** 3 + b * d * d + 2 * b * d))
     check(err_64 <= 1e-4, f"bge vs float64 slogdet: rel err {err_64}")
     log(f"[3 bge] d in 2,7,20,20(collinear),64,128 vs twin (rtol=atol=1e-4) "
         f"max err {err_b:.3g}; vs float64 slogdet max |err|/(1+|ref|) "
         f"{err_64:.3g}; [3840 graphs, d=20] kernel {t_b:.4f} ms twin "
-        f"{t_bp:.4f} ms")
-    results["bge_pairs"] = dict(max_abs_err=err_b, ms=t_b, plain_ms=t_bp)
+        f"{t_bp:.4f} ms slogdet {t_lib:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+    results["bge_pairs"] = dict(max_abs_err=err_b, ms=t_b, plain_ms=t_bp,
+                                bound_ms=b_ms, bound_by=b_by,
+                                library_ms=t_lib)
 
     # --- SE kernel matrix ---
     err_s = 0.0
@@ -223,10 +265,129 @@ def phase_kernels(dev, results):
         if n == 800:
             t_s = cuda_median_ms(lambda: gk.se_matrix(x, x, 5.0, 1.0))
             t_sp = cuda_median_ms(lambda: gk.se_matrix_plain(x, x, 5.0, 1.0))
+            b_ms, b_by = bound_ms(3 * a * a * n, 4 * (2 * a * n + a * a))
     log(f"[3 se] (A,B,n) in (30,30,800),(100,100,32768) atol 1e-5 max err "
         f"{err_s:.3g}, diagonal == scale; [30,30,800] kernel {t_s:.4f} ms "
         f"twin {t_sp:.4f} ms")
-    results["se_matrix"] = dict(max_abs_err=err_s, ms=t_s, plain_ms=t_sp)
+    results["se_matrix"] = dict(max_abs_err=err_s, ms=t_s, plain_ms=t_sp,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def fused_linear_flops(kind, p, m, n, d):
+    """Float32 operations of one fused-linear call, counted from its
+    arithmetic: per sample and branch ``2 N d^2`` for ``delta``, ``4 N d``
+    for the log-likelihood terms, ``2 N d`` for the residuals and ``2 N d^2``
+    for ``x^T resid``; plus ``2 N d^2`` per particle for ``resid_ref``."""
+    per = {"single": 4 * n * d * d + 6 * n * d,
+           "pass1": 2 * n * d * d + 4 * n * d,
+           "pass2": 4 * n * d * d + 2 * n * d}[kind]
+    return 2 * p * m * per + 2 * p * n * d * d
+
+
+def fused_problem(rng, dev, p, d, n, interv_blocks):
+    """Random fused-linear inputs: scores, Theta, data and the observation
+    weights, with ``interv_blocks`` blocks of 100 interventional rows after
+    the first 100 (``ceil(0.1 d)`` clamped nodes each, as config 4)."""
+    scores = rng.normal(size=(p, d, d)).astype(np.float32)
+    thetas = rng.normal(size=(p, d, d)).astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    mask = np.zeros((n, d), np.float32)
+    for b in range(interv_blocks):
+        nodes = rng.choice(d, size=math.ceil(0.1 * d), replace=False)
+        mask[100 * (b + 1):100 * (b + 2), nodes] = 1.0
+    return [torch.from_numpy(a).to(dev) for a in (scores, thetas, x,
+                                                   1.0 - mask)]
+
+
+def phase_fused(dev, results):
+    from dibs_tpu_torch.inference import fused_linear as fl
+    from dibs_tpu_torch.models import LinearGaussian
+
+    rng = np.random.default_rng(3)
+    model = LinearGaussian(n_vars=D)
+    errs = {"fused_linear_single": 0.0, "fused_linear_pass1": 0.0,
+            "fused_linear_pass2": 0.0}
+
+    def err(name, got, ref):
+        e = float((got - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        check(e <= tol, f"{name}: max err {e} > {tol}")
+        errs[name] = max(errs[name], e)
+        return e / tol
+
+    worst = 0.0
+    for p, d, n, blocks in [(P, D, N_OBS, 0), (20, 30, 600, 5)]:
+        scores, thetas, x, w = fused_problem(rng, dev, p, d, n, blocks)
+        for alpha, tau in ((2.0, 1.0), (0.7, 0.8)):
+            for noise in ("injected", "philox", "philox-shared"):
+                kw = dict(seed=17, streams=(4, 4 if noise == "philox-shared"
+                                            else 5),
+                          alpha=alpha, tau=tau, n_samples=M, model=model)
+                if noise == "injected":
+                    kw["eps"] = (logistic(rng, (p, M, d, d)).to(dev),
+                                 logistic(rng, (p, M, d, d)).to(dev))
+                args = (scores, thetas, x, w)
+                single = fl.fused_linear_single(*args, **kw)
+                single_p = fl.fused_linear_single_plain(*args, **kw)
+                lls = fl.fused_linear_pass1(*args, **kw)
+                lls_p = fl.fused_linear_pass1_plain(*args, **kw)
+                weights = tuple(torch.softmax(ll, dim=1) for ll in lls_p)
+                two = fl.fused_linear_pass2(*args, weights, **kw)
+                two_p = fl.fused_linear_pass2_plain(*args, weights, **kw)
+                for got, ref in zip(single, single_p):
+                    worst = max(worst, err("fused_linear_single", got, ref))
+                for got, ref in zip(lls, lls_p):
+                    worst = max(worst, err("fused_linear_pass1", got, ref))
+                for got, ref in zip(two, two_p):
+                    worst = max(worst, err("fused_linear_pass2", got, ref))
+                # kernel #5 against kernels #6 + #7 (softmax of #6 between)
+                weights_k = tuple(torch.softmax(ll, dim=1) for ll in lls)
+                for got, ref in zip(single, fl.fused_linear_pass2(
+                        *args, weights_k, **kw)):
+                    e = float((got - ref).abs().max())
+                    tol = 1e-4 * max(1.0, float(ref.abs().max()))
+                    check(e <= tol, f"fused single vs two-pass: {e} > {tol}")
+        # times at this shape, in-kernel noise (the main path's mode)
+        kw = dict(seed=17, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=M,
+                  model=model)
+        args = (scores, thetas, x, w)
+        lls = fl.fused_linear_pass1(*args, **kw)
+        weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
+        in_bytes = 4 * (2 * p * d * d + 2 * n * d)
+        times = {
+            "fused_linear_single": (
+                lambda: fl.fused_linear_single(*args, **kw),
+                lambda: fl.fused_linear_single_plain(*args, **kw),
+                fused_linear_flops("single", p, M, n, d),
+                in_bytes + 4 * 2 * p * d * d),
+            "fused_linear_pass1": (
+                lambda: fl.fused_linear_pass1(*args, **kw),
+                lambda: fl.fused_linear_pass1_plain(*args, **kw),
+                fused_linear_flops("pass1", p, M, n, d),
+                in_bytes + 4 * 2 * p * M),
+            "fused_linear_pass2": (
+                lambda: fl.fused_linear_pass2(*args, weights, **kw),
+                lambda: fl.fused_linear_pass2_plain(*args, weights, **kw),
+                fused_linear_flops("pass2", p, M, n, d),
+                in_bytes + 4 * 2 * p * M + 4 * 2 * p * d * d),
+        }
+        line = []
+        for name, (kern, plain, flops, n_bytes) in times.items():
+            t_k, t_p = cuda_median_ms(kern, reps=20), cuda_median_ms(plain,
+                                                                     reps=5)
+            b_ms, b_by = bound_ms(flops, n_bytes)
+            line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound "
+                        f"{b_ms:.5f} {b_by})")
+            if d == D:  # the headline shape is the one the main path runs
+                results[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None)
+        log(f"[3 fused P={p} d={d} N={n} M={M}] " + "; ".join(line))
+    for name, e in errs.items():
+        results[name]["max_abs_err"] = e
+    log(f"[3 fused] kernels vs plain at (P,d,N) in (30,20,100),(20,30,600 "
+        f"with interventions), injected / Philox / shared-stream noise, "
+        f"single and two-pass, #5 vs #6+#7: within 1e-4 max(1, max|ref|), "
+        f"worst {worst:.3f} of the bar")
 
 
 def phase_rng(dev):
@@ -297,8 +458,9 @@ def phase_e2e(dev, card, steps):
         if estimator == "score_rb":
             check(auc_e > 0.6, f"score_rb empirical AUROC {auc_e} <= 0.6")
     launches = dict(gk.LAUNCHES)
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} never launched on the main path")
+    for name in ("gumbel_graphs", "bge_pairs", "se_matrix"):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the marginal path")
     log(f"[5 launches] {launches}")
 
     # teacher-forced: kernels (card) vs plain twins (CPU), same state+noise,
@@ -334,6 +496,162 @@ def phase_e2e(dev, card, steps):
     return launches
 
 
+def phase_joint(dev, card, steps):
+    from dibs_tpu_torch.inference import JointDiBS
+    from dibs_tpu_torch.metrics import threshold_metrics
+    from dibs_tpu_torch.models import LinearGaussian
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.target import make_linear_gaussian_model
+
+    gen = torch.Generator().manual_seed(0)
+    data, gm, lm = make_linear_gaussian_model(
+        generator=gen, n_vars=D, n_observations=N_OBS,
+        n_ho_observations=N_OBS, device=dev)
+
+    def make(device, lik, single_pass=True):
+        return JointDiBS(x=data.x.to(device), graph_model=gm,
+                         likelihood_model=lik, n_grad_mc_samples=M,
+                         n_acyclicity_mc_samples=K_ACYC,
+                         fused_single_pass=single_pass, device=device)
+
+    # the default one-pass route (kernel #5), then the two-pass route
+    # (kernels #6 and #7); each route's counts are set to 0 just before it
+    total = dict.fromkeys(gk.LAUNCHES, 0)
+    for route, single_pass, fused in (
+            ("one-pass", True, ("fused_linear_single",)),
+            ("two-pass", False, ("fused_linear_pass1",
+                                 "fused_linear_pass2"))):
+        dibs = make(dev, lm, single_pass)
+        std = dibs._resolve_latent_std(K_LAT)
+        step = dibs._make_step(std)
+        for name in gk.LAUNCHES:
+            gk.LAUNCHES[name] = 0
+        state = dibs.init_state(seed=1, n_particles=P, n_dim_particles=K_LAT)
+        state = step(state)  # first step outside the timed window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps - 1):
+            state = step(state)
+        torch.cuda.synchronize()
+        rate = (steps - 1) / (time.perf_counter() - t0)
+        launches = dict(gk.LAUNCHES)
+        for tensor, what in ((state.z, "z"), (state.theta, "theta"),
+                             (state.opt_state_z[0].nu, "nu_z"),
+                             (state.opt_state_theta[0].nu, "nu_theta")):
+            check(bool(torch.isfinite(tensor).all()),
+                  f"joint {route}: {what} not finite")
+        for name in fused:
+            check(launches[name] == steps,
+                  f"{name} launched {launches[name]} times in {steps} steps")
+        for name in ("gumbel_graphs", "se_matrix"):
+            check(launches[name] > 0,
+                  f"joint {route}: kernel {name} never launched")
+        g = dibs.particle_to_g_lim(state.z)
+        auc_e = threshold_metrics(dist=dibs.get_empirical(g, state.theta),
+                                  g=data.g)["roc_auc"]
+        auc_m = threshold_metrics(dist=dibs.get_mixture(g, state.theta),
+                                  g=data.g)["roc_auc"]
+        log(f"[6 e2e joint {route}] {steps} steps, {rate:.2f} steps/s on "
+            f"'{card}'; AUROC empirical {auc_e:.4f} mixture {auc_m:.4f}; "
+            f"launches {launches}")
+        check(auc_m > 0.6, f"joint {route} mixture AUROC {auc_m} <= 0.6")
+        for name, count in launches.items():
+            total[name] += count
+
+    # teacher-forced: kernels (card) vs plain versions (CPU), same state
+    # and noise, over the first 20 steps
+    rng = np.random.default_rng(4)
+    dibs = make(dev, lm)
+    cpu = make("cpu", LinearGaussian(n_vars=D))
+    step = dibs._make_step(std)
+    phi_gpu, phi_cpu = dibs._make_phi(std), cpu._make_phi(std)
+    state = dibs.init_state(seed=2, n_particles=P, n_dim_particles=K_LAT)
+    worst = 0.0
+    for _ in range(20):
+        eps = logistic(rng, (P, M, D, D))  # shared: soft and hard
+        noise = (eps, eps, logistic(rng, (P, K_ACYC, D, D)))
+        noise_dev = tuple(e.to(dev) for e in noise)
+        st_cpu = state._replace(
+            z=state.z.cpu(), theta=state.theta.cpu(),
+            sf_baseline=state.sf_baseline.cpu())
+        with torch.no_grad():
+            got = phi_gpu(state, noise_dev)
+            want = phi_cpu(st_cpu, noise)
+        for a, b, what in zip(got, want, ("z", "theta")):
+            err = float((a.cpu() - b).abs().max())
+            tol = 1e-4 * float(b.abs().max())
+            worst = max(worst, err / max(tol, 1e-30))
+            check(err <= tol, f"joint phi_{what} t={state.t}: {err} > {tol}")
+        state = step(state, noise_dev)
+    log(f"[6 teacher-forced joint] steps t=0..19: max |phi_kernel - "
+        f"phi_plain| / (1e-4 max|phi|) = {worst:.3f} (phi_z and phi_theta)")
+    return total
+
+
+def profile_steps(step, state, n_steps=50):
+    """``torch.profiler`` over ``n_steps`` steady steps (after 10 warm-up
+    steps): wall ms per step, device kernel ms per step, the device busy
+    share (kernels run on one stream, so their times add), kernel launches
+    per step and the three kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(10):
+        state = step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    kernels, launches = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.name] = (kernels.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+        elif evt.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                          "cudaLaunchKernelExC"):
+            launches += 1
+    device_ms = sum(kernels.values()) / n_steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    return dict(wall_ms=wall_ms, device_ms=device_ms,
+                busy=device_ms / wall_ms, launches=launches / n_steps,
+                top=[(name[:40], ms / n_steps) for name, ms in top])
+
+
+def phase_profile(dev, card):
+    from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+    from dibs_tpu_torch.target import (
+        make_linear_gaussian_equivalent_model,
+        make_linear_gaussian_model,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    data, gm, lm = make_linear_gaussian_equivalent_model(
+        generator=gen, n_vars=D, graph_prior_str="er", n_observations=N_OBS,
+        device=dev)
+    marginal = MarginalDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                            n_grad_mc_samples=M,
+                            n_acyclicity_mc_samples=K_ACYC, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    data, gm, lm = make_linear_gaussian_model(
+        generator=gen, n_vars=D, n_observations=N_OBS, device=dev)
+    joint = JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                      n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
+                      device=dev)
+    for name, dibs in (("marginal score", marginal), ("joint", joint)):
+        step = dibs._make_step(dibs._resolve_latent_std(K_LAT))
+        prof = profile_steps(step, dibs.init_state(
+            seed=3, n_particles=P, n_dim_particles=K_LAT))
+        top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
+        log(f"[7 profile {name}] on '{card}', 50 steps: wall "
+            f"{prof['wall_ms']:.3f} ms/step, device kernels "
+            f"{prof['device_ms']:.3f} ms/step, busy share "
+            f"{prof['busy']:.3f}, kernel launches/step "
+            f"{prof['launches']:.1f}; top: {top}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -347,8 +665,15 @@ def main():
     phase_build()
     results = {}
     phase_kernels(dev, results)
+    phase_fused(dev, results)
     phase_rng(dev)
     launches = phase_e2e(dev, card, STEPS)
+    # each path's counts are set to 0 just before it runs: the joint
+    # path's launches are added to the marginal path's
+    for name, count in phase_joint(dev, card, STEPS).items():
+        launches[name] += count
+    phase_profile(dev, card)
+    fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",
                           "dibs_tpu/ops/pallas_kernels.py:197"),
@@ -356,6 +681,12 @@ def main():
                       "dibs_tpu/ops/bge_kernel.py:223"),
         "se_matrix": ("dibs_tpu_torch/csrc/se_matrix.cu",
                       "dibs_tpu/ops/pallas_kernels.py:237"),
+        "fused_linear_single": ("dibs_tpu_torch/csrc/fused_linear.cu",
+                                f"{fused}:708"),
+        "fused_linear_pass1": ("dibs_tpu_torch/csrc/fused_linear.cu",
+                               f"{fused}:617"),
+        "fused_linear_pass2": ("dibs_tpu_torch/csrc/fused_linear.cu",
+                               f"{fused}:658"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

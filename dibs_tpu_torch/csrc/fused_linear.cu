@@ -1,0 +1,458 @@
+// Fused sample-and-score estimators of the linear-Gaussian likelihood.
+//
+// Replaces, in dibs_tpu/inference/fused_linear.py (kernel body _make_kernel):
+//   mode 0, single pass: _fused_single (online softmax over the samples),
+//   mode 1, pass 1:      _fused_pass1 (the [P, M] soft and hard log-lik.),
+//   mode 2, pass 2:      _fused_pass2 (replays the samples with weights).
+// One __device__ routine per stage serves all three (template on the mode).
+//
+// For particle p with edge scores s, weights Theta, data x [N, d] and
+// observation weights w = 1 - intervention mask, each of the M samples is
+//   soft:  G = sigmoid(tau (eps_soft + alpha s)),  hard: H = 1[eps_hard + alpha s > 0]
+// (zero diagonal) and is scored relative to the expected graph
+// E[G] = sigmoid(alpha s) (centred scoring): with
+//   resid_ref = x - x @ (E[G] * Theta)            (once per particle)
+//   delta     = x @ ((G - E[G]) * Theta)
+//   dll       = -(1/2 sigma^2) sum w delta (delta - 2 resid_ref)
+//               + sum (G - E[G]) logN(Theta; mu_e, sig_e)
+//   dW        = x^T ((resid_ref - delta) w) / sigma^2
+// the estimates are
+//   dscores = sum_m softmax(dll_soft)_m tau alpha G (1 - G) (Theta dW + logN(Theta))
+//   dtheta  = sum_m softmax(dll_hard)_m H (dW + (mu_e - Theta) / sig_e^2).
+// The softmax is shift-invariant, so the dropped reference log-likelihood
+// never matters. Nothing but the [P, d, d] (or [P, M]) outputs and small
+// scratch (resid_ref, the blocks' partial states) touches device memory: no
+// sample, weight matrix or noise tensor is stored.
+//
+// Noise: eps is Logistic(0, 1) from dibs::philox_logistic with counter
+// (element, sample, particle, stream) and key = the 64-bit seed, exactly the
+// uniforms of gpu_kernels.philox_uniform((P, M, d, d), seed, stream); the
+// soft branch draws from stream_soft, the hard branch from stream_hard (the
+// same stream when they are equal: the hard sample is then the threshold of
+// the soft sample's noise). With eps_soft / eps_hard non-null the kernel
+// reads the injected noise [P, M, d, d] instead.
+//
+// Design: a grid of (particle, sample chunk) blocks, each looping over its
+// `chunk` samples (the TPU kernel's sequential grid over sample groups); a
+// second small kernel merges the S = ceil(M / chunk) partial states of each
+// particle (running maxima, normalisers and [d, d] sums) in a fixed order,
+// so the result is deterministic. The wrapper picks `chunk` so that about
+// two blocks per SM are in flight. The [d, d]
+// per-particle and per-sample matrices live in shared memory; the data rows
+// stream through shared memory in tiles of `tile_rows` rows, and when one
+// tile holds all N rows it is loaded once and stays resident for every
+// sample. Shared memory: 144 + 4 (11 d^2 + 5 tile_rows d) bytes, at most
+// 227 KB, which bounds d (d <= 70 at tile_rows = 8) but not N. The
+// per-sample log-likelihood sums are accumulated in float64, so the kernel
+// and its PyTorch twin, which sum the same float32 terms in another order,
+// give the same softmax weights to ~1e-12 relative. The single pass keeps a
+// running max and normaliser per stream and rescales the [d, d]
+// accumulators when the max advances.
+//
+// Bound on this card: 8 N d^2 float32 FLOPs per sample (two branches, the
+// delta product and the x^T resid product), 1.23 GFLOP at P = 30, M = 128,
+// N = 100, d = 20, i.e. ~18 us at 67 TFLOP/s; the bytes (inputs read once,
+// outputs written once) are ~0.1 MB. The kernel is bound by operations. Its
+// products run out of shared memory, one output per thread, without
+// register tiling or tensor cores: that is the next step.
+#include <cmath>
+
+#include "common.h"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRedDoubles = 2 * kWarps + 2;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can use
+
+enum Mode : int { kSingle = 0, kPass1 = 1, kPass2 = 2 };
+
+struct Args {
+  const float* scores;    // [P, d, d] edge scores
+  const float* theta;     // [P, d, d]
+  const float* x;         // [N, d]
+  const float* w;         // [N, d] observation weights (1 - interv. mask)
+  const float* eps_soft;  // [P, M, d, d] injected noise or nullptr
+  const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
+  const float* wts_soft;  // [P, M] softmax weights (pass 2)
+  const float* wts_hard;  // [P, M]
+  float* resid_ref;       // [P, S, N, d] scratch
+  float* part;            // [P, S, 4 + 2 d^2] scratch: partial states
+  float* out_a;           // dscores [P, d, d]; pass 1: dll_soft [P, M]
+  float* out_b;           // dtheta [P, d, d];  pass 1: dll_hard [P, M]
+  int n_samples, d, n_obs, tile_rows, n_split, chunk;
+  uint32_t k0, k1, stream_soft, stream_hard;
+  float alpha, tau, mean_edge, sig_edge;
+  double inv_var;
+};
+
+size_t smem_bytes(int d, int tile_rows) {
+  return sizeof(double) * kRedDoubles +
+         sizeof(float) * (11 * static_cast<size_t>(d) * d +
+                          5 * static_cast<size_t>(tile_rows) * d);
+}
+
+// Sums two per-thread doubles over the block; every thread gets the sums.
+__device__ __forceinline__ void block_sum2(double* a, double* b,
+                                           double* red) {
+  double va = *a, vb = *b;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    va += __shfl_down_sync(0xFFFFFFFFu, va, off);
+    vb += __shfl_down_sync(0xFFFFFFFFu, vb, off);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    red[2 * warp] = va;
+    red[2 * warp + 1] = vb;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double sa = 0.0, sb = 0.0;
+    for (int k = 0; k < kWarps; ++k) {
+      sa += red[2 * k];
+      sb += red[2 * k + 1];
+    }
+    red[2 * kWarps] = sa;
+    red[2 * kWarps + 1] = sb;
+  }
+  __syncthreads();
+  *a = red[2 * kWarps];
+  *b = red[2 * kWarps + 1];
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    fused_linear_kernel(const Args a) {
+  extern __shared__ double smem_d[];
+  double* red = smem_d;
+  const int d = a.d, dd = d * d, tn_max = a.tile_rows, tnd = tn_max * d;
+  float* as_ = reinterpret_cast<float*>(smem_d + kRedDoubles);  // alpha s
+  float* sig = as_ + dd;   // E[G] = sigmoid(alpha s), zero diagonal
+  float* th = sig + dd;    // Theta
+  float* gs = th + dd;     // soft sample
+  float* gh = gs + dd;     // hard sample
+  float* a_s = gh + dd;    // (G - E[G]) Theta
+  float* a_h = a_s + dd;   // (H - E[G]) Theta
+  float* dws = a_h + dd;   // x^T resid_soft of this sample
+  float* dwh = dws + dd;   // x^T resid_hard
+  float* acc_s = dwh + dd;  // dscores accumulator
+  float* acc_h = acc_s + dd;  // dtheta accumulator
+  float* xt = acc_h + dd;  // data tile [tile_rows, d]
+  float* wt = xt + tnd;
+  float* rt = wt + tnd;    // resid_ref tile
+  float* res_s = rt + tnd;
+  float* res_h = res_s + tnd;
+
+  const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
+  const int n_obs = a.n_obs, n_smp = a.n_samples;
+  const int m_begin = split * a.chunk;
+  const int m_end = min(n_smp, m_begin + a.chunk);
+  const int64_t ps = static_cast<int64_t>(p) * a.n_split + split;
+  const float* sc = a.scores + static_cast<int64_t>(p) * dd;
+  const float* tp = a.theta + static_cast<int64_t>(p) * dd;
+  float* rr = a.resid_ref + ps * n_obs * d;
+  // log(sig_e) + 0.5 log(2 pi)
+  const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
+  const float inv_var_f = static_cast<float>(a.inv_var);
+  const float inv_sig2_e = 1.0f / (a.sig_edge * a.sig_edge);
+
+  // --- per particle: hoisted transcendentals and the centring reference ---
+  for (int e = tid; e < dd; e += kThreads) {
+    const int i = e / d;
+    const float s = __fmul_rn(a.alpha, sc[e]);
+    as_[e] = s;
+    const float ref = (i == e - i * d) ? 0.0f : 1.0f / (1.0f + expf(-s));
+    sig[e] = ref;
+    th[e] = tp[e];
+    a_s[e] = ref * tp[e];  // E[G] * Theta, for resid_ref
+    if (kMode != kPass1) {
+      acc_s[e] = 0.0f;
+      acc_h[e] = 0.0f;
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < n_obs * d; idx += kThreads) {
+    const int n = idx / d, j = idx - n * d;
+    const float* xr = a.x + static_cast<int64_t>(n) * d;
+    float mean = 0.0f;
+    for (int i = 0; i < d; ++i) mean = fmaf(xr[i], a_s[i * d + j], mean);
+    rr[idx] = xr[j] - mean;
+  }
+  __syncthreads();
+
+  const int n_tiles = (n_obs + tn_max - 1) / tn_max;
+  auto load_tile = [&](int t0, int tn) {
+    for (int idx = tid; idx < tn * d; idx += kThreads) {
+      const int64_t g = static_cast<int64_t>(t0) * d + idx;
+      xt[idx] = a.x[g];
+      wt[idx] = a.w[g];
+      rt[idx] = rr[g];
+    }
+  };
+  if (n_tiles == 1) load_tile(0, n_obs);  // resident for every sample
+  __syncthreads();
+
+  float m_s = -INFINITY, z_s = 0.0f, m_h = -INFINITY, z_h = 0.0f;
+  for (int m = m_begin; m < m_end; ++m) {
+    // --- 1. the sample pair and the parameter-prior term of dll ---
+    double lp_s = 0.0, lp_h = 0.0;
+    const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * dd;
+    for (int e = tid; e < dd; e += kThreads) {
+      const int i = e / d;
+      float g_soft = 0.0f, g_hard = 0.0f;
+      if (i != e - i * d) {
+        const float es =
+            a.eps_soft != nullptr
+                ? a.eps_soft[nbase + e]
+                : dibs::philox_logistic(e, m, p, a.stream_soft, a.k0, a.k1);
+        float eh;
+        if (a.eps_hard != nullptr) {
+          eh = a.eps_hard[nbase + e];
+        } else if (a.stream_hard == a.stream_soft) {
+          eh = es;
+        } else {
+          eh = dibs::philox_logistic(e, m, p, a.stream_hard, a.k0, a.k1);
+        }
+        g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
+        g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
+      }
+      const float th_e = th[e];
+      const float zt = (th_e - a.mean_edge) / a.sig_edge;
+      const float lpdf = -0.5f * zt * zt - log_norm_e;
+      const float ds = g_soft - sig[e], dh = g_hard - sig[e];
+      gs[e] = g_soft;
+      gh[e] = g_hard;
+      a_s[e] = ds * th_e;
+      a_h[e] = dh * th_e;
+      lp_s += static_cast<double>(ds * lpdf);
+      lp_h += static_cast<double>(dh * lpdf);
+      if (kMode != kPass1) {
+        dws[e] = 0.0f;
+        dwh[e] = 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // --- 2. data tiles: delta, the data term of dll, residuals, x^T resid ---
+    double ld_s = 0.0, ld_h = 0.0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t * tn_max;
+      const int tn = min(tn_max, n_obs - t0);
+      if (n_tiles > 1) {
+        load_tile(t0, tn);
+        __syncthreads();
+      }
+      for (int idx = tid; idx < tn * d; idx += kThreads) {
+        const int n = idx / d, j = idx - n * d;
+        const float* xr = xt + n * d;
+        float del_s = 0.0f, del_h = 0.0f;
+        for (int i = 0; i < d; ++i) {
+          const float xv = xr[i];
+          del_s = fmaf(xv, a_s[i * d + j], del_s);
+          del_h = fmaf(xv, a_h[i * d + j], del_h);
+        }
+        const float r = rt[idx], wv = wt[idx];
+        if (kMode != kPass2) {
+          ld_s += static_cast<double>(wv * del_s * (del_s - 2.0f * r));
+          ld_h += static_cast<double>(wv * del_h * (del_h - 2.0f * r));
+        }
+        if (kMode != kPass1) {
+          res_s[idx] = (r - del_s) * wv;
+          res_h[idx] = (r - del_h) * wv;
+        }
+      }
+      if (kMode != kPass1) {
+        __syncthreads();
+        for (int e = tid; e < dd; e += kThreads) {
+          const int i = e / d, j = e - i * d;
+          float s1 = 0.0f, s2 = 0.0f;
+          for (int n = 0; n < tn; ++n) {
+            const float xv = xt[n * d + i];
+            s1 = fmaf(xv, res_s[n * d + j], s1);
+            s2 = fmaf(xv, res_h[n * d + j], s2);
+          }
+          dws[e] += s1;
+          dwh[e] += s2;
+        }
+      }
+      if (n_tiles > 1) __syncthreads();  // the next tile overwrites xt, rt
+    }
+
+    // --- 3. dll of the sample pair (float64 block sums) ---
+    float ll_s = 0.0f, ll_h = 0.0f;
+    if (kMode != kPass2) {
+      double v_s = -0.5 * a.inv_var * ld_s + lp_s;
+      double v_h = -0.5 * a.inv_var * ld_h + lp_h;
+      block_sum2(&v_s, &v_h, red);
+      ll_s = static_cast<float>(v_s);
+      ll_h = static_cast<float>(v_h);
+    }
+
+    // --- 4. weight and accumulate ---
+    if (kMode == kPass1) {
+      if (tid == 0) {
+        a.out_a[static_cast<int64_t>(p) * n_smp + m] = ll_s;
+        a.out_b[static_cast<int64_t>(p) * n_smp + m] = ll_h;
+      }
+    } else {
+      float sc_s = 1.0f, sc_h = 1.0f, w_s, w_h;
+      if (kMode == kSingle) {  // online softmax: exp(-inf) = 0 at m = 0
+        const float nm_s = fmaxf(m_s, ll_s), nm_h = fmaxf(m_h, ll_h);
+        sc_s = expf(m_s - nm_s);
+        sc_h = expf(m_h - nm_h);
+        w_s = expf(ll_s - nm_s);
+        w_h = expf(ll_h - nm_h);
+        z_s = z_s * sc_s + w_s;
+        z_h = z_h * sc_h + w_h;
+        m_s = nm_s;
+        m_h = nm_h;
+      } else {
+        w_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m];
+        w_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m];
+      }
+      for (int e = tid; e < dd; e += kThreads) {
+        const float th_e = th[e];
+        const float zt = (th_e - a.mean_edge) / a.sig_edge;
+        const float lpdf = -0.5f * zt * zt - log_norm_e;
+        const float g = gs[e];
+        const float c_s =
+            a.tau * a.alpha * g * (1.0f - g) * (th_e * (dws[e] * inv_var_f) + lpdf);
+        const float c_h =
+            gh[e] * (dwh[e] * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
+        acc_s[e] = acc_s[e] * sc_s + w_s * c_s;
+        acc_h[e] = acc_h[e] * sc_h + w_h * c_h;
+      }
+    }
+    __syncthreads();  // the next sample overwrites gs, gh, a_s, a_h, dws, dwh
+  }
+
+  if (kMode != kPass1) {  // this block's partial state, merged below
+    float* out = a.part + ps * (4 + 2 * dd);
+    if (tid == 0) {
+      out[0] = kMode == kSingle ? m_s : 0.0f;
+      out[1] = z_s;
+      out[2] = kMode == kSingle ? m_h : 0.0f;
+      out[3] = z_h;
+    }
+    for (int e = tid; e < dd; e += kThreads) {
+      out[4 + e] = acc_s[e];
+      out[4 + dd + e] = acc_h[e];
+    }
+  }
+}
+
+// Merges the S partial states of each particle: running maxima to the
+// common maximum, then sum (pass 2: plain sums of the weighted partials).
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    fused_linear_merge(const float* __restrict__ part, float* __restrict__ out_a,
+                       float* __restrict__ out_b, int n_split, int d) {
+  const int p = blockIdx.x, dd = d * d, stride = 4 + 2 * dd;
+  const float* base = part + static_cast<int64_t>(p) * n_split * stride;
+  float g_s = -INFINITY, g_h = -INFINITY;
+  for (int k = 0; k < n_split; ++k) {
+    g_s = fmaxf(g_s, base[k * stride]);
+    g_h = fmaxf(g_h, base[k * stride + 2]);
+  }
+  float z_s = 0.0f, z_h = 0.0f;
+  for (int k = 0; k < n_split; ++k) {
+    z_s += base[k * stride + 1] * expf(base[k * stride] - g_s);
+    z_h += base[k * stride + 3] * expf(base[k * stride + 2] - g_h);
+  }
+  const float inv_s = kMode == kSingle ? 1.0f / z_s : 1.0f;
+  const float inv_h = kMode == kSingle ? 1.0f / z_h : 1.0f;
+  for (int e = threadIdx.x; e < dd; e += kThreads) {
+    float acc_s = 0.0f, acc_h = 0.0f;
+    for (int k = 0; k < n_split; ++k) {
+      const float* q = base + k * stride;
+      acc_s += q[4 + e] * expf(q[0] - g_s);
+      acc_h += q[4 + dd + e] * expf(q[2] - g_h);
+    }
+    out_a[static_cast<int64_t>(p) * dd + e] = acc_s * inv_s;
+    out_b[static_cast<int64_t>(p) * dd + e] = acc_h * inv_h;
+  }
+}
+
+template <int kMode>
+int launch(const Args& a, int n_particles, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.d, a.tile_rows);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_linear_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_linear_kernel<kMode>
+      <<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
+  if (kMode != kPass1) {
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+    fused_linear_merge<kMode><<<n_particles, kThreads, 0, stream>>>(
+        a.part, a.out_a, a.out_b, a.n_split, a.d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+DIBS_API size_t dibs_fused_linear_smem_bytes(int d, int tile_rows) {
+  return smem_bytes(d, tile_rows);
+}
+
+// mode 0: single pass -> (dscores, dtheta); mode 1: pass 1 -> (dll_soft,
+// dll_hard) [P, M]; mode 2: pass 2 with weights -> (dscores, dtheta).
+// `chunk` samples per block; the scratch holds [P, S, N, d] (resid_ref)
+// and [P, S, 4 + 2 d^2] (partial states) floats, S = ceil(M / chunk).
+DIBS_API int dibs_fused_linear(
+    int mode, const float* scores, const float* theta, const float* x,
+    const float* w, const float* eps_soft, const float* eps_hard,
+    const float* wts_soft, const float* wts_hard, float* resid_ref,
+    float* part, float* out_a, float* out_b, int n_particles, int n_samples,
+    int d, int n_obs, int tile_rows, int chunk, uint64_t seed,
+    uint32_t stream_soft, uint32_t stream_hard, float alpha, float tau, double inv_var,
+    float mean_edge, float sig_edge, cudaStream_t stream) {
+  if (d < 1 || n_obs < 1 || n_samples < 1 || tile_rows < 1 ||
+      tile_rows > n_obs || chunk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_particles == 0) return 0;
+  Args a;
+  a.scores = scores;
+  a.theta = theta;
+  a.x = x;
+  a.w = w;
+  a.eps_soft = eps_soft;
+  a.eps_hard = eps_hard;
+  a.wts_soft = wts_soft;
+  a.wts_hard = wts_hard;
+  a.resid_ref = resid_ref;
+  a.part = part;
+  a.out_a = out_a;
+  a.out_b = out_b;
+  a.n_samples = n_samples;
+  a.d = d;
+  a.n_obs = n_obs;
+  a.tile_rows = tile_rows;
+  a.chunk = chunk;
+  a.n_split = (n_samples + chunk - 1) / chunk;
+  a.k0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
+  a.k1 = static_cast<uint32_t>(seed >> 32);
+  a.stream_soft = stream_soft;
+  a.stream_hard = stream_hard;
+  a.alpha = alpha;
+  a.tau = tau;
+  a.mean_edge = mean_edge;
+  a.sig_edge = sig_edge;
+  a.inv_var = inv_var;
+  switch (mode) {
+    case kSingle:
+      return launch<kSingle>(a, n_particles, stream);
+    case kPass1:
+      return launch<kPass1>(a, n_particles, stream);
+    case kPass2:
+      return launch<kPass2>(a, n_particles, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

@@ -12,9 +12,10 @@
 // element, counter (element, sample, particle, stream), key = the 64-bit
 // seed. Nothing but the output touches device memory.
 //
-// The uniform keeps the TPU kernel's contract (pallas_kernels.py:163-175):
-// top 24 bits of the first Philox word, a half-ulp offset, and the clamp at
-// 1 - 2^-23; then eps = log(u) - log1p(-u). The PyTorch twin
+// The uniform keeps the TPU kernel's contract (pallas_kernels.py:163-175;
+// dibs::philox_logistic in common.h): top 24 bits of the first Philox word,
+// a half-ulp offset, and the clamp at 1 - 2^-23; then
+// eps = log(u) - log1p(-u). The PyTorch twin
 // (gumbel_graphs_plain) runs the same Philox, so both produce the same
 // noise up to the last ulp of log/log1p.
 //
@@ -24,41 +25,6 @@
 #include "common.h"
 
 namespace {
-
-constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
-constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
-constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
-constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
-
-__device__ __forceinline__ uint32_t mulhilo(uint32_t a, uint32_t b,
-                                            uint32_t* hi) {
-  const uint64_t p = static_cast<uint64_t>(a) * static_cast<uint64_t>(b);
-  *hi = static_cast<uint32_t>(p >> 32);
-  return static_cast<uint32_t>(p);
-}
-
-// Philox4x32-10: ten rounds, the key bumped before every round but the first.
-__device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
-                                                 uint32_t c2, uint32_t c3,
-                                                 uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
-    }
-    uint32_t hi0, hi1;
-    const uint32_t lo0 = mulhilo(kPhiloxM0, c0, &hi0);
-    const uint32_t lo1 = mulhilo(kPhiloxM1, c2, &hi1);
-    const uint32_t n0 = hi1 ^ c1 ^ k0;
-    const uint32_t n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return c0;
-}
 
 __global__ void gumbel_graphs_kernel(const float* __restrict__ scores,
                                      const float* __restrict__ eps,
@@ -83,16 +49,9 @@ __global__ void gumbel_graphs_kernel(const float* __restrict__ scores,
     if (eps != nullptr) {
       noise = eps[idx];
     } else {
-      const uint32_t bits = philox_word0(static_cast<uint32_t>(e),
-                                         static_cast<uint32_t>(m),
-                                         static_cast<uint32_t>(b), stream, k0,
-                                         k1);
-      // exact products and explicit rounding: the twin computes the same
-      float u = __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8),
-                                    5.9604644775390625e-08f),   // 2^-24
-                          2.98023223876953125e-08f);            // 2^-25
-      u = fminf(u, 0.99999988079071044921875f);                 // 1 - 2^-23
-      noise = logf(u) - log1pf(-u);
+      noise = dibs::philox_logistic(static_cast<uint32_t>(e),
+                                    static_cast<uint32_t>(m),
+                                    static_cast<uint32_t>(b), stream, k0, k1);
     }
     const float logit = __fadd_rn(noise, __fmul_rn(alpha, scores[b * dd + e]));
     if (hard) {

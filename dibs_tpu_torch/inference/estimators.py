@@ -1,14 +1,20 @@
-"""DiBS gradient estimators for marginal inference (PyTorch twin of
-``dibs_tpu/inference/estimators.py``: ``score``, ``score_rb`` and the
-latent-prior score; the reparameterization, Theta and fused estimators wait
-for the joint slice).
+"""DiBS gradient estimators (PyTorch twin of
+``dibs_tpu/inference/estimators.py``): the REINFORCE ``score`` and
+``score_rb`` estimators of marginal inference, the reparameterization and
+Theta estimators of joint inference, the shared-noise and fused linear-
+Gaussian joint estimators, and the latent-prior score.
 
 Every estimator works on the whole particle batch at once. Graph samples
 come from the Gumbel sampler kernel (:mod:`dibs_tpu_torch.ops.soft_graphs`)
 with noise from the counter-based stream (``seed``, ``stream``) or an
-injected Logistic ``eps``. The likelihood estimators score all ``P * M``
+injected Logistic ``eps``. The REINFORCE estimators score all ``P * M``
 hard samples in one call of the model's batched per-node hook (BGe: the
-determinant-pair kernel).
+determinant-pair kernel). The reparameterization and Theta estimators are
+one autograd call each: with shared samples the self-normalized ratio is a
+softmax-weighted sum of per-sample gradients, so the softmax weights are
+the cotangents. For ``LinearGaussian`` with the reparameterization
+estimator, ``fused_grad_both`` computes both likelihood gradients in the
+fused kernels of :mod:`dibs_tpu_torch.inference.fused_linear`.
 
 Estimator maths (as the reference): the self-normalized ratio
 
@@ -20,10 +26,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from dibs_tpu_torch.inference.fused_linear import (
+    fused_linear_available,
+    fused_linear_estimators,
+)
 from dibs_tpu_torch.ops.acyclic import acyclic_constr
 from dibs_tpu_torch.ops.edges import (
     edge_probs,
@@ -31,7 +42,7 @@ from dibs_tpu_torch.ops.edges import (
     grad_latent_log_prob_batch,
 )
 from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs, sample_soft_graphs
-from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp
+from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp, zero_diagonal
 
 __all__ = ["EstimatorConfig", "Estimators", "make_estimators",
            "stable_ratio_grad"]
@@ -47,7 +58,7 @@ class EstimatorConfig:
     tau: float = 1.0
     n_grad_mc_samples: int = 128
     n_acyclicity_mc_samples: int = 32
-    grad_estimator_z: str = "score"  # 'score' | 'score_rb'
+    grad_estimator_z: str = "score"  # 'score' | 'score_rb' | 'reparam'
     score_function_baseline: float = 0.0
     latent_prior_std: Optional[float] = None
     acyclicity: str = "notears"
@@ -63,10 +74,18 @@ class EstimatorConfig:
 
 
 class Estimators(NamedTuple):
-    """Batched (over particles) estimator callables."""
+    """Batched (over particles) estimator callables.
+
+    ``fused_grad_both(zs, thetas, t, seed, streams, eps=None) -> (dz,
+    dtheta)`` is set when one call computes both likelihood gradients of
+    joint inference (``streams = (soft, hard)``, ``eps = (eps_soft,
+    eps_hard)``); the engine then prefers it.
+    """
 
     eltwise_grad_z_likelihood: Callable
     eltwise_grad_latent_prior: Callable
+    eltwise_grad_theta_likelihood: Optional[Callable] = None
+    fused_grad_both: Optional[Callable] = None
 
 
 def stable_ratio_grad(log_num: torch.Tensor, log_den: torch.Tensor,
@@ -91,24 +110,43 @@ def stable_ratio_grad(log_num: torch.Tensor, log_den: torch.Tensor,
 
 
 def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
-                    batched_node_log_joint_prob: Callable, x: torch.Tensor,
-                    interv_mask: torch.Tensor) -> Estimators:
+                    x: torch.Tensor, interv_mask: torch.Tensor,
+                    batched_node_log_joint_prob: Optional[Callable] = None,
+                    log_joint_prob: Optional[Callable] = None,
+                    fused_linear_model=None,
+                    fused_sample_sharing: Optional[str] = None,
+                    fused_single_pass: bool = True) -> Estimators:
     """Builds the batched estimator callables for fixed data and models.
 
     Args:
         cfg: static estimator hyperparameters
         log_graph_prior: ``soft_g [..., d, d] -> [...]`` graph-prior
             log-density on edge probabilities (autograd-differentiable)
-        batched_node_log_joint_prob: ``(gs [B, d, d], theta, x, interv_mask,
-            rng) -> [B, d]`` per-node scores (row sums are the graphs'
-            marginal log-likelihoods)
         x: ``[N, d]`` observations
         interv_mask: ``[N, d]`` intervention indicators
+        batched_node_log_joint_prob: ``(gs [B, d, d], theta, x, interv_mask,
+            rng) -> [B, d]`` per-node scores (row sums are the graphs'
+            marginal log-likelihoods); the ``score`` / ``score_rb`` hook
+        log_joint_prob: ``(gs [..., d, d], thetas [..., d, d], x,
+            interv_mask, rng) -> [...]`` joint log-probability, broadcasting
+            over leading dims and autograd-differentiable; the hook of the
+            ``reparam`` and Theta estimators
+        fused_linear_model: a :class:`~dibs_tpu_torch.models.LinearGaussian`
+            enables the fused kernels (reparam estimator only) wherever
+            :func:`fused_linear_available` serves ``(d, N)``
+        fused_sample_sharing: ``'hard'`` draws one noise batch for both joint
+            likelihood gradients: the Theta estimator scores the Gumbel-max
+            thresholds of the Z estimator's soft samples; ``None`` keeps
+            separate streams
+        fused_single_pass: the one-pass fused kernel (online softmax);
+            ``False`` runs the two-pass kernels (log-likelihoods, softmax in
+            PyTorch, weighted replay), as the reference's
+            ``single_pass=False``
     """
-    if cfg.grad_estimator_z not in ("score", "score_rb"):
+    if cfg.grad_estimator_z not in ("score", "score_rb", "reparam"):
         raise ValueError(
             f"Unknown gradient estimator `{cfg.grad_estimator_z}` (the port "
-            "serves 'score' and 'score_rb')")
+            "serves 'score', 'score_rb' and 'reparam')")
     if cfg.grad_estimator_z == "score_rb" and cfg.score_function_baseline > 0.0:
         raise ValueError(
             "score_function_baseline > 0 has no effect with "
@@ -120,6 +158,9 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         raise ValueError(
             f"acyclicity_constraint must be 'sampled' or 'mean'; got "
             f"{cfg.acyclicity_constraint!r}")
+    if fused_sample_sharing not in (None, "hard"):
+        raise ValueError(f"fused_sample_sharing must be None or 'hard'; got "
+                         f"{fused_sample_sharing!r}")
     n_mc = cfg.n_grad_mc_samples
 
     def _hard_samples(zs, t, seed, stream, eps):
@@ -134,7 +175,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     # --- REINFORCE with the signed linear-space EMA control variate ---
 
-    def eltwise_grad_z_score(zs, baselines, t, seed, stream, eps=None):
+    def eltwise_grad_z_score(zs, thetas, baselines, t, seed, stream,
+                             eps=None):
         alpha = cfg.alpha(t)
         g_all = _hard_samples(zs, t, seed, stream, eps)  # [P, M, d, d]
         # float64 sum: exact for d float32 terms, so the same on any device
@@ -160,7 +202,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     # --- per-node Rao-Blackwellized REINFORCE ---
 
-    def eltwise_grad_z_score_rb(zs, baselines, t, seed, stream, eps=None):
+    def eltwise_grad_z_score_rb(zs, thetas, baselines, t, seed, stream,
+                                eps=None):
         alpha = cfg.alpha(t)
         g_all = _hard_samples(zs, t, seed, stream, eps)
         node_scores = _node_scores(g_all)  # [P, M, d]
@@ -173,6 +216,63 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         du = resid @ v
         dv = resid.transpose(-1, -2) @ u
         return torch.stack([du, dv], dim=-1), baselines
+
+    # --- joint: softmax-weighted per-sample gradients, one autograd call ---
+
+    def _weighted_grad(logp, wrt):
+        """``sum_m softmax(logp)_m grad logp_m`` per particle."""
+        weights = torch.softmax(logp.detach(), dim=1)
+        (grad,) = torch.autograd.grad(logp, wrt, weights)
+        return grad
+
+    def _log_joint(gs, thetas):
+        # [P, M, d, d] graphs with the particle's parameters -> [P, M]
+        return log_joint_prob(gs, thetas[:, None], x, interv_mask, None)
+
+    def eltwise_grad_z_reparam(zs, thetas, baselines, t, seed, stream,
+                               eps=None):
+        """Gumbel-softmax reparameterization estimator of the Z score."""
+        with torch.enable_grad():
+            z_req = zs.detach().requires_grad_(True)
+            gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
+                                    cfg.alpha(t), cfg.tau, n_mc, eps=eps)
+            return _weighted_grad(_log_joint(gs, thetas), z_req), baselines
+
+    def eltwise_grad_theta_likelihood(zs, thetas, t, seed, stream, eps=None):
+        """Theta score from ``M`` hard graph samples per particle."""
+        gs = _hard_samples(zs, t, seed, stream, eps)
+        with torch.enable_grad():
+            th_req = thetas.detach().requires_grad_(True)
+            return _weighted_grad(_log_joint(gs, th_req), th_req)
+
+    def fused_shared(zs, thetas, t, seed, streams, eps=None):
+        """Both joint likelihood gradients from ONE soft noise batch
+        (``streams[0]`` / ``eps[0]``): the Z gradient is the reparam
+        estimator, the Theta gradient scores the thresholds of the same soft
+        samples (``sigmoid(tau u) > 0.5 <=> u > 0``, exactly the Bernoulli
+        samples)."""
+        with torch.enable_grad():
+            z_req = zs.detach().requires_grad_(True)
+            gs = sample_soft_graphs(edge_scores(z_req), seed, streams[0],
+                                    cfg.alpha(t), cfg.tau, n_mc,
+                                    eps=None if eps is None else eps[0])
+            dz = _weighted_grad(_log_joint(gs, thetas), z_req)
+            hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
+            th_req = thetas.detach().requires_grad_(True)
+            dtheta = _weighted_grad(_log_joint(hard, th_req), th_req)
+        return dz, dtheta
+
+    def fused_linear(zs, thetas, t, seed, streams, eps=None):
+        """Both joint likelihood gradients of ``LinearGaussian`` through the
+        fused kernels; ``d scores`` is chained to ``Z`` by ``dU = dS V``,
+        ``dV = dS^T U``."""
+        dscores, dtheta = fused_linear_estimators(
+            zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
+            streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
+            model=fused_linear_model, eps=eps, single_pass=fused_single_pass)
+        u, v = zs[..., 0], zs[..., 1]
+        dz = torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u], dim=-1)
+        return dz, dtheta
 
     # --- latent prior score ---
 
@@ -203,6 +303,35 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                 + grad_prior_z)
 
     grad_z = {"score": eltwise_grad_z_score,
-              "score_rb": eltwise_grad_z_score_rb}[cfg.grad_estimator_z]
-    return Estimators(eltwise_grad_z_likelihood=grad_z,
-                      eltwise_grad_latent_prior=eltwise_grad_latent_prior)
+              "score_rb": eltwise_grad_z_score_rb,
+              "reparam": eltwise_grad_z_reparam}[cfg.grad_estimator_z]
+    hook, hook_name = ((log_joint_prob, "log_joint_prob")
+                       if cfg.grad_estimator_z == "reparam" else
+                       (batched_node_log_joint_prob,
+                        "batched_node_log_joint_prob"))
+    if hook is None:
+        raise ValueError(f"grad_estimator_z={cfg.grad_estimator_z!r} needs "
+                         f"the likelihood model's {hook_name} hook")
+
+    fused_grad_both = None
+    if cfg.grad_estimator_z == "reparam":
+        d, n_obs = x.shape[-1], x.shape[0]
+        if fused_linear_model is not None and fused_linear_available(d, n_obs):
+            fused_grad_both = fused_linear
+        else:
+            if fused_linear_model is not None:
+                warnings.warn(
+                    f"fused linear-Gaussian kernels disabled for d={d}, "
+                    f"N={n_obs}: their shared memory serves d <= 70 (any N; "
+                    "see fused_linear_available); falling back to the "
+                    "generic estimators, expect lower throughput.",
+                    stacklevel=3)
+            if fused_sample_sharing == "hard":
+                fused_grad_both = fused_shared
+    return Estimators(
+        eltwise_grad_z_likelihood=grad_z,
+        eltwise_grad_latent_prior=eltwise_grad_latent_prior,
+        eltwise_grad_theta_likelihood=(
+            eltwise_grad_theta_likelihood if log_joint_prob is not None
+            else None),
+        fused_grad_both=fused_grad_both)

@@ -1,0 +1,388 @@
+"""Fused sample-and-score estimators for the linear-Gaussian likelihood
+(PyTorch twin of ``dibs_tpu/inference/fused_linear.py``).
+
+For ``JointDiBS`` with :class:`~dibs_tpu_torch.models.LinearGaussian` and the
+reparameterization estimator, one call computes both likelihood gradients
+
+    d scores = sum_m softmax(l_soft)_m grad_scores l_soft_m      (reparam)
+    d Theta  = sum_m softmax(l_hard)_m grad_Theta  l_hard_m
+
+without storing a graph sample. Maths (reference ``fused_linear.py:40-45``):
+
+    l(G)   = sum w_nj logN(x_nj; (x @ (G * Theta))_nj, sigma) + sum G logN(Theta)
+    dl/dW  = x^T (resid / sigma^2),  W = G * Theta
+    dl/dG  = Theta * dl/dW + logN(Theta),  dl/dTheta = G * dl/dW + G (mu_e - Theta) / sig_e^2
+    dG_soft/d scores = tau alpha G (1 - G)
+
+Every sample is scored relative to the expected graph ``E[G] = sigmoid(alpha
+s)`` (centred scoring): ``resid_ref = x - x @ (E[G] * Theta)`` once per
+particle, then per sample only ``delta = x @ ((G - E[G]) * Theta)``, with
+``dll = -(1/2 sigma^2) sum w delta (delta - 2 resid_ref) + sum (G - E[G])
+logN(Theta)`` and ``resid = (resid_ref - delta) w``. The softmax is
+shift-invariant, so the dropped reference log-likelihood never matters. The
+per-sample sums of ``dll`` are taken in float64 by the kernels and by the
+plain versions alike.
+
+Three hand-written CUDA kernels of one source (``csrc/fused_linear.cu``):
+
+* ``fused_linear_single`` (replaces ``_fused_single``): one pass with an
+  online softmax per particle (running max and normaliser per stream);
+* ``fused_linear_pass1`` (replaces ``_fused_pass1``): the ``[P, M]`` soft and
+  hard ``dll``; the softmax weights are formed in PyTorch;
+* ``fused_linear_pass2`` (replaces ``_fused_pass2``): replays the same
+  samples with those weights into ``d scores`` and ``d Theta``.
+
+Noise: soft samples ``sigmoid(tau (eps + alpha s))`` draw their Logistic
+``eps`` from the counter-based stream ``(seed, streams[0])``, hard samples
+``1[eps + alpha s > 0]`` from ``(seed, streams[1])`` (equal streams give the
+hard sample as the threshold of the soft sample's noise), or the injected
+pair ``eps = (eps_soft, eps_hard)`` of ``[P, M, d, d]``. Dispatch: a CUDA
+tensor goes to the kernels, a CPU tensor to the plain versions in this
+module, which take the same noise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from dibs_tpu_torch.ops.edges import edge_scores
+from dibs_tpu_torch.ops.gpu_kernels import (
+    _check_cuda,
+    _check_launch,
+    _stream,
+    build,
+    philox_uniform,
+)
+
+__all__ = [
+    "fused_linear_available",
+    "fused_linear_tile_rows",
+    "fused_linear_smem_bytes",
+    "fused_linear_estimators",
+    "fused_linear_estimators_plain",
+    "fused_linear_single",
+    "fused_linear_single_plain",
+    "fused_linear_pass1",
+    "fused_linear_pass1_plain",
+    "fused_linear_pass2",
+    "fused_linear_pass2_plain",
+]
+
+# the kernel's shared-memory footprint (csrc/fused_linear.cu: smem_bytes)
+_MAX_SMEM = 232448  # 227 KB, the most one block can use on Hopper
+_RED_BYTES = 8 * (2 * 8 + 2)
+_TILE_MAX, _TILE_MIN = 128, 8
+# blocks to keep in flight (two per SM of an H100) and the fewest samples a
+# block loops over (each block also computes its particle's resid_ref)
+_TARGET_BLOCKS, _MIN_CHUNK = 264, 8
+# samples per step of the plain versions' loop (bounds their memory)
+_PLAIN_CHUNK = 16
+_MODES = {"fused_linear_single": 0, "fused_linear_pass1": 1,
+          "fused_linear_pass2": 2}
+
+
+def fused_linear_smem_bytes(d: int, tile_rows: int) -> int:
+    """Shared memory of one kernel block: 11 ``[d, d]`` matrices, 5 data
+    tiles of ``tile_rows`` rows and the block-reduction slots."""
+    return _RED_BYTES + 4 * (11 * d * d + 5 * tile_rows * d)
+
+
+def fused_linear_tile_rows(d: int, n_obs: int) -> Optional[int]:
+    """Data rows per shared-memory tile for ``(d, N)``, or ``None`` where
+    the kernel does not fit: tiles of up to 128 rows (all ``N`` rows stay
+    resident when ``N <= 128``), halved down to 8 until the block fits in
+    227 KB. ``N`` is unbounded; ``d`` is bounded by ``11 d^2 + 40 d``
+    floats, i.e. ``d <= 70``."""
+    tile = min(n_obs, _TILE_MAX)
+    while fused_linear_smem_bytes(d, tile) > _MAX_SMEM and tile > _TILE_MIN:
+        tile = max(_TILE_MIN, tile // 2)
+    return tile if fused_linear_smem_bytes(d, tile) <= _MAX_SMEM else None
+
+
+def fused_linear_available(n_vars: int, n_obs: int) -> bool:
+    """True when the fused kernels serve ``d = n_vars`` and ``N = n_obs``."""
+    return n_vars >= 1 and n_obs >= 1 and \
+        fused_linear_tile_rows(n_vars, n_obs) is not None
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (explicit particle and sample axes)
+# ---------------------------------------------------------------------------
+
+
+def _logistic(shape, seed, stream, device):
+    u = philox_uniform(shape, seed, stream, device)
+    return torch.log(u) - torch.log1p(-u)
+
+
+def _noise(shape, seed, streams, eps, device):
+    """``(eps_soft, eps_hard)``: the injected pair or the kernels' Philox
+    draws (one draw when the two streams are equal)."""
+    if eps is not None:
+        return eps
+    eps_soft = _logistic(shape, seed, streams[0], device)
+    if streams[1] == streams[0]:
+        return eps_soft, eps_soft
+    return eps_soft, _logistic(shape, seed, streams[1], device)
+
+
+class _Particles:
+    """Per-particle quantities hoisted out of the sample loop."""
+
+    def __init__(self, scores, thetas, x, w, alpha, tau, model):
+        d = scores.shape[-1]
+        self.offdiag = 1.0 - torch.eye(d, dtype=scores.dtype,
+                                       device=scores.device)
+        self.alpha_s = alpha * scores
+        self.sig = torch.sigmoid(self.alpha_s) * self.offdiag  # E[G]
+        self.thetas, self.x, self.w = thetas, x, w
+        self.alpha, self.tau = alpha, tau
+        self.inv_var = 1.0 / model.obs_noise
+        z = (thetas - model.mean_edge) / model.sig_edge
+        self.logpdf = (-0.5 * z * z - math.log(model.sig_edge)
+                       - 0.5 * math.log(2.0 * math.pi))
+        self.dprior = (model.mean_edge - thetas) / model.sig_edge ** 2
+        self.resid_ref = x - x @ (self.sig * thetas)  # [P, N, d]
+
+    def samples(self, eps_soft, eps_hard):
+        """Soft and hard samples ``[P, m, d, d]`` from a chunk of noise."""
+        a_s = self.alpha_s[:, None]
+        g_soft = torch.sigmoid(self.tau * (eps_soft + a_s)) * self.offdiag
+        g_hard = ((eps_hard + a_s) > 0.0).to(eps_hard.dtype) * self.offdiag
+        return g_soft, g_hard
+
+    def dll(self, g):
+        """Centred log-likelihoods ``[P, m]`` (float64 sums)."""
+        dg = g - self.sig[:, None]
+        delta = self.x @ (dg * self.thetas[:, None])  # [P, m, N, d]
+        rr = self.resid_ref[:, None]
+        data = (self.w * delta * (delta - 2.0 * rr)).double().sum((-2, -1))
+        prior = (dg * self.logpdf[:, None]).double().sum((-2, -1))
+        return (-0.5 * self.inv_var * data + prior).float()
+
+    def _dw(self, g):
+        delta = self.x @ ((g - self.sig[:, None]) * self.thetas[:, None])
+        resid = (self.resid_ref[:, None] - delta) * self.w
+        return self.x.T @ resid  # [P, m, d, d]
+
+    def contributions(self, g_soft, g_hard):
+        """Per-sample gradient contributions to ``d scores`` and ``d Theta``."""
+        th, lp = self.thetas[:, None], self.logpdf[:, None]
+        c_soft = (self.tau * self.alpha * g_soft * (1.0 - g_soft)
+                  * (th * (self._dw(g_soft) * self.inv_var) + lp))
+        c_hard = g_hard * (self._dw(g_hard) * self.inv_var
+                           + self.dprior[:, None])
+        return c_soft, c_hard
+
+
+def _chunks(n_samples):
+    return [(m0, min(m0 + _PLAIN_CHUNK, n_samples))
+            for m0 in range(0, n_samples, _PLAIN_CHUNK)]
+
+
+def fused_linear_pass1_plain(scores, thetas, x, w, *, seed, streams, alpha,
+                             tau, n_samples, model, eps=None):
+    """Plain version of kernel #6: ``(dll_soft, dll_hard)``, each ``[P, M]``."""
+    p, d, _ = scores.shape
+    eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
+                          scores.device)
+    part = _Particles(scores, thetas, x, w, alpha, tau, model)
+    ll_s, ll_h = [], []
+    for m0, m1 in _chunks(n_samples):
+        g_soft, g_hard = part.samples(eps_s[:, m0:m1], eps_h[:, m0:m1])
+        ll_s.append(part.dll(g_soft))
+        ll_h.append(part.dll(g_hard))
+    return torch.cat(ll_s, dim=1), torch.cat(ll_h, dim=1)
+
+
+def fused_linear_pass2_plain(scores, thetas, x, w, weights, *, seed, streams,
+                             alpha, tau, n_samples, model, eps=None):
+    """Plain version of kernel #7: replays the samples with the softmax
+    ``weights = (w_soft, w_hard)`` ``[P, M]``; returns ``(d scores, d Theta)``."""
+    p, d, _ = scores.shape
+    eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
+                          scores.device)
+    part = _Particles(scores, thetas, x, w, alpha, tau, model)
+    w_soft, w_hard = weights
+    acc_s = torch.zeros_like(scores)
+    acc_h = torch.zeros_like(scores)
+    for m0, m1 in _chunks(n_samples):
+        c_s, c_h = part.contributions(
+            *part.samples(eps_s[:, m0:m1], eps_h[:, m0:m1]))
+        acc_s = acc_s + torch.einsum("pm,pmij->pij", w_soft[:, m0:m1], c_s)
+        acc_h = acc_h + torch.einsum("pm,pmij->pij", w_hard[:, m0:m1], c_h)
+    return acc_s, acc_h
+
+
+def fused_linear_single_plain(scores, thetas, x, w, *, seed, streams, alpha,
+                              tau, n_samples, model, eps=None):
+    """Plain version of kernel #5: one pass over the samples in chunks with
+    the kernel's online softmax; returns ``(d scores, d Theta)``."""
+    p, d, _ = scores.shape
+    eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
+                          scores.device)
+    part = _Particles(scores, thetas, x, w, alpha, tau, model)
+    neg_inf = torch.full((p,), -math.inf, device=scores.device)
+    state = {"soft": [neg_inf, torch.zeros(p, device=scores.device),
+                      torch.zeros_like(scores)],
+             "hard": [neg_inf, torch.zeros(p, device=scores.device),
+                      torch.zeros_like(scores)]}
+    for m0, m1 in _chunks(n_samples):
+        g_soft, g_hard = part.samples(eps_s[:, m0:m1], eps_h[:, m0:m1])
+        c_s, c_h = part.contributions(g_soft, g_hard)
+        for key, g, c in (("soft", g_soft, c_s), ("hard", g_hard, c_h)):
+            run_max, norm, acc = state[key]
+            ll = part.dll(g)
+            new_max = torch.maximum(run_max, ll.max(dim=1).values)
+            scale = torch.exp(run_max - new_max)
+            wts = torch.exp(ll - new_max[:, None])
+            state[key] = [new_max, norm * scale + wts.sum(1),
+                          acc * scale[:, None, None]
+                          + torch.einsum("pm,pmij->pij", wts, c)]
+    return (state["soft"][2] / state["soft"][1][:, None, None],
+            state["hard"][2] / state["hard"][1][:, None, None])
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
+            n_samples, model, eps, weights=None):
+    p, d, d2 = scores.shape
+    n_obs = x.shape[0]
+    if d != d2 or tuple(thetas.shape) != (p, d, d) or \
+            tuple(x.shape) != (n_obs, d) or tuple(w.shape) != (n_obs, d):
+        raise ValueError(f"{name}: bad shapes scores {tuple(scores.shape)}, "
+                         f"thetas {tuple(thetas.shape)}, x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    _check_cuda(name, scores, thetas, x, w)
+    eps_ptrs = (None, None)
+    if eps is not None:
+        _check_cuda(name, *eps)
+        for e in eps:
+            if tuple(e.shape) != (p, n_samples, d, d):
+                raise ValueError(f"{name}: eps must be "
+                                 f"{(p, n_samples, d, d)}, got "
+                                 f"{tuple(e.shape)}")
+        eps_ptrs = tuple(e.data_ptr() for e in eps)
+    wts_ptrs = (None, None)
+    if weights is not None:
+        _check_cuda(name, *weights)
+        for wt in weights:
+            if tuple(wt.shape) != (p, n_samples):
+                raise ValueError(f"{name}: weights must be "
+                                 f"{(p, n_samples)}, got {tuple(wt.shape)}")
+        wts_ptrs = tuple(wt.data_ptr() for wt in weights)
+    tile_rows = fused_linear_tile_rows(d, n_obs)
+    if tile_rows is None:
+        raise ValueError(f"{name}: d={d} exceeds the kernel's shared-memory "
+                         "limit (fused_linear_available)")
+    # samples per block: about _TARGET_BLOCKS blocks over the (P, S) grid
+    chunk = min(n_samples, max(_MIN_CHUNK,
+                               -(-p * n_samples // _TARGET_BLOCKS)))
+    n_split = -(-n_samples // chunk)
+    lib = build()
+    out_shape = (p, n_samples) if name == "fused_linear_pass1" else (p, d, d)
+    empty = dict(dtype=torch.float32, device=scores.device)
+    out_a, out_b = torch.empty(out_shape, **empty), torch.empty(out_shape,
+                                                                **empty)
+    resid_ref = torch.empty((p, n_split, n_obs, d), **empty)
+    part = torch.empty((p, n_split, 4 + 2 * d * d), **empty)
+    with torch.cuda.device(scores.device):
+        rc = lib.dibs_fused_linear(
+            _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
+            w.data_ptr(), *eps_ptrs, *wts_ptrs, resid_ref.data_ptr(),
+            part.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), p,
+            n_samples, d, n_obs, tile_rows, chunk,
+            seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
+            streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
+            1.0 / model.obs_noise, float(model.mean_edge),
+            float(model.sig_edge), _stream(scores.device))
+    _check_launch(lib, rc, name)
+    return out_a, out_b
+
+
+def fused_linear_single(scores, thetas, x, w, *, seed, streams, alpha, tau,
+                        n_samples, model, eps=None):
+    """Kernel #5: ``[P, d, d]`` scores and ``Theta``, ``x, w [N, d]`` ->
+    ``(d scores, d Theta)`` in one pass (online softmax)."""
+    kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
+              n_samples=n_samples, model=model, eps=eps)
+    if scores.device.type == "cpu":
+        return fused_linear_single_plain(scores, thetas, x, w, **kw)
+    return _launch("fused_linear_single", scores, thetas, x, w, **kw)
+
+
+def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
+                       n_samples, model, eps=None):
+    """Kernel #6: the ``[P, M]`` soft and hard centred log-likelihoods."""
+    kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
+              n_samples=n_samples, model=model, eps=eps)
+    if scores.device.type == "cpu":
+        return fused_linear_pass1_plain(scores, thetas, x, w, **kw)
+    return _launch("fused_linear_pass1", scores, thetas, x, w, **kw)
+
+
+def fused_linear_pass2(scores, thetas, x, w, weights, *, seed, streams,
+                       alpha, tau, n_samples, model, eps=None):
+    """Kernel #7: replays the samples of pass 1 with ``weights = (w_soft,
+    w_hard)`` ``[P, M]`` -> ``(d scores, d Theta)``."""
+    kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
+              n_samples=n_samples, model=model, eps=eps)
+    if scores.device.type == "cpu":
+        return fused_linear_pass2_plain(scores, thetas, x, w, weights, **kw)
+    return _launch("fused_linear_pass2", scores, thetas, x, w,
+                   weights=weights, **kw)
+
+
+def _softmax_weights(lls):
+    return tuple(torch.softmax(ll, dim=1) for ll in lls)
+
+
+def _estimators(single, pass1, pass2, *, zs, thetas, x, interv_mask, seed,
+                streams, alpha, tau, n_samples, model, eps, single_pass):
+    scores = edge_scores(zs).contiguous()
+    w = (1.0 - interv_mask.to(torch.float32)).contiguous()
+    kw = dict(seed=int(seed), streams=tuple(int(s) for s in streams),
+              alpha=float(alpha), tau=float(tau), n_samples=n_samples,
+              model=model, eps=eps)
+    thetas, x = thetas.contiguous(), x.contiguous()
+    if single_pass:
+        return single(scores, thetas, x, w, **kw)
+    weights = _softmax_weights(pass1(scores, thetas, x, w, **kw))
+    return pass2(scores, thetas, x, w, weights, **kw)
+
+
+def fused_linear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
+                            alpha, tau, n_samples, model,
+                            eps: Optional[Tuple[torch.Tensor, ...]] = None,
+                            single_pass: bool = True):
+    """``(d scores [P, d, d], d Theta [P, d, d])``: the fused reparam
+    Z-likelihood and Theta-likelihood estimates for ``LinearGaussian``.
+
+    The caller chains ``d scores`` to ``Z`` with ``dU = dS V``,
+    ``dV = dS^T U``. ``streams = (soft, hard)``; ``eps`` the injected
+    ``(eps_soft, eps_hard)``. ``single_pass=False`` runs kernels #6 and #7
+    with the softmax in between instead of kernel #5.
+    """
+    return _estimators(fused_linear_single, fused_linear_pass1,
+                       fused_linear_pass2, zs=zs, thetas=thetas, x=x,
+                       interv_mask=interv_mask, seed=seed, streams=streams,
+                       alpha=alpha, tau=tau, n_samples=n_samples, model=model,
+                       eps=eps, single_pass=single_pass)
+
+
+def fused_linear_estimators_plain(*, zs, thetas, x, interv_mask, seed,
+                                  streams, alpha, tau, n_samples, model,
+                                  eps=None, single_pass: bool = True):
+    """:func:`fused_linear_estimators` through the plain versions on any
+    device (the yardstick of the kernels)."""
+    return _estimators(fused_linear_single_plain, fused_linear_pass1_plain,
+                       fused_linear_pass2_plain, zs=zs, thetas=thetas, x=x,
+                       interv_mask=interv_mask, seed=seed, streams=streams,
+                       alpha=alpha, tau=tau, n_samples=n_samples, model=model,
+                       eps=eps, single_pass=single_pass)

@@ -1,13 +1,23 @@
-"""SVGD engine and the marginal inference class (PyTorch twin of
-``dibs_tpu/inference/svgd.py``; ``JointDiBS`` waits for the joint slice).
+"""SVGD engine with the marginal and joint inference classes (PyTorch twin
+of ``dibs_tpu/inference/svgd.py``).
 
 All mutable quantities live in an :class:`SVGDState`; one SVGD step is a
 ``state -> state`` function built once per run and driven by a plain eager
-loop. The state carries an integer ``seed`` instead of a JAX key: step ``t``
-draws its hard MC graphs from the counter-based stream ``2 t`` and its soft
-acyclicity samples from stream ``2 t + 1`` of that seed, inside the sampler
-kernel. ``step(state, noise)`` can instead take the Logistic noise as the
-pair ``(eps_hard [P, M, d, d], eps_soft [P, K, d, d])``.
+loop. The state carries an integer ``seed`` instead of a JAX key; each step
+draws its noise inside the kernels from counter-based streams of that seed:
+
+* ``MarginalDiBS``, step ``t``: hard MC graphs from stream ``2 t``, soft
+  acyclicity samples from ``2 t + 1``; ``step(state, noise)`` can instead
+  take the Logistic pair ``(eps_hard [P, M, d, d], eps_soft [P, K, d, d])``.
+* ``JointDiBS``, step ``t``: soft likelihood samples from stream ``3 t``,
+  hard Theta samples from ``3 t + 1`` (from ``3 t`` with
+  ``fused_sample_sharing='hard'``: the thresholds of the soft samples'
+  noise), acyclicity samples from ``3 t + 2``; ``step(state, noise)`` can
+  take ``(eps_soft [P, M, d, d], eps_hard [P, M, d, d], eps_acyc [P, K, d,
+  d])``.
+
+Every class runs on the card unless ``device="cpu"`` is passed (and raises
+where CUDA is absent).
 """
 from __future__ import annotations
 
@@ -16,14 +26,22 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from dibs_tpu_torch.inference.estimators import EstimatorConfig, make_estimators
 from dibs_tpu_torch.inference.optimizers import get_optimizer
-from dibs_tpu_torch.inference.transport import marginal_transport
-from dibs_tpu_torch.kernel import AdditiveFrobeniusSEKernel
+from dibs_tpu_torch.inference.transport import (
+    joint_transport,
+    marginal_transport,
+)
+from dibs_tpu_torch.kernel import (
+    AdditiveFrobeniusSEKernel,
+    JointAdditiveFrobeniusSEKernel,
+)
 from dibs_tpu_torch.metrics import ParticleDistribution
+from dibs_tpu_torch.models.linear_gaussian import LinearGaussian
 from dibs_tpu_torch.ops import edges as edge_ops
 
-__all__ = ["SVGDState", "DiBS", "MarginalDiBS"]
+__all__ = ["SVGDState", "DiBS", "MarginalDiBS", "JointDiBS"]
 
 
 class SVGDState(NamedTuple):
@@ -51,19 +69,22 @@ def _check_precision():
 class DiBS:
     """Shared backbone: config, data, latent->graph maps."""
 
-    def __init__(self, *, x, interv_mask, log_graph_prior,
-                 batched_node_log_joint_prob, alpha_linear, beta_linear=1.0,
-                 tau=1.0, n_grad_mc_samples=128, n_acyclicity_mc_samples=32,
-                 grad_estimator_z="score", score_function_baseline=0.0,
-                 latent_prior_std=None, acyclicity="notears",
-                 acyclicity_constraint="sampled", verbose=False,
-                 device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, *, x, interv_mask, log_graph_prior, alpha_linear,
+                 batched_node_log_joint_prob=None, log_joint_prob=None,
+                 fused_linear_model=None, fused_sample_sharing=None,
+                 fused_single_pass=True, beta_linear=1.0, tau=1.0,
+                 n_grad_mc_samples=128, n_acyclicity_mc_samples=32,
+                 grad_estimator_z="score",
+                 score_function_baseline=0.0, latent_prior_std=None,
+                 acyclicity="notears", acyclicity_constraint="sampled",
+                 verbose=False, device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         self.interv_mask = torch.as_tensor(interv_mask).to(self.device)
         self.n_vars = self.x.shape[-1]
         self.log_graph_prior = log_graph_prior
         self.batched_node_log_joint_prob = batched_node_log_joint_prob
+        self.log_joint_prob = log_joint_prob
         self.cfg = EstimatorConfig(
             alpha_linear=alpha_linear, beta_linear=beta_linear, tau=tau,
             n_grad_mc_samples=n_grad_mc_samples,
@@ -75,9 +96,13 @@ class DiBS:
         self.latent_prior_std = latent_prior_std
         self.verbose = verbose
         self.est = make_estimators(
-            cfg=self.cfg, log_graph_prior=log_graph_prior,
+            cfg=self.cfg, log_graph_prior=log_graph_prior, x=self.x,
+            interv_mask=self.interv_mask,
             batched_node_log_joint_prob=batched_node_log_joint_prob,
-            x=self.x, interv_mask=self.interv_mask)
+            log_joint_prob=log_joint_prob,
+            fused_linear_model=fused_linear_model,
+            fused_sample_sharing=fused_sample_sharing,
+            fused_single_pass=fused_single_pass)
 
     def alpha(self, t):
         return self.cfg.alpha(t)
@@ -104,6 +129,11 @@ class DiBS:
             return torch.full((n_particles,), -math.inf, device=self.device)
         return torch.zeros(n_particles, device=self.device)
 
+    def _init_z(self, gen, n_particles, n_dim):
+        std = self._resolve_latent_std(n_dim)
+        return torch.randn((n_particles, self.n_vars, n_dim, 2),
+                           generator=gen).to(self.device) * std
+
     def _run(self, state: SVGDState, steps: int, callback,
              callback_every: Optional[int], step_fn) -> SVGDState:
         callback_every = callback_every or steps
@@ -129,7 +159,7 @@ class MarginalDiBS(DiBS):
                  n_acyclicity_mc_samples=32, grad_estimator_z="score",
                  score_function_baseline=0.0, latent_prior_std=None,
                  acyclicity="notears", acyclicity_constraint="sampled",
-                 verbose=False, device="cpu"):
+                 verbose=False, device=DEFAULT_DEVICE):
         if kernel_param is None:
             kernel_param = {"h": 5.0}
         if optimizer_param is None:
@@ -167,11 +197,8 @@ class MarginalDiBS(DiBS):
                    n_dim_particles=None) -> SVGDState:
         """Initial particles ``z ~ N(0, sigma_z^2)`` from a ``torch.Generator``
         seeded with ``seed``, plus the optimizer state."""
-        n_dim = n_dim_particles or self.n_vars
-        std = self._resolve_latent_std(n_dim)
         gen = torch.Generator().manual_seed(seed)
-        z = torch.randn((n_particles, self.n_vars, n_dim, 2),
-                        generator=gen).to(self.device) * std
+        z = self._init_z(gen, n_particles, n_dim_particles or self.n_vars)
         return SVGDState(t=0, seed=seed, z=z, theta=None,
                          opt_state_z=self.opt.init(z), opt_state_theta=None,
                          sf_baseline=self._init_sf_baseline(n_particles))
@@ -185,7 +212,7 @@ class MarginalDiBS(DiBS):
             eps_hard, eps_soft = (None, None) if noise is None else noise
             stream = 2 * state.t
             dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
-                state.z, state.sf_baseline, state.t, state.seed, stream,
+                state.z, None, state.sf_baseline, state.t, state.seed, stream,
                 eps=eps_hard)
             dz_prior = est.eltwise_grad_latent_prior(
                 state.z, state.t, state.seed, stream + 1, latent_prior_std,
@@ -249,3 +276,177 @@ class MarginalDiBS(DiBS):
             None).double().sum(-1).float()
         logp = logp - torch.logsumexp(logp, dim=0)
         return ParticleDistribution(logp=logp, g=g)
+
+
+class JointDiBS(DiBS):
+    """SVGD inference of the joint posterior ``p(G, Theta | D)``.
+
+    Constructor surface and defaults as the reference: joint SE kernel with
+    ``h_latent=5, h_theta=500``, rmsprop(0.005), ``alpha_linear=0.05``, the
+    Gumbel reparameterization estimator, ``fused_sample_sharing='hard'``
+    (one noise batch per step serves both likelihood gradients; ``None``
+    keeps separate streams). For ``LinearGaussian`` both likelihood
+    gradients come from the fused kernels
+    (:mod:`dibs_tpu_torch.inference.fused_linear`): the one-pass kernel, or
+    with ``fused_single_pass=False`` the two-pass pair. ``device`` places
+    the data, the particles and every kernel launch.
+    """
+
+    def __init__(self, *, x, graph_model, likelihood_model, interv_mask=None,
+                 kernel=JointAdditiveFrobeniusSEKernel, kernel_param=None,
+                 optimizer="rmsprop", optimizer_param=None, alpha_linear=0.05,
+                 beta_linear=1.0, tau=1.0, n_grad_mc_samples=128,
+                 n_acyclicity_mc_samples=32, grad_estimator_z="reparam",
+                 score_function_baseline=0.0, latent_prior_std=None,
+                 acyclicity="notears", acyclicity_constraint="sampled",
+                 verbose=False, fused_sample_sharing="hard",
+                 fused_single_pass=True, device=DEFAULT_DEVICE):
+        if grad_estimator_z != "reparam":
+            raise NotImplementedError(
+                "JointDiBS serves grad_estimator_z='reparam' (the joint "
+                "score estimators are not ported yet)")
+        if kernel_param is None:
+            kernel_param = {"h_latent": 5.0, "h_theta": 500.0}
+        if optimizer_param is None:
+            optimizer_param = {"stepsize": 0.005}
+        if interv_mask is None:
+            interv_mask = torch.zeros(tuple(x.shape), dtype=torch.int32)
+        super().__init__(
+            x=x, interv_mask=interv_mask,
+            log_graph_prior=graph_model.unnormalized_log_prob_soft,
+            log_joint_prob=likelihood_model.interventional_log_joint_prob,
+            fused_linear_model=(likelihood_model if isinstance(
+                likelihood_model, LinearGaussian) else None),
+            fused_sample_sharing=fused_sample_sharing,
+            fused_single_pass=fused_single_pass,
+            alpha_linear=alpha_linear, beta_linear=beta_linear, tau=tau,
+            n_grad_mc_samples=n_grad_mc_samples,
+            n_acyclicity_mc_samples=n_acyclicity_mc_samples,
+            grad_estimator_z=grad_estimator_z,
+            score_function_baseline=score_function_baseline,
+            latent_prior_std=latent_prior_std, acyclicity=acyclicity,
+            acyclicity_constraint=acyclicity_constraint, verbose=verbose,
+            device=device)
+        self.likelihood_model = likelihood_model
+        self.graph_model = graph_model
+        self.fused_sample_sharing = fused_sample_sharing
+        self.kernel = kernel(**kernel_param) if isinstance(kernel, type) else kernel
+        self.opt = (get_optimizer(optimizer, optimizer_param)
+                    if isinstance(optimizer, str) else optimizer)
+
+    def eltwise_log_likelihood_observ(self, gs, thetas, x_ho):
+        """Held-out joint log-likelihoods ``[P]`` of observational data."""
+        return self.likelihood_model.interventional_log_joint_prob(
+            gs, thetas, x_ho, torch.zeros_like(x_ho), None)
+
+    def eltwise_log_likelihood_interv(self, gs, thetas, x_ho, interv_msk_ho):
+        """Held-out joint log-likelihoods ``[P]`` of interventional data."""
+        return self.likelihood_model.interventional_log_joint_prob(
+            gs, thetas, x_ho, interv_msk_ho, None)
+
+    # --- functional engine ---
+
+    def init_state(self, *, seed: int, n_particles: int,
+                   n_dim_particles=None) -> SVGDState:
+        """Initial ``z ~ N(0, sigma_z^2)`` and ``theta ~ p(Theta)`` from a
+        ``torch.Generator`` seeded with ``seed``, plus the optimizer
+        states."""
+        gen = torch.Generator().manual_seed(seed)
+        z = self._init_z(gen, n_particles, n_dim_particles or self.n_vars)
+        theta = self.likelihood_model.sample_parameters(
+            generator=gen, n_particles=n_particles, n_vars=self.n_vars,
+            device=self.device)
+        return SVGDState(t=0, seed=seed, z=z, theta=theta,
+                         opt_state_z=self.opt.init(z),
+                         opt_state_theta=self.opt.init(theta),
+                         sf_baseline=self._init_sf_baseline(n_particles))
+
+    def _streams(self, t):
+        """``(soft, hard, acyclicity)`` noise streams of step ``t``."""
+        hard = 3 * t if self.fused_sample_sharing == "hard" else 3 * t + 1
+        return 3 * t, hard, 3 * t + 2
+
+    def _make_phi(self, latent_prior_std) -> Callable:
+        """``phi(state, noise=None) -> (phi_z, phi_theta)``: the transports
+        of one step, before the optimizer."""
+        est, kernel = self.est, self.kernel
+
+        def phi(state: SVGDState, noise=None):
+            eps_soft, eps_hard, eps_acyc = (None,) * 3 if noise is None \
+                else noise
+            s_soft, s_hard, s_acyc = self._streams(state.t)
+            if est.fused_grad_both is not None:
+                dz_lik, dtheta = est.fused_grad_both(
+                    state.z, state.theta, state.t, state.seed,
+                    (s_soft, s_hard),
+                    eps=None if noise is None else (eps_soft, eps_hard))
+            else:
+                dtheta = est.eltwise_grad_theta_likelihood(
+                    state.z, state.theta, state.t, state.seed, s_hard,
+                    eps=eps_hard)
+                dz_lik, _ = est.eltwise_grad_z_likelihood(
+                    state.z, state.theta, state.sf_baseline, state.t,
+                    state.seed, s_soft, eps=eps_soft)
+            dz_prior = est.eltwise_grad_latent_prior(
+                state.z, state.t, state.seed, s_acyc, latent_prior_std,
+                eps=eps_acyc)
+            return joint_transport(kernel, state.z, state.theta,
+                                   dz_prior + dz_lik, dtheta)
+
+        return phi
+
+    def _make_step(self, latent_prior_std) -> Callable:
+        """``step(state, noise=None) -> state``."""
+        phi_fn, opt = self._make_phi(latent_prior_std), self.opt
+
+        def step(state: SVGDState, noise=None) -> SVGDState:
+            _check_precision()
+            with torch.no_grad():
+                phi_z, phi_theta = phi_fn(state, noise)
+                up_z, opt_state_z = opt.update(phi_z, state.opt_state_z)
+                up_t, opt_state_t = opt.update(phi_theta,
+                                               state.opt_state_theta)
+                return SVGDState(t=state.t + 1, seed=state.seed,
+                                 z=state.z + up_z, theta=state.theta + up_t,
+                                 opt_state_z=opt_state_z,
+                                 opt_state_theta=opt_state_t,
+                                 sf_baseline=state.sf_baseline)
+
+        return step
+
+    def sample(self, *, seed: int, n_particles: int, steps: int,
+               n_dim_particles=None, callback=None, callback_every=None,
+               return_state=False):
+        """Runs SVGD; returns ``(g [P, d, d] int32, theta [P, d, d])``, plus
+        the final :class:`SVGDState` with ``return_state=True``."""
+        state = self.init_state(seed=seed, n_particles=n_particles,
+                                n_dim_particles=n_dim_particles)
+        return self.resume(state, steps=steps, callback=callback,
+                           callback_every=callback_every,
+                           return_state=return_state)
+
+    def resume(self, state: SVGDState, *, steps, callback=None,
+               callback_every=None, return_state=False):
+        """Continues a run from ``state`` for ``steps`` more steps."""
+        step_fn = self._make_step(self._resolve_latent_std(state.z.shape[2]))
+        state = self._run(state, steps, callback, callback_every, step_fn)
+        g_final = self.particle_to_g_lim(state.z)
+        if return_state:
+            return g_final, state.theta, state
+        return g_final, state.theta
+
+    # --- posterior wrappers ---
+
+    def get_empirical(self, g, theta) -> ParticleDistribution:
+        """Uniform weights: continuous Theta makes every particle unique."""
+        n_particles = g.shape[0]
+        logp = torch.full((n_particles,), -math.log(n_particles),
+                          device=g.device)
+        return ParticleDistribution(logp=logp, g=g, theta=theta)
+
+    def get_mixture(self, g, theta) -> ParticleDistribution:
+        """DiBS+ mixture: weights proportional to the joint posterior."""
+        logp = self.log_joint_prob(g.to(torch.float32), theta, self.x,
+                                   self.interv_mask, None)
+        logp = logp - torch.logsumexp(logp, dim=0)
+        return ParticleDistribution(logp=logp, g=g, theta=theta)

@@ -1,11 +1,17 @@
-"""Linear-Gaussian models: the closed-form BGe score and the generative half
-of the linear SEM (PyTorch twin of ``dibs_tpu/models/linear_gaussian.py``).
+"""Linear-Gaussian models: the closed-form BGe score and the linear SEM with
+its joint likelihood (PyTorch twin of ``dibs_tpu/models/linear_gaussian.py``).
 
 ``BGe`` scores a whole ``[B, d, d]`` hard-graph batch per call; its
 determinant pairs go through :func:`dibs_tpu_torch.ops.bge_kernel.
 bge_logdet_pairs` (the CUDA kernel for CUDA tensors, the plain twin on the
 CPU). Scoring is forward only: the marginal estimators treat graph samples
 as constants.
+
+``LinearGaussian`` scores ``log p(Theta, D | G)`` for graph and parameter
+batches that broadcast over leading dimensions, differentiable through
+autograd (the generic joint estimators); the fused sample-and-score path of
+:mod:`dibs_tpu_torch.inference.fused_linear` computes the same gradients
+without materializing the samples.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import math
 import torch
 from torch.special import gammaln
 
+from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from dibs_tpu_torch.ops.ancestral import interv_to_vectors, sample_sem_obs
 from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs
 from dibs_tpu_torch.ops.logdet import masked_logdet_pd_pair
@@ -41,9 +48,9 @@ class BGe:
     """
 
     def __init__(self, *, n_vars, mean_obs=None, alpha_mu=None,
-                 alpha_lambd=None, device="cpu"):
+                 alpha_lambd=None, device=DEFAULT_DEVICE):
         self.n_vars = n_vars
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.mean_obs = (torch.zeros(n_vars, device=self.device)
                          if mean_obs is None else
                          torch.as_tensor(mean_obs, dtype=torch.float32,
@@ -161,11 +168,16 @@ class BGe:
             g=g, x=x, interv_targets=interv_targets)
 
 
+def _normal_logpdf(x, loc, scale):
+    return (-0.5 * torch.square((x - loc) / scale) - math.log(scale)
+            - 0.5 * math.log(2.0 * math.pi))
+
+
 class LinearGaussian:
-    """Linear SEM with additive Gaussian noise: the generative half
-    (``x_j = x @ (g * theta)[:, j] + eps_j``, ``eps ~ N(0, obs_noise)``;
-    edge weights ``N(mean_edge, sig_edge^2)`` shifted away from 0 by
-    ``min_edge``). Scoring waits for the joint slice."""
+    """Linear SEM with additive Gaussian noise, generative and joint-likelihood
+    model: ``x_j = x @ (g * theta)[:, j] + eps_j``, ``eps ~ N(0, obs_noise)``;
+    edge weights ``N(mean_edge, sig_edge^2)`` on present edges (shifted away
+    from 0 by ``min_edge`` when sampled)."""
 
     def __init__(self, *, n_vars, obs_noise=0.1, mean_edge=0.0, sig_edge=1.0,
                  min_edge=0.5):
@@ -175,9 +187,14 @@ class LinearGaussian:
         self.sig_edge = sig_edge
         self.min_edge = min_edge
 
+    def get_theta_shape(self, *, n_vars):
+        """Parameter shape: a single ``[d, d]`` edge-weight matrix."""
+        return (n_vars, n_vars)
+
     def sample_parameters(self, *, generator, n_vars, n_particles=0,
-                          batch_size=0, device="cpu"):
+                          batch_size=0, device=DEFAULT_DEVICE):
         """``theta`` from the edge prior; leading dims equal to 0 are dropped."""
+        device = resolve_device(device)
         shape = tuple(s for s in (batch_size, n_particles, n_vars, n_vars)
                       if s != 0)
         theta = self.mean_edge + self.sig_edge * torch.randn(
@@ -193,3 +210,31 @@ class LinearGaussian:
             generator=generator, n_samples=n_samples, n_vars=self.n_vars,
             mean_fn=lambda x: x @ w, obs_noise=self.obs_noise,
             interv_mask=mask, interv_values=values)
+
+    # --- scoring: g, theta [..., d, d] (broadcasting) -> [...] ---
+
+    def log_prob_parameters(self, *, theta, g):
+        """Edge-masked Gaussian parameter prior ``log p(Theta | G)``."""
+        lp = _normal_logpdf(theta, self.mean_edge, self.sig_edge)
+        return (g * lp).sum(dim=(-2, -1))
+
+    def log_likelihood(self, *, x, theta, g, interv_targets):
+        """``log p(D | G, Theta)`` with intervened entries masked out; one
+        ``[N, d] @ [..., d, d]`` matmul gives every node's means."""
+        if tuple(x.shape) != tuple(interv_targets.shape):
+            raise ValueError(f"x {tuple(x.shape)} and interv_targets "
+                             f"{tuple(interv_targets.shape)} must match")
+        means = x @ (g * theta)
+        logpdf = _normal_logpdf(x, means, math.sqrt(self.obs_noise))
+        logpdf = torch.where(interv_targets.bool(), torch.zeros_like(logpdf),
+                             logpdf)
+        return logpdf.sum(dim=(-2, -1))
+
+    def interventional_log_joint_prob(self, g, theta, x, interv_targets, rng):
+        """Joint ``log p(Theta, D | G) = log p(Theta | G) + log p(D | G, Theta)``
+        for one graph or batches ``[..., d, d]`` that broadcast (``[B, d, d]``
+        graphs with ``[B, d, d]`` parameters give ``[B]``; the estimators pass
+        ``[P, M, d, d]`` samples with ``[P, 1, d, d]``); ``rng`` is unused."""
+        return (self.log_prob_parameters(g=g, theta=theta)
+                + self.log_likelihood(g=g, theta=theta, x=x,
+                                      interv_targets=interv_targets))

@@ -13,12 +13,15 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+
 __all__ = ["interv_to_vectors", "sample_sem_obs"]
 
 
 def interv_to_vectors(interv: Optional[Dict[int, float]], n_vars: int,
-                      device="cpu"):
+                      device=DEFAULT_DEVICE):
     """``{node: clamp_value}`` -> ``(mask [d], values [d])`` float tensors."""
+    device = resolve_device(device)
     mask = torch.zeros(n_vars, device=device)
     values = torch.zeros(n_vars, device=device)
     for node, val in (interv or {}).items():

@@ -8,9 +8,10 @@ hash of the sources, under ``dibs_tpu_torch/_build/``, and loads it with
 ``ctypes``. Nothing is compiled or imported from CUDA when this module is
 imported.
 
-Dispatch rule, for every kernel here and in :mod:`dibs_tpu_torch.ops.
-bge_kernel`: a CPU tensor goes to the plain twin; a CUDA tensor goes to the
-kernel, and a build or launch failure raises. ``LAUNCHES`` counts the kernel
+Dispatch rule, for every kernel here, in :mod:`dibs_tpu_torch.ops.
+bge_kernel` and in :mod:`dibs_tpu_torch.inference.fused_linear`: a CPU
+tensor goes to the plain twin; a CUDA tensor goes to the kernel, and a
+build or launch failure raises. ``LAUNCHES`` counts the kernel
 launches per kernel (twins never count), so a run can show that its main
 path went through the kernels.
 """
@@ -36,13 +37,15 @@ __all__ = [
     "se_matrix_plain",
 ]
 
-LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0}
+LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0,
+            "fused_linear_single": 0, "fused_linear_pass1": 0,
+            "fused_linear_pass2": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+               "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 _lib = None
 
 
@@ -60,12 +63,31 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.h"))
 
 
+def _run_all(cmds):
+    """Runs the commands in parallel; raises with the first failure's
+    output. Returns the combined compiler output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        logs.append(err + out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err + out)
+    if failed is not None:
+        cmd, rc, text = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+    return "".join(logs)
+
+
 def build() -> ctypes.CDLL:
     """Builds (once per source hash) and loads the kernel library.
 
-    Raises ``RuntimeError`` with ``nvcc``'s stderr if the build fails. The
-    compiler's ``-Xptxas=-v`` report (registers, shared memory, spills per
-    kernel) is kept beside the library as ``<name>.log``.
+    One ``nvcc`` per source, all started together, then one link. Raises
+    ``RuntimeError`` with ``nvcc``'s output if a step fails. The compiler's
+    ``-Xptxas=-v`` report (registers, shared memory, spills per kernel) is
+    kept beside the library as ``<name>.log``.
     """
     global _lib
     if _lib is not None:
@@ -80,14 +102,16 @@ def build() -> ctypes.CDLL:
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
-        so.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+        nvcc = _nvcc()
+        cus = [p for p in srcs if p.suffix == ".cu"]
+        objs = [tmp.with_suffix(f".{p.stem}.o") for p in cus]
+        log = _run_all([[nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(cus, objs)])
+        log += _run_all([[nvcc, *_NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *[str(o) for o in objs]]])
+        for obj in objs:
+            obj.unlink()
+        so.with_suffix(".log").write_text(log)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -100,6 +124,13 @@ def build() -> ctypes.CDLL:
     lib.dibs_bge_pairs.restype = i32
     lib.dibs_se_matrix.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
     lib.dibs_se_matrix.restype = i32
+    u32, f64 = ctypes.c_uint32, ctypes.c_double
+    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 12 + [i32] * 6
+                                      + [ctypes.c_uint64, u32, u32, f32, f32,
+                                         f64, f32, f32, vp])
+    lib.dibs_fused_linear.restype = i32
+    lib.dibs_fused_linear_smem_bytes.argtypes = [i32, i32]
+    lib.dibs_fused_linear_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_error_string.argtypes = [i32]
     lib.dibs_error_string.restype = ctypes.c_char_p
     _lib = lib

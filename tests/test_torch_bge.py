@@ -8,6 +8,7 @@ from jax import vmap
 
 from dibs_tpu.models.linear_gaussian import BGe as JaxBGe
 from dibs_tpu_torch.interop import bge_from_reference
+from dibs_tpu_torch.models.graph import ScaleFreeDAGDistribution
 from dibs_tpu_torch.models.linear_gaussian import BGe, LinearGaussian
 from dibs_tpu_torch.ops.acyclic import elwise_acyclic_constr
 from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
@@ -30,7 +31,7 @@ def _case(d, n, b, interventional, seed):
 @pytest.mark.parametrize("interventional", [False, True])
 def test_posterior_r_mats_match_reference(interventional):
     x, interv, _ = _case(7, 25, 1, interventional, seed=1)
-    r, n = BGe(n_vars=7)._posterior_r_mats(torch.from_numpy(x),
+    r, n = BGe(n_vars=7, device="cpu")._posterior_r_mats(torch.from_numpy(x),
                                            torch.from_numpy(interv))
     r_ref, n_ref = JaxBGe(n_vars=7)._posterior_r_mats(jnp.asarray(x),
                                                       jnp.asarray(interv))
@@ -42,7 +43,7 @@ def test_posterior_r_mats_match_reference(interventional):
 def test_batched_node_scores_match_reference(interventional):
     d = 9
     x, interv, gs = _case(d, 30, 14, interventional, seed=2)
-    ours = BGe(n_vars=d).batched_interventional_node_log_marginal_probs(
+    ours = BGe(n_vars=d, device="cpu").batched_interventional_node_log_marginal_probs(
         torch.from_numpy(gs), None, torch.from_numpy(x),
         torch.from_numpy(interv), None)
     model = JaxBGe(n_vars=d)
@@ -53,7 +54,7 @@ def test_batched_node_scores_match_reference(interventional):
     np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-4, atol=1e-4)
     if interventional:
         assert torch.equal(ours[:, 0], torch.zeros(14))
-    single = BGe(n_vars=d).interventional_log_marginal_prob(
+    single = BGe(n_vars=d, device="cpu").interventional_log_marginal_prob(
         torch.from_numpy(gs[3]), None, torch.from_numpy(x),
         torch.from_numpy(interv), None)
     np.testing.assert_allclose(float(single), float(ref[3].sum()), rtol=1e-4)
@@ -63,7 +64,7 @@ def test_batched_node_scores_match_reference(interventional):
 def test_per_graph_path_matches_batched_path(interventional):
     d = 7
     x, interv, gs = _case(d, 25, 4, interventional, seed=6)
-    model = BGe(n_vars=d)
+    model = BGe(n_vars=d, device="cpu")
     x_t, i_t = torch.from_numpy(x), torch.from_numpy(interv)
     batched = model.batched_node_log_marginal_likelihoods(
         gs=torch.from_numpy(gs), x=x_t, interv_targets=i_t)
@@ -82,7 +83,8 @@ def test_hyperparameters_carry_over_from_reference():
                        alpha_lambd=d + 5.0)
     model = bge_from_reference(n_vars=d, mean_obs=mean_obs,
                                alpha_mu=ref_model.alpha_mu,
-                               alpha_lambd=ref_model.alpha_lambd)
+                               alpha_lambd=ref_model.alpha_lambd,
+                               device="cpu")
     ours = model.batched_node_log_marginal_likelihoods(
         gs=torch.from_numpy(gs), x=torch.from_numpy(x),
         interv_targets=torch.from_numpy(interv))
@@ -91,14 +93,14 @@ def test_hyperparameters_carry_over_from_reference():
         interv_targets=jnp.asarray(interv))
     np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-4, atol=1e-4)
     with pytest.raises(ValueError):
-        BGe(n_vars=d, alpha_lambd=d + 1)
+        BGe(n_vars=d, alpha_lambd=d + 1, device="cpu")
 
 
 def test_data_factory_builds_a_valid_problem():
     gen = torch.Generator().manual_seed(4)
     data, gm, lm = make_linear_gaussian_equivalent_model(
         generator=gen, n_vars=10, graph_prior_str="er", n_observations=30,
-        n_ho_observations=20)
+        n_ho_observations=20, device="cpu")
     assert data.x.shape == (30, 10) and data.x_ho.shape == (20, 10)
     assert data.g.dtype == torch.int32
     assert float(elwise_acyclic_constr(data.g[None].float(), 10)[0]) == 0.0
@@ -108,9 +110,11 @@ def test_data_factory_builds_a_valid_problem():
     interv, x_i = data.x_interv[0]
     assert len(interv) == 1 and (x_i[:, list(interv)[0]] == 0).all()
     assert isinstance(lm, BGe) and gm.n_vars == 10
-    with pytest.raises(NotImplementedError):
-        make_linear_gaussian_equivalent_model(generator=gen, n_vars=5,
-                                              graph_prior_str="sf")
+    _, gm_sf, _ = make_linear_gaussian_equivalent_model(
+        generator=gen, n_vars=5, graph_prior_str="sf", device="cpu")
+    assert isinstance(gm_sf, ScaleFreeDAGDistribution)
+    g_sf = gm_sf.sample_G(gen, device="cpu")
+    assert float(elwise_acyclic_constr(g_sf[None].float(), 5)[0]) == 0.0
 
 
 def test_ancestral_sampling_solves_the_sem():
@@ -118,7 +122,7 @@ def test_ancestral_sampling_solves_the_sem():
     g = torch.triu(torch.ones(d, d, dtype=torch.int32), diagonal=1)
     gen = torch.Generator().manual_seed(5)
     model = LinearGaussian(n_vars=d)
-    theta = model.sample_parameters(generator=gen, n_vars=d)
+    theta = model.sample_parameters(generator=gen, n_vars=d, device="cpu")
     state = gen.get_state()
     x = model.sample_obs(generator=gen, n_samples=n, g=g, theta=theta)
     gen.set_state(state)

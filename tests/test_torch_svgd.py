@@ -59,8 +59,10 @@ def _pair(x, cfg):
         x=torch.from_numpy(x), graph_model=ErdosReniDAGDistribution(D),
         likelihood_model=bge_from_reference(
             n_vars=D, mean_obs=np.asarray(ref_model.mean_obs),
-            alpha_mu=ref_model.alpha_mu, alpha_lambd=ref_model.alpha_lambd),
-        n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC, **cfg)
+            alpha_mu=ref_model.alpha_mu, alpha_lambd=ref_model.alpha_lambd,
+            device="cpu"),
+        n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC, device="cpu",
+        **cfg)
     return ref, port
 
 
@@ -103,7 +105,8 @@ def _reference_run(ref, std):
 
 def _to_port(st):
     return state_from_reference(z=st.z, nu=st.opt_state_z[0].nu,
-                                sf_baseline=st.sf_baseline, t=st.t, seed=0)
+                                sf_baseline=st.sf_baseline, t=st.t, seed=0,
+                                device="cpu")
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -181,8 +184,9 @@ def test_sample_runs_end_to_end_on_cpu(problem):
                         graph_model=ErdosReniDAGDistribution(D),
                         likelihood_model=bge_from_reference(
                             n_vars=D, mean_obs=np.zeros(D), alpha_mu=1.0,
-                            alpha_lambd=D + 2),
-                        n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC)
+                            alpha_lambd=D + 2, device="cpu"),
+                        n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
+                        device="cpu")
     seen = []
     g, state = port.sample(seed=5, n_particles=P, steps=6, n_dim_particles=K_LAT,
                            callback=lambda **kw: seen.append(kw["t"]),
@@ -195,7 +199,9 @@ def test_sample_runs_end_to_end_on_cpu(problem):
 
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; import dibs_tpu_torch, "
-            "dibs_tpu_torch.interop, dibs_tpu_torch.ops.logdet; "
+            "dibs_tpu_torch.interop, dibs_tpu_torch.ops.logdet, "
+            "dibs_tpu_torch.config, dibs_tpu_torch.inference.fused_linear, "
+            "dibs_tpu_torch.models.graph, chip_smoke; "
             "assert not any(m == 'dibs_tpu' or m.startswith('dibs_tpu.') "
             "for m in sys.modules)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -216,9 +222,10 @@ def test_port_marginal_bge_quality_reduced():
 
     gen = torch.Generator().manual_seed(123)
     data, gm, _ = make_linear_gaussian_equivalent_model(
-        generator=gen, n_vars=12, graph_prior_str="er")
+        generator=gen, n_vars=12, graph_prior_str="er", device="cpu")
     dibs = MarginalDiBS(x=data.x, graph_model=gm,
-                        likelihood_model=BGe(n_vars=12))
+                        likelihood_model=BGe(n_vars=12, device="cpu"),
+                        device="cpu")
     gs = dibs.sample(seed=123, n_particles=12, steps=800)
     n_gt_edges = int(data.g.sum())
     for dist in (dibs.get_empirical(gs), dibs.get_mixture(gs)):
