@@ -15,7 +15,8 @@ Phases, one line each; any failure exits non-zero:
    least time an H100 SXM could take for the same work) and, where one
    PyTorch call computes the same function, that call's time; the fused
    linear-Gaussian kernels at the headline shape and at config 4's
-   interventional d=30, N=600;
+   interventional d=30, N=600, and the fused MLP kernel #8 at config 3's
+   shape and at d=30, N=600 (tiled rows), relu and tanh;
 4. in-kernel RNG: sample means of the hard and soft samplers against their
    expectations;
 5. end to end, marginal: ``MarginalDiBS`` on a d=20 Erdos-Renyi BGe problem
@@ -29,9 +30,14 @@ Phases, one line each; any failure exits non-zero:
    noise) for 1000 steps through the one-pass fused kernel and 1000 through
    the two-pass pair; launch counts, steps/s, mixture AUROC > 0.6, and the
    first 20 one-pass steps teacher-forced against the CPU's plain versions;
+   then ``JointDiBS`` with ``DenseNonlinearGaussian`` at config 3 (the same
+   sizes, ``hidden_layers=(5,)``) for 2000 steps through kernel #8: exact
+   launch counts, steps/s, mixture AUROC >= 0.6, and 20 teacher-forced
+   steps against the CPU's plain versions;
 7. profile: ``torch.profiler`` over 50 steady steps of the marginal
-   (``score``) and the joint step: wall and device time per step, the
-   device's busy share, kernel launches per step, the top kernels.
+   (``score``), the joint linear and the joint nonlinear step: wall and
+   device time per step, the device's busy share, kernel launches per step,
+   the top kernels.
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -50,6 +56,7 @@ import numpy as np
 import torch
 
 P, D, K_LAT, M, K_ACYC, N_OBS, STEPS = 30, 20, 20, 128, 32, 100, 1000
+STEPS_NL = 2000  # config 3's quality length (benchmarks/run_benchmarks.py)
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 
 
@@ -390,6 +397,84 @@ def phase_fused(dev, results):
         f"worst {worst:.3f} of the bar")
 
 
+def fused_nonlinear_flops(p, m, n, d, h1):
+    """Float32 operations of one #8 call, counted from its arithmetic: per
+    sample and stream ``2 h1 N d^2`` for the first-layer deltas and
+    ``2 h1 N d^2`` for ``x^T u_h``; plus ``2 h1 N d^2`` per particle for the
+    reference forward (the ``O(h1 N d)`` elementwise work is not counted)."""
+    return 2 * p * m * 4 * h1 * n * d * d + p * 2 * h1 * n * d * d
+
+
+def nonlinear_problem(rng, dev, p, d, n, h1, interv_blocks):
+    """Random #8 inputs in the kernel's layout (scores, W1, L1, b1, W2 || b2,
+    data, observation weights), interventional blocks as in
+    ``fused_problem``."""
+    from dibs_tpu_torch.inference.fused_nonlinear import kernel_layout
+    from dibs_tpu_torch.models import DenseNonlinearGaussian
+
+    model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
+    theta = model.sample_parameters(
+        generator=torch.Generator().manual_seed(int(rng.integers(1 << 30))),
+        n_vars=d, n_particles=p, device=dev)
+    scores, _, x, w = fused_problem(rng, dev, p, d, n, interv_blocks)
+    return (scores, *kernel_layout(theta, model), x, w)
+
+
+def phase_fused_nonlinear(dev, results):
+    from dibs_tpu_torch.inference import fused_nonlinear as fnl
+    from dibs_tpu_torch.models import DenseNonlinearGaussian
+
+    rng = np.random.default_rng(5)
+    worst, err_max = 0.0, 0.0
+    for p, d, n, h1, blocks in [(P, D, N_OBS, 5, 0), (20, 30, 600, 5, 5)]:
+        args = nonlinear_problem(rng, dev, p, d, n, h1, blocks)
+        tile = fnl.fused_nonlinear_tile_rows(d, h1, n)
+        for activation in ("relu", "tanh"):
+            model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
+                                           activation=activation)
+            for alpha, tau in ((2.0, 1.0), (0.7, 0.8)):
+                for noise in ("injected", "philox", "philox-shared"):
+                    kw = dict(seed=23, streams=(
+                        4, 4 if noise == "philox-shared" else 5),
+                        alpha=alpha, tau=tau, n_samples=M, model=model)
+                    if noise == "injected":
+                        kw["eps"] = (logistic(rng, (p, M, d, d)).to(dev),
+                                     logistic(rng, (p, M, d, d)).to(dev))
+                    got = fnl.fused_nonlinear(*args, **kw)
+                    want = fnl.fused_nonlinear_plain(*args, **kw)
+                    for a, b in zip(got, want):
+                        e = float((a - b).abs().max())
+                        tol = 1e-4 * max(1.0, float(b.abs().max()))
+                        check(e <= tol, f"fused_nonlinear d={d} N={n} "
+                                        f"{activation} {noise} alpha={alpha}"
+                                        f": max err {e} > {tol}")
+                        worst, err_max = max(worst, e / tol), max(err_max, e)
+        model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
+        kw = dict(seed=23, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=M,
+                  model=model)
+        t_k = cuda_median_ms(lambda: fnl.fused_nonlinear(*args, **kw),
+                             reps=20)
+        t_p = cuda_median_ms(lambda: fnl.fused_nonlinear_plain(*args, **kw),
+                             reps=5)
+        # bytes: the kernel-layout inputs read once, the outputs written once
+        n_bytes = 4 * (sum(a.numel() for a in args)
+                       + p * (d * d + h1 * d * d + (2 * h1 + 1) * d))
+        b_ms, b_by = bound_ms(fused_nonlinear_flops(p, M, n, d, h1), n_bytes)
+        log(f"[3 fused_nonlinear P={p} d={d} N={n} h1={h1} M={M} tile={tile}]"
+            f" kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}, {fused_nonlinear_flops(p, M, n, d, h1) / 1e9:.3f} "
+            f"GFLOP)")
+        if d == D:  # the shape config 3's main path runs
+            results["fused_nonlinear"] = dict(
+                ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+    results["fused_nonlinear"]["max_abs_err"] = err_max
+    log(f"[3 fused_nonlinear] kernel vs plain at (P,d,N,h1) in (30,20,100,5)"
+        f",(20,30,600,5 with interventions, tiled rows), relu and tanh, "
+        f"injected / Philox / shared-stream noise, tau 1 and 0.8: within "
+        f"1e-4 max(1, max|ref|), worst {worst:.3f} of the bar")
+
+
 def phase_rng(dev):
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
@@ -588,6 +673,100 @@ def phase_joint(dev, card, steps):
     return total
 
 
+def phase_joint_nonlinear(dev, card, steps):
+    """``JointDiBS`` with the MLP likelihood at config 3
+    (``benchmarks/run_benchmarks.py:118-134``): d=20 scale-free,
+    ``hidden_layers=(5,)``, N=100, P=30, k=20, M=128, K=32, the defaults
+    otherwise; ``steps`` steps (config 3's quality length is 2000), then 20
+    teacher-forced steps of the card's kernels against the plain versions
+    on this machine's CPU."""
+    import warnings
+
+    from dibs_tpu_torch.inference import JointDiBS
+    from dibs_tpu_torch.metrics import threshold_metrics
+    from dibs_tpu_torch.models import DenseNonlinearGaussian
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.target import make_nonlinear_gaussian_model
+    from dibs_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    gen = torch.Generator().manual_seed(0)
+    data, gm, lm = make_nonlinear_gaussian_model(
+        generator=gen, n_vars=D, n_observations=N_OBS,
+        n_ho_observations=N_OBS, device=dev)
+
+    def make(device, lik):
+        return JointDiBS(x=data.x.to(device), graph_model=gm,
+                         likelihood_model=lik, n_grad_mc_samples=M,
+                         n_acyclicity_mc_samples=K_ACYC, device=device)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dibs = make(dev, lm)
+    advice = [str(w.message)[:60] for w in caught]
+    std = dibs._resolve_latent_std(K_LAT)
+    step = dibs._make_step(std)
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    state = dibs.init_state(seed=1, n_particles=P, n_dim_particles=K_LAT)
+    state = step(state)  # first step outside the timed window
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state = step(state)
+    torch.cuda.synchronize()
+    rate = (steps - 1) / (time.perf_counter() - t0)
+    launches = dict(gk.LAUNCHES)
+    for k, tensor in enumerate([state.z, state.opt_state_z[0].nu]
+                               + tree_leaves(state.theta)
+                               + tree_leaves(state.opt_state_theta[0].nu)):
+        check(bool(torch.isfinite(tensor).all()),
+              f"joint nonlinear: state tensor {k} not finite")
+    want = dict.fromkeys(gk.LAUNCHES, 0)
+    want.update(fused_nonlinear=steps, gumbel_graphs=steps,
+                se_matrix=2 * steps)
+    check(launches == want, f"joint nonlinear launches {launches}, expected "
+                            f"{want}")
+    g = dibs.particle_to_g_lim(state.z)
+    auc_e = threshold_metrics(dist=dibs.get_empirical(g, state.theta),
+                              g=data.g)["roc_auc"]
+    auc_m = threshold_metrics(dist=dibs.get_mixture(g, state.theta),
+                              g=data.g)["roc_auc"]
+    log(f"[6 e2e joint nonlinear] {steps} steps, {rate:.2f} steps/s on "
+        f"'{card}'; AUROC empirical {auc_e:.4f} mixture {auc_m:.4f}; "
+        f"launches {launches}; construction warnings {advice}")
+    check(auc_m >= 0.6, f"joint nonlinear mixture AUROC {auc_m} < 0.6")
+
+    # teacher-forced: kernels (card) vs plain versions (CPU), same state
+    # and noise, over the first 20 steps, per component (Z, each leaf)
+    rng = np.random.default_rng(6)
+    cpu = make("cpu", DenseNonlinearGaussian(n_vars=D, hidden_layers=(5,)))
+    phi_gpu, phi_cpu = dibs._make_phi(std), cpu._make_phi(std)
+    state = dibs.init_state(seed=2, n_particles=P, n_dim_particles=K_LAT)
+    worst = 0.0
+    to_cpu = lambda tree: tree_map(lambda a: a.cpu(), tree)  # noqa: E731
+    for _ in range(20):
+        eps = logistic(rng, (P, M, D, D))  # shared: soft and hard
+        noise = (eps, eps, logistic(rng, (P, K_ACYC, D, D)))
+        noise_dev = tuple(e.to(dev) for e in noise)
+        st_cpu = state._replace(z=state.z.cpu(), theta=to_cpu(state.theta),
+                                sf_baseline=state.sf_baseline.cpu())
+        with torch.no_grad():
+            got = phi_gpu(state, noise_dev)
+            want_phi = phi_cpu(st_cpu, noise)
+        for k, (a, b) in enumerate(zip(tree_leaves(list(got)),
+                                       tree_leaves(list(want_phi)))):
+            err = float((a.cpu() - b).abs().max())
+            tol = 1e-4 * float(b.abs().max())
+            worst = max(worst, err / max(tol, 1e-30))
+            check(err <= tol, f"joint nonlinear phi component {k} "
+                              f"t={state.t}: {err} > {tol}")
+        state = step(state, noise_dev)
+    log(f"[6 teacher-forced joint nonlinear] steps t=0..19: max |phi_kernel "
+        f"- phi_plain| / (1e-4 max|phi|) = {worst:.3f} (phi_z and every "
+        f"phi_theta leaf)")
+    return launches
+
+
 def profile_steps(step, state, n_steps=50):
     """``torch.profiler`` over ``n_steps`` steady steps (after 10 warm-up
     steps): wall ms per step, device kernel ms per step, the device busy
@@ -625,6 +804,7 @@ def phase_profile(dev, card):
     from dibs_tpu_torch.target import (
         make_linear_gaussian_equivalent_model,
         make_linear_gaussian_model,
+        make_nonlinear_gaussian_model,
     )
 
     gen = torch.Generator().manual_seed(0)
@@ -640,7 +820,14 @@ def phase_profile(dev, card):
     joint = JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
                       n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
                       device=dev)
-    for name, dibs in (("marginal score", marginal), ("joint", joint)):
+    gen = torch.Generator().manual_seed(0)
+    data, gm, lm = make_nonlinear_gaussian_model(
+        generator=gen, n_vars=D, n_observations=N_OBS, device=dev)
+    joint_nl = JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                         n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
+                         device=dev)
+    for name, dibs in (("marginal score", marginal), ("joint", joint),
+                       ("joint nonlinear", joint_nl)):
         step = dibs._make_step(dibs._resolve_latent_std(K_LAT))
         prof = profile_steps(step, dibs.init_state(
             seed=3, n_particles=P, n_dim_particles=K_LAT))
@@ -666,11 +853,14 @@ def main():
     results = {}
     phase_kernels(dev, results)
     phase_fused(dev, results)
+    phase_fused_nonlinear(dev, results)
     phase_rng(dev)
     launches = phase_e2e(dev, card, STEPS)
     # each path's counts are set to 0 just before it runs: the joint
     # path's launches are added to the marginal path's
     for name, count in phase_joint(dev, card, STEPS).items():
+        launches[name] += count
+    for name, count in phase_joint_nonlinear(dev, card, STEPS_NL).items():
         launches[name] += count
     phase_profile(dev, card)
     fused = "dibs_tpu/inference/fused_linear.py"
@@ -687,6 +877,8 @@ def main():
                                f"{fused}:617"),
         "fused_linear_pass2": ("dibs_tpu_torch/csrc/fused_linear.cu",
                                f"{fused}:658"),
+        "fused_nonlinear": ("dibs_tpu_torch/csrc/fused_nonlinear.cu",
+                            "dibs_tpu/inference/fused_nonlinear.py:459"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

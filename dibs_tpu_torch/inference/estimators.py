@@ -12,9 +12,13 @@ hard samples in one call of the model's batched per-node hook (BGe: the
 determinant-pair kernel). The reparameterization and Theta estimators are
 one autograd call each: with shared samples the self-normalized ratio is a
 softmax-weighted sum of per-sample gradients, so the softmax weights are
-the cotangents. For ``LinearGaussian`` with the reparameterization
-estimator, ``fused_grad_both`` computes both likelihood gradients in the
-fused kernels of :mod:`dibs_tpu_torch.inference.fused_linear`.
+the cotangents. ``Theta`` is a parameter tree (:mod:`dibs_tpu_torch.utils.
+tree`): a ``[P, d, d]`` tensor for ``LinearGaussian``, ``[(W1, b1), (W2,
+b2), ...]`` with leading particle dims for ``DenseNonlinearGaussian``. With
+the reparameterization estimator, ``fused_grad_both`` computes both
+likelihood gradients in the fused kernels of :mod:`dibs_tpu_torch.inference.
+fused_linear` (``LinearGaussian``) or :mod:`dibs_tpu_torch.inference.
+fused_nonlinear` (one-hidden-layer ``DenseNonlinearGaussian``).
 
 Estimator maths (as the reference): the self-normalized ratio
 
@@ -35,6 +39,10 @@ from dibs_tpu_torch.inference.fused_linear import (
     fused_linear_available,
     fused_linear_estimators,
 )
+from dibs_tpu_torch.inference.fused_nonlinear import (
+    fused_nonlinear_decline_reason,
+    fused_nonlinear_estimators,
+)
 from dibs_tpu_torch.ops.acyclic import acyclic_constr
 from dibs_tpu_torch.ops.edges import (
     edge_probs,
@@ -43,6 +51,7 @@ from dibs_tpu_torch.ops.edges import (
 )
 from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs, sample_soft_graphs
 from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp, zero_diagonal
+from dibs_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["EstimatorConfig", "Estimators", "make_estimators",
            "stable_ratio_grad"]
@@ -109,11 +118,37 @@ def stable_ratio_grad(log_num: torch.Tensor, log_den: torch.Tensor,
     return torch.where(sign == 0, torch.zeros_like(ratio), ratio)
 
 
+def _chain_scores(dscores, zs):
+    """``d scores -> dZ``: ``dU = dS V``, ``dV = dS^T U``."""
+    u, v = zs[..., 0], zs[..., 1]
+    return torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u], dim=-1)
+
+
+def _warn_on_data_scale(x, obs_noise):
+    """Advisory, for the MLP model only: estimates the per-sample
+    ``|log-likelihood| ~ N sum_j E[x_j^2] / (2 sigma^2)`` and warns from 1e6
+    up. The fused kernel is scale-safe (centred scoring); the warning is
+    about the model: ``N(0, sig_param^2)`` weight priors recover structure
+    on data this large only if the process really lives at that scale
+    (rescaled, unstandardized data is the usual cause). Changes no path."""
+    est = float(x.shape[0] * torch.square(x).mean(0).sum()
+                / (2.0 * float(obs_noise)))
+    if est > 1.0e6:
+        warnings.warn(
+            f"data scale puts |log-likelihood| ~ {est:.1e} per sample. If x "
+            "was rescaled or arrives unstandardized (rather than naturally "
+            "living at this scale), the nonlinear model's N(0, "
+            "sig_param^2) weight priors make structure recovery unreliable "
+            "regardless of estimator; standardizing x is the usual "
+            "practice.", stacklevel=4)
+
+
 def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                     x: torch.Tensor, interv_mask: torch.Tensor,
                     batched_node_log_joint_prob: Optional[Callable] = None,
                     log_joint_prob: Optional[Callable] = None,
                     fused_linear_model=None,
+                    fused_nonlinear_model=None,
                     fused_sample_sharing: Optional[str] = None,
                     fused_single_pass: bool = True) -> Estimators:
     """Builds the batched estimator callables for fixed data and models.
@@ -127,13 +162,18 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         batched_node_log_joint_prob: ``(gs [B, d, d], theta, x, interv_mask,
             rng) -> [B, d]`` per-node scores (row sums are the graphs'
             marginal log-likelihoods); the ``score`` / ``score_rb`` hook
-        log_joint_prob: ``(gs [..., d, d], thetas [..., d, d], x,
-            interv_mask, rng) -> [...]`` joint log-probability, broadcasting
-            over leading dims and autograd-differentiable; the hook of the
-            ``reparam`` and Theta estimators
+        log_joint_prob: ``(gs [..., d, d], thetas, x, interv_mask, rng) ->
+            [...]`` joint log-probability, broadcasting the graphs' leading
+            dims against the parameter tree's and autograd-differentiable;
+            the hook of the ``reparam`` and Theta estimators
         fused_linear_model: a :class:`~dibs_tpu_torch.models.LinearGaussian`
             enables the fused kernels (reparam estimator only) wherever
             :func:`fused_linear_available` serves ``(d, N)``
+        fused_nonlinear_model: a :class:`~dibs_tpu_torch.models.
+            DenseNonlinearGaussian` enables kernel #8 (reparam estimator
+            only) wherever :func:`fused_nonlinear_available` serves it;
+            elsewhere the engine warns with the reason and takes the
+            generic estimators
         fused_sample_sharing: ``'hard'`` draws one noise batch for both joint
             likelihood gradients: the Theta estimator scores the Gumbel-max
             thresholds of the Z estimator's soft samples; ``None`` keeps
@@ -220,14 +260,20 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     # --- joint: softmax-weighted per-sample gradients, one autograd call ---
 
     def _weighted_grad(logp, wrt):
-        """``sum_m softmax(logp)_m grad logp_m`` per particle."""
+        """``sum_m softmax(logp)_m grad logp_m`` per particle; ``wrt`` is a
+        tensor or a parameter tree."""
         weights = torch.softmax(logp.detach(), dim=1)
-        (grad,) = torch.autograd.grad(logp, wrt, weights)
-        return grad
+        grads = torch.autograd.grad(logp, tree_leaves(wrt), weights)
+        return tree_unflatten(wrt, grads)
 
     def _log_joint(gs, thetas):
         # [P, M, d, d] graphs with the particle's parameters -> [P, M]
-        return log_joint_prob(gs, thetas[:, None], x, interv_mask, None)
+        return log_joint_prob(gs, tree_map(lambda leaf: leaf[:, None], thetas),
+                              x, interv_mask, None)
+
+    def _requires_grad(thetas):
+        return tree_map(lambda leaf: leaf.detach().requires_grad_(True),
+                        thetas)
 
     def eltwise_grad_z_reparam(zs, thetas, baselines, t, seed, stream,
                                eps=None):
@@ -242,7 +288,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         """Theta score from ``M`` hard graph samples per particle."""
         gs = _hard_samples(zs, t, seed, stream, eps)
         with torch.enable_grad():
-            th_req = thetas.detach().requires_grad_(True)
+            th_req = _requires_grad(thetas)
             return _weighted_grad(_log_joint(gs, th_req), th_req)
 
     def fused_shared(zs, thetas, t, seed, streams, eps=None):
@@ -258,7 +304,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                                     eps=None if eps is None else eps[0])
             dz = _weighted_grad(_log_joint(gs, thetas), z_req)
             hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
-            th_req = thetas.detach().requires_grad_(True)
+            th_req = _requires_grad(thetas)
             dtheta = _weighted_grad(_log_joint(hard, th_req), th_req)
         return dz, dtheta
 
@@ -270,9 +316,16 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
             streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
             model=fused_linear_model, eps=eps, single_pass=fused_single_pass)
-        u, v = zs[..., 0], zs[..., 1]
-        dz = torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u], dim=-1)
-        return dz, dtheta
+        return _chain_scores(dscores, zs), dtheta
+
+    def fused_nonlinear(zs, thetas, t, seed, streams, eps=None):
+        """Both joint likelihood gradients of a one-hidden-layer
+        ``DenseNonlinearGaussian`` through kernel #8."""
+        dscores, dtheta = fused_nonlinear_estimators(
+            zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
+            streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
+            model=fused_nonlinear_model, eps=eps)
+        return _chain_scores(dscores, zs), dtheta
 
     # --- latent prior score ---
 
@@ -316,9 +369,20 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     fused_grad_both = None
     if cfg.grad_estimator_z == "reparam":
         d, n_obs = x.shape[-1], x.shape[0]
+        reason = (None if fused_nonlinear_model is None else
+                  fused_nonlinear_decline_reason(fused_nonlinear_model,
+                                                 n_obs))
         if fused_linear_model is not None and fused_linear_available(d, n_obs):
             fused_grad_both = fused_linear
+        elif fused_nonlinear_model is not None and reason is None:
+            _warn_on_data_scale(x, fused_nonlinear_model.obs_noise)
+            fused_grad_both = fused_nonlinear
         else:
+            if reason is not None:
+                warnings.warn(
+                    f"fused nonlinear kernel disabled: {reason}; falling "
+                    "back to the generic estimators, expect lower "
+                    "throughput.", stacklevel=3)
             if fused_linear_model is not None:
                 warnings.warn(
                     f"fused linear-Gaussian kernels disabled for d={d}, "

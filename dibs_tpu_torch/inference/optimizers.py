@@ -10,20 +10,27 @@ updates``):
     equivalent: it adds ``eps`` outside the root and defaults gamma to 0.99.
   * ``gd``: plain gradient descent.
 
-The rmsprop state is the tuple ``(ScaleByRmsState(nu),)``, the layout of the
-reference's optax chain (``opt_state[0].nu``).
+Parameters and gradients are parameter trees (:mod:`dibs_tpu_torch.utils.
+tree`; a bare tensor is a one-leaf tree), updated leaf by leaf. The rmsprop
+state is the tuple ``(ScaleByRmsState(nu),)`` with ``nu`` a tree of the
+same structure, the layout of the reference's optax chain
+(``opt_state[0].nu``).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+from typing import Any
+
 import torch
+
+from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["ScaleByRmsState", "RMSProp", "GradientDescent", "get_optimizer"]
 
 
 class ScaleByRmsState(NamedTuple):
-    nu: torch.Tensor
+    nu: Any  # a tree of the parameters' structure
 
 
 class RMSProp:
@@ -34,13 +41,17 @@ class RMSProp:
         self.gamma = gamma
         self.eps = eps
 
-    def init(self, params: torch.Tensor):
-        return (ScaleByRmsState(nu=torch.zeros_like(params)),)
+    def init(self, params):
+        return (ScaleByRmsState(nu=tree_map(torch.zeros_like, params)),)
 
-    def update(self, grads: torch.Tensor, state):
-        nu = self.gamma * state[0].nu + (1.0 - self.gamma) * torch.square(grads)
-        scaled = grads / torch.sqrt(nu + self.eps)
-        return -self.stepsize * scaled, (ScaleByRmsState(nu=nu),)
+    def update(self, grads, state):
+        nu = tree_map(lambda g, n: self.gamma * n
+                      + (1.0 - self.gamma) * torch.square(g),
+                      grads, state[0].nu)
+        updates = tree_map(
+            lambda g, n: -self.stepsize * (g / torch.sqrt(n + self.eps)),
+            grads, nu)
+        return updates, (ScaleByRmsState(nu=nu),)
 
 
 class GradientDescent:
@@ -49,11 +60,11 @@ class GradientDescent:
     def __init__(self, stepsize: float):
         self.stepsize = stepsize
 
-    def init(self, params: torch.Tensor):
+    def init(self, params):
         return ()
 
-    def update(self, grads: torch.Tensor, state):
-        return -self.stepsize * grads, state
+    def update(self, grads, state):
+        return tree_map(lambda g: -self.stepsize * g, grads), state
 
 
 def get_optimizer(name: str, param: dict):

@@ -17,7 +17,9 @@ draws its noise inside the kernels from counter-based streams of that seed:
   d])``.
 
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
-where CUDA is absent).
+where CUDA is absent). ``theta`` is the likelihood's parameter tree
+(:mod:`dibs_tpu_torch.utils.tree`): ``[P, d, d]`` for ``LinearGaussian``,
+``[(W1, b1), (W2, b2), ...]`` for ``DenseNonlinearGaussian``.
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ from dibs_tpu_torch.kernel import (
 )
 from dibs_tpu_torch.metrics import ParticleDistribution
 from dibs_tpu_torch.models.linear_gaussian import LinearGaussian
+from dibs_tpu_torch.models.nonlinear_gaussian import DenseNonlinearGaussian
 from dibs_tpu_torch.ops import edges as edge_ops
+from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["SVGDState", "DiBS", "MarginalDiBS", "JointDiBS"]
 
@@ -71,7 +75,8 @@ class DiBS:
 
     def __init__(self, *, x, interv_mask, log_graph_prior, alpha_linear,
                  batched_node_log_joint_prob=None, log_joint_prob=None,
-                 fused_linear_model=None, fused_sample_sharing=None,
+                 fused_linear_model=None, fused_nonlinear_model=None,
+                 fused_sample_sharing=None,
                  fused_single_pass=True, beta_linear=1.0, tau=1.0,
                  n_grad_mc_samples=128, n_acyclicity_mc_samples=32,
                  grad_estimator_z="score",
@@ -101,6 +106,7 @@ class DiBS:
             batched_node_log_joint_prob=batched_node_log_joint_prob,
             log_joint_prob=log_joint_prob,
             fused_linear_model=fused_linear_model,
+            fused_nonlinear_model=fused_nonlinear_model,
             fused_sample_sharing=fused_sample_sharing,
             fused_single_pass=fused_single_pass)
 
@@ -288,8 +294,11 @@ class JointDiBS(DiBS):
     keeps separate streams). For ``LinearGaussian`` both likelihood
     gradients come from the fused kernels
     (:mod:`dibs_tpu_torch.inference.fused_linear`): the one-pass kernel, or
-    with ``fused_single_pass=False`` the two-pass pair. ``device`` places
-    the data, the particles and every kernel launch.
+    with ``fused_single_pass=False`` the two-pass pair. For a
+    one-hidden-layer ``DenseNonlinearGaussian`` they come from kernel #8
+    (:mod:`dibs_tpu_torch.inference.fused_nonlinear`); other MLPs take the
+    generic estimators. ``device`` places the data, the particles and every
+    kernel launch.
     """
 
     def __init__(self, *, x, graph_model, likelihood_model, interv_mask=None,
@@ -317,6 +326,8 @@ class JointDiBS(DiBS):
             log_joint_prob=likelihood_model.interventional_log_joint_prob,
             fused_linear_model=(likelihood_model if isinstance(
                 likelihood_model, LinearGaussian) else None),
+            fused_nonlinear_model=(likelihood_model if isinstance(
+                likelihood_model, DenseNonlinearGaussian) else None),
             fused_sample_sharing=fused_sample_sharing,
             fused_single_pass=fused_single_pass,
             alpha_linear=alpha_linear, beta_linear=beta_linear, tau=tau,
@@ -407,7 +418,8 @@ class JointDiBS(DiBS):
                 up_t, opt_state_t = opt.update(phi_theta,
                                                state.opt_state_theta)
                 return SVGDState(t=state.t + 1, seed=state.seed,
-                                 z=state.z + up_z, theta=state.theta + up_t,
+                                 z=state.z + up_z,
+                                 theta=tree_map(torch.add, state.theta, up_t),
                                  opt_state_z=opt_state_z,
                                  opt_state_theta=opt_state_t,
                                  sf_baseline=state.sf_baseline)
@@ -417,7 +429,7 @@ class JointDiBS(DiBS):
     def sample(self, *, seed: int, n_particles: int, steps: int,
                n_dim_particles=None, callback=None, callback_every=None,
                return_state=False):
-        """Runs SVGD; returns ``(g [P, d, d] int32, theta [P, d, d])``, plus
+        """Runs SVGD; returns ``(g [P, d, d] int32, theta tree)``, plus
         the final :class:`SVGDState` with ``return_state=True``."""
         state = self.init_state(seed=seed, n_particles=n_particles,
                                 n_dim_particles=n_dim_particles)

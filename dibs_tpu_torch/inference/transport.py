@@ -9,13 +9,16 @@ repulsion is exactly invariant under the shift, and centring keeps matmul
 rounding relative to the particle differences). Kernels with only the
 reference ``eval`` signature go through the autodiff path. For joint
 inference the kernel-weighted scores use ``K_z + K_theta`` and each
-component's repulsion its own SE term. The transport is negated, so a
-minimizing optimizer ascends the target.
+component's repulsion its own SE term; a ``Theta`` parameter tree is
+transported leaf by leaf (driver and centred repulsion per leaf). The
+transport is negated, so a minimizing optimizer ascends the target.
 """
 from __future__ import annotations
 
 import torch
 from torch.func import grad, vmap
+
+from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["marginal_transport", "joint_transport"]
 
@@ -71,8 +74,11 @@ def joint_transport(kernel, z: torch.Tensor, theta: torch.Tensor,
             z, theta, z, theta)
         k_mat = k_z + k_t
         phi_z = _weighted_scores(k_mat, dz) + _se_repulsion(k_z, c_z, z)
-        phi_t = _weighted_scores(k_mat, dtheta) + _se_repulsion(k_t, c_t, theta)
-        return -phi_z / n_particles, -phi_t / n_particles
+        phi_t = tree_map(
+            lambda g, v: -(_weighted_scores(k_mat, g)
+                           + _se_repulsion(k_t, c_t, v)) / n_particles,
+            dtheta, theta)
+        return -phi_z / n_particles, phi_t
     return _joint_transport_autodiff(kernel, z, theta, dz, dtheta)
 
 
@@ -87,8 +93,10 @@ def _joint_transport_autodiff(kernel, z, theta, dz, dtheta):
         rep_z, rep_t = vmap(grad(f_kernel, argnums=(0, 1)),
                             (0, 0, None, None))(z, theta, single_z,
                                                 single_theta)
-        col = kxx_col.reshape((-1,) + (1,) * (dtheta.dim() - 1))
+        phi_t = tree_map(
+            lambda g, r: -(kxx_col.reshape((-1,) + (1,) * (g.dim() - 1)) * g
+                           + r).mean(dim=0), dtheta, rep_t)
         return (-(kxx_col[:, None, None, None] * dz + rep_z).mean(dim=0),
-                -(col * dtheta + rep_t).mean(dim=0))
+                phi_t)
 
     return vmap(phi_single, (0, 0, 1))(z, theta, k_mat)

@@ -7,7 +7,8 @@ se_matrix`: the CUDA kernel for CUDA tensors at every shape (the TPU-era
 size crossover is not carried over), the plain twin on the CPU.
 ``h="median"`` takes the plain path, as in the reference. The joint kernel
 adds an SE term over ``Theta``; both of its component matrices go through the
-same kernel.
+same kernel; ``Theta`` may be a parameter tree, whose leaves are flattened
+into one row per particle (W1 || b1 || W2 || b2 for the MLP model).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from dibs_tpu_torch.ops.gpu_kernels import se_matrix
 from dibs_tpu_torch.utils.func import pytree_sq_norm_matrix
+from dibs_tpu_torch.utils.tree import tree_leaves, tree_rows
 
 __all__ = ["AdditiveFrobeniusSEKernel", "JointAdditiveFrobeniusSEKernel"]
 
@@ -28,8 +30,14 @@ def _median_bandwidth(sq: torch.Tensor) -> torch.Tensor:
     return torch.clamp(med / math.log(p + 1.0), min=1e-5)
 
 
-def _flatten_rows(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(x.shape[0], -1).contiguous()
+def _flatten_rows(x) -> torch.Tensor:
+    return tree_rows(x).contiguous()
+
+
+def _sq_dist(x, y) -> torch.Tensor:
+    """``||x - y||^2`` summed over the leaves of two trees."""
+    return sum(torch.sum((a - b) ** 2.0)
+               for a, b in zip(tree_leaves(x), tree_leaves(y)))
 
 
 class AdditiveFrobeniusSEKernel:
@@ -101,7 +109,7 @@ class JointAdditiveFrobeniusSEKernel:
             raise TypeError("h='median' needs the particle batch; use "
                             "component_matrices_and_factors().")
         latent_sq = torch.sum((x_latent - y_latent) ** 2.0)
-        theta_sq = torch.sum((x_theta - y_theta) ** 2.0)
+        theta_sq = _sq_dist(x_theta, y_theta)
         return (self.scale_latent * torch.exp(-latent_sq / self.h_latent)
                 + self.scale_theta * torch.exp(-theta_sq / self.h_theta))
 

@@ -9,7 +9,8 @@ hash of the sources, under ``dibs_tpu_torch/_build/``, and loads it with
 imported.
 
 Dispatch rule, for every kernel here, in :mod:`dibs_tpu_torch.ops.
-bge_kernel` and in :mod:`dibs_tpu_torch.inference.fused_linear`: a CPU
+bge_kernel` and in :mod:`dibs_tpu_torch.inference.fused_linear` and
+:mod:`dibs_tpu_torch.inference.fused_nonlinear`: a CPU
 tensor goes to the plain twin; a CUDA tensor goes to the kernel, and a
 build or launch failure raises. ``LAUNCHES`` counts the kernel
 launches per kernel (twins never count), so a run can show that its main
@@ -39,7 +40,7 @@ __all__ = [
 
 LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0,
             "fused_linear_single": 0, "fused_linear_pass1": 0,
-            "fused_linear_pass2": 0}
+            "fused_linear_pass2": 0, "fused_nonlinear": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -131,6 +132,12 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear.restype = i32
     lib.dibs_fused_linear_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_fused_nonlinear.argtypes = ([vp] * 14 + [i32] * 8
+                                         + [ctypes.c_uint64, u32, u32, f32,
+                                            f32, f64, f32, vp])
+    lib.dibs_fused_nonlinear.restype = i32
+    lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32, i32, i32]
+    lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_error_string.argtypes = [i32]
     lib.dibs_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,7 +1,7 @@
 """Synthetic ground-truth targets and model factories (PyTorch twin of
 ``dibs_tpu/target.py``): the Erdos-Renyi, scale-free and uniform graph
-priors, the BGe factory for ``MarginalDiBS`` and the linear-Gaussian factory
-for ``JointDiBS``.
+priors, the BGe factory for ``MarginalDiBS`` and the linear-Gaussian and
+nonlinear (MLP) Gaussian factories for ``JointDiBS``.
 
 All randomness comes from an explicit CPU ``torch.Generator``; the results
 are moved to ``device``.
@@ -20,6 +20,7 @@ from dibs_tpu_torch.models.graph import (
     UniformDAGDistributionRejection,
 )
 from dibs_tpu_torch.models.linear_gaussian import BGe, LinearGaussian
+from dibs_tpu_torch.models.nonlinear_gaussian import DenseNonlinearGaussian
 
 __all__ = [
     "Data",
@@ -27,12 +28,15 @@ __all__ = [
     "make_graph_model",
     "make_linear_gaussian_equivalent_model",
     "make_linear_gaussian_model",
+    "make_nonlinear_gaussian_model",
 ]
 
 
 class Data(NamedTuple):
     """Simulated data plus its ground-truth model (fields as in the
-    reference; ``passed_key`` holds the generator's initial seed)."""
+    reference; ``passed_key`` holds the generator's initial seed). ``theta``
+    is the generative model's parameter tree: a ``[d, d]`` tensor for the
+    linear SEM, ``[(W1, b1), (W2, b2), ...]`` for the MLP model."""
 
     passed_key: Any
     n_vars: int
@@ -136,3 +140,24 @@ def make_linear_gaussian_model(
         generative_model=LinearGaussian(**kw), n_observations=n_observations,
         n_ho_observations=n_ho_observations, device=device)
     return data, graph_model, LinearGaussian(**kw)
+
+
+def make_nonlinear_gaussian_model(
+        *, generator: torch.Generator, n_vars=20, graph_prior_str="sf",
+        obs_noise=0.1, sig_param=1.0, hidden_layers=(5,), n_observations=100,
+        n_ho_observations=100, device=DEFAULT_DEVICE):
+    """Nonlinear (per-node MLP mean) Gaussian ground truth with the same
+    model family as the likelihood (for JointDiBS).
+
+    Returns ``(data, graph_model, likelihood_model)``.
+    """
+    graph_model = make_graph_model(n_vars=n_vars,
+                                   graph_prior_str=graph_prior_str)
+    kw = dict(n_vars=n_vars, hidden_layers=hidden_layers,
+              obs_noise=obs_noise, sig_param=sig_param)
+    data = make_synthetic_bayes_net(
+        generator=generator, n_vars=n_vars, graph_model=graph_model,
+        generative_model=DenseNonlinearGaussian(**kw),
+        n_observations=n_observations, n_ho_observations=n_ho_observations,
+        device=device)
+    return data, graph_model, DenseNonlinearGaussian(**kw)

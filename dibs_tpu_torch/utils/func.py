@@ -1,13 +1,15 @@
 """Primitive tensor utilities (PyTorch twin of ``dibs_tpu/utils/func.py``).
 
-The JAX module works on pytrees; the port's particles are single tensors, so
-only the array case is carried over.
+Functions that take particles take parameter trees
+(:mod:`dibs_tpu_torch.utils.tree`); a bare tensor is a one-leaf tree.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from dibs_tpu_torch.utils.tree import tree_leaves
 
 __all__ = ["expand_by", "zero_diagonal", "pytree_sq_norm_matrix",
            "signed_logsumexp"]
@@ -28,18 +30,23 @@ def zero_diagonal(g: torch.Tensor) -> torch.Tensor:
     return g * mask
 
 
-def pytree_sq_norm_matrix(xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    """``[A, B]`` squared Frobenius distances between two particle batches.
+def pytree_sq_norm_matrix(xs, ys) -> torch.Tensor:
+    """``[A, B]`` squared Frobenius distances between two particle batches
+    (trees whose leaves have leading dims ``A`` and ``B``), summed over the
+    leaves.
 
-    Gram form ``||x||^2 + ||y||^2 - 2 x.y`` at full float32 (the caller keeps
-    TF32 off), clamped at 0; when ``xs is ys`` and the result is square the
-    self-distances are pinned to exactly 0, as in the reference.
+    Gram form ``||x||^2 + ||y||^2 - 2 x.y`` per leaf at full float32 (the
+    caller keeps TF32 off), clamped at 0; when ``xs is ys`` and the result
+    is square the self-distances are pinned to exactly 0, as in the
+    reference.
     """
-    a = xs.reshape(xs.shape[0], -1)
-    b = ys.reshape(ys.shape[0], -1)
-    a_sq = (a * a).sum(-1)
-    b_sq = (b * b).sum(-1)
-    total = a_sq[:, None] + b_sq[None, :] - 2.0 * (a @ b.T)
+    total = 0.0
+    for xl, yl in zip(tree_leaves(xs), tree_leaves(ys)):
+        a = xl.reshape(xl.shape[0], -1)
+        b = yl.reshape(yl.shape[0], -1)
+        a_sq = (a * a).sum(-1)
+        b_sq = (b * b).sum(-1)
+        total = total + (a_sq[:, None] + b_sq[None, :] - 2.0 * (a @ b.T))
     total = torch.clamp(total, min=0.0)
     if xs is ys and total.shape[0] == total.shape[1]:
         total = total * (1.0 - torch.eye(total.shape[0], dtype=total.dtype,

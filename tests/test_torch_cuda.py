@@ -7,8 +7,8 @@ false. Imports no JAX, so it runs on a machine that has only torch
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 The checks are the kernel phases of ``chip_smoke.py`` (same shapes and
-tolerances, the fused linear-Gaussian kernels included), plus the launch
-counters and the wrappers' input checks.
+tolerances, the fused linear-Gaussian kernels and the fused MLP kernel #8
+included), plus the launch counters and the wrappers' input checks.
 """
 import os
 import sys
@@ -20,7 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from dibs_tpu_torch.inference import fused_linear as fl  # noqa: E402
-from dibs_tpu_torch.models import LinearGaussian  # noqa: E402
+from dibs_tpu_torch.inference import fused_nonlinear as fnl  # noqa: E402
+from dibs_tpu_torch.models import (  # noqa: E402
+    DenseNonlinearGaussian,
+    LinearGaussian,
+)
 from dibs_tpu_torch.ops import gpu_kernels as gk  # noqa: E402
 from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs  # noqa: E402
 
@@ -47,6 +51,43 @@ def test_fused_kernels_match_plain_versions(cuda):
     chip_smoke.phase_fused(cuda, results)
     assert set(results) == {"fused_linear_single", "fused_linear_pass1",
                             "fused_linear_pass2"}
+
+
+def test_fused_nonlinear_kernel_matches_plain_version(cuda):
+    """Kernel #8 against its plain version at config 3's shape and at d=30,
+    N=600 (tiled rows), relu and tanh, injected and Philox noise, within
+    1e-4 max(1, max|ref|)."""
+    results = {}
+    chip_smoke.phase_fused_nonlinear(cuda, results)
+    assert set(results) == {"fused_nonlinear"}
+    assert results["fused_nonlinear"]["ms"] > 0
+
+
+def test_fused_nonlinear_wrapper_counts_and_rejects(cuda):
+    model = DenseNonlinearGaussian(n_vars=5, hidden_layers=(3,))
+    gen = torch.Generator().manual_seed(0)
+    theta = model.sample_parameters(generator=gen, n_vars=5, n_particles=3,
+                                    device=cuda)
+    args = (torch.randn(3, 5, 5, device=cuda),
+            *fnl.kernel_layout(theta, model), torch.randn(7, 5, device=cuda),
+            torch.ones(7, 5, device=cuda))
+    kw = dict(seed=1, streams=(0, 1), alpha=1.0, tau=1.0, n_samples=9,
+              model=model)
+    before = gk.LAUNCHES["fused_nonlinear"]
+    got = fnl.fused_nonlinear(*args, **kw)
+    fnl.fused_nonlinear_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_nonlinear"] == before + 1
+    assert [tuple(a.shape) for a in got] == [(3, 5, 5), (3, 3, 5, 5),
+                                             (3, 7, 5)]
+    with pytest.raises(ValueError):  # float64
+        fnl.fused_nonlinear(*[a.double() for a in args], **kw)
+    with pytest.raises(ValueError):  # a layer the kernel does not serve
+        fnl.fused_nonlinear(*args, **{**kw, "model": DenseNonlinearGaussian(
+            n_vars=5, hidden_layers=(3,), bias=False)})
+    lib = gk.build()
+    assert lib.dibs_fused_nonlinear_smem_bytes(20, 5, 25) == \
+        fnl.fused_nonlinear_smem_bytes(20, 5, 25)
 
 
 def _fused_args(device, p=3, d=5, n=7):
@@ -80,6 +121,13 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     fl.fused_linear_pass2(*args, weights, **_FUSED_KW)
     fl.fused_linear_single(*args, **_FUSED_KW)
     fl.fused_linear_single_plain(*args, **_FUSED_KW)
+    model = DenseNonlinearGaussian(n_vars=5, hidden_layers=(3,))
+    theta = model.sample_parameters(generator=torch.Generator().manual_seed(0),
+                                    n_vars=5, n_particles=3, device=cuda)
+    nl_args = (args[0], *fnl.kernel_layout(theta, model), args[2], args[3])
+    nl_kw = {**_FUSED_KW, "model": model}
+    fnl.fused_nonlinear(*nl_args, **nl_kw)
+    fnl.fused_nonlinear_plain(*nl_args, **nl_kw)
     torch.cuda.synchronize()
     assert gk.LAUNCHES == {k: v + 1 for k, v in before.items()}
 

@@ -201,6 +201,9 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; import dibs_tpu_torch, "
             "dibs_tpu_torch.interop, dibs_tpu_torch.ops.logdet, "
             "dibs_tpu_torch.config, dibs_tpu_torch.inference.fused_linear, "
+            "dibs_tpu_torch.inference.fused_nonlinear, "
+            "dibs_tpu_torch.models.nonlinear_gaussian, "
+            "dibs_tpu_torch.utils.tree, dibs_tpu_torch.target, "
             "dibs_tpu_torch.models.graph, chip_smoke; "
             "assert not any(m == 'dibs_tpu' or m.startswith('dibs_tpu.') "
             "for m in sys.modules)")
