@@ -33,11 +33,22 @@ Phases, one line each; any failure exits non-zero:
    then ``JointDiBS`` with ``DenseNonlinearGaussian`` at config 3 (the same
    sizes, ``hidden_layers=(5,)``) for 2000 steps through kernel #8: exact
    launch counts, steps/s, mixture AUROC >= 0.6, and 20 teacher-forced
-   steps against the CPU's plain versions;
+   steps against the CPU's plain versions; then config 5: the fused
+   transport kernel #4 against its plain version at config 5's ``Z`` and
+   ``Theta`` families, the d=20 marginal family and config 3's tree family
+   (the port's former ``torch.matmul`` route as the library time), the wide
+   fused linear tier at config 5's d=128, N=100, P=1000, M=32 (and d=75,
+   N=600; d=602), the SE matrix #3 at config 5's ``[1000, 1000]``, and
+   ``JointDiBS`` with ``LinearGaussian`` at config 5 (d=128 scale-free,
+   N=100, P=1000, k=128, M=32, K=8; nothing cut) for 100 timed steps after
+   10 warm-up steps: exact launch counts (the transport kernel, the wide
+   fused linear tier, the sampler and the SE matrix only), steps/s, finite
+   state, and teacher-forced ``phi`` for 3 steps against the plain versions
+   on the card and for 5 steps at P=16 against those on the CPU;
 7. profile: ``torch.profiler`` over 50 steady steps of the marginal
-   (``score``), the joint linear and the joint nonlinear step: wall and
-   device time per step, the device's busy share, kernel launches per step,
-   the top kernels.
+   (``score``), the joint linear, the joint nonlinear and the config-5
+   step: wall and device time per step, the device's busy share, kernel
+   launches per step, the top kernels.
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -57,6 +68,8 @@ import torch
 
 P, D, K_LAT, M, K_ACYC, N_OBS, STEPS = 30, 20, 20, 128, 32, 100, 1000
 STEPS_NL = 2000  # config 3's quality length (benchmarks/run_benchmarks.py)
+# config 5 (benchmarks/run_benchmarks.py:171-185), nothing cut
+P5, D5, K5, M5, K_ACYC5, N5, STEPS5 = 1000, 128, 128, 32, 8, 100, 100
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 
 
@@ -475,6 +488,204 @@ def phase_fused_nonlinear(dev, results):
         f"1e-4 max(1, max|ref|), worst {worst:.3f} of the bar")
 
 
+def transport_problem(gen, dev, p, n, joint):
+    """Random inputs of one transport family: SE kernel matrices over random
+    particles (dense, entries spread over (0, 1]), scores ``g`` and values
+    ``v`` with a common offset (which the centring removes), ``mu``."""
+    def kmat():
+        x = torch.randn(p, 8, generator=gen, device=dev) / 4.0
+        return torch.exp(-torch.cdist(x, x).square())
+
+    k_own = kmat()
+    k_other = kmat() if joint else None
+    g = torch.randn(p, n, generator=gen, device=dev)
+    v = 3.0 + torch.randn(p, n, generator=gen, device=dev)
+    return k_own, k_other, g, v, v.mean(dim=0, keepdim=True)
+
+
+def phase_transport(dev, results):
+    """Kernel #4 against its plain version at the families the main paths
+    send it: config 5's ``Z`` and ``Theta``, the d=20 marginal ``Z``, config
+    3's ``Theta`` tree, and a ragged shape; with the port's former
+    ``torch.matmul`` route as the library time."""
+    from dibs_tpu_torch.inference.transport import (
+        _se_repulsion,
+        _weighted_scores,
+    )
+    from dibs_tpu_torch.ops import transport_kernel as tk
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst, err_max, line = 0.0, 0.0, []
+    for name, p, n, joint, h in [
+            ("config 5 Z", P5, D5 * K5 * 2, True, 5.0),
+            ("config 5 Theta", P5, D5 * D5, True, 500.0),
+            ("d=20 marginal Z", P, D * K_LAT * 2, False, 5.0),
+            ("config 3 Theta tree", P, 2220, True, 500.0),
+            ("ragged", 7, 130, True, 5.0), ("ragged", 7, 130, False, 5.0)]:
+        k_own, k_other, g, v, mu = transport_problem(gen, dev, p, n, joint)
+        c = -2.0 / h
+        got = tk.transport_phi(k_own, k_other, g, v, c=c, mu=mu)
+        want = tk.transport_phi_plain(k_own, k_other, g, v, c=c, mu=mu)
+        e = float((got - want).abs().max())
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        check(e <= tol, f"transport_phi {name} P={p} n={n}: {e} > {tol}")
+        worst, err_max = max(worst, e / tol), max(err_max, e)
+        if name == "ragged":
+            continue
+        k_mat = k_own + k_other if joint else k_own
+
+        def matmul_route():  # the port's former two-matmul route
+            return -(_weighted_scores(k_mat, g)
+                     + _se_repulsion(k_own, c, v)) / p
+
+        e_lib = float((matmul_route() - want).abs().max())
+        check(e_lib <= tol, f"matmul route {name}: {e_lib} > {tol}")
+        t_k = cuda_median_ms(lambda: tk.transport_phi(k_own, k_other, g, v,
+                                                      c=c, mu=mu), reps=20)
+        t_p = cuda_median_ms(lambda: tk.transport_phi_plain(
+            k_own, k_other, g, v, c=c, mu=mu), reps=20)
+        t_lib = cuda_median_ms(matmul_route, reps=20)
+        n_mats = 2 if joint else 1
+        b_ms, b_by = bound_ms(2 * n_mats * p * p * n,
+                              4 * (3 * p * n + n_mats * p * p + n + p))
+        line.append(f"{name} [{p},{n}] {'joint' if joint else 'marginal'} "
+                    f"kernel {t_k:.4f} ms plain {t_p:.4f} matmul route "
+                    f"{t_lib:.4f} bound {b_ms:.5f} ({b_by})")
+        if name == "config 5 Z":  # the main path of this slice
+            results["transport_phi"] = dict(ms=t_k, plain_ms=t_p,
+                                            bound_ms=b_ms, bound_by=b_by,
+                                            library_ms=t_lib)
+    results["transport_phi"]["max_abs_err"] = err_max
+    log("[6 config 5: transport_phi] " + "; ".join(line))
+    log(f"[6 config 5: transport_phi] kernel vs plain within 1e-4 max(1, "
+        f"max|ref|) at all shapes (ragged [7,130] joint and marginal included), worst "
+        f"{worst:.3f} of the bar")
+
+
+def phase_config5_kernels(dev, results):
+    """The wide fused linear tier against the plain versions at config 5's
+    shape (d=128, N=100, P=1000, M=32), a ragged column tile with tiled,
+    interventional rows (d=75, N=600) and the tier's edge (d=602); and #3 at
+    config 5's ``[1000, 1000]`` over n = 32,768 and 16,384."""
+    from dibs_tpu_torch.inference import fused_linear as fl
+    from dibs_tpu_torch.models import LinearGaussian
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    rng = np.random.default_rng(9)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst, errs = 0.0, {"fused_linear_wide_pass1": 0.0,
+                        "fused_linear_wide_pass2": 0.0}
+
+    def err(name, got, ref):
+        e = float((got - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        check(e <= tol, f"{name}: max err {e} > {tol}")
+        if name in errs:
+            errs[name] = max(errs[name], e)
+        return e / tol
+
+    for p, d, n, blocks in [(P5, D5, N5, 0), (6, 75, 600, 5), (2, 602, 30, 0)]:
+        scores, thetas, x, w = fused_problem(rng, dev, p, d, n, blocks)
+        model = LinearGaussian(n_vars=d)
+        m = M5 if d == D5 else 8
+        for alpha, tau in ((2.0, 1.0), (0.7, 0.8)):
+            for noise in ("injected", "philox", "philox-shared"):
+                kw = dict(seed=17, streams=(4, 4 if noise == "philox-shared"
+                                            else 5),
+                          alpha=alpha, tau=tau, n_samples=m, model=model)
+                if noise == "injected":
+                    kw["eps"] = tuple(torch.logit(torch.rand(
+                        (p, m, d, d), generator=gen, device=dev).clamp(
+                            1e-6, 1 - 1e-6)) for _ in range(2))
+                args = (scores, thetas, x, w)
+                lls = fl.fused_linear_pass1(*args, **kw)
+                lls_p = fl.fused_linear_pass1_plain(*args, **kw)
+                for got, ref in zip(lls, lls_p):
+                    worst = max(worst, err("fused_linear_wide_pass1", got,
+                                           ref))
+                weights = tuple(torch.softmax(ll, dim=1) for ll in lls_p)
+                two = fl.fused_linear_pass2(*args, weights, **kw)
+                two_p = fl.fused_linear_pass2_plain(*args, weights, **kw)
+                for got, ref in zip(two, two_p):
+                    worst = max(worst, err("fused_linear_wide_pass2", got,
+                                           ref))
+                # the wide tier's two passes against the one-pass plain
+                # version (the estimand of kernel #5)
+                weights_k = tuple(torch.softmax(ll, dim=1) for ll in lls)
+                for got, ref in zip(fl.fused_linear_pass2(
+                        *args, weights_k, **kw),
+                        fl.fused_linear_single_plain(*args, **kw)):
+                    worst = max(worst, err("wide two-pass vs one-pass plain",
+                                           got, ref))
+                kw.pop("eps", None)
+        if d != D5:
+            continue
+        # times at config 5's shape, in-kernel shared noise (the main path)
+        kw = dict(seed=17, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=m,
+                  model=model)
+        lls = fl.fused_linear_pass1(*args, **kw)
+        weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
+        # pass 2 skips the samples whose two weights are both 0
+        kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
+        in_bytes = 4 * (2 * p * d * d + 2 * n * d)
+        n_ct = -(-d // 8)
+        per2 = 4 * n * d * d + 2 * n * d
+        flops2 = 2 * kept * per2 + 2 * p * n * d * d
+        cases = {
+            "fused_linear_wide_pass1": (
+                lambda: fl.fused_linear_pass1(*args, **kw),
+                lambda: fl.fused_linear_pass1_plain(*args, **kw),
+                fused_linear_flops("pass1", p, m, n, d),
+                in_bytes + 4 * 2 * p * m),
+            "fused_linear_wide_pass2": (
+                lambda: fl.fused_linear_pass2(*args, weights, **kw),
+                lambda: fl.fused_linear_pass2_plain(*args, weights, **kw),
+                flops2, in_bytes + 4 * 2 * p * m + 4 * 2 * p * d * d),
+        }
+        line = []
+        for name, (kern, plain, flops, n_bytes) in cases.items():
+            t_k = cuda_median_ms(kern, reps=10)
+            t_p = cuda_median_ms(plain, reps=3)
+            b_ms, b_by = bound_ms(flops, n_bytes)
+            line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound "
+                        f"{b_ms:.5f} {b_by})")
+            results[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None)
+        log(f"[6 config 5: fused wide P={p} d={d} N={n} M={m} column tiles="
+            f"{n_ct} tile rows={fl.fused_linear_wide_tile_rows(d, n)}] "
+            + "; ".join(line) + f"; pass 2 replays {kept} of {p * m} "
+            f"samples (the rest have both weights 0)")
+    for name, e in errs.items():
+        results[name]["max_abs_err"] = e
+    log(f"[6 config 5: fused wide] wide tier vs plain at (P,d,N) in "
+        f"(1000,128,100),(6,75,600 with interventions, tiled rows),(2,602,30, tiled rows), "
+        f"injected / Philox / shared-stream noise, alpha,tau in (2,1),"
+        f"(0.7,0.8), and vs the one-pass plain version: within 1e-4 max(1, "
+        f"max|ref|), worst {worst:.3f} of the bar")
+
+    # --- #3 at config 5's shape: [1000, 1000] over the Z and Theta rows ---
+    line = []
+    for n, h in ((D5 * K5 * 2, 5.0), (D5 * D5, 500.0)):
+        x = torch.randn(P5, n, generator=gen, device=dev) * math.sqrt(
+            h / (2.0 * n))
+        out = gk.se_matrix(x, x, h, 1.0)
+        e_p = float((out - gk.se_matrix_plain(x, x, h, 1.0)).abs().max())
+        check(e_p <= 1e-5, f"se [1000,1000] over {n}: max err {e_p} vs plain")
+        x64 = x.double()
+        sq = (x64.square().sum(1)[:, None] + x64.square().sum(1)[None]
+              - 2.0 * x64 @ x64.T).clamp(min=0.0)
+        e = float((out.double() - torch.exp(-sq / h)).abs().max())
+        check(e <= 1e-5, f"se [1000,1000] over {n}: max err {e} vs float64")
+        t_s = cuda_median_ms(lambda: gk.se_matrix(x, x, h, 1.0), reps=20)
+        t_p = cuda_median_ms(lambda: gk.se_matrix_plain(x, x, h, 1.0),
+                             reps=3)
+        b_ms, b_by = bound_ms(3 * P5 * P5 * n, 4 * (2 * P5 * n + P5 * P5))
+        line.append(f"over n={n}: kernel {t_s:.4f} ms plain {t_p:.4f} ms "
+                    f"bound {b_ms:.5f} ({b_by}), max err vs plain {e_p:.3g}"
+                    f", vs float64 {e:.3g}")
+    log("[6 config 5: se [1000,1000]] " + "; ".join(line))
+
+
 def phase_rng(dev):
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
@@ -546,6 +757,9 @@ def phase_e2e(dev, card, steps):
     for name in ("gumbel_graphs", "bge_pairs", "se_matrix"):
         check(launches[name] > 0,
               f"kernel {name} never launched on the marginal path")
+    check(launches["transport_phi"] == 2 * steps,
+          f"transport_phi launched {launches['transport_phi']} times in "
+          f"2 x {steps} marginal steps")
     log(f"[5 launches] {launches}")
 
     # teacher-forced: kernels (card) vs plain twins (CPU), same state+noise,
@@ -628,6 +842,9 @@ def phase_joint(dev, card, steps):
         for name in fused:
             check(launches[name] == steps,
                   f"{name} launched {launches[name]} times in {steps} steps")
+        check(launches["transport_phi"] == 2 * steps,
+              f"transport_phi launched {launches['transport_phi']} times in "
+              f"{steps} joint steps")
         for name in ("gumbel_graphs", "se_matrix"):
             check(launches[name] > 0,
                   f"joint {route}: kernel {name} never launched")
@@ -723,7 +940,7 @@ def phase_joint_nonlinear(dev, card, steps):
               f"joint nonlinear: state tensor {k} not finite")
     want = dict.fromkeys(gk.LAUNCHES, 0)
     want.update(fused_nonlinear=steps, gumbel_graphs=steps,
-                se_matrix=2 * steps)
+                se_matrix=2 * steps, transport_phi=2 * steps)
     check(launches == want, f"joint nonlinear launches {launches}, expected "
                             f"{want}")
     g = dibs.particle_to_g_lim(state.z)
@@ -764,6 +981,159 @@ def phase_joint_nonlinear(dev, card, steps):
     log(f"[6 teacher-forced joint nonlinear] steps t=0..19: max |phi_kernel "
         f"- phi_plain| / (1e-4 max|phi|) = {worst:.3f} (phi_z and every "
         f"phi_theta leaf)")
+    return launches
+
+
+class plain_on_card:
+    """Within the block, every kernel wrapper of the joint linear path is
+    replaced by its plain version, so a phi built there runs the plain
+    versions on the card (where the wrappers would launch the kernels)."""
+
+    def __enter__(self):
+        from dibs_tpu_torch import kernel
+        from dibs_tpu_torch.inference import fused_linear as fl
+        from dibs_tpu_torch.inference import transport
+        from dibs_tpu_torch.ops import gpu_kernels as gk
+        from dibs_tpu_torch.ops import soft_graphs
+        from dibs_tpu_torch.ops import transport_kernel as tk
+
+        self.saved = []
+        for mod, name, plain in (
+                (soft_graphs, "gumbel_graphs", gk.gumbel_graphs_plain),
+                (kernel, "se_matrix", gk.se_matrix_plain),
+                (transport, "transport_phi", tk.transport_phi_plain),
+                (fl, "fused_linear_single", fl.fused_linear_single_plain),
+                (fl, "fused_linear_pass1", fl.fused_linear_pass1_plain),
+                (fl, "fused_linear_pass2", fl.fused_linear_pass2_plain)):
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def phase_config5(dev, card, steps):
+    """``JointDiBS`` + ``LinearGaussian`` at config 5
+    (``benchmarks/run_benchmarks.py:171-185``, nothing cut): scale-free
+    d=128, N=100, P=1000, k=128, M=32, K=8, the joint defaults. 10 warm-up
+    steps, then ``steps`` timed steps with exact launch counts; then
+    teacher-forced ``phi`` for 3 steps against the plain versions on the
+    card and for 5 steps at P=16 against the plain versions on the CPU."""
+    import warnings
+
+    from dibs_tpu_torch.inference import JointDiBS
+    from dibs_tpu_torch.models import LinearGaussian
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.target import make_linear_gaussian_model
+
+    gen = torch.Generator().manual_seed(123)
+    data, gm, lm = make_linear_gaussian_model(
+        generator=gen, n_vars=D5, n_observations=N5, n_ho_observations=N5,
+        device=dev)
+
+    def make(device, lik):
+        return JointDiBS(x=data.x.to(device), graph_model=gm,
+                         likelihood_model=lik, n_grad_mc_samples=M5,
+                         n_acyclicity_mc_samples=K_ACYC5, device=device)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        dibs = make(dev, lm)
+    advice = [str(w.message)[:60] for w in caught]
+    check(not any("fused linear-Gaussian kernels disabled" in a
+                  for a in advice), f"config 5 warned: {advice}")
+    check(getattr(dibs.est.fused_grad_both, "__name__", None)
+          == "fused_linear", "config 5 does not take the fused linear route")
+    std = dibs._resolve_latent_std(K5)
+    step = dibs._make_step(std)
+    state = dibs.init_state(seed=1, n_particles=P5, n_dim_particles=K5)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(10):  # warm-up, outside the counted window
+        state = step(state)
+    torch.cuda.synchronize()
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    rate = steps / (time.perf_counter() - t0)
+    launches = dict(gk.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for tensor, what in ((state.z, "z"), (state.theta, "theta"),
+                         (state.opt_state_z[0].nu, "nu_z"),
+                         (state.opt_state_theta[0].nu, "nu_theta")):
+        check(bool(torch.isfinite(tensor).all()),
+              f"config 5: {what} not finite")
+    want = dict.fromkeys(gk.LAUNCHES, 0)
+    want.update(transport_phi=2 * steps, fused_linear_wide_pass1=steps,
+                fused_linear_wide_pass2=steps, gumbel_graphs=steps,
+                se_matrix=2 * steps)
+    check(launches == want, f"config 5 launches {launches}, expected {want}")
+    log(f"[6 config 5: e2e] P={P5} d={D5} k={K5} N={N5} M={M5} "
+        f"K={K_ACYC5}: {steps} steps after 10 warm-up, {rate:.3f} steps/s on "
+        f"'{card}'; peak device memory {peak_gb:.2f} GB; launches "
+        f"{launches}; construction warnings {advice}")
+
+    # teacher-forced, 3 steps: kernels vs plain versions, both on the card
+    gen_n = torch.Generator(device=dev).manual_seed(11)
+
+    def logistic_dev(shape):
+        u = torch.rand(shape, generator=gen_n, device=dev).clamp(1e-7,
+                                                                 1 - 1e-7)
+        return torch.log(u) - torch.log1p(-u)
+
+    phi_gpu = dibs._make_phi(std)
+    state = dibs.init_state(seed=2, n_particles=P5, n_dim_particles=K5)
+    worst_card = 0.0
+    for _ in range(3):
+        eps = logistic_dev((P5, M5, D5, D5))
+        noise = (eps, eps, logistic_dev((P5, K_ACYC5, D5, D5)))
+        with torch.no_grad():
+            got = phi_gpu(state, noise)
+            before = dict(gk.LAUNCHES)
+            with plain_on_card():
+                want_phi = phi_gpu(state, noise)
+            check(gk.LAUNCHES == before, "a kernel launched in the plain phi")
+        for a, b, what in zip(got, want_phi, ("z", "theta")):
+            e = float((a - b).abs().max())
+            tol = 1e-4 * float(b.abs().max())
+            worst_card = max(worst_card, e / max(tol, 1e-30))
+            check(e <= tol, f"config 5 phi_{what} t={state.t} (card plain):"
+                            f" {e} > {tol}")
+        state = step(state, noise)
+    del eps, noise
+
+    # teacher-forced, 5 steps at P=16: kernels (card) vs plain versions (CPU)
+    p_small = 16
+    rng = np.random.default_rng(12)
+    cpu = make("cpu", LinearGaussian(n_vars=D5))
+    phi_cpu = cpu._make_phi(std)
+    state = dibs.init_state(seed=3, n_particles=p_small, n_dim_particles=K5)
+    worst_cpu = 0.0
+    for _ in range(5):
+        eps = logistic(rng, (p_small, M5, D5, D5))
+        noise = (eps, eps, logistic(rng, (p_small, K_ACYC5, D5, D5)))
+        noise_dev = tuple(e.to(dev) for e in noise)
+        st_cpu = state._replace(z=state.z.cpu(), theta=state.theta.cpu(),
+                                sf_baseline=state.sf_baseline.cpu())
+        with torch.no_grad():
+            got = phi_gpu(state, noise_dev)
+            want_phi = phi_cpu(st_cpu, noise)
+        for a, b, what in zip(got, want_phi, ("z", "theta")):
+            e = float((a.cpu() - b).abs().max())
+            tol = 1e-4 * float(b.abs().max())
+            worst_cpu = max(worst_cpu, e / max(tol, 1e-30))
+            check(e <= tol, f"config 5 phi_{what} t={state.t} (CPU plain, "
+                            f"P=16): {e} > {tol}")
+        state = step(state, noise_dev)
+    log(f"[6 config 5: teacher-forced] max |phi_kernel - phi_plain| / "
+        f"(1e-4 max|phi|): {worst_card:.3f} over steps t=0..2 at P=1000 "
+        f"(plain versions on the card), {worst_cpu:.3f} over t=0..4 at P=16 "
+        f"(plain versions on the CPU); phi_z and phi_theta")
     return launches
 
 
@@ -826,11 +1196,19 @@ def phase_profile(dev, card):
     joint_nl = JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
                          n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
                          device=dev)
-    for name, dibs in (("marginal score", marginal), ("joint", joint),
-                       ("joint nonlinear", joint_nl)):
-        step = dibs._make_step(dibs._resolve_latent_std(K_LAT))
+    gen = torch.Generator().manual_seed(123)
+    data, gm, lm = make_linear_gaussian_model(
+        generator=gen, n_vars=D5, n_observations=N5, device=dev)
+    joint5 = JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                       n_grad_mc_samples=M5, n_acyclicity_mc_samples=K_ACYC5,
+                       device=dev)
+    for name, dibs, p, k in (("marginal score", marginal, P, K_LAT),
+                             ("joint", joint, P, K_LAT),
+                             ("joint nonlinear", joint_nl, P, K_LAT),
+                             ("joint config 5", joint5, P5, K5)):
+        step = dibs._make_step(dibs._resolve_latent_std(k))
         prof = profile_steps(step, dibs.init_state(
-            seed=3, n_particles=P, n_dim_particles=K_LAT))
+            seed=3, n_particles=p, n_dim_particles=k))
         top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
         log(f"[7 profile {name}] on '{card}', 50 steps: wall "
             f"{prof['wall_ms']:.3f} ms/step, device kernels "
@@ -862,6 +1240,10 @@ def main():
         launches[name] += count
     for name, count in phase_joint_nonlinear(dev, card, STEPS_NL).items():
         launches[name] += count
+    phase_transport(dev, results)
+    phase_config5_kernels(dev, results)
+    for name, count in phase_config5(dev, card, STEPS5).items():
+        launches[name] += count
     phase_profile(dev, card)
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
@@ -871,12 +1253,18 @@ def main():
                       "dibs_tpu/ops/bge_kernel.py:223"),
         "se_matrix": ("dibs_tpu_torch/csrc/se_matrix.cu",
                       "dibs_tpu/ops/pallas_kernels.py:237"),
+        "transport_phi": ("dibs_tpu_torch/csrc/transport_phi.cu",
+                          "dibs_tpu/ops/transport_kernel.py:153"),
         "fused_linear_single": ("dibs_tpu_torch/csrc/fused_linear.cu",
                                 f"{fused}:708"),
         "fused_linear_pass1": ("dibs_tpu_torch/csrc/fused_linear.cu",
                                f"{fused}:617"),
         "fused_linear_pass2": ("dibs_tpu_torch/csrc/fused_linear.cu",
                                f"{fused}:658"),
+        "fused_linear_wide_pass1": ("dibs_tpu_torch/csrc/fused_linear.cu",
+                                    f"{fused}:617"),
+        "fused_linear_wide_pass2": ("dibs_tpu_torch/csrc/fused_linear.cu",
+                                    f"{fused}:658"),
         "fused_nonlinear": ("dibs_tpu_torch/csrc/fused_nonlinear.cu",
                             "dibs_tpu/inference/fused_nonlinear.py:459"),
     }

@@ -5,6 +5,10 @@
 //   mode 1, pass 1:      _fused_pass1 (the [P, M] soft and hard log-lik.),
 //   mode 2, pass 2:      _fused_pass2 (replays the samples with weights).
 // One __device__ routine per stage serves all three (template on the mode).
+// Past d = 70, where the [d, d] matrices no longer fit one block's shared
+// memory, the wide tier (modes 3 and 4, below) computes the same estimand
+// as passes 1 and 2 over column tiles; the JAX package's own gate for these
+// kernels is d <= 384.
 //
 // For particle p with edge scores s, weights Theta, data x [N, d] and
 // observation weights w = 1 - intervention mask, each of the M samples is
@@ -375,6 +379,325 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wide tier (d > 70): column-tiled pass 1 and pass 2.
+//
+// The linear SEM factorizes over node columns: for column j, delta[:, j] =
+// x @ ((G - E[G])[:, j] Theta[:, j]), resid[:, j], dW[:, j] = x^T resid[:, j]
+// and the G logN(Theta) terms are local to j. A block owns one particle and
+// a tile of kCols columns, so it keeps ~11 d kCols floats of [d, kCols]
+// slabs in shared memory instead of 11 d^2, which serves d up to ~600.
+// A sample's softmax weight needs its log-likelihood summed over all
+// columns, so the tier runs as two passes:
+//   pass 1 (kWide1) writes the float64 partial dll of each (particle,
+//     sample, column tile); the wrapper sums the tiles in a fixed order and
+//     forms the softmax in PyTorch;
+//   pass 2 (kWide2) replays the same samples (the same Philox counters:
+//     element i d + j, sample, particle, stream) per column tile into
+//     d scores[:, :, tile] and d Theta[:, :, tile] with those weights.
+// No float atomics: every output element is written by one block. A sample
+// whose two weights are both exactly 0 adds exactly 0 and is skipped in
+// pass 2 (the branch is uniform over the block).
+//
+// Inner products are register-tiled: a thread owns one data row (delta) or
+// one slab row (x^T resid) and four columns of both branches, 8 FMAs per
+// scalar and two float4 shared-memory reads. Data rows are padded to an odd
+// stride so a warp's 16 rows hit distinct banks.
+// ---------------------------------------------------------------------------
+
+constexpr int kCols = 8;  // columns per block
+enum WideMode : int { kWide1 = 3, kWide2 = 4 };
+
+struct WideArgs {
+  const float* scores;    // [P, d, d]
+  const float* theta;     // [P, d, d]
+  const float* x;         // [N, d]
+  const float* w;         // [N, d]
+  const float* eps_soft;  // [P, M, d, d] injected noise or nullptr
+  const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
+  const float* wts_soft;  // [P, M] softmax weights (pass 2)
+  const float* wts_hard;  // [P, M]
+  float* resid_ref;       // [P, n_ct, N, kCols] scratch (tiled rows only)
+  double* dll_soft;       // [P, M, n_ct] pass 1 partials
+  double* dll_hard;       // [P, M, n_ct]
+  float* out_a;           // dscores [P, d, d] (pass 2)
+  float* out_b;           // dtheta [P, d, d]
+  int n_samples, d, n_obs, tile_rows, n_ct;
+  uint32_t k0, k1, stream_soft, stream_hard;
+  float alpha, tau, mean_edge, sig_edge;
+  double inv_var;
+};
+
+__host__ __device__ inline int wide_ldx(int d) { return d | 1; }
+
+size_t wide_smem_bytes(int d, int tile_rows) {
+  return sizeof(double) * kRedDoubles +
+         sizeof(float) * (11 * static_cast<size_t>(d) * kCols +
+                          4 * static_cast<size_t>(tile_rows) * kCols +
+                          static_cast<size_t>(tile_rows) * wide_ldx(d));
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    fused_linear_wide_kernel(const WideArgs a) {
+  extern __shared__ __align__(16) double smem_w[];
+  double* red = smem_w;
+  const int d = a.d, slab = d * kCols, tn_max = a.tile_rows;
+  const int ldx = wide_ldx(d);
+  float* as_ = reinterpret_cast<float*>(smem_w + kRedDoubles);  // alpha s
+  float* sig = as_ + slab;   // E[G], zero diagonal and zero past column d
+  float* th = sig + slab;    // Theta
+  float* gs = th + slab;     // soft sample
+  float* gh = gs + slab;     // hard sample
+  float* a_s = gh + slab;    // (G - E[G]) Theta
+  float* a_h = a_s + slab;   // (H - E[G]) Theta
+  float* dws = a_h + slab;   // x^T resid_soft of this sample
+  float* dwh = dws + slab;   // x^T resid_hard
+  float* acc_s = dwh + slab;  // dscores accumulator
+  float* acc_h = acc_s + slab;  // dtheta accumulator
+  float* wt = acc_h + slab;  // observation weights tile [tile_rows, kCols]
+  float* rt = wt + tn_max * kCols;     // resid_ref tile
+  float* res_s = rt + tn_max * kCols;  // weighted residual tiles
+  float* res_h = res_s + tn_max * kCols;
+  float* xt = res_h + tn_max * kCols;  // data tile [tile_rows, ldx]
+
+  const int p = blockIdx.x, ct = blockIdx.y, tid = threadIdx.x;
+  const int j0 = ct * kCols, cw = min(kCols, d - j0);
+  const int n_obs = a.n_obs, n_smp = a.n_samples;
+  const int64_t pdd = static_cast<int64_t>(p) * d * d;
+  const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
+  const float inv_var_f = static_cast<float>(a.inv_var);
+  const float inv_sig2_e = 1.0f / (a.sig_edge * a.sig_edge);
+  const int n_tiles = (n_obs + tn_max - 1) / tn_max;
+  float* rr = a.resid_ref == nullptr
+                  ? nullptr
+                  : a.resid_ref +
+                        (static_cast<int64_t>(p) * a.n_ct + ct) * n_obs * kCols;
+
+  // --- per particle and column tile: the slabs and resid_ref ---
+  for (int e = tid; e < slab; e += kThreads) {
+    const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
+    float s = 0.0f, ref = 0.0f, t = 0.0f;
+    if (jj < cw) {
+      s = __fmul_rn(a.alpha, a.scores[pdd + i * d + j]);
+      ref = i == j ? 0.0f : 1.0f / (1.0f + expf(-s));
+      t = a.theta[pdd + i * d + j];
+    }
+    as_[e] = s;
+    sig[e] = ref;
+    th[e] = t;
+    a_s[e] = ref * t;  // E[G] * Theta, for resid_ref
+    if (kMode == kWide2) {
+      acc_s[e] = 0.0f;
+      acc_h[e] = 0.0f;
+    }
+  }
+  auto load_tile = [&](int t0, int tn, bool with_rr) {
+    for (int idx = tid; idx < tn * d; idx += kThreads) {
+      const int n = idx / d, i = idx - n * d;
+      xt[n * ldx + i] = a.x[static_cast<int64_t>(t0 + n) * d + i];
+    }
+    for (int idx = tid; idx < tn * kCols; idx += kThreads) {
+      const int n = idx / kCols, jj = idx - n * kCols;
+      wt[idx] = jj < cw ? a.w[static_cast<int64_t>(t0 + n) * d + j0 + jj]
+                        : 0.0f;
+      if (with_rr) rt[idx] = rr[static_cast<int64_t>(t0) * kCols + idx];
+    }
+  };
+  __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
+    load_tile(t0, tn, false);
+    __syncthreads();
+    for (int idx = tid; idx < tn * kCols; idx += kThreads) {
+      const int n = idx / kCols, jj = idx - n * kCols;
+      const float* xr = xt + n * ldx;
+      float mean = 0.0f;
+      for (int i = 0; i < d; ++i) mean = fmaf(xr[i], a_s[i * kCols + jj], mean);
+      const float r = jj < cw ? xr[j0 + jj] - mean : 0.0f;
+      if (n_tiles == 1) {
+        rt[idx] = r;  // resident for every sample
+      } else {
+        rr[static_cast<int64_t>(t0) * kCols + idx] = r;
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int m = 0; m < n_smp; ++m) {
+    float w_s = 0.0f, w_h = 0.0f;
+    if (kMode == kWide2) {
+      w_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m];
+      w_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m];
+      if (w_s == 0.0f && w_h == 0.0f) continue;  // adds exactly 0
+    }
+    // --- 1. the sample pair on this slab and the parameter-prior term ---
+    double lp_s = 0.0, lp_h = 0.0;
+    const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * d * d;
+    for (int e = tid; e < slab; e += kThreads) {
+      const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
+      float g_soft = 0.0f, g_hard = 0.0f;
+      if (jj < cw && i != j) {
+        const uint32_t eg = static_cast<uint32_t>(i * d + j);
+        const float es =
+            a.eps_soft != nullptr
+                ? a.eps_soft[nbase + eg]
+                : dibs::philox_logistic(eg, m, p, a.stream_soft, a.k0, a.k1);
+        float eh;
+        if (a.eps_hard != nullptr) {
+          eh = a.eps_hard[nbase + eg];
+        } else if (a.stream_hard == a.stream_soft) {
+          eh = es;
+        } else {
+          eh = dibs::philox_logistic(eg, m, p, a.stream_hard, a.k0, a.k1);
+        }
+        g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
+        g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
+      }
+      const float th_e = th[e];
+      const float ds = g_soft - sig[e], dh = g_hard - sig[e];
+      a_s[e] = ds * th_e;
+      a_h[e] = dh * th_e;
+      if (kMode == kWide1) {
+        const float zt = (th_e - a.mean_edge) / a.sig_edge;
+        const float lpdf = -0.5f * zt * zt - log_norm_e;
+        lp_s += static_cast<double>(ds * lpdf);
+        lp_h += static_cast<double>(dh * lpdf);
+      } else {
+        gs[e] = g_soft;
+        gh[e] = g_hard;
+        dws[e] = 0.0f;
+        dwh[e] = 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // --- 2. data tiles: delta, the data term of dll, residuals, x^T resid ---
+    double ld_s = 0.0, ld_h = 0.0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
+      if (n_tiles > 1) {
+        load_tile(t0, tn, true);
+        __syncthreads();
+      }
+      for (int item = tid; item < 2 * tn; item += kThreads) {
+        const int n = item >> 1, c0 = (item & 1) * 4;
+        const float* xr = xt + n * ldx;
+        float del_s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float del_h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int i = 0; i < d; ++i) {
+          const float xv = xr[i];
+          const float4 s4 =
+              *reinterpret_cast<const float4*>(a_s + i * kCols + c0);
+          const float4 h4 =
+              *reinterpret_cast<const float4*>(a_h + i * kCols + c0);
+          del_s[0] = fmaf(xv, s4.x, del_s[0]);
+          del_s[1] = fmaf(xv, s4.y, del_s[1]);
+          del_s[2] = fmaf(xv, s4.z, del_s[2]);
+          del_s[3] = fmaf(xv, s4.w, del_s[3]);
+          del_h[0] = fmaf(xv, h4.x, del_h[0]);
+          del_h[1] = fmaf(xv, h4.y, del_h[1]);
+          del_h[2] = fmaf(xv, h4.z, del_h[2]);
+          del_h[3] = fmaf(xv, h4.w, del_h[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int idx = n * kCols + c0 + q;
+          const float r = rt[idx], wv = wt[idx];  // 0 past column d
+          if (kMode == kWide1) {
+            ld_s += static_cast<double>(wv * del_s[q] * (del_s[q] - 2.0f * r));
+            ld_h += static_cast<double>(wv * del_h[q] * (del_h[q] - 2.0f * r));
+          } else {
+            res_s[idx] = (r - del_s[q]) * wv;
+            res_h[idx] = (r - del_h[q]) * wv;
+          }
+        }
+      }
+      if (kMode == kWide2) {
+        __syncthreads();
+        for (int item = tid; item < 2 * d; item += kThreads) {
+          const int i = item >> 1, c0 = (item & 1) * 4;
+          float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int n = 0; n < tn; ++n) {
+            const float xv = xt[n * ldx + i];
+            const float4 r4 =
+                *reinterpret_cast<const float4*>(res_s + n * kCols + c0);
+            const float4 q4 =
+                *reinterpret_cast<const float4*>(res_h + n * kCols + c0);
+            s1[0] = fmaf(xv, r4.x, s1[0]);
+            s1[1] = fmaf(xv, r4.y, s1[1]);
+            s1[2] = fmaf(xv, r4.z, s1[2]);
+            s1[3] = fmaf(xv, r4.w, s1[3]);
+            s2[0] = fmaf(xv, q4.x, s2[0]);
+            s2[1] = fmaf(xv, q4.y, s2[1]);
+            s2[2] = fmaf(xv, q4.z, s2[2]);
+            s2[3] = fmaf(xv, q4.w, s2[3]);
+          }
+          float* ds_row = dws + i * kCols + c0;
+          float* dh_row = dwh + i * kCols + c0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            ds_row[q] += s1[q];
+            dh_row[q] += s2[q];
+          }
+        }
+      }
+      __syncthreads();  // the next tile or stage overwrites xt, rt, res
+    }
+
+    if (kMode == kWide1) {
+      // --- 3. this tile's part of the sample pair's dll (float64) ---
+      double v_s = -0.5 * a.inv_var * ld_s + lp_s;
+      double v_h = -0.5 * a.inv_var * ld_h + lp_h;
+      block_sum2(&v_s, &v_h, red);
+      if (tid == 0) {
+        const int64_t o = (static_cast<int64_t>(p) * n_smp + m) * a.n_ct + ct;
+        a.dll_soft[o] = v_s;
+        a.dll_hard[o] = v_h;
+      }
+    } else {
+      // --- 4. weight and accumulate ---
+      for (int e = tid; e < slab; e += kThreads) {
+        const float th_e = th[e];
+        const float zt = (th_e - a.mean_edge) / a.sig_edge;
+        const float lpdf = -0.5f * zt * zt - log_norm_e;
+        const float g = gs[e];
+        const float c_s =
+            a.tau * a.alpha * g * (1.0f - g) * (th_e * (dws[e] * inv_var_f) + lpdf);
+        const float c_h =
+            gh[e] * (dwh[e] * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
+        acc_s[e] += w_s * c_s;
+        acc_h[e] += w_h * c_h;
+      }
+      __syncthreads();  // the next sample overwrites gs, gh, a_s, a_h, dws, dwh
+    }
+  }
+
+  if (kMode == kWide2) {
+    for (int e = tid; e < slab; e += kThreads) {
+      const int i = e / kCols, jj = e - i * kCols;
+      if (jj < cw) {
+        a.out_a[pdd + i * d + j0 + jj] = acc_s[e];
+        a.out_b[pdd + i * d + j0 + jj] = acc_h[e];
+      }
+    }
+  }
+}
+
+template <int kMode>
+int launch_wide(const WideArgs& a, int n_particles, cudaStream_t stream) {
+  const size_t smem = wide_smem_bytes(a.d, a.tile_rows);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_linear_wide_kernel<kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_linear_wide_kernel<kMode>
+      <<<dim3(n_particles, a.n_ct), kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int kMode>
 int launch(const Args& a, int n_particles, cudaStream_t stream) {
   const size_t smem = smem_bytes(a.d, a.tile_rows);
@@ -452,6 +775,67 @@ DIBS_API int dibs_fused_linear(
       return launch<kPass1>(a, n_particles, stream);
     case kPass2:
       return launch<kPass2>(a, n_particles, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+DIBS_API size_t dibs_fused_linear_wide_smem_bytes(int d, int tile_rows) {
+  return wide_smem_bytes(d, tile_rows);
+}
+
+// The wide tier. mode 3: pass 1 -> float64 partial dll [P, M, n_ct] per
+// column tile (n_ct = ceil(d / 8)); mode 4: pass 2 with weights ->
+// (dscores, dtheta). `resid_ref` is [P, n_ct, N, 8] floats of scratch when
+// the rows are tiled (tile_rows < N), else nullptr.
+DIBS_API int dibs_fused_linear_wide(
+    int mode, const float* scores, const float* theta, const float* x,
+    const float* w, const float* eps_soft, const float* eps_hard,
+    const float* wts_soft, const float* wts_hard, float* resid_ref,
+    double* dll_soft, double* dll_hard, float* out_a, float* out_b,
+    int n_particles, int n_samples, int d, int n_obs, int tile_rows,
+    uint64_t seed, uint32_t stream_soft, uint32_t stream_hard, float alpha,
+    float tau, double inv_var, float mean_edge, float sig_edge,
+    cudaStream_t stream) {
+  if (d < 1 || n_obs < 1 || n_samples < 1 || tile_rows < 1 ||
+      tile_rows > n_obs || tile_rows > kThreads / 2 ||
+      (tile_rows < n_obs && resid_ref == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_particles == 0) return 0;
+  WideArgs a;
+  a.scores = scores;
+  a.theta = theta;
+  a.x = x;
+  a.w = w;
+  a.eps_soft = eps_soft;
+  a.eps_hard = eps_hard;
+  a.wts_soft = wts_soft;
+  a.wts_hard = wts_hard;
+  a.resid_ref = tile_rows < n_obs ? resid_ref : nullptr;
+  a.dll_soft = dll_soft;
+  a.dll_hard = dll_hard;
+  a.out_a = out_a;
+  a.out_b = out_b;
+  a.n_samples = n_samples;
+  a.d = d;
+  a.n_obs = n_obs;
+  a.tile_rows = tile_rows;
+  a.n_ct = (d + kCols - 1) / kCols;
+  a.k0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
+  a.k1 = static_cast<uint32_t>(seed >> 32);
+  a.stream_soft = stream_soft;
+  a.stream_hard = stream_hard;
+  a.alpha = alpha;
+  a.tau = tau;
+  a.mean_edge = mean_edge;
+  a.sig_edge = sig_edge;
+  a.inv_var = inv_var;
+  switch (mode) {
+    case kWide1:
+      return launch_wide<kWide1>(a, n_particles, stream);
+    case kWide2:
+      return launch_wide<kWide2>(a, n_particles, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

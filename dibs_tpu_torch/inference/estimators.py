@@ -386,8 +386,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             if fused_linear_model is not None:
                 warnings.warn(
                     f"fused linear-Gaussian kernels disabled for d={d}, "
-                    f"N={n_obs}: their shared memory serves d <= 70 (any N; "
-                    "see fused_linear_available); falling back to the "
+                    f"N={n_obs}: their shared memory serves d <= 602 (any "
+                    "N; see fused_linear_available); falling back to the "
                     "generic estimators, expect lower throughput.",
                     stacklevel=3)
             if fused_sample_sharing == "hard":

@@ -32,6 +32,16 @@ Three hand-written CUDA kernels of one source (``csrc/fused_linear.cu``):
 * ``fused_linear_pass2`` (replaces ``_fused_pass2``): replays the same
   samples with those weights into ``d scores`` and ``d Theta``.
 
+These keep 11 ``[d, d]`` matrices in one block's shared memory, which serves
+``d <= 70``. Past it ``fused_linear_pass1`` / ``fused_linear_pass2`` launch
+the wide tier (same source; launches counted as ``fused_linear_wide_pass1``
+/ ``fused_linear_wide_pass2``), which computes the two passes per tile of 8
+node columns: the linear SEM factorizes over columns, so a block keeps 11
+``[d, 8]`` slabs (``d <= 602``); pass 1 writes float64 partial
+log-likelihoods per column tile, summed in a fixed order before the softmax.
+Both ``single_pass`` settings take the two passes there (the same
+estimand).
+
 Noise: soft samples ``sigmoid(tau (eps + alpha s))`` draw their Logistic
 ``eps`` from the counter-based stream ``(seed, streams[0])``, hard samples
 ``1[eps + alpha s > 0]`` from ``(seed, streams[1])`` (equal streams give the
@@ -68,6 +78,8 @@ __all__ = [
     "fused_linear_pass1_plain",
     "fused_linear_pass2",
     "fused_linear_pass2_plain",
+    "fused_linear_wide_tile_rows",
+    "fused_linear_wide_smem_bytes",
 ]
 
 # the kernel's shared-memory footprint (csrc/fused_linear.cu: smem_bytes)
@@ -80,7 +92,9 @@ _TARGET_BLOCKS, _MIN_CHUNK = 264, 8
 # samples per step of the plain versions' loop (bounds their memory)
 _PLAIN_CHUNK = 16
 _MODES = {"fused_linear_single": 0, "fused_linear_pass1": 1,
-          "fused_linear_pass2": 2}
+          "fused_linear_pass2": 2, "fused_linear_wide_pass1": 3,
+          "fused_linear_wide_pass2": 4}
+_WIDE_COLS = 8  # node columns per wide-tier block
 
 
 def fused_linear_smem_bytes(d: int, tile_rows: int) -> int:
@@ -101,10 +115,31 @@ def fused_linear_tile_rows(d: int, n_obs: int) -> Optional[int]:
     return tile if fused_linear_smem_bytes(d, tile) <= _MAX_SMEM else None
 
 
+def fused_linear_wide_smem_bytes(d: int, tile_rows: int) -> int:
+    """Shared memory of one wide-tier block: 11 ``[d, 8]`` column slabs, 4
+    ``[tile_rows, 8]`` tiles, the data tile (rows padded to an odd stride)
+    and the block-reduction slots."""
+    return _RED_BYTES + 4 * (11 * d * _WIDE_COLS + 4 * tile_rows * _WIDE_COLS
+                             + tile_rows * (d | 1))
+
+
+def fused_linear_wide_tile_rows(d: int, n_obs: int) -> Optional[int]:
+    """Data rows per shared-memory tile of the wide tier for ``(d, N)``, or
+    ``None`` where it does not fit: the row tier's rule over the smaller
+    column-slab footprint, which serves ``d <= 602`` for any ``N``."""
+    tile = min(n_obs, _TILE_MAX)
+    while fused_linear_wide_smem_bytes(d, tile) > _MAX_SMEM and \
+            tile > _TILE_MIN:
+        tile = max(_TILE_MIN, tile // 2)
+    return tile if fused_linear_wide_smem_bytes(d, tile) <= _MAX_SMEM else None
+
+
 def fused_linear_available(n_vars: int, n_obs: int) -> bool:
-    """True when the fused kernels serve ``d = n_vars`` and ``N = n_obs``."""
-    return n_vars >= 1 and n_obs >= 1 and \
+    """True when the fused kernels serve ``d = n_vars`` and ``N = n_obs``:
+    the row tier (kernels #5-#7, ``d <= 70``) or the wide tier."""
+    return n_vars >= 1 and n_obs >= 1 and (
         fused_linear_tile_rows(n_vars, n_obs) is not None
+        or fused_linear_wide_tile_rows(n_vars, n_obs) is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +285,9 @@ def fused_linear_single_plain(scores, thetas, x, w, *, seed, streams, alpha,
 # ---------------------------------------------------------------------------
 
 
-def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
-            n_samples, model, eps, weights=None):
+def _checked_ptrs(name, scores, thetas, x, w, n_samples, eps, weights):
+    """Checks the inputs of a launch; returns the noise and weight
+    pointers (``None`` where absent)."""
     p, d, d2 = scores.shape
     n_obs = x.shape[0]
     if d != d2 or tuple(thetas.shape) != (p, d, d) or \
@@ -277,6 +313,15 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
                 raise ValueError(f"{name}: weights must be "
                                  f"{(p, n_samples)}, got {tuple(wt.shape)}")
         wts_ptrs = tuple(wt.data_ptr() for wt in weights)
+    return eps_ptrs, wts_ptrs
+
+
+def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
+            n_samples, model, eps, weights=None):
+    eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
+                                       eps, weights)
+    p, d, _ = scores.shape
+    n_obs = x.shape[0]
     tile_rows = fused_linear_tile_rows(d, n_obs)
     if tile_rows is None:
         raise ValueError(f"{name}: d={d} exceeds the kernel's shared-memory "
@@ -306,6 +351,47 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     return out_a, out_b
 
 
+def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
+                 n_samples, model, eps, weights=None):
+    eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
+                                       eps, weights)
+    p, d, _ = scores.shape
+    n_obs = x.shape[0]
+    tile_rows = fused_linear_wide_tile_rows(d, n_obs)
+    if tile_rows is None:
+        raise ValueError(f"{name}: d={d} exceeds the wide tier's shared-"
+                         "memory limit (fused_linear_available)")
+    n_ct = -(-d // _WIDE_COLS)
+    lib = build()
+    dev = scores.device
+    resid_ref = (torch.empty((p, n_ct, n_obs, _WIDE_COLS),
+                             dtype=torch.float32, device=dev)
+                 if tile_rows < n_obs else None)
+    if name == "fused_linear_wide_pass1":
+        dlls = [torch.empty((p, n_samples, n_ct), dtype=torch.float64,
+                            device=dev) for _ in range(2)]
+        outs = [None, None]
+    else:
+        dlls = [None, None]
+        outs = [torch.empty((p, d, d), dtype=torch.float32, device=dev)
+                for _ in range(2)]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        rc = lib.dibs_fused_linear_wide(
+            _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
+            w.data_ptr(), *eps_ptrs, *wts_ptrs, ptr(resid_ref),
+            *map(ptr, dlls), *map(ptr, outs), p, n_samples, d, n_obs,
+            tile_rows, seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
+            streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
+            1.0 / model.obs_noise, float(model.mean_edge),
+            float(model.sig_edge), _stream(dev))
+    _check_launch(lib, rc, name)
+    if name == "fused_linear_wide_pass1":
+        # the column tiles' float64 partials, summed in a fixed order
+        return tuple(dll.sum(dim=-1).float() for dll in dlls)
+    return tuple(outs)
+
+
 def fused_linear_single(scores, thetas, x, w, *, seed, streams, alpha, tau,
                         n_samples, model, eps=None):
     """Kernel #5: ``[P, d, d]`` scores and ``Theta``, ``x, w [N, d]`` ->
@@ -317,26 +403,38 @@ def fused_linear_single(scores, thetas, x, w, *, seed, streams, alpha, tau,
     return _launch("fused_linear_single", scores, thetas, x, w, **kw)
 
 
+def _row_tier(scores, x) -> bool:
+    return fused_linear_tile_rows(scores.shape[-1], x.shape[0]) is not None
+
+
 def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
                        n_samples, model, eps=None):
-    """Kernel #6: the ``[P, M]`` soft and hard centred log-likelihoods."""
+    """Kernel #6: the ``[P, M]`` soft and hard centred log-likelihoods (past
+    the row tier, the wide tier's pass 1: float64 partials per column tile,
+    summed in a fixed order)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
               n_samples=n_samples, model=model, eps=eps)
     if scores.device.type == "cpu":
         return fused_linear_pass1_plain(scores, thetas, x, w, **kw)
-    return _launch("fused_linear_pass1", scores, thetas, x, w, **kw)
+    if _row_tier(scores, x):
+        return _launch("fused_linear_pass1", scores, thetas, x, w, **kw)
+    return _launch_wide("fused_linear_wide_pass1", scores, thetas, x, w, **kw)
 
 
 def fused_linear_pass2(scores, thetas, x, w, weights, *, seed, streams,
                        alpha, tau, n_samples, model, eps=None):
     """Kernel #7: replays the samples of pass 1 with ``weights = (w_soft,
-    w_hard)`` ``[P, M]`` -> ``(d scores, d Theta)``."""
+    w_hard)`` ``[P, M]`` -> ``(d scores, d Theta)`` (past the row tier, the
+    wide tier's pass 2, per column tile)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
               n_samples=n_samples, model=model, eps=eps)
     if scores.device.type == "cpu":
         return fused_linear_pass2_plain(scores, thetas, x, w, weights, **kw)
-    return _launch("fused_linear_pass2", scores, thetas, x, w,
-                   weights=weights, **kw)
+    if _row_tier(scores, x):
+        return _launch("fused_linear_pass2", scores, thetas, x, w,
+                       weights=weights, **kw)
+    return _launch_wide("fused_linear_wide_pass2", scores, thetas, x, w,
+                        weights=weights, **kw)
 
 
 def _softmax_weights(lls):
@@ -351,7 +449,7 @@ def _estimators(single, pass1, pass2, *, zs, thetas, x, interv_mask, seed,
               alpha=float(alpha), tau=float(tau), n_samples=n_samples,
               model=model, eps=eps)
     thetas, x = thetas.contiguous(), x.contiguous()
-    if single_pass:
+    if single_pass and _row_tier(scores, x):
         return single(scores, thetas, x, w, **kw)
     weights = _softmax_weights(pass1(scores, thetas, x, w, **kw))
     return pass2(scores, thetas, x, w, weights, **kw)
@@ -367,7 +465,8 @@ def fused_linear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
     The caller chains ``d scores`` to ``Z`` with ``dU = dS V``,
     ``dV = dS^T U``. ``streams = (soft, hard)``; ``eps`` the injected
     ``(eps_soft, eps_hard)``. ``single_pass=False`` runs kernels #6 and #7
-    with the softmax in between instead of kernel #5.
+    with the softmax in between instead of kernel #5. Past ``d = 70`` both
+    settings run the wide tier's two passes.
     """
     return _estimators(fused_linear_single, fused_linear_pass1,
                        fused_linear_pass2, zs=zs, thetas=thetas, x=x,

@@ -2,23 +2,36 @@
 
     phi_i = (1/P) sum_m [ k(z_m, z_i) grad log p(z_m) + grad_{z_m} k(z_m, z_i) ]
 
-For kernels with the closed-form SE gradient this is two ``[P, P] @ [P, n]``
-matmuls: the kernel-weighted scores ``K^T G`` and the repulsion
-``c (K^T V - colsum(K) * V)`` with ``V`` centred by its particle mean (the
-repulsion is exactly invariant under the shift, and centring keeps matmul
-rounding relative to the particle differences). Kernels with only the
-reference ``eval`` signature go through the autodiff path. For joint
-inference the kernel-weighted scores use ``K_z + K_theta`` and each
-component's repulsion its own SE term; a ``Theta`` parameter tree is
-transported leaf by leaf (driver and centred repulsion per leaf). The
-transport is negated, so a minimizing optimizer ascends the target.
+For kernels with the closed-form SE gradient and a float repulsion factor,
+a whole transport family goes through the fused kernel
+(:func:`dibs_tpu_torch.ops.transport_kernel.transport_phi`, kernel #4):
+``phi = -(1/P) (K_own^T (g + c v') + K_other^T g) + (c/P) colsum(K_own) v'``
+with ``v'`` centred by its particle mean (the repulsion is exactly invariant
+under the shift, and centring keeps rounding relative to the particle
+differences). The marginal engine sends one family (``K_other`` absent); the
+joint engine two, ``Z`` with ``(K_z, K_theta, c_z)`` and ``Theta`` with
+``(K_theta, K_z, c_theta)``; a ``Theta`` parameter tree is flattened into one
+``[P, n]`` block and split back into its leaves. A non-float factor
+(``h="median"``) takes the two-matmul route ``K^T G + c (K^T V - colsum(K)
+V)``; kernels with only the reference ``eval`` signature go through the
+autodiff path. The transport is negated, so a minimizing optimizer ascends
+the target.
 """
 from __future__ import annotations
 
 import torch
 from torch.func import grad, vmap
 
-from dibs_tpu_torch.utils.tree import tree_map
+from dibs_tpu_torch.ops.transport_kernel import (
+    transport_phi,
+    transport_phi_available,
+)
+from dibs_tpu_torch.utils.tree import (
+    tree_leaves,
+    tree_map,
+    tree_rows,
+    tree_unflatten,
+)
 
 __all__ = ["marginal_transport", "joint_transport"]
 
@@ -41,11 +54,37 @@ def _se_repulsion(k_mat, factor, values):
     return rep.reshape(values.shape)
 
 
+def _fused_phi_or_none(k_own, k_other, c, values, grads):
+    """One whole transport family through kernel #4, or ``None`` where the
+    factor is not a float (the median bandwidth). ``values`` / ``grads`` are
+    tensors or matching parameter trees, flattened into one ``[P, n]``
+    block and split back into the leaves of ``values``."""
+    if not isinstance(c, float):
+        return None
+    leaves = tree_leaves(values)
+    p = leaves[0].shape[0]
+    vf = tree_rows(values).contiguous()
+    if not transport_phi_available(p, vf.shape[1]):
+        return None
+    gf = tree_rows(grads).contiguous()
+    mu = vf.mean(dim=0, keepdim=True)
+    phi_flat = transport_phi(k_own, k_other, gf, vf, c=c, mu=mu)
+    out, offset = [], 0
+    for leaf in leaves:
+        size = leaf[0].numel()
+        out.append(phi_flat[:, offset:offset + size].reshape(leaf.shape))
+        offset += size
+    return tree_unflatten(values, out)
+
+
 def marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
     """Transport ``phi_z [P, d, k, 2]`` for Z-only SVGD."""
     n_particles = z.shape[0]
     if hasattr(kernel, "matrix_and_grad_factor"):
         k_mat, factor = kernel.matrix_and_grad_factor(z, z)
+        fused = _fused_phi_or_none(k_mat, None, factor, z, dz)
+        if fused is not None:
+            return fused
         phi = _weighted_scores(k_mat, dz) + _se_repulsion(k_mat, factor, z)
         return -phi / n_particles
     return _marginal_transport_autodiff(kernel, z, dz)
@@ -72,13 +111,19 @@ def joint_transport(kernel, z: torch.Tensor, theta: torch.Tensor,
     if hasattr(kernel, "component_matrices_and_factors"):
         k_z, k_t, c_z, c_t = kernel.component_matrices_and_factors(
             z, theta, z, theta)
-        k_mat = k_z + k_t
-        phi_z = _weighted_scores(k_mat, dz) + _se_repulsion(k_z, c_z, z)
-        phi_t = tree_map(
-            lambda g, v: -(_weighted_scores(k_mat, g)
-                           + _se_repulsion(k_t, c_t, v)) / n_particles,
-            dtheta, theta)
-        return -phi_z / n_particles, phi_t
+        phi_z = _fused_phi_or_none(k_z, k_t, c_z, z, dz)
+        phi_t = _fused_phi_or_none(k_t, k_z, c_t, theta, dtheta)
+        if phi_z is None or phi_t is None:
+            k_mat = k_z + k_t
+        if phi_z is None:
+            phi_z = -(_weighted_scores(k_mat, dz)
+                      + _se_repulsion(k_z, c_z, z)) / n_particles
+        if phi_t is None:
+            phi_t = tree_map(
+                lambda g, v: -(_weighted_scores(k_mat, g)
+                               + _se_repulsion(k_t, c_t, v)) / n_particles,
+                dtheta, theta)
+        return phi_z, phi_t
     return _joint_transport_autodiff(kernel, z, theta, dz, dtheta)
 
 

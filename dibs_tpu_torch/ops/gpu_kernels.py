@@ -9,7 +9,8 @@ hash of the sources, under ``dibs_tpu_torch/_build/``, and loads it with
 imported.
 
 Dispatch rule, for every kernel here, in :mod:`dibs_tpu_torch.ops.
-bge_kernel` and in :mod:`dibs_tpu_torch.inference.fused_linear` and
+bge_kernel`, :mod:`dibs_tpu_torch.ops.transport_kernel`,
+:mod:`dibs_tpu_torch.inference.fused_linear` and
 :mod:`dibs_tpu_torch.inference.fused_nonlinear`: a CPU
 tensor goes to the plain twin; a CUDA tensor goes to the kernel, and a
 build or launch failure raises. ``LAUNCHES`` counts the kernel
@@ -39,8 +40,10 @@ __all__ = [
 ]
 
 LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0,
-            "fused_linear_single": 0, "fused_linear_pass1": 0,
-            "fused_linear_pass2": 0, "fused_nonlinear": 0}
+            "transport_phi": 0, "fused_linear_single": 0,
+            "fused_linear_pass1": 0, "fused_linear_pass2": 0,
+            "fused_linear_wide_pass1": 0, "fused_linear_wide_pass2": 0,
+            "fused_nonlinear": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -132,6 +135,14 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear.restype = i32
     lib.dibs_fused_linear_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_fused_linear_wide.argtypes = ([i32] + [vp] * 13 + [i32] * 5
+                                           + [ctypes.c_uint64, u32, u32, f32,
+                                              f32, f64, f32, f32, vp])
+    lib.dibs_fused_linear_wide.restype = i32
+    lib.dibs_fused_linear_wide_smem_bytes.argtypes = [i32, i32]
+    lib.dibs_fused_linear_wide_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, f32, vp]
+    lib.dibs_transport_phi.restype = i32
     lib.dibs_fused_nonlinear.argtypes = ([vp] * 14 + [i32] * 8
                                          + [ctypes.c_uint64, u32, u32, f32,
                                             f32, f64, f32, vp])
@@ -276,11 +287,18 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
 # SE kernel matrix
 # ---------------------------------------------------------------------------
 
+_PLAIN_SE_FLOATS = 1 << 26
+
 
 def se_matrix_plain(x: torch.Tensor, y: torch.Tensor, h: float,
                     scale: float) -> torch.Tensor:
-    """Plain twin: ``scale * exp(-||x_i - y_j||^2 / h)`` in difference form."""
-    sq = torch.square(x[:, None, :] - y[None, :, :]).sum(-1)
+    """Plain twin: ``scale * exp(-||x_i - y_j||^2 / h)`` in difference form,
+    over row chunks that keep the ``[rows, B, n]`` difference near 2^26
+    floats (config 5's ``[1000, 1000]`` over 32,768 would be 122 GiB)."""
+    rows = max(1, _PLAIN_SE_FLOATS // max(1, y.shape[0] * x.shape[1]))
+    sq = torch.cat([torch.square(x[i:i + rows, None, :] - y[None]).sum(-1)
+                    for i in range(0, x.shape[0], rows)]
+                   or [x.new_zeros((0, y.shape[0]))])
     return scale * torch.exp(-sq / h)
 
 

@@ -1,0 +1,98 @@
+"""Fused SVGD transport family (PyTorch twin of
+``dibs_tpu/ops/transport_kernel.py``).
+
+One transport family in one pass over the ``[P, n]`` operands:
+
+    phi = -(1/P) (K_own^T (g + c v') + K_other^T g) + (c/P) colsum(K_own) ⊙ v'
+
+with ``v' = v - mu``, by the SE-family identity
+
+    k_mat^T g + c (K_own^T v' - colsum(K_own) ⊙ v')
+        = K_own^T (g + c v') + K_other^T g - c colsum(K_own) ⊙ v'
+
+(``k_mat = K_own + K_other``; ``k_other=None`` is the marginal form, one
+product). The CUDA kernel (``csrc/transport_phi.cu``) computes both products,
+the rhs combine, the centring, the ``-1/P`` scale and the rank-1 epilogue in
+its own body; ``colsum(K_own)`` is formed outside it, as the JAX package forms
+it outside its ``pallas_call``. float32 with float32 accumulation: the TPU
+kernel's bf16 hi/lo emulation is not carried over. Any ``P`` and ``n``.
+
+Dispatch: a CPU tensor goes to :func:`transport_phi_plain`; a CUDA tensor to
+the kernel, and a build or launch failure raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dibs_tpu_torch.ops.gpu_kernels import (
+    _check_cuda,
+    _check_launch,
+    _stream,
+    build,
+)
+
+__all__ = ["transport_phi", "transport_phi_plain", "transport_phi_available"]
+
+
+def transport_phi_available(p: int, n: int) -> bool:
+    """The kernel serves every ``[P, n]`` family (the TPU's P <= 1024,
+    P % 8 and n % 256 were its VMEM and Mosaic tiling bounds)."""
+    return p >= 1 and n >= 1
+
+
+def transport_phi_plain(k_own: torch.Tensor, k_other: Optional[torch.Tensor],
+                        g: torch.Tensor, v: torch.Tensor, *, c: float,
+                        mu: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same formula, two matmuls)."""
+    p = g.shape[0]
+    vc = v if mu is None else v - mu
+    acc = k_own.T @ (g + c * vc)
+    if k_other is not None:
+        acc = acc + k_other.T @ g
+    return acc * (-1.0 / p) + ((c / p) * k_own.sum(dim=0))[:, None] * vc
+
+
+def transport_phi(k_own: torch.Tensor, k_other: Optional[torch.Tensor],
+                  g: torch.Tensor, v: torch.Tensor, *, c: float,
+                  mu: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused transport family ``phi [P, n]`` (see module docstring).
+
+    Args:
+        k_own: ``[P, P]`` kernel matrix of the repulsion family.
+        k_other: ``[P, P]`` other additive component, or ``None`` (marginal).
+        g: ``[P, n]`` flat scores.
+        v: ``[P, n]`` flat particle values.
+        c: repulsion factor ``-2/h`` of the SE kernel (a float).
+        mu: optional ``[1, n]`` column means of ``v`` (the centring).
+
+    Returns:
+        ``[P, n]`` transport, already negated and ``/P``-scaled.
+    """
+    if g.device.type == "cpu":
+        return transport_phi_plain(k_own, k_other, g, v, c=c, mu=mu)
+    p, n = g.shape
+    mats = (k_own,) if k_other is None else (k_own, k_other)
+    for mat in mats:
+        if tuple(mat.shape) != (p, p):
+            raise ValueError(f"transport_phi: kernel matrix must be {(p, p)}, "
+                             f"got {tuple(mat.shape)}")
+    if tuple(v.shape) != (p, n):
+        raise ValueError(f"transport_phi: v must be {(p, n)}, got "
+                         f"{tuple(v.shape)}")
+    if mu is not None and mu.numel() != n:
+        raise ValueError(f"transport_phi: mu must have {n} entries, got "
+                         f"{mu.numel()}")
+    extra = () if mu is None else (mu,)
+    _check_cuda("transport_phi", *mats, g, v, *extra)
+    lib = build()
+    w = ((float(c) / p) * k_own.sum(dim=0)).contiguous()
+    out = torch.empty((p, n), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = lib.dibs_transport_phi(
+            k_own.data_ptr(), None if k_other is None else k_other.data_ptr(),
+            g.data_ptr(), v.data_ptr(), None if mu is None else mu.data_ptr(),
+            w.data_ptr(), out.data_ptr(), p, n, float(c), _stream(g.device))
+    _check_launch(lib, rc, "transport_phi")
+    return out

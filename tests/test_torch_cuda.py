@@ -7,8 +7,9 @@ false. Imports no JAX, so it runs on a machine that has only torch
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 The checks are the kernel phases of ``chip_smoke.py`` (same shapes and
-tolerances, the fused linear-Gaussian kernels and the fused MLP kernel #8
-included), plus the launch counters and the wrappers' input checks.
+tolerances, the fused linear-Gaussian kernels, the fused MLP kernel #8 and
+the fused transport kernel #4 included), the wide fused linear tier at small
+shapes, plus the launch counters and the wrappers' input checks.
 """
 import os
 import sys
@@ -26,6 +27,7 @@ from dibs_tpu_torch.models import (  # noqa: E402
     LinearGaussian,
 )
 from dibs_tpu_torch.ops import gpu_kernels as gk  # noqa: E402
+from dibs_tpu_torch.ops import transport_kernel as tk  # noqa: E402
 from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -128,6 +130,14 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     nl_kw = {**_FUSED_KW, "model": model}
     fnl.fused_nonlinear(*nl_args, **nl_kw)
     fnl.fused_nonlinear_plain(*nl_args, **nl_kw)
+    wide_args = _fused_args(cuda, d=72, n=9)  # past the row tier
+    wide_kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=72)}
+    fl.fused_linear_pass1(*wide_args, **wide_kw)
+    fl.fused_linear_pass2(*wide_args, weights, **wide_kw)
+    k_mat = torch.rand(3, 3, device=cuda)
+    g = torch.randn(3, 10, device=cuda)
+    tk.transport_phi(k_mat, k_mat, g, g, c=-0.4)
+    tk.transport_phi_plain(k_mat, k_mat, g, g, c=-0.4)
     torch.cuda.synchronize()
     assert gk.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
@@ -160,6 +170,49 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
         fl.fused_linear_single(*_fused_args(cuda, d=72, n=9),
                                **{**_FUSED_KW,
                                   "model": LinearGaussian(n_vars=72)})
+    with pytest.raises(ValueError):  # d past the wide tier's limit
+        fl.fused_linear_pass1(*_fused_args(cuda, d=700, n=9),
+                              **{**_FUSED_KW,
+                                 "model": LinearGaussian(n_vars=700)})
     lib = gk.build()
     assert lib.dibs_fused_linear_smem_bytes(30, 128) == \
         fl.fused_linear_smem_bytes(30, 128)
+    assert lib.dibs_fused_linear_wide_smem_bytes(128, 100) == \
+        fl.fused_linear_wide_smem_bytes(128, 100)
+
+
+def test_transport_kernel_matches_plain_version(cuda):
+    """Kernel #4 against its plain version at config 5's families, the d=20
+    marginal family, config 3's tree family and a ragged shape."""
+    results = {}
+    chip_smoke.phase_transport(cuda, results)
+    assert set(results) == {"transport_phi"}
+    with pytest.raises(ValueError):  # a kernel matrix of the wrong shape
+        g = torch.randn(4, 6, device=cuda)
+        tk.transport_phi(torch.rand(3, 3, device=cuda), None, g, g, c=-0.4)
+
+
+@pytest.mark.parametrize("p,d,n", [(3, 72, 16), (2, 75, 300), (2, 130, 9)])
+def test_wide_fused_tier_matches_plain_versions(cuda, p, d, n):
+    """The wide tier (column tiles; ragged last tile, tiled rows at N=300)
+    against the plain passes and the one-pass plain version."""
+    args = _fused_args(cuda, p=p, d=d, n=n)
+    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=d)}
+    before = dict(gk.LAUNCHES)
+    lls = fl.fused_linear_pass1(*args, **kw)
+    lls_p = fl.fused_linear_pass1_plain(*args, **kw)
+    weights = tuple(torch.softmax(ll, dim=1) for ll in lls_p)
+    pairs = list(zip(lls, lls_p))
+    pairs += list(zip(fl.fused_linear_pass2(*args, weights, **kw),
+                      fl.fused_linear_pass2_plain(*args, weights, **kw)))
+    pairs += list(zip(fl.fused_linear_pass2(
+        *args, tuple(torch.softmax(ll, dim=1) for ll in lls), **kw),
+        fl.fused_linear_single_plain(*args, **kw)))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_linear_wide_pass1"] == \
+        before["fused_linear_wide_pass1"] + 1
+    assert gk.LAUNCHES["fused_linear_wide_pass2"] == \
+        before["fused_linear_wide_pass2"] + 2
+    for got, want in pairs:
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol

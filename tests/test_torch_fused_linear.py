@@ -149,8 +149,17 @@ def test_kernel_gate_follows_the_shared_memory_footprint():
     assert fl.fused_linear_available(70, 10_000)
     assert fl.fused_linear_smem_bytes(70, fl.fused_linear_tile_rows(
         70, 10_000)) <= 232448
-    assert not fl.fused_linear_available(71, 10_000)
+    # past d = 70 the row tier does not fit; the wide tier serves d <= 602
     assert fl.fused_linear_tile_rows(71, 10_000) is None
+    assert fl.fused_linear_available(71, 10_000)
+    assert fl.fused_linear_wide_tile_rows(128, 100) == 100
+    assert fl.fused_linear_wide_smem_bytes(128, 100) == \
+        144 + 4 * (11 * 128 * 8 + 4 * 100 * 8 + 100 * 129)
+    assert fl.fused_linear_available(602, 10_000)
+    assert fl.fused_linear_wide_smem_bytes(602, fl.fused_linear_wide_tile_rows(
+        602, 10_000)) <= 232448
+    assert not fl.fused_linear_available(603, 10_000)
+    assert fl.fused_linear_wide_tile_rows(603, 10_000) is None
 
 
 def test_wrappers_take_the_plain_versions_on_the_cpu():

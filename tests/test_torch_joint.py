@@ -190,10 +190,10 @@ def test_two_pass_route_gives_the_one_pass_transport(problem):
 
 @pytest.mark.parametrize("sharing", [None, "hard"])
 def test_past_the_kernel_gate_the_generic_estimators_run(sharing):
-    """Past the fused kernels' shape gate (d > 70) the engine warns and
-    takes the generic estimators: shared-noise for 'hard', separate
-    otherwise."""
-    d = 72
+    """Past the fused kernels' shape gate (the wide tier's shared memory:
+    d <= 602 for any N, d <= 622 at N = 5) the engine warns and takes the
+    generic estimators: shared-noise for 'hard', separate otherwise."""
+    d = 640
     x = torch.from_numpy(np.random.default_rng(0).normal(
         size=(5, d)).astype(np.float32))
     with pytest.warns(UserWarning, match="fused linear-Gaussian kernels"):
