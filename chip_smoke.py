@@ -48,7 +48,18 @@ Phases, one line each; any failure exits non-zero:
 7. profile: ``torch.profiler`` over 50 steady steps of the marginal
    (``score``), the joint linear, the joint nonlinear and the config-5
    step: wall and device time per step, the device's busy share, kernel
-   launches per step, the top kernels.
+   launches per step, the top kernels;
+8. the fused acyclicity gradient #9 against its plain version at the
+   microbenchmark's P=1000, d=128, K=8 and at ragged d (13, 30, 137, 139),
+   Philox and injected noise, scores below -88/alpha, each particle within
+   ``1e-4 max(1, max|plain[p]|)``; its time beside the
+   plain version's, the engine route's (the library column) and the bound;
+   its entry point ``python -m dibs_tpu_torch.ops.acyclic_kernel`` at its
+   defaults, with exact launches and the 64-sample Monte Carlo agreement
+   with the engine route; ``acyclicity='spectral'`` in ``MarginalDiBS``
+   (bench shape, ``'sampled'``) and ``JointDiBS`` (config 2, ``'mean'``),
+   100 steps each with exact launch counts; and a checkpoint round trip on
+   the card (50 steps, save, load, 50 more equal 100 straight).
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -70,6 +81,9 @@ P, D, K_LAT, M, K_ACYC, N_OBS, STEPS = 30, 20, 20, 128, 32, 100, 1000
 STEPS_NL = 2000  # config 3's quality length (benchmarks/run_benchmarks.py)
 # config 5 (benchmarks/run_benchmarks.py:171-185), nothing cut
 P5, D5, K5, M5, K_ACYC5, N5, STEPS5 = 1000, 128, 128, 32, 8, 100, 100
+# kernel #9 at its microbenchmark's defaults (benchmarks/bench_acyclic_kernel.py)
+P9, D9, K9 = 1000, 128, 8
+SHAPES9 = [(64, 13, 4), (64, 30, 4), (32, 137, 2), (8, 139, 2), (16, 128, 3)]
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 
 
@@ -1217,6 +1231,178 @@ def phase_profile(dev, card):
             f"{prof['launches']:.1f}; top: {top}")
 
 
+def acyclic_grad_flops(p, d, k):
+    """Float32 operations of kernel #9: the ``[d, d]`` products of the
+    binary-exponentiation chain ``M^(d-1)`` (the first, I M, is a copy),
+    2 d^3 each, per sample; the draw and the accumulation are O(d^2)."""
+    n = d - 1
+    products = max(n.bit_count() - 1, 0) + max(n.bit_length() - 1, 0)
+    return 2 * d ** 3 * products * p * k
+
+
+def phase_acyclic(dev, card, results):
+    """Kernel #9 against its plain version (P=1000, d=128, K=8 and the
+    ragged d = 13, 30, 137, 139; Philox and injected noise; scores below
+    -88/alpha; each particle within ``1e-4 max(1, max|plain[p]|)``), its
+    times beside the engine route's and the bound, then its entry point
+    ``python -m dibs_tpu_torch.ops.acyclic_kernel`` at its defaults as the
+    path it serves, with exact launch counts (counts set to 0 just before
+    it). Returns that path's launch counts."""
+    from dibs_tpu_torch.ops import acyclic_kernel as ak
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst, err_main, alpha = 0.0, 0.0, 0.2
+    # Philox at the main shape; then ragged d, alternately injected noise
+    # and scores reaching below -88/alpha (exp(-alpha s) overflows float32)
+    shapes = [(P9, D9, K9, False, False)] + [
+        (p, d, k, i % 2 == 1, i % 2 == 0) for i, (p, d, k) in
+        enumerate(SHAPES9)]
+    for p, d, k, injected, deep in shapes:
+        scores = 0.5 * torch.randn((p, d, d), generator=gen, device=dev)
+        if deep:
+            scores[: p // 2, :, : d // 2] = -100.0 / alpha
+        eps = (torch.randn((p, k, d, d), generator=gen, device=dev)
+               if injected else None)
+        got = gk.acyclic_grad(scores, 7, alpha, k, eps=eps)
+        torch.cuda.synchronize()
+        want = gk.acyclic_grad_plain(scores, 7, alpha, k, eps=eps)
+        check(bool(torch.isfinite(got).all()), f"#9 at {p, d, k}: not finite")
+        # the bar is each particle's own: a deep particle's values are ~1e8
+        # below the widest particle's at d = 128
+        err = (got - want).abs().amax(dim=(1, 2))
+        tol = 1e-4 * want.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        share = float((err / tol).max())
+        check(share <= 1.0, f"#9 at {(p, d, k, injected, deep)}: err "
+                            f"{share} of the per-particle bar")
+        worst = max(worst, share)
+        if (p, d, k) == (P9, D9, K9):
+            err_main = float(err.max())
+    p, d, k = P9, D9, K9
+    scores = 0.5 * torch.randn((p, d, d), generator=gen, device=dev)
+    t_k = cuda_median_ms(lambda: gk.acyclic_grad(scores, 7, alpha, k), reps=10)
+    t_p = cuda_median_ms(lambda: gk.acyclic_grad_plain(scores, 7, alpha, k),
+                         reps=3)
+    t_e = cuda_median_ms(lambda: ak.engine_acyclic_grad(
+        scores, 7, alpha, n_vars=d, kmc=k), reps=10)
+    b_ms, b_by = bound_ms(acyclic_grad_flops(p, d, k), 2 * 4 * p * d * d)
+    results["acyclic_grad"] = dict(max_abs_err=err_main, ms=t_k, plain_ms=t_p,
+                                   bound_ms=b_ms, bound_by=b_by,
+                                   library_ms=t_e)
+    log(f"[8 acyclic_grad #9] kernel vs plain at (P,d,K) in "
+        f"{[(P9, D9, K9)] + SHAPES9}, Philox and injected noise, scores below "
+        f"-88/alpha: finite, within 1e-4 max(1, max|plain[p]|) per "
+        f"particle p, worst "
+        f"{worst:.4f} of the bar; at P={p} d={d} K={k} on "
+        f"'{card}': kernel {t_k:.4f} ms, plain {t_p:.4f} ms, engine route "
+        f"{t_e:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    out = ak.main(["--p", str(P9), "--d", str(D9), "--kmc", str(K9),
+                   "--device", str(dev)])
+    launches = dict(gk.LAUNCHES)
+    # one warm-up and the timed calls per route, then one 64-sample call each
+    expect = dict.fromkeys(gk.LAUNCHES, 0)
+    expect.update(acyclic_grad=ak.TIMED_CALLS + 2,
+                  gumbel_graphs=ak.TIMED_CALLS + 2)
+    check(launches == expect,
+          f"acyclic entry point: launches {launches}, expected {expect}")
+    check(out["mc_disagreement"] < ak.MC_AGREEMENT_BAR,
+          f"#9 vs the engine route over 64 samples: "
+          f"{out['mc_disagreement']} >= {ak.MC_AGREEMENT_BAR}")
+    log(f"[8 acyclic entry point] python -m dibs_tpu_torch.ops.acyclic_kernel"
+        f" (P={P9}, d={D9}, K={K9}): fused {out['fused_ms']:.4f} ms, engine "
+        f"route {out['engine_ms']:.4f} ms, 64-sample MC disagreement "
+        f"{out['mc_disagreement']:.4f} (bar {ak.MC_AGREEMENT_BAR}); "
+        f"launches {launches}")
+    return launches
+
+
+def phase_spectral_checkpoint(dev, card, steps):
+    """``acyclicity='spectral'``: ``MarginalDiBS`` at the ``bench.py`` shape
+    (``'sampled'``) and ``JointDiBS`` at config 2 (``'mean'``), ``steps``
+    steps each with exact launch counts and a finite state; then a
+    checkpoint round trip: ``steps // 2`` marginal steps, save, load,
+    ``steps // 2`` more, equal to ``steps`` straight. Returns the launch
+    counts of the spectral runs."""
+    import tempfile
+
+    from dibs_tpu_torch.checkpoint import load_state, save_state
+    from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.target import (
+        make_linear_gaussian_equivalent_model,
+        make_linear_gaussian_model,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    data, gm, lm = make_linear_gaussian_equivalent_model(
+        generator=gen, n_vars=D, graph_prior_str="er", n_observations=N_OBS,
+        device=dev)
+    marginal = MarginalDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                            n_grad_mc_samples=M,
+                            n_acyclicity_mc_samples=K_ACYC,
+                            acyclicity="spectral", device=dev)
+    gen = torch.Generator().manual_seed(0)
+    data_j, gm_j, lm_j = make_linear_gaussian_model(
+        generator=gen, n_vars=D, n_observations=N_OBS, device=dev)
+    joint = JointDiBS(x=data_j.x, graph_model=gm_j, likelihood_model=lm_j,
+                      n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
+                      acyclicity="spectral", acyclicity_constraint="mean",
+                      device=dev)
+    total = dict.fromkeys(gk.LAUNCHES, 0)
+    for name, dibs, want in (
+            ("marginal 'sampled'", marginal,
+             dict(gumbel_graphs=2 * steps, bge_pairs=steps, se_matrix=steps,
+                  transport_phi=steps)),
+            ("joint 'mean'", joint,
+             dict(fused_linear_single=steps, se_matrix=2 * steps,
+                  transport_phi=2 * steps))):
+        state = dibs.init_state(seed=1, n_particles=P, n_dim_particles=K_LAT)
+        step = dibs._make_step(dibs._resolve_latent_std(K_LAT))
+        torch.cuda.synchronize()
+        for key in gk.LAUNCHES:
+            gk.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state = step(state)
+        torch.cuda.synchronize()
+        rate = steps / (time.perf_counter() - t0)
+        launches = dict(gk.LAUNCHES)
+        expect = dict.fromkeys(gk.LAUNCHES, 0)
+        expect.update(want)
+        check(launches == expect,
+              f"spectral {name}: launches {launches}, expected {expect}")
+        check(bool(torch.isfinite(state.z).all()),
+              f"spectral {name}: z not finite")
+        for key, count in launches.items():
+            total[key] += count
+        log(f"[8 spectral {name}] {steps} steps, {rate:.2f} steps/s on "
+            f"'{card}' (first step included); finite state; launches "
+            f"{launches}")
+
+    init = marginal.init_state(seed=4, n_particles=P, n_dim_particles=K_LAT)
+    straight = marginal.resume(init, steps=steps, return_state=True)[-1]
+    half = marginal.resume(init, steps=steps // 2, return_state=True)[-1]
+    with tempfile.TemporaryDirectory() as where:
+        loaded = load_state(save_state(half, f"{where}/marginal"), device=dev)
+    resumed = marginal.resume(loaded, steps=steps - steps // 2,
+                              return_state=True)[-1]
+    check(resumed.t == straight.t == steps, "checkpoint: wrong step count")
+    same = all(torch.equal(a, b) for a, b in (
+        (resumed.z, straight.z),
+        (resumed.opt_state_z[0].nu, straight.opt_state_z[0].nu),
+        (resumed.sf_baseline, straight.sf_baseline)))
+    diff = float((resumed.z - straight.z).abs().max())
+    check(same, f"checkpoint: resumed run differs from the straight one "
+                f"(max |dz| {diff})")
+    log(f"[8 checkpoint] {steps // 2} spectral marginal steps, save, load "
+        f"(weights_only), {steps - steps // 2} more: z, nu and sf_baseline "
+        f"equal {steps} straight steps bitwise on '{card}'")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1245,28 +1431,34 @@ def main():
     for name, count in phase_config5(dev, card, STEPS5).items():
         launches[name] += count
     phase_profile(dev, card)
+    for name, count in phase_acyclic(dev, card, results).items():
+        launches[name] += count
+    for name, count in phase_spectral_checkpoint(dev, card, 100).items():
+        launches[name] += count
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",
-                          "dibs_tpu/ops/pallas_kernels.py:197"),
+                          "dibs_tpu/ops/pallas_kernels.py:215"),
         "bge_pairs": ("dibs_tpu_torch/csrc/bge_pairs.cu",
-                      "dibs_tpu/ops/bge_kernel.py:223"),
+                      "dibs_tpu/ops/bge_kernel.py:191"),
         "se_matrix": ("dibs_tpu_torch/csrc/se_matrix.cu",
-                      "dibs_tpu/ops/pallas_kernels.py:237"),
+                      "dibs_tpu/ops/pallas_kernels.py:116"),
         "transport_phi": ("dibs_tpu_torch/csrc/transport_phi.cu",
                           "dibs_tpu/ops/transport_kernel.py:153"),
         "fused_linear_single": ("dibs_tpu_torch/csrc/fused_linear.cu",
-                                f"{fused}:708"),
+                                f"{fused}:731"),
         "fused_linear_pass1": ("dibs_tpu_torch/csrc/fused_linear.cu",
-                               f"{fused}:617"),
+                               f"{fused}:642"),
         "fused_linear_pass2": ("dibs_tpu_torch/csrc/fused_linear.cu",
-                               f"{fused}:658"),
+                               f"{fused}:692"),
         "fused_linear_wide_pass1": ("dibs_tpu_torch/csrc/fused_linear.cu",
-                                    f"{fused}:617"),
+                                    f"{fused}:642"),
         "fused_linear_wide_pass2": ("dibs_tpu_torch/csrc/fused_linear.cu",
-                                    f"{fused}:658"),
+                                    f"{fused}:692"),
         "fused_nonlinear": ("dibs_tpu_torch/csrc/fused_nonlinear.cu",
-                            "dibs_tpu/inference/fused_nonlinear.py:459"),
+                            "dibs_tpu/inference/fused_nonlinear.py:515"),
+        "acyclic_grad": ("dibs_tpu_torch/csrc/acyclic_grad.cu",
+                         "benchmarks/bench_acyclic_kernel.py:84"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -48,19 +48,27 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1,
   return c0;
 }
 
-// Logistic(0, 1) noise of element e of sample m of batch entry b on `stream`:
-// the uniform keeps the TPU kernels' contract (top 24 bits of the first
-// Philox word, a half-ulp offset, the clamp at 1 - 2^-23), with exact
-// products and explicit rounding so the PyTorch twin
-// (gpu_kernels.philox_uniform) computes the same uniform.
+// Uniform(0, 1) of element e of sample m of batch entry b on `stream`: the
+// TPU kernels' contract (top 24 bits of the first Philox word, a half-ulp
+// offset, the clamp at 1 - 2^-23), with exact products and explicit
+// rounding so the PyTorch twin (gpu_kernels.philox_uniform) computes the
+// same uniform. The clamp keeps 1/u - 1 > 0, so the fast soft form
+// (1/u - 1) exp(-alpha s) never computes 0 * inf.
+__device__ __forceinline__ float philox_uniform(uint32_t e, uint32_t m,
+                                                uint32_t b, uint32_t stream,
+                                                uint32_t k0, uint32_t k1) {
+  const uint32_t bits = philox_word0(e, m, b, stream, k0, k1);
+  const float u = __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8),
+                                      5.9604644775390625e-08f),   // 2^-24
+                            2.98023223876953125e-08f);            // 2^-25
+  return fminf(u, 0.99999988079071044921875f);                    // 1 - 2^-23
+}
+
+// Logistic(0, 1) noise: logit of philox_uniform.
 __device__ __forceinline__ float philox_logistic(uint32_t e, uint32_t m,
                                                  uint32_t b, uint32_t stream,
                                                  uint32_t k0, uint32_t k1) {
-  const uint32_t bits = philox_word0(e, m, b, stream, k0, k1);
-  float u = __fadd_rn(__fmul_rn(static_cast<float>(bits >> 8),
-                                5.9604644775390625e-08f),   // 2^-24
-                      2.98023223876953125e-08f);            // 2^-25
-  u = fminf(u, 0.99999988079071044921875f);                 // 1 - 2^-23
+  const float u = philox_uniform(e, m, b, stream, k0, k1);
   return logf(u) - log1pf(-u);
 }
 

@@ -43,7 +43,10 @@ from dibs_tpu_torch.inference.fused_nonlinear import (
     fused_nonlinear_decline_reason,
     fused_nonlinear_estimators,
 )
-from dibs_tpu_torch.ops.acyclic import acyclic_constr
+from dibs_tpu_torch.ops.acyclic import (
+    acyclic_constr,
+    acyclic_constr_spectral,
+)
 from dibs_tpu_torch.ops.edges import (
     edge_probs,
     edge_scores,
@@ -191,9 +194,9 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         raise ValueError(
             "score_function_baseline > 0 has no effect with "
             "grad_estimator_z='score_rb'. Set score_function_baseline=0.")
-    if cfg.acyclicity != "notears":
-        raise NotImplementedError(
-            f"acyclicity={cfg.acyclicity!r} is not ported yet; use 'notears'")
+    if cfg.acyclicity not in ("notears", "spectral"):
+        raise ValueError(f"acyclicity must be 'notears' or 'spectral'; got "
+                         f"{cfg.acyclicity!r}")
     if cfg.acyclicity_constraint not in ("sampled", "mean"):
         raise ValueError(
             f"acyclicity_constraint must be 'sampled' or 'mean'; got "
@@ -329,11 +332,16 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     # --- latent prior score ---
 
+    h_fn = (acyclic_constr_spectral if cfg.acyclicity == "spectral"
+            else acyclic_constr)
+
     def eltwise_grad_latent_prior(zs, t, seed, stream, latent_prior_std,
                                   eps=None):
         """``-beta(t) E[grad h] - Z / sigma_z^2 + grad log f(Z)``, with the
         acyclicity term from ``n_acyclicity_mc_samples`` soft samples
-        (``'sampled'``) or from the edge probabilities (``'mean'``)."""
+        (``'sampled'``) or from the edge probabilities (``'mean'``); ``h``
+        is the NOTEARS trace penalty or, with ``acyclicity='spectral'``,
+        the spectral radius by power iteration."""
         alpha = cfg.alpha(t)
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
@@ -342,13 +350,13 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
             z_req = zs.detach().requires_grad_(True)
             if cfg.acyclicity_constraint == "mean":
-                h_vals = acyclic_constr(edge_probs(z_req, alpha))  # [P]
+                h_vals = h_fn(edge_probs(z_req, alpha))  # [P]
                 cot = torch.ones_like(h_vals)
             else:
                 k = cfg.n_acyclicity_mc_samples
                 gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
                                         alpha, cfg.tau, k, eps=eps)
-                h_vals = acyclic_constr(gs)  # [P, K]
+                h_vals = h_fn(gs)  # [P, K]
                 cot = torch.full_like(h_vals, 1.0 / k)
             (grad_constraint,) = torch.autograd.grad(h_vals, z_req, cot)
         return (-cfg.beta(t) * grad_constraint

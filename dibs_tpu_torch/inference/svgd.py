@@ -125,6 +125,65 @@ class DiBS:
     def edge_log_probs(self, z, t):
         return edge_ops.edge_log_probs(z, self.cfg.alpha(t))
 
+    def particle_to_soft_graph(self, z, eps, t):
+        return edge_ops.particle_to_soft_graph(z, eps, self.cfg.alpha(t),
+                                               self.cfg.tau)
+
+    def particle_to_hard_graph(self, z, eps, t):
+        return edge_ops.particle_to_hard_graph(z, eps, self.cfg.alpha(t))
+
+    def sample_g(self, p, generator, n_samples):
+        """``n_samples`` Bernoulli graphs from edge probabilities ``p``;
+        a ``torch.Generator`` takes the place of the reference's key."""
+        return edge_ops.sample_g(p, generator, n_samples)
+
+    def latent_log_prob(self, single_g, single_z, t):
+        """``log p(G | Z)`` of one graph sample."""
+        return edge_ops.latent_log_prob(single_g, single_z, self.cfg.alpha(t))
+
+    def eltwise_grad_latent_log_prob(self, gs, single_z, t):
+        """``grad_Z log p(G | Z)`` over graph samples ``[M, d, d]`` ->
+        ``[M, d, k, 2]``, in closed form."""
+        return edge_ops.grad_latent_log_prob_batch(gs, single_z,
+                                                   self.cfg.alpha(t))
+
+    def eltwise_log_joint_prob(self, gs, single_theta, rng=None):
+        """``log p(Theta, D | G)`` of graph samples ``[M, d, d]`` with one
+        particle's parameters -> ``[M]``."""
+        return self.log_joint_prob(gs, single_theta, self.x,
+                                   self.interv_mask, rng)
+
+    def log_joint_prob_soft(self, single_z, single_theta, eps, t, rng=None):
+        """``log p(Theta, D | G_soft(Z, eps))``: the Gumbel-softmax
+        composition the reparameterization estimator differentiates."""
+        soft_g = self.particle_to_soft_graph(single_z, eps, t)
+        return self.log_joint_prob(soft_g, single_theta, self.x,
+                                   self.interv_mask, rng)
+
+    def visualize_callback(self, ipython=True, save_path=None):
+        """Callback printing iteration stats and plotting the particles'
+        edge probabilities every ``callback_every`` steps (matplotlib, and
+        IPython with ``ipython=True``, are imported here)."""
+        from dibs_tpu_torch.ops.acyclic import elwise_acyclic_constr
+        from dibs_tpu_torch.utils.visualize import visualize
+
+        if ipython:
+            from IPython import display
+
+        def callback(**kwargs):
+            zs, t = kwargs["zs"], kwargs["t"]
+            gs = self.particle_to_g_lim(zs)
+            probs = self.edge_probs(zs, t)
+            if ipython:
+                display.clear_output(wait=True)
+            visualize(probs, save_path=save_path, t=t, show=True)
+            n_cyclic = int((elwise_acyclic_constr(
+                gs.to(torch.float32), self.n_vars) > 0).sum())
+            print(f"iteration {t:6d} | alpha {float(self.alpha(t)):6.1f} | "
+                  f"beta {float(self.beta(t)):6.1f} | #cyclic {n_cyclic:3d}")
+
+        return callback
+
     def _resolve_latent_std(self, n_dim):
         return self.latent_prior_std or (1.0 / math.sqrt(n_dim))
 
@@ -193,9 +252,34 @@ class MarginalDiBS(DiBS):
             device=device)
         self.likelihood_model = likelihood_model
         self.graph_model = graph_model
+        # the per-graph marginal likelihood, as the reference's log_joint_prob
+        # (the estimators keep the batched hook)
+        self.log_joint_prob = getattr(likelihood_model,
+                                      "interventional_log_marginal_prob", None)
         self.kernel = kernel(**kernel_param) if isinstance(kernel, type) else kernel
         self.opt = (get_optimizer(optimizer, optimizer_param)
                     if isinstance(optimizer, str) else optimizer)
+
+    def _log_marginal(self, gs, x, interv_mask):
+        """``[n]`` marginal log-likelihoods of graphs ``[n, d, d]`` through
+        the batched per-node hook (node scores summed in float64)."""
+        return self.batched_node_log_joint_prob(
+            gs.to(torch.float32), None, x, interv_mask,
+            None).double().sum(-1).float()
+
+    def eltwise_log_joint_prob(self, gs, single_theta=None, rng=None):
+        """``log p(D | G)`` of graph samples ``[M, d, d]`` -> ``[M]``."""
+        return self._log_marginal(gs, self.x, self.interv_mask)
+
+    def eltwise_log_marginal_likelihood_observ(self, gs, x_ho):
+        """Held-out marginal log-likelihoods ``[n]`` of observational data
+        (the hook of ``metrics.neg_ave_log_marginal_likelihood``)."""
+        return self._log_marginal(gs, x_ho, torch.zeros_like(x_ho))
+
+    def eltwise_log_marginal_likelihood_interv(self, gs, x_ho, interv_msk_ho):
+        """Held-out marginal log-likelihoods ``[n]`` of interventional
+        data."""
+        return self._log_marginal(gs, x_ho, interv_msk_ho)
 
     # --- functional engine ---
 
@@ -277,9 +361,7 @@ class MarginalDiBS(DiBS):
 
     def get_mixture(self, g) -> ParticleDistribution:
         """DiBS+ mixture: weights proportional to the marginal posterior."""
-        logp = self.batched_node_log_joint_prob(
-            g.to(torch.float32), None, self.x, self.interv_mask,
-            None).double().sum(-1).float()
+        logp = self._log_marginal(g, self.x, self.interv_mask)
         logp = logp - torch.logsumexp(logp, dim=0)
         return ParticleDistribution(logp=logp, g=g)
 
@@ -346,14 +428,15 @@ class JointDiBS(DiBS):
                     if isinstance(optimizer, str) else optimizer)
 
     def eltwise_log_likelihood_observ(self, gs, thetas, x_ho):
-        """Held-out joint log-likelihoods ``[P]`` of observational data."""
+        """Held-out joint log-likelihoods ``[P]`` of observational data
+        (the hook of ``metrics.neg_ave_log_likelihood``)."""
         return self.likelihood_model.interventional_log_joint_prob(
-            gs, thetas, x_ho, torch.zeros_like(x_ho), None)
+            gs.to(torch.float32), thetas, x_ho, torch.zeros_like(x_ho), None)
 
     def eltwise_log_likelihood_interv(self, gs, thetas, x_ho, interv_msk_ho):
         """Held-out joint log-likelihoods ``[P]`` of interventional data."""
         return self.likelihood_model.interventional_log_joint_prob(
-            gs, thetas, x_ho, interv_msk_ho, None)
+            gs.to(torch.float32), thetas, x_ho, interv_msk_ho, None)
 
     # --- functional engine ---
 

@@ -16,6 +16,10 @@ __all__ = [
     "edge_probs",
     "edge_log_probs",
     "particle_to_g_lim",
+    "particle_to_soft_graph",
+    "particle_to_hard_graph",
+    "sample_g",
+    "latent_log_prob",
     "grad_latent_log_prob_batch",
 ]
 
@@ -40,6 +44,36 @@ def edge_log_probs(z: torch.Tensor, alpha):
 def particle_to_g_lim(z: torch.Tensor) -> torch.Tensor:
     """Hard graph in the ``alpha -> inf`` limit: ``1[u_i . v_j > 0]`` (int32)."""
     return zero_diagonal((edge_scores(z) > 0).to(torch.int32))
+
+
+def particle_to_soft_graph(z: torch.Tensor, eps: torch.Tensor, alpha,
+                           tau) -> torch.Tensor:
+    """Gumbel-softmax relaxed sample ``sigmoid(tau (eps + alpha s))`` with
+    ``eps ~ Logistic(0, 1)`` broadcastable to ``[..., d, d]``."""
+    return zero_diagonal(torch.sigmoid(tau * (eps + alpha * edge_scores(z))))
+
+
+def particle_to_hard_graph(z: torch.Tensor, eps: torch.Tensor,
+                           alpha) -> torch.Tensor:
+    """Gumbel-max sample ``1[eps + alpha s > 0]`` (float32)."""
+    return zero_diagonal(
+        ((eps + alpha * edge_scores(z)) > 0.0).to(torch.float32))
+
+
+def sample_g(p: torch.Tensor, generator: torch.Generator,
+             n_samples: int) -> torch.Tensor:
+    """``n_samples`` Bernoulli adjacency samples ``[n_samples, d, d]``
+    (int32, zero diagonal) from the edge-probability matrix ``p [d, d]``;
+    ``generator`` lives on ``p``'s device."""
+    g = torch.bernoulli(p.expand(n_samples, *p.shape), generator=generator)
+    return zero_diagonal(g.to(torch.int32))
+
+
+def latent_log_prob(single_g: torch.Tensor, single_z: torch.Tensor,
+                    alpha) -> torch.Tensor:
+    """Bernoulli log-likelihood ``log p(G | Z)`` of one graph sample."""
+    log_p, log_1_p = edge_log_probs(single_z, alpha)
+    return (single_g * log_p + (1 - single_g) * log_1_p).sum()
 
 
 def grad_latent_log_prob_batch(gs: torch.Tensor, z: torch.Tensor,

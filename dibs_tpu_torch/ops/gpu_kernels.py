@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels of the SVGD hot path, their build, and their
-plain PyTorch twins.
+"""Hand-written Hopper kernels of the SVGD hot path (and the fused
+acyclicity gradient #9, which only its microbenchmark calls), their build,
+and their plain PyTorch twins.
 
 Counterpart of ``dibs_tpu/ops/pallas_kernels.py``. The CUDA sources live in
 ``dibs_tpu_torch/csrc``; :func:`build` compiles all of them with ``nvcc``
@@ -30,7 +31,10 @@ import torch
 from dibs_tpu_torch.utils.func import zero_diagonal
 
 __all__ = [
+    "ACYCLIC_GRAD_MAX_D",
     "LAUNCHES",
+    "acyclic_grad",
+    "acyclic_grad_plain",
     "build",
     "gumbel_graphs",
     "gumbel_graphs_plain",
@@ -43,7 +47,7 @@ LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0,
             "transport_phi": 0, "fused_linear_single": 0,
             "fused_linear_pass1": 0, "fused_linear_pass2": 0,
             "fused_linear_wide_pass1": 0, "fused_linear_wide_pass2": 0,
-            "fused_nonlinear": 0}
+            "fused_nonlinear": 0, "acyclic_grad": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -149,6 +153,9 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_nonlinear.restype = i32
     lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32, i32, i32]
     lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, i32, i32, i32,
+                                      ctypes.c_uint64, f32, vp]
+    lib.dibs_acyclic_grad.restype = i32
     lib.dibs_error_string.argtypes = [i32]
     lib.dibs_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -319,4 +326,92 @@ def se_matrix(x: torch.Tensor, y: torch.Tensor, h: float,
                                 a, y.shape[0], n, float(h), float(scale),
                                 _stream(x.device))
     _check_launch(lib, rc, "se_matrix")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fused acyclicity gradient (kernel #9)
+# ---------------------------------------------------------------------------
+
+# the largest d whose three [d, d|1] float32 matrices fit the 232,448 bytes
+# of shared memory a block may use (csrc/acyclic_grad.cu)
+ACYCLIC_GRAD_MAX_D = 139
+
+
+def _check_acyclic_args(scores, n_samples, eps):
+    if scores.dim() != 3 or scores.shape[1] != scores.shape[2]:
+        raise ValueError(f"scores must be [P, d, d], got {tuple(scores.shape)}")
+    p, d, _ = scores.shape
+    if d > ACYCLIC_GRAD_MAX_D:
+        raise ValueError(
+            f"acyclic_grad serves d <= {ACYCLIC_GRAD_MAX_D} (got d={d}): the "
+            "kernel keeps three [d, d|1] float32 matrices of the power chain "
+            "in the 227 KB of shared memory a block may use")
+    if n_samples < 1:
+        raise ValueError(f"n_samples must be >= 1, got {n_samples}")
+    if eps is not None and tuple(eps.shape) != (p, n_samples, d, d):
+        raise ValueError(f"eps must be {(p, n_samples, d, d)}, got "
+                         f"{tuple(eps.shape)}")
+
+
+def acyclic_grad_plain(scores: torch.Tensor, seed: int, alpha: float,
+                       n_samples: int,
+                       eps: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel #9: the same Philox uniforms (or the
+    injected Logistic ``eps``), the tau = 1 fast form
+    ``g = 1 / (1 + (1/u - 1) exp(-alpha s))``, the chain ``(I + g/d)^(d-1)``
+    by batched ``torch.matmul``, ``R^T * alpha g (1 - g)`` and the mean
+    over the samples."""
+    p, d, _ = scores.shape
+    s = scores[:, None]
+    if eps is None:
+        u = philox_uniform((p, n_samples, d, d), seed, 0, scores.device)
+        g = 1.0 / (1.0 + (1.0 / u - 1.0) * torch.exp(-alpha * s))
+    else:
+        g = 1.0 / (1.0 + torch.exp(-(eps + alpha * s)))
+    g = zero_diagonal(g)
+    eye = torch.eye(d, dtype=scores.dtype, device=scores.device)
+    base = eye + g * (1.0 / d)
+    result = None  # the identity
+    n = d - 1
+    while n > 0:
+        if n & 1:
+            result = base if result is None else result @ base
+        n >>= 1
+        if n:
+            base = base @ base
+    if result is None:
+        result = eye.expand(g.shape)
+    w = (alpha * g) * (1.0 - g)
+    return (result.transpose(-1, -2) * w).sum(1) * (1.0 / n_samples)
+
+
+def acyclic_grad(scores: torch.Tensor, seed: int, alpha: float,
+                 n_samples: int,
+                 eps: torch.Tensor | None = None) -> torch.Tensor:
+    """``[P, d, d]`` scores -> ``[P, d, d]``: the mean over ``n_samples``
+    soft graphs ``g = sigmoid(logit(u) + alpha s)`` of ``d h / d scores``,
+    ``h(g) = tr[(I + g/d)^d] - d``, i.e. ``(1/K) sum R^T * alpha g (1 -
+    g)`` with ``R = (I + g/d)^(d-1)``.
+
+    Uniforms from Philox keyed by ``seed`` (counter (element, sample,
+    particle, 0)), or the injected Logistic ``eps [P, n_samples, d, d]``.
+    Serves ``d <= ACYCLIC_GRAD_MAX_D`` (raises ``ValueError`` otherwise, on
+    any device).
+    """
+    _check_acyclic_args(scores, n_samples, eps)
+    if scores.device.type == "cpu":
+        return acyclic_grad_plain(scores, seed, alpha, n_samples, eps)
+    _check_cuda("acyclic_grad", scores)
+    if eps is not None:
+        _check_cuda("acyclic_grad", eps)
+    lib = build()
+    p, d, _ = scores.shape
+    out = torch.empty((p, d, d), dtype=torch.float32, device=scores.device)
+    with torch.cuda.device(scores.device):
+        rc = lib.dibs_acyclic_grad(
+            scores.data_ptr(), None if eps is None else eps.data_ptr(),
+            out.data_ptr(), p, d, n_samples, seed & 0xFFFFFFFFFFFFFFFF,
+            float(alpha), _stream(scores.device))
+    _check_launch(lib, rc, "acyclic_grad")
     return out

@@ -12,7 +12,8 @@ from typing import Callable, List
 
 import torch
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "tree_rows"]
+__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "tree_rows",
+           "tree_select", "tree_mul"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -46,3 +47,13 @@ def tree_rows(tree) -> torch.Tensor:
     reshaped)."""
     rows = [leaf.reshape(leaf.shape[0], -1) for leaf in tree_leaves(tree)]
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+
+
+def tree_select(tree, mask: torch.Tensor):
+    """Every leaf indexed along its leading dim by the boolean ``mask``."""
+    return tree_map(lambda leaf: leaf[mask], tree)
+
+
+def tree_mul(tree, c):
+    """Every leaf multiplied by the scalar ``c``."""
+    return tree_map(lambda leaf: leaf * c, tree)

@@ -7,9 +7,11 @@ false. Imports no JAX, so it runs on a machine that has only torch
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 The checks are the kernel phases of ``chip_smoke.py`` (same shapes and
-tolerances, the fused linear-Gaussian kernels, the fused MLP kernel #8 and
-the fused transport kernel #4 included), the wide fused linear tier at small
-shapes, plus the launch counters and the wrappers' input checks.
+tolerances, the fused linear-Gaussian kernels, the fused MLP kernel #8, the
+fused transport kernel #4 and the fused acyclicity gradient #9 included), the
+wide fused linear tier at small shapes, the ``'spectral'`` option and a
+checkpoint round trip, plus the launch counters and the wrappers' input
+checks.
 """
 import os
 import sys
@@ -138,6 +140,8 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     g = torch.randn(3, 10, device=cuda)
     tk.transport_phi(k_mat, k_mat, g, g, c=-0.4)
     tk.transport_phi_plain(k_mat, k_mat, g, g, c=-0.4)
+    gk.acyclic_grad(scores, 1, 0.2, 2)
+    gk.acyclic_grad_plain(scores, 1, 0.2, 2)
     torch.cuda.synchronize()
     assert gk.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
@@ -151,6 +155,33 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         gk.gumbel_graphs(torch.randn(2, 3, 3, device=cuda), 0, 0, 1.0, 1.0,
                          4, True, eps=torch.randn(2, 5, 3, 3, device=cuda))
+
+
+def test_acyclic_grad_kernel_matches_plain_version(cuda):
+    """Kernel #9 against its plain version at the microbenchmark's shape and
+    ragged d, its times, and its entry point with exact launches."""
+    results = {}
+    launches = chip_smoke.phase_acyclic(cuda, "card", results)
+    assert set(results) == {"acyclic_grad"}
+    assert launches["acyclic_grad"] > 0 and results["acyclic_grad"]["ms"] > 0
+
+
+def test_acyclic_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    s = torch.randn(2, 9, 9, device=cuda)
+    with pytest.raises(ValueError):  # float64
+        gk.acyclic_grad(s.double(), 0, 0.2, 2)
+    with pytest.raises(ValueError):  # not contiguous
+        gk.acyclic_grad(s.transpose(1, 2), 0, 0.2, 2)
+    with pytest.raises(ValueError):  # a CPU eps with CUDA scores
+        gk.acyclic_grad(s, 0, 0.2, 2, eps=torch.zeros(2, 2, 9, 9))
+    with pytest.raises(ValueError):  # past the shared-memory gate
+        gk.acyclic_grad(torch.zeros(1, 140, 140, device=cuda), 0, 0.2, 1)
+
+
+def test_spectral_engine_and_checkpoint_on_the_card(cuda):
+    """``acyclicity='spectral'`` in both classes with exact launch counts,
+    and a checkpoint round trip equal to a straight run."""
+    chip_smoke.phase_spectral_checkpoint(cuda, "card", 10)
 
 
 def test_fused_wrappers_reject_what_the_kernels_do_not_take(cuda):
