@@ -9,7 +9,9 @@ Phases, one line each; any failure exits non-zero:
 
 1. environment: CUDA present, card name, compute capability, power limit,
    TF32 off;
-2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed);
+2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed),
+   with the registers, shared memory and spills ``-Xptxas -v`` reports for
+   #3's and #4's kernels;
 3. kernel vs plain twin on the card at the main paths' shapes and more,
    with each kernel's and twin's median time (CUDA events), its bound (the
    least time an H100 SXM could take for the same work) and, where one
@@ -38,7 +40,10 @@ Phases, one line each; any failure exits non-zero:
    ``Theta`` families, the d=20 marginal family and config 3's tree family
    (the port's former ``torch.matmul`` route as the library time), the wide
    fused linear tier at config 5's d=128, N=100, P=1000, M=32 (and d=75,
-   N=600; d=602), the SE matrix #3 at config 5's ``[1000, 1000]``, and
+   N=600; d=602), the SE matrix #3 against its plain version and float64
+   from ``[1, 1]`` to config 5's ``[1000, 1000]`` over 32,768, symmetric
+   (exactly, diagonal ``scale``) and not, timed at config 5 in turns with
+   ``torch.cdist`` (#4 likewise with its former matmul route), and
    ``JointDiBS`` with ``LinearGaussian`` at config 5 (d=128 scale-free,
    N=100, P=1000, k=128, M=32, K=8; nothing cut) for 100 timed steps after
    10 warm-up steps: exact launch counts (the transport kernel, the wide
@@ -69,6 +74,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -148,16 +154,58 @@ def phase_env():
     return card
 
 
+def ptxas_report(text):
+    """``-Xptxas -v`` output -> {kernel (its name with the mangled template
+    arguments, e.g. ``se_matrix_kernelILi8ELi8ELb1EE`` for ``<8, 8,
+    true>``): "N registers, S bytes smem, spill stores / loads"}."""
+    out, name, spill = {}, None, ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            full = m.group(1)
+            k = re.search(r"[a-z_]+_kernel(?:I\w*?EE)?", full)
+            name, spill = (k.group(0) if k else full), ""
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spill stores {m.group(1)} B / loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
+        if m:
+            out[name] = (f"{m.group(1)} registers, {m.group(2)} bytes smem, "
+                         f"{spill or 'no spill line'}")
+            name = None
+    return out
+
+
+def in_turns(first, second, reps):
+    """Median ms of ``first`` and of ``second`` timed in turns in one
+    call (first, second, second, first), each the mean of its two
+    medians; returns ``(first_ms, second_ms, [the four medians])``."""
+    t = [cuda_median_ms(fn, reps=reps)
+         for fn in (first, second, second, first)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
 def phase_build():
     from dibs_tpu_torch.ops import gpu_kernels
 
     t0 = time.perf_counter()
     gpu_kernels.build()
     secs = time.perf_counter() - t0
-    report = [ln.strip() for ln in gpu_kernels.build_log().splitlines()
+    log_text = gpu_kernels.build_log()
+    report = [ln.strip() for ln in log_text.splitlines()
               if "registers" in ln or "spill" in ln]
     log(f"[2 build] nvcc sm_90a build+load {secs:.2f} s; ptxas: "
         + " | ".join(report))
+    per_kernel = ptxas_report(log_text)
+    for name in ("se_matrix_kernel", "se_reduce_kernel",
+                 "transport_phi_kernel"):
+        found = {k: v for k, v in per_kernel.items() if name in k}
+        check(bool(found), f"no ptxas report for {name}")
+        for k, v in sorted(found.items()):
+            log(f"[2 build] ptxas {k}: {v}")
 
 
 def phase_kernels(dev, results):
@@ -535,8 +583,12 @@ def phase_transport(dev, results):
             ("config 5 Theta", P5, D5 * D5, True, 500.0),
             ("d=20 marginal Z", P, D * K_LAT * 2, False, 5.0),
             ("config 3 Theta tree", P, 2220, True, 500.0),
-            ("ragged", 7, 130, True, 5.0), ("ragged", 7, 130, False, 5.0)]:
+            ("ragged", 7, 130, True, 5.0), ("ragged", 7, 130, False, 5.0),
+            ("ragged", P5, 130, True, 5.0),
+            ("misaligned", 8, 256, True, 5.0)]:
         k_own, k_other, g, v, mu = transport_problem(gen, dev, p, n, joint)
+        if name == "misaligned":  # aligned shape, pointers off 16 bytes
+            g = torch.empty(p * n + 1, device=dev)[1:].view(p, n).copy_(g)
         c = -2.0 / h
         got = tk.transport_phi(k_own, k_other, g, v, c=c, mu=mu)
         want = tk.transport_phi_plain(k_own, k_other, g, v, c=c, mu=mu)
@@ -544,7 +596,7 @@ def phase_transport(dev, results):
         tol = 1e-4 * max(1.0, float(want.abs().max()))
         check(e <= tol, f"transport_phi {name} P={p} n={n}: {e} > {tol}")
         worst, err_max = max(worst, e / tol), max(err_max, e)
-        if name == "ragged":
+        if name in ("ragged", "misaligned"):
             continue
         k_mat = k_own + k_other if joint else k_own
 
@@ -554,17 +606,21 @@ def phase_transport(dev, results):
 
         e_lib = float((matmul_route() - want).abs().max())
         check(e_lib <= tol, f"matmul route {name}: {e_lib} > {tol}")
-        t_k = cuda_median_ms(lambda: tk.transport_phi(k_own, k_other, g, v,
-                                                      c=c, mu=mu), reps=20)
+        t_lib, t_k, four = in_turns(
+            matmul_route, lambda: tk.transport_phi(k_own, k_other, g, v, c=c,
+                                                   mu=mu), 20)
         t_p = cuda_median_ms(lambda: tk.transport_phi_plain(
             k_own, k_other, g, v, c=c, mu=mu), reps=20)
-        t_lib = cuda_median_ms(matmul_route, reps=20)
         n_mats = 2 if joint else 1
         b_ms, b_by = bound_ms(2 * n_mats * p * p * n,
                               4 * (3 * p * n + n_mats * p * p + n + p))
+        aligned = tk.transport_phi_aligned(p, n, k_own, g, v, mu)
         line.append(f"{name} [{p},{n}] {'joint' if joint else 'marginal'} "
+                    f"({'aligned' if aligned else 'scalar'} instantiation) "
                     f"kernel {t_k:.4f} ms plain {t_p:.4f} matmul route "
-                    f"{t_lib:.4f} bound {b_ms:.5f} ({b_by})")
+                    f"{t_lib:.4f} (in turns: "
+                    + ", ".join(f"{t:.4f}" for t in four)
+                    + f") bound {b_ms:.5f} ({b_by})")
         if name == "config 5 Z":  # the main path of this slice
             results["transport_phi"] = dict(ms=t_k, plain_ms=t_p,
                                             bound_ms=b_ms, bound_by=b_by,
@@ -572,15 +628,15 @@ def phase_transport(dev, results):
     results["transport_phi"]["max_abs_err"] = err_max
     log("[6 config 5: transport_phi] " + "; ".join(line))
     log(f"[6 config 5: transport_phi] kernel vs plain within 1e-4 max(1, "
-        f"max|ref|) at all shapes (ragged [7,130] joint and marginal included), worst "
+        f"max|ref|) at all shapes (ragged [7,130] joint and marginal, "
+        f"[1000,130] and a misaligned [8,256] included), worst "
         f"{worst:.3f} of the bar")
 
 
 def phase_config5_kernels(dev, results):
     """The wide fused linear tier against the plain versions at config 5's
     shape (d=128, N=100, P=1000, M=32), a ragged column tile with tiled,
-    interventional rows (d=75, N=600) and the tier's edge (d=602); and #3 at
-    config 5's ``[1000, 1000]`` over n = 32,768 and 16,384."""
+    interventional rows (d=75, N=600) and the tier's edge (d=602)."""
     from dibs_tpu_torch.inference import fused_linear as fl
     from dibs_tpu_torch.models import LinearGaussian
     from dibs_tpu_torch.ops import gpu_kernels as gk
@@ -677,26 +733,88 @@ def phase_config5_kernels(dev, results):
         f"(0.7,0.8), and vs the one-pass plain version: within 1e-4 max(1, "
         f"max|ref|), worst {worst:.3f} of the bar")
 
-    # --- #3 at config 5's shape: [1000, 1000] over the Z and Theta rows ---
+
+
+# (A, B, n) of #3's correctness check: the d=20 [30, 30] over 800, config
+# 5's [1000, 1000] over the Theta and Z rows, ragged and edge shapes
+SHAPES3 = [(1, 1, 1), (7, 7, 130), (30, 30, 800), (129, 129, 2220),
+           (P5, P5, D5 * D5), (P5, P5, D5 * K5 * 2), (7, 129, 130)]
+
+
+def se_float64(x, y, h, scale):
+    """``scale exp(-||x_a - y_b||^2 / h)`` in float64 (the Gram form, exact
+    enough in float64), the reference beside the plain version."""
+    x64, y64 = x.double(), y.double()
+    sq = (x64.square().sum(1)[:, None] + y64.square().sum(1)[None]
+          - 2.0 * x64 @ y64.T).clamp(min=0.0)
+    return scale * torch.exp(-sq / h)
+
+
+def phase_se_matrix(dev, results):
+    """#3 against its plain version (atol 1e-5) and float64 at ``SHAPES3``,
+    symmetric (``y is x``: exactly symmetric, diagonal exactly ``scale``)
+    and not; then config 5's two shapes timed in turns with
+    ``torch.cdist(x, x)``, the nearest single PyTorch call (the distances
+    alone, no exp), as the library time."""
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err_p = err_64 = 0.0
+    for a, b, n in SHAPES3:
+        h, scale = (500.0 if n == D5 * D5 else 5.0), 0.7
+        x = torch.randn(a, n, generator=gen, device=dev) * math.sqrt(
+            h / (2.0 * n))
+        y = torch.randn(b, n, generator=gen, device=dev) * math.sqrt(
+            h / (2.0 * n))
+        calls = [("non-symmetric", x, y)]
+        if a == b:
+            calls.append(("symmetric", x, x))
+        for kind, xa, yb in calls:
+            out = gk.se_matrix(xa, yb, h, scale)
+            torch.cuda.synchronize()
+            e = float((out - gk.se_matrix_plain(xa, yb, h, scale)).abs().max())
+            e64 = float((out.double() - se_float64(xa, yb, h, scale))
+                        .abs().max())
+            check(e <= 1e-5, f"se {kind} {a, b, n}: max err {e} vs plain")
+            check(e64 <= 1e-5, f"se {kind} {a, b, n}: max err {e64} vs "
+                  "float64")
+            check(bool(torch.isfinite(out).all()), f"se {kind} {a, b, n}: "
+                  "not finite")
+            if kind == "symmetric":
+                check(torch.equal(out, out.T), f"se {a, b, n}: not exactly "
+                      "symmetric")
+                check(bool((torch.diagonal(out) == scale).all()),
+                      f"se {a, b, n}: diagonal != scale")
+            err_p, err_64 = max(err_p, e), max(err_64, e64)
+    log(f"[6 se] (A,B,n) in {SHAPES3}, symmetric (y is x) and not: vs plain "
+        f"max err {err_p:.3g}, vs float64 {err_64:.3g} (atol 1e-5); "
+        f"symmetric outputs exactly symmetric, diagonal == scale")
+
     line = []
     for n, h in ((D5 * K5 * 2, 5.0), (D5 * D5, 500.0)):
         x = torch.randn(P5, n, generator=gen, device=dev) * math.sqrt(
             h / (2.0 * n))
-        out = gk.se_matrix(x, x, h, 1.0)
-        e_p = float((out - gk.se_matrix_plain(x, x, h, 1.0)).abs().max())
-        check(e_p <= 1e-5, f"se [1000,1000] over {n}: max err {e_p} vs plain")
-        x64 = x.double()
-        sq = (x64.square().sum(1)[:, None] + x64.square().sum(1)[None]
-              - 2.0 * x64 @ x64.T).clamp(min=0.0)
-        e = float((out.double() - torch.exp(-sq / h)).abs().max())
-        check(e <= 1e-5, f"se [1000,1000] over {n}: max err {e} vs float64")
-        t_s = cuda_median_ms(lambda: gk.se_matrix(x, x, h, 1.0), reps=20)
+        tiles = gk.se_tile_count(P5, P5, True, gk.se_tile_size(P5, P5))
+        t_lib, t_s, four = in_turns(lambda: torch.cdist(x, x),
+                                    lambda: gk.se_matrix(x, x, h, 1.0), 20)
         t_p = cuda_median_ms(lambda: gk.se_matrix_plain(x, x, h, 1.0),
                              reps=3)
-        b_ms, b_by = bound_ms(3 * P5 * P5 * n, 4 * (2 * P5 * n + P5 * P5))
-        line.append(f"over n={n}: kernel {t_s:.4f} ms plain {t_p:.4f} ms "
-                    f"bound {b_ms:.5f} ({b_by}), max err vs plain {e_p:.3g}"
-                    f", vs float64 {e:.3g}")
+        # the symmetric call's least work: one triangle with its diagonal
+        tri = P5 * (P5 + 1) // 2
+        b_ms, b_by = bound_ms(3 * tri * n, 4 * (P5 * n + P5 * P5))
+        full_ms, _ = bound_ms(3 * P5 * P5 * n, 4 * (2 * P5 * n + P5 * P5))
+        slots = gk._slots(gk.build(), x.device, gk.se_tile_size(P5, P5))
+        line.append(
+            f"over n={n}: kernel {t_s:.4f} ms (symmetric, {tiles} tiles x "
+            f"{gk.se_split(tiles, n, slots)} feature slices, {slots} "
+            f"resident blocks) cdist {t_lib:.4f} ms (in turns: "
+            + ", ".join(f"{t:.4f}" for t in four)
+            + f") plain {t_p:.4f} ms bound {b_ms:.5f} ({b_by}; the full "
+            f"matrix {full_ms:.5f})")
+        if n == D5 * K5 * 2:  # config 5's Z family, the main path's largest
+            results["se_matrix"] = dict(max_abs_err=err_p, ms=t_s,
+                                        plain_ms=t_p, bound_ms=b_ms,
+                                        bound_by=b_by, library_ms=t_lib)
     log("[6 config 5: se [1000,1000]] " + "; ".join(line))
 
 
@@ -1155,7 +1273,7 @@ def profile_steps(step, state, n_steps=50):
     """``torch.profiler`` over ``n_steps`` steady steps (after 10 warm-up
     steps): wall ms per step, device kernel ms per step, the device busy
     share (kernels run on one stream, so their times add), kernel launches
-    per step and the three kernels with the most device time."""
+    per step and the five kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(10):
@@ -1177,7 +1295,7 @@ def profile_steps(step, state, n_steps=50):
                           "cudaLaunchKernelExC"):
             launches += 1
     device_ms = sum(kernels.values()) / n_steps
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:3]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy=device_ms / wall_ms, launches=launches / n_steps,
                 top=[(name[:40], ms / n_steps) for name, ms in top])
@@ -1428,6 +1546,7 @@ def main():
         launches[name] += count
     phase_transport(dev, results)
     phase_config5_kernels(dev, results)
+    phase_se_matrix(dev, results)
     for name, count in phase_config5(dev, card, STEPS5).items():
         launches[name] += count
     phase_profile(dev, card)

@@ -70,7 +70,7 @@ class EstimatorConfig:
     tau: float = 1.0
     n_grad_mc_samples: int = 128
     n_acyclicity_mc_samples: int = 32
-    grad_estimator_z: str = "score"  # 'score' | 'score_rb' | 'reparam'
+    grad_estimator_z: str = "reparam"  # 'score' | 'score_rb' | 'reparam'
     score_function_baseline: float = 0.0
     latent_prior_std: Optional[float] = None
     acyclicity: str = "notears"

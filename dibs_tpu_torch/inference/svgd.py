@@ -79,7 +79,7 @@ class DiBS:
                  fused_sample_sharing=None,
                  fused_single_pass=True, beta_linear=1.0, tau=1.0,
                  n_grad_mc_samples=128, n_acyclicity_mc_samples=32,
-                 grad_estimator_z="score",
+                 grad_estimator_z="reparam",
                  score_function_baseline=0.0, latent_prior_std=None,
                  acyclicity="notears", acyclicity_constraint="sampled",
                  verbose=False, device=DEFAULT_DEVICE):
@@ -205,7 +205,10 @@ class DiBS:
         for i in range(steps):
             state = step_fn(state)
             if callback and ((i + 1) % callback_every == 0 or i + 1 == steps):
-                callback(dibs=self, t=state.t, zs=state.z)
+                kwargs = dict(dibs=self, t=int(state.t), zs=state.z)
+                if state.theta is not None:
+                    kwargs["thetas"] = state.theta
+                callback(**kwargs)
         return state
 
 

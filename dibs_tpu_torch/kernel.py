@@ -8,7 +8,9 @@ size crossover is not carried over), the plain twin on the CPU.
 ``h="median"`` takes the plain path, as in the reference. The joint kernel
 adds an SE term over ``Theta``; both of its component matrices go through the
 same kernel; ``Theta`` may be a parameter tree, whose leaves are flattened
-into one row per particle (W1 || b1 || W2 || b2 for the MLP model).
+into one row per particle (W1 || b1 || W2 || b2 for the MLP model). The
+engine passes the same particles on both sides; they are flattened once and
+the kernel then computes one triangle of the symmetric matrix.
 """
 from __future__ import annotations
 
@@ -32,6 +34,15 @@ def _median_bandwidth(sq: torch.Tensor) -> torch.Tensor:
 
 def _flatten_rows(x) -> torch.Tensor:
     return tree_rows(x).contiguous()
+
+
+def _se_rows(xs, ys, h, scale) -> torch.Tensor:
+    """:func:`se_matrix` over the flattened particles. The same particles
+    on both sides are flattened once, so the kernel sees ``x is y`` and
+    computes one triangle of the symmetric matrix."""
+    x = _flatten_rows(xs)
+    y = x if ys is xs else _flatten_rows(ys)
+    return se_matrix(x, y, float(h), float(scale))
 
 
 def _sq_dist(x, y) -> torch.Tensor:
@@ -60,8 +71,7 @@ class AdditiveFrobeniusSEKernel:
         if self.h == "median":
             sq = pytree_sq_norm_matrix(xs, ys)
             return self.scale * torch.exp(-sq / _median_bandwidth(sq))
-        return se_matrix(_flatten_rows(xs), _flatten_rows(ys), float(self.h),
-                         float(self.scale))
+        return _se_rows(xs, ys, self.h, self.scale)
 
     def matrix_and_grad_factor(self, xs, ys):
         """``(K, c)`` with ``grad_x k(x, y) = c * k(x, y) * (x - y)``."""
@@ -83,8 +93,7 @@ def _component(xs, ys, h, scale):
         sq = pytree_sq_norm_matrix(xs, ys)
         h_eff = _median_bandwidth(sq)
         return scale * torch.exp(-sq / h_eff), -2.0 / h_eff
-    return se_matrix(_flatten_rows(xs), _flatten_rows(ys), float(h),
-                     float(scale)), -2.0 / h
+    return _se_rows(xs, ys, h, scale), -2.0 / h
 
 
 class JointAdditiveFrobeniusSEKernel:

@@ -14,14 +14,16 @@ bge_kernel`, :mod:`dibs_tpu_torch.ops.transport_kernel`,
 :mod:`dibs_tpu_torch.inference.fused_linear` and
 :mod:`dibs_tpu_torch.inference.fused_nonlinear`: a CPU
 tensor goes to the plain twin; a CUDA tensor goes to the kernel, and a
-build or launch failure raises. ``LAUNCHES`` counts the kernel
-launches per kernel (twins never count), so a run can show that its main
-path went through the kernels.
+build or launch failure raises. ``LAUNCHES`` counts the wrapper calls
+that launched each kernel (twins never count; a call that launches more
+than one kernel, as a split ``se_matrix`` call with its reduction, counts
+once), so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
@@ -41,8 +43,16 @@ __all__ = [
     "philox_uniform",
     "se_matrix",
     "se_matrix_plain",
+    "se_split",
+    "se_tile_count",
+    "se_tile_of",
+    "se_tile_size",
+    "se_tiles",
 ]
 
+# Kernel launches on the card by kernel: each wrapper adds one where it
+# launches its kernel, and nowhere else. A split ``se_matrix`` call (the
+# feature slices and their reduction, two launches) counts once.
 LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0,
             "transport_phi": 0, "fused_linear_single": 0,
             "fused_linear_pass1": 0, "fused_linear_pass2": 0,
@@ -130,8 +140,10 @@ def build() -> ctypes.CDLL:
     lib.dibs_gumbel_graphs.restype = i32
     lib.dibs_bge_pairs.argtypes = [vp, vp, vp, vp, i32, i32, vp]
     lib.dibs_bge_pairs.restype = i32
-    lib.dibs_se_matrix.argtypes = [vp, vp, vp, i32, i32, i32, f32, f32, vp]
+    lib.dibs_se_matrix.argtypes = [vp] * 4 + [i32] * 7 + [f32, f32, vp]
     lib.dibs_se_matrix.restype = i32
+    lib.dibs_se_matrix_slots.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.dibs_se_matrix_slots.restype = i32
     u32, f64 = ctypes.c_uint32, ctypes.c_double
     lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 12 + [i32] * 6
                                       + [ctypes.c_uint64, u32, u32, f32, f32,
@@ -145,7 +157,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear_wide.restype = i32
     lib.dibs_fused_linear_wide_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_wide_smem_bytes.restype = ctypes.c_size_t
-    lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, f32, vp]
+    lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, f32, f32, i32,
+                                               vp]
     lib.dibs_transport_phi.restype = i32
     lib.dibs_fused_nonlinear.argtypes = ([vp] * 14 + [i32] * 8
                                          + [ctypes.c_uint64, u32, u32, f32,
@@ -309,9 +322,89 @@ def se_matrix_plain(x: torch.Tensor, y: torch.Tensor, h: float,
     return scale * torch.exp(-sq / h)
 
 
+# the split over features (csrc/se_matrix.cu): slices of at least this many
+# features, at most this many slices
+_SE_MIN_SLICE = 2048
+_SE_MAX_SPLITS = 8
+_se_slots = {}
+
+
+def se_tile_size(a: int, b: int) -> int:
+    """Output rows and columns per block of the SE kernel: 128 when both
+    sides have at least 128 rows, else 32 (the d=20 ``[30, 30]``)."""
+    return 128 if min(a, b) >= 128 else 32
+
+
+def se_tile_of(t: int, tiles_b: int, symmetric: bool):
+    """Tile ``t`` of the launch order -> ``(row tile, column tile)``, the
+    closed form the kernel computes: symmetric calls go over the upper
+    triangle column by column (``t = tb (tb + 1) / 2 + ta``, ``ta <= tb``),
+    the others row-major over ``tiles_b`` columns."""
+    if not symmetric:
+        return divmod(t, tiles_b)
+    c = int((math.sqrt(8.0 * t + 1.0) - 1.0) * 0.5)
+    while c > 0 and c * (c + 1) // 2 > t:
+        c -= 1
+    while (c + 1) * (c + 2) // 2 <= t:
+        c += 1
+    return t - c * (c + 1) // 2, c
+
+
+def se_tiles(a: int, b: int, symmetric: bool, tile: int):
+    """The ``(row tile, column tile)`` pairs one call launches, in launch
+    order: with ``symmetric`` (x is y, so ``a == b``) those with row tile
+    <= column tile, each off-diagonal one written to both places."""
+    ta, tb = -(-a // tile), -(-b // tile)
+    if symmetric:
+        return [(i, j) for j in range(tb) for i in range(j + 1)]
+    return [(i, j) for i in range(ta) for j in range(tb)]
+
+
+def se_tile_count(a: int, b: int, symmetric: bool, tile: int) -> int:
+    """``len(se_tiles(a, b, symmetric, tile))`` in closed form."""
+    ta, tb = -(-a // tile), -(-b // tile)
+    return ta * (ta + 1) // 2 if symmetric else ta * tb
+
+
+def se_split(tiles: int, n: int, slots: int) -> int:
+    """Feature slices S of one call: 1 when the tiles alone fill two waves
+    of the ``slots`` blocks the card holds at once, or when ``n`` is below
+    two slices of ``_SE_MIN_SLICE``; otherwise the S in
+    ``1..min(_SE_MAX_SPLITS, n // _SE_MIN_SLICE)`` whose ``tiles * S``
+    blocks fill their last wave best (the smallest such S)."""
+    cap = min(_SE_MAX_SPLITS, n // _SE_MIN_SLICE)
+    if tiles >= 2 * slots or cap <= 1:
+        return 1
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // slots) * slots)
+
+    return max(range(1, cap + 1), key=lambda s: (fill(s), -s))
+
+
+def _slots(lib, device, tile: int) -> int:
+    key = (device.index, tile)
+    if key not in _se_slots:
+        slots = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.dibs_se_matrix_slots(tile, ctypes.byref(slots))
+        if rc != 0 or slots.value < 1:
+            raise RuntimeError("se_matrix occupancy query failed: "
+                               f"{lib.dibs_error_string(rc).decode()}")
+        _se_slots[key] = slots.value
+    return _se_slots[key]
+
+
 def se_matrix(x: torch.Tensor, y: torch.Tensor, h: float,
               scale: float) -> torch.Tensor:
-    """``[A, n] x [B, n] -> [A, B]`` SE kernel matrix (fixed float ``h``)."""
+    """``[A, n] x [B, n] -> [A, B]`` SE kernel matrix (fixed float ``h``).
+
+    ``y is x`` is the symmetric call: the kernel computes the upper tiles
+    only and mirrors them, so the result is exactly symmetric with the
+    diagonal exactly ``scale``. Where the tiles fill less than two waves
+    the features are split (:func:`se_split`) and summed by a second
+    launch, in a fixed order."""
     if x.device.type == "cpu":
         return se_matrix_plain(x, y, h, scale)
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
@@ -319,12 +412,22 @@ def se_matrix(x: torch.Tensor, y: torch.Tensor, h: float,
                          f"{tuple(y.shape)}")
     _check_cuda("se_matrix", x, y)
     lib = build()
-    a, n = x.shape
-    out = torch.empty((a, y.shape[0]), dtype=torch.float32, device=x.device)
+    sym = y is x
+    (a, n), b = x.shape, y.shape[0]
+    tile = se_tile_size(a, b)
+    splits = 1
+    if a and b:
+        splits = se_split(se_tile_count(a, b, sym, tile), n,
+                          _slots(lib, x.device, tile))
+    vec = n % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    out = torch.empty((a, b), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, a, b), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
     with torch.cuda.device(x.device):
-        rc = lib.dibs_se_matrix(x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                                a, y.shape[0], n, float(h), float(scale),
-                                _stream(x.device))
+        rc = lib.dibs_se_matrix(
+            x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), a, b, n, tile, splits,
+            int(sym), int(vec), float(h), float(scale), _stream(x.device))
     _check_launch(lib, rc, "se_matrix")
     return out
 

@@ -11,11 +11,19 @@ with ``v' = v - mu``, by the SE-family identity
         = K_own^T (g + c v') + K_other^T g - c colsum(K_own) ⊙ v'
 
 (``k_mat = K_own + K_other``; ``k_other=None`` is the marginal form, one
-product). The CUDA kernel (``csrc/transport_phi.cu``) computes both products,
-the rhs combine, the centring, the ``-1/P`` scale and the rank-1 epilogue in
-its own body; ``colsum(K_own)`` is formed outside it, as the JAX package forms
-it outside its ``pallas_call``. float32 with float32 accumulation: the TPU
-kernel's bf16 hi/lo emulation is not carried over. Any ``P`` and ``n``.
+product). The CUDA kernel (``csrc/transport_phi.cu``) computes both products
+as one contraction of length 2P, the rhs combine, the centring, the ``-1/P``
+scale and the rank-1 epilogue ``(c/P) colsum(K_own) ⊙ v'`` in its own body;
+``colsum(K_own)`` is formed outside it, as the JAX package forms it outside
+its ``pallas_call``. float32 with float32 accumulation: the TPU kernel's bf16
+hi/lo emulation is not carried over.
+
+Any ``P`` and ``n``, in one of two instantiations of the same kernel: the
+aligned one (16-byte global loads and stores) where every operand row starts
+on 16 bytes, i.e. ``P % 4 == 0``, ``n % 4 == 0`` and every pointer 16-byte
+aligned (config 5's ``[1000, 32768]`` and ``[1000, 16384]``); the scalar-load
+one otherwise (``P = 30`` at d=20, the ragged ``[7, 130]``).
+:func:`transport_phi_aligned` decides from the shapes and ``data_ptr()``.
 
 Dispatch: a CPU tensor goes to :func:`transport_phi_plain`; a CUDA tensor to
 the kernel, and a build or launch failure raises.
@@ -33,13 +41,23 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     build,
 )
 
-__all__ = ["transport_phi", "transport_phi_plain", "transport_phi_available"]
+__all__ = ["transport_phi", "transport_phi_aligned", "transport_phi_plain",
+           "transport_phi_available"]
 
 
 def transport_phi_available(p: int, n: int) -> bool:
     """The kernel serves every ``[P, n]`` family (the TPU's P <= 1024,
     P % 8 and n % 256 were its VMEM and Mosaic tiling bounds)."""
     return p >= 1 and n >= 1
+
+
+def transport_phi_aligned(p: int, n: int, *tensors) -> bool:
+    """Whether the aligned instantiation serves this call: every row of the
+    ``[P, P]`` and ``[P, n]`` operands starts on 16 bytes (``P % 4 == 0``,
+    ``n % 4 == 0``, 16-byte aligned pointers). Otherwise the kernel's
+    scalar-load instantiation takes it."""
+    return (p % 4 == 0 and n % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def transport_phi_plain(k_own: torch.Tensor, k_other: Optional[torch.Tensor],
@@ -87,12 +105,14 @@ def transport_phi(k_own: torch.Tensor, k_other: Optional[torch.Tensor],
     extra = () if mu is None else (mu,)
     _check_cuda("transport_phi", *mats, g, v, *extra)
     lib = build()
-    w = ((float(c) / p) * k_own.sum(dim=0)).contiguous()
+    colsum = k_own.sum(dim=0)
     out = torch.empty((p, n), dtype=torch.float32, device=g.device)
+    vec = transport_phi_aligned(p, n, *mats, g, v, *extra, out)
     with torch.cuda.device(g.device):
         rc = lib.dibs_transport_phi(
             k_own.data_ptr(), None if k_other is None else k_other.data_ptr(),
             g.data_ptr(), v.data_ptr(), None if mu is None else mu.data_ptr(),
-            w.data_ptr(), out.data_ptr(), p, n, float(c), _stream(g.device))
+            colsum.data_ptr(), out.data_ptr(), p, n, float(c), float(c) / p,
+            int(vec), _stream(g.device))
     _check_launch(lib, rc, "transport_phi")
     return out

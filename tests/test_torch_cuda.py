@@ -8,7 +8,8 @@ false. Imports no JAX, so it runs on a machine that has only torch
 
 The checks are the kernel phases of ``chip_smoke.py`` (same shapes and
 tolerances, the fused linear-Gaussian kernels, the fused MLP kernel #8, the
-fused transport kernel #4 and the fused acyclicity gradient #9 included), the
+fused transport kernel #4, the SE matrix #3 from ``[1, 1]`` to config 5 and
+the fused acyclicity gradient #9 included), the
 wide fused linear tier at small shapes, the ``'spectral'`` option and a
 checkpoint round trip, plus the launch counters and the wrappers' input
 checks.
@@ -221,6 +222,34 @@ def test_transport_kernel_matches_plain_version(cuda):
     with pytest.raises(ValueError):  # a kernel matrix of the wrong shape
         g = torch.randn(4, 6, device=cuda)
         tk.transport_phi(torch.rand(3, 3, device=cuda), None, g, g, c=-0.4)
+
+
+def test_se_matrix_kernel_matches_plain_version(cuda):
+    """#3 against its plain version and float64 (atol 1e-5) at every shape
+    of ``chip_smoke.SHAPES3``, symmetric (exactly symmetric, diagonal
+    exactly ``scale``) and not, and its times at config 5."""
+    results = {}
+    chip_smoke.phase_se_matrix(cuda, results)
+    assert set(results) == {"se_matrix"}
+    assert results["se_matrix"]["library_ms"] > 0
+
+
+def test_split_se_matrix_call_counts_one_launch(cuda):
+    """A call that splits its features (two launches: the slices and their
+    reduction) counts once, is exactly symmetric and matches the plain
+    version within atol 1e-5."""
+    x = torch.randn(1000, 8192, device=cuda) * (5.0 / 8192) ** 0.5
+    tile = gk.se_tile_size(1000, 1000)
+    slots = gk._slots(gk.build(), x.device, tile)
+    assert gk.se_split(gk.se_tile_count(1000, 1000, True, tile), 8192,
+                       slots) > 1
+    before = gk.LAUNCHES["se_matrix"]
+    k_split = gk.se_matrix(x, x, 5.0, 1.0)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["se_matrix"] == before + 1
+    assert torch.equal(k_split, k_split.T)
+    assert float((k_split - gk.se_matrix_plain(x, x, 5.0, 1.0)).abs().max()) \
+        <= 1e-5
 
 
 @pytest.mark.parametrize("p,d,n", [(3, 72, 16), (2, 75, 300), (2, 130, 9)])

@@ -1,23 +1,32 @@
 """The public helpers of the port's ``DiBS`` (latent -> graph maps,
 ``log p(G | Z)`` and its gradient, the joint log-probabilities, Bernoulli
-graph sampling, the plotting callback) against dibs_tpu on the CPU.
+graph sampling, the plotting callback, the keyword arguments ``sample``
+hands its callback, the constructors' defaults) against dibs_tpu on the CPU.
 
 Tolerances: graphs exactly; log-probabilities and gradients within 1e-5
 relative (float32, summed in another order); ``sample_g`` by its sample
 means, within 5 standard errors of ``p``.
 """
+import dataclasses
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax import random
 
+from dibs_tpu import target as jax_target
 from dibs_tpu.inference import JointDiBS as JaxJointDiBS
 from dibs_tpu.inference import MarginalDiBS as JaxMarginalDiBS
+from dibs_tpu.inference.estimators import EstimatorConfig as JaxEstimatorConfig
+from dibs_tpu.inference.svgd import DiBS as JaxDiBS
 from dibs_tpu.models import BGe as JaxBGe
 from dibs_tpu.models import ErdosReniDAGDistribution as JaxER
 from dibs_tpu.target import make_linear_gaussian_model
-from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+from dibs_tpu_torch import target as port_target
+from dibs_tpu_torch.inference import EstimatorConfig, JointDiBS, MarginalDiBS
+from dibs_tpu_torch.inference.svgd import DiBS
 from dibs_tpu_torch.interop import (
     bge_from_reference,
     linear_gaussian_from_reference,
@@ -143,3 +152,72 @@ def test_visualize_callback_runs_in_sample(joint_pair, tmp_path, capsys):
     printed = capsys.readouterr().out
     assert printed.count("iteration") == 2 and "#cyclic" in printed
     assert (tmp_path / "img2.png").exists() and (tmp_path / "img4.png").exists()
+
+
+def _callback_keys(joint, port):
+    """The keyword sets each ``sample`` callback receives at n_vars=5,
+    N=20, P=3, 2 steps, a callback every step, and the type of ``t``."""
+    seen = []
+
+    def callback(**kwargs):
+        seen.append((tuple(sorted(kwargs)), type(kwargs["t"])))
+
+    kw = dict(n_vars=5, n_observations=20)
+    make = ("make_linear_gaussian_model" if joint
+            else "make_linear_gaussian_equivalent_model")
+    if port:
+        data, gm, lm = getattr(port_target, make)(
+            generator=torch.Generator().manual_seed(0), device="cpu", **kw)
+        cls, extra, run = (JointDiBS if joint else MarginalDiBS,
+                           dict(device="cpu"), dict(seed=1))
+    else:
+        data, gm, lm = getattr(jax_target, make)(key=random.PRNGKey(0), **kw)
+        cls, extra, run = (JaxJointDiBS if joint else JaxMarginalDiBS, {},
+                           dict(key=random.PRNGKey(1)))
+    dibs = cls(x=data.x, graph_model=gm, likelihood_model=lm,
+               n_grad_mc_samples=4, n_acyclicity_mc_samples=2, **extra)
+    dibs.sample(n_particles=3, steps=2, callback=callback, callback_every=1,
+                **run)
+    return seen
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_sample_callback_gets_the_reference_keywords(joint):
+    """The joint engine hands its callback ``thetas`` beside ``zs``, and
+    ``t`` is a Python int, as in the reference."""
+    want = sorted({"dibs", "t", "zs"} | ({"thetas"} if joint else set()))
+    ref = _callback_keys(joint, port=False)
+    assert ref == [(tuple(want), int)] * 2
+    assert _callback_keys(joint, port=True) == ref
+
+
+def _defaults(fn):
+    """Keyword defaults of ``fn``; a class default (the SVGD kernel) by its
+    name, as each package has its own class."""
+    return {name: (par.default.__name__ if inspect.isclass(par.default)
+                   else par.default)
+            for name, par in inspect.signature(fn).parameters.items()
+            if par.default is not inspect.Parameter.empty}
+
+
+@pytest.mark.parametrize("port_cls, ref_cls", [
+    (DiBS, JaxDiBS), (MarginalDiBS, JaxMarginalDiBS),
+    (JointDiBS, JaxJointDiBS)], ids=["DiBS", "MarginalDiBS", "JointDiBS"])
+def test_constructor_defaults_match_reference(port_cls, ref_cls):
+    """Every keyword both constructors take has the reference's default
+    (the port's ``device`` and the reference's sharding options are their
+    own; the kernel class is compared by name)."""
+    port, ref = _defaults(port_cls.__init__), _defaults(ref_cls.__init__)
+    shared = sorted(set(port) & set(ref))
+    assert "grad_estimator_z" in shared
+    assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}
+
+
+def test_estimator_config_defaults_match_reference():
+    def fields(cls):
+        return {f.name: f.default for f in dataclasses.fields(cls)}
+
+    port, ref = fields(EstimatorConfig), fields(JaxEstimatorConfig)
+    assert port["grad_estimator_z"] == "reparam"
+    shared = sorted(set(port) & set(ref))
+    assert {k: port[k] for k in shared} == {k: ref[k] for k in shared}

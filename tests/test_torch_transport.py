@@ -31,6 +31,7 @@ from dibs_tpu_torch.kernel import (
 )
 from dibs_tpu_torch.ops.transport_kernel import (
     transport_phi,
+    transport_phi_aligned,
     transport_phi_available,
     transport_phi_plain,
 )
@@ -230,3 +231,20 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_splits_trees():
     assert torch.equal(tree_rows(out), flat)
     assert transport._fused_phi_or_none(
         k_own, None, torch.tensor(-0.4), tree, tree) is None
+
+
+def test_aligned_instantiation_is_chosen_from_shapes_and_pointers():
+    """The aligned (16-byte load) instantiation takes config 5's families;
+    P or n not a multiple of 4, or an operand off 16 bytes, take the
+    scalar one."""
+    def ops(p, n, offset=0):
+        flat = torch.zeros(p * n + offset)
+        return torch.zeros(p, p), flat[offset:].view(p, n), torch.zeros(p, n)
+
+    assert transport_phi_aligned(1000, 32768, *ops(1000, 32768))
+    assert transport_phi_aligned(1000, 16384, *ops(1000, 16384))
+    assert not transport_phi_aligned(30, 800, *ops(30, 800))  # d=20, P=30
+    assert not transport_phi_aligned(7, 130, *ops(7, 130))
+    assert not transport_phi_aligned(8, 130, *ops(8, 130))
+    assert not transport_phi_aligned(8, 256, *ops(8, 256, offset=1))
+    assert transport_phi_aligned(8, 256, *ops(8, 256, offset=4))
