@@ -157,13 +157,14 @@ def phase_env():
 def ptxas_report(text):
     """``-Xptxas -v`` output -> {kernel (its name with the mangled template
     arguments, e.g. ``se_matrix_kernelILi8ELi8ELb1EE`` for ``<8, 8,
-    true>``): "N registers, S bytes smem, spill stores / loads"}."""
+    true>``, ``fused_linear_wide_pass1_kernelILi4EE`` for ``<4>``): "N
+    registers, S bytes static smem, spill stores / loads"}."""
     out, name, spill = {}, None, ""
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
             full = m.group(1)
-            k = re.search(r"[a-z_]+_kernel(?:I\w*?EE)?", full)
+            k = re.search(r"[a-z_]+[0-9]*_kernel(?:I\w*?EE)?", full)
             name, spill = (k.group(0) if k else full), ""
             continue
         if name is None:
@@ -171,10 +172,10 @@ def ptxas_report(text):
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"spill stores {m.group(1)} B / loads {m.group(2)} B"
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", ln)
-        if m:
-            out[name] = (f"{m.group(1)} registers, {m.group(2)} bytes smem, "
-                         f"{spill or 'no spill line'}")
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", ln)
+        if m:  # no smem figure: dynamic shared memory only
+            out[name] = (f"{m.group(1)} registers, {m.group(2) or 0} bytes "
+                         f"static smem, {spill or 'no spill line'}")
             name = None
     return out
 
@@ -201,7 +202,7 @@ def phase_build():
         + " | ".join(report))
     per_kernel = ptxas_report(log_text)
     for name in ("se_matrix_kernel", "se_reduce_kernel",
-                 "transport_phi_kernel"):
+                 "transport_phi_kernel", "fused_linear_wide_pass1_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
         check(bool(found), f"no ptxas report for {name}")
         for k, v in sorted(found.items()):
@@ -633,10 +634,19 @@ def phase_transport(dev, results):
         f"{worst:.3f} of the bar")
 
 
+# (P, d, N, interventional blocks, M) of the wide tier's checks: config 5,
+# a ragged column tile with tiled, interventional rows, the tier's edge, and
+# pass 1's edges (one particle, d = 71, M not a multiple of its group of 4,
+# N not a multiple of its row quads; a group of 2 over tiled rows)
+SHAPES6 = [(P5, D5, N5, 0, M5), (6, 75, 600, 5, 8), (2, 602, 30, 0, 8),
+           (1, 71, 37, 0, 5), (3, 200, 300, 2, 7)]
+
+
 def phase_config5_kernels(dev, results):
-    """The wide fused linear tier against the plain versions at config 5's
-    shape (d=128, N=100, P=1000, M=32), a ragged column tile with tiled,
-    interventional rows (d=75, N=600) and the tier's edge (d=602)."""
+    """The wide fused linear tier against the plain versions at every shape
+    of ``SHAPES6``, two calls of pass 1 bitwise equal at each, and both
+    passes timed at config 5's shape (d=128, N=100, P=1000, M=32); pass 1
+    also with two noise streams, which adds one Philox draw an element."""
     from dibs_tpu_torch.inference import fused_linear as fl
     from dibs_tpu_torch.models import LinearGaussian
     from dibs_tpu_torch.ops import gpu_kernels as gk
@@ -654,10 +664,9 @@ def phase_config5_kernels(dev, results):
             errs[name] = max(errs[name], e)
         return e / tol
 
-    for p, d, n, blocks in [(P5, D5, N5, 0), (6, 75, 600, 5), (2, 602, 30, 0)]:
+    for p, d, n, blocks, m in SHAPES6:
         scores, thetas, x, w = fused_problem(rng, dev, p, d, n, blocks)
         model = LinearGaussian(n_vars=d)
-        m = M5 if d == D5 else 8
         for alpha, tau in ((2.0, 1.0), (0.7, 0.8)):
             for noise in ("injected", "philox", "philox-shared"):
                 kw = dict(seed=17, streams=(4, 4 if noise == "philox-shared"
@@ -669,6 +678,10 @@ def phase_config5_kernels(dev, results):
                             1e-6, 1 - 1e-6)) for _ in range(2))
                 args = (scores, thetas, x, w)
                 lls = fl.fused_linear_pass1(*args, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    lls, fl.fused_linear_pass1(*args, **kw))),
+                    f"wide pass 1 at (P,d,N,M)={(p, d, n, m)}: two calls "
+                    "differ")
                 lls_p = fl.fused_linear_pass1_plain(*args, **kw)
                 for got, ref in zip(lls, lls_p):
                     worst = max(worst, err("fused_linear_wide_pass1", got,
@@ -688,7 +701,7 @@ def phase_config5_kernels(dev, results):
                     worst = max(worst, err("wide two-pass vs one-pass plain",
                                            got, ref))
                 kw.pop("eps", None)
-        if d != D5:
+        if (p, d, n) != (P5, D5, N5):
             continue
         # times at config 5's shape, in-kernel shared noise (the main path)
         kw = dict(seed=17, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=m,
@@ -712,6 +725,15 @@ def phase_config5_kernels(dev, results):
                 lambda: fl.fused_linear_pass2_plain(*args, weights, **kw),
                 flops2, in_bytes + 4 * 2 * p * m + 4 * 2 * p * d * d),
         }
+        # the noise's share: a second stream draws once more per element
+        kw2 = {**kw, "streams": (4, 5)}
+        t_shared, t_two, _ = in_turns(
+            lambda: fl.fused_linear_pass1(*args, **kw),
+            lambda: fl.fused_linear_pass1(*args, **kw2), reps=10)
+        plan = fl.fused_linear_wide_pass1_plan(p, d, n)
+        log(f"[6 config 5: wide pass 1] {plan}; shared stream {t_shared:.4f}"
+            f" ms, two streams {t_two:.4f} ms (one more draw an element: "
+            f"{t_two - t_shared:.4f} ms for {p * m * d * (d - 1)} draws)")
         line = []
         for name, (kern, plain, flops, n_bytes) in cases.items():
             t_k = cuda_median_ms(kern, reps=10)
@@ -727,11 +749,12 @@ def phase_config5_kernels(dev, results):
             f"samples (the rest have both weights 0)")
     for name, e in errs.items():
         results[name]["max_abs_err"] = e
-    log(f"[6 config 5: fused wide] wide tier vs plain at (P,d,N) in "
-        f"(1000,128,100),(6,75,600 with interventions, tiled rows),(2,602,30, tiled rows), "
-        f"injected / Philox / shared-stream noise, alpha,tau in (2,1),"
-        f"(0.7,0.8), and vs the one-pass plain version: within 1e-4 max(1, "
-        f"max|ref|), worst {worst:.3f} of the bar")
+    log(f"[6 config 5: fused wide] wide tier vs plain at (P,d,N,blocks,M) "
+        f"in {SHAPES6} (interventional blocks of 100 rows; tiled rows past "
+        f"each pass's tile), injected / Philox / shared-stream noise, "
+        f"alpha,tau in (2,1),(0.7,0.8), and vs the one-pass plain version: "
+        f"within 1e-4 max(1, max|ref|), worst {worst:.3f} of the bar; pass 1 "
+        f"bitwise equal over two calls at every case")
 
 
 

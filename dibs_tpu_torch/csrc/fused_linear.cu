@@ -385,24 +385,18 @@ __global__ void __launch_bounds__(kThreads)
 // The linear SEM factorizes over node columns: for column j, delta[:, j] =
 // x @ ((G - E[G])[:, j] Theta[:, j]), resid[:, j], dW[:, j] = x^T resid[:, j]
 // and the G logN(Theta) terms are local to j. A block owns one particle and
-// a tile of kCols columns, so it keeps ~11 d kCols floats of [d, kCols]
-// slabs in shared memory instead of 11 d^2, which serves d up to ~600.
+// a tile of kCols columns, so it keeps [d, kCols] slabs in shared memory
+// instead of [d, d] matrices, which serves d up to ~600.
 // A sample's softmax weight needs its log-likelihood summed over all
 // columns, so the tier runs as two passes:
-//   pass 1 (kWide1) writes the float64 partial dll of each (particle,
-//     sample, column tile); the wrapper sums the tiles in a fixed order and
-//     forms the softmax in PyTorch;
-//   pass 2 (kWide2) replays the same samples (the same Philox counters:
-//     element i d + j, sample, particle, stream) per column tile into
-//     d scores[:, :, tile] and d Theta[:, :, tile] with those weights.
-// No float atomics: every output element is written by one block. A sample
-// whose two weights are both exactly 0 adds exactly 0 and is skipped in
-// pass 2 (the branch is uniform over the block).
-//
-// Inner products are register-tiled: a thread owns one data row (delta) or
-// one slab row (x^T resid) and four columns of both branches, 8 FMAs per
-// scalar and two float4 shared-memory reads. Data rows are padded to an odd
-// stride so a warp's 16 rows hit distinct banks.
+//   pass 1 (mode 3, fused_linear_wide_pass1_kernel) writes the float64
+//     partial dll of each (particle, sample, column tile); the wrapper sums
+//     the tiles in a fixed order and forms the softmax in PyTorch;
+//   pass 2 (mode 4, fused_linear_wide_kernel) replays the same samples (the
+//     same Philox counters: element i d + j, sample, particle, stream) per
+//     column tile into d scores[:, :, tile] and d Theta[:, :, tile] with
+//     those weights.
+// No float atomics: every output element is written by one block.
 // ---------------------------------------------------------------------------
 
 constexpr int kCols = 8;  // columns per block
@@ -428,6 +422,324 @@ struct WideArgs {
   double inv_var;
 };
 
+// The soft and hard sample of element (i, j) (global index eg = i d + j) of
+// sample m: Logistic noise from the injected tensors or the Philox streams
+// (the hard sample thresholds the soft sample's noise on a shared stream).
+__device__ __forceinline__ void wide_sample_pair(const WideArgs& a,
+                                                 int64_t nbase, uint32_t eg,
+                                                 int m, int p, float as,
+                                                 float* g_soft,
+                                                 float* g_hard) {
+  const float es =
+      a.eps_soft != nullptr
+          ? a.eps_soft[nbase + eg]
+          : dibs::philox_logistic(eg, m, p, a.stream_soft, a.k0, a.k1);
+  float eh;
+  if (a.eps_hard != nullptr) {
+    eh = a.eps_hard[nbase + eg];
+  } else if (a.stream_hard == a.stream_soft) {
+    eh = es;
+  } else {
+    eh = dibs::philox_logistic(eg, m, p, a.stream_hard, a.k0, a.k1);
+  }
+  *g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as))));
+  *g_hard = __fadd_rn(eh, as) > 0.0f ? 1.0f : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Wide pass 1: fused_linear_wide_pass1_kernel.
+//
+// Replaces dibs_tpu/inference/fused_linear.py::_fused_pass1 (:617,
+// pallas_call :642) past d = 70: the float64 partial dll of every (particle,
+// sample, column tile).
+//
+// What bounds it on this card: the delta product, 2 branches x 2 N d kCols
+// FLOPs per (particle, sample, tile) in FP32 FFMA (~3.3 G warp-instructions
+// at config 5: P=1000, d=128, N=100, M=32), plus the noise: one Philox4x32-10
+// Logistic draw per element (ten rounds of two 32 x 32 -> 64-bit integer
+// multiplies and xors, then logf and log1pf: ~105 SASS instructions; the
+// sigmoid's expf and division, the threshold, the slab stores and the
+// float64 prior terms: ~75 more), P M d (d - 1) = 520 M draws, ~2.9 G
+// warp-instructions. So the kernel is bound by instruction issue, ~7 G
+// warp-instructions at config 5, where the operation bound counts the
+// product alone. The noise stays bit-for-bit the tier's (same counters, the
+// same expressions), since a changed last bit flips hard samples at ties.
+//
+// Design, against that floor:
+//  * groups of kG samples: one phase draws the group's slabs A = (G - E[G])
+//    Theta of both branches (and their prior terms) into shared memory, one
+//    barrier, then one phase runs the product over the whole group; two
+//    barriers per group instead of four per sample;
+//  * the product is register-tiled: a thread owns 4 data rows x 4 columns of
+//    one (sample, branch) and reads, per step of the inner dimension, one
+//    float4 of the transposed data tile x^T [d][ldn] and one float4 of A
+//    for 16 FFMA. A warp covers min(16, 4 kG) (sample, branch, column quad)
+//    combos x the rest in row quads: its x reads are broadcasts, its A reads
+//    one contiguous run;
+//  * shared memory holds only what pass 1 reads: alpha s, E[G], Theta and
+//    logN(Theta) slabs (computed once a block), the w and resid_ref tiles,
+//    x^T and the group's slabs; wide1_group picks the largest kG <= 4 for
+//    which two blocks share an SM (kG = 4 at config 5: 111,744 B);
+//  * float64 partials are reduced once per group: warp shuffles, then one
+//    shared slot per (row block, sample, branch), summed in a fixed order
+//    (double-buffered by group parity, so the sums need no extra barrier).
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupMax = 4;
+constexpr size_t kTwoPerSm = 233472 / 2 - 1024;  // two blocks in 228 KB
+
+__host__ __device__ inline int wide1_ldn(int tile_rows) {
+  return (tile_rows + 7) & ~7;
+}
+
+size_t wide1_smem_bytes(int d, int tile_rows, int group) {
+  const size_t ldn = wide1_ldn(tile_rows), dd = static_cast<size_t>(d);
+  return sizeof(double) * 4 * group * (kWarps + ldn / 8) +
+         sizeof(float) * (4 * kCols * dd + 2 * kCols * ldn + dd * ldn +
+                          2 * kCols * static_cast<size_t>(group) * dd);
+}
+
+int wide1_group(int d, int tile_rows) {
+  for (int g = kGroupMax; g > 1; g /= 2) {
+    if (wide1_smem_bytes(d, tile_rows, g) <= kTwoPerSm) return g;
+  }
+  return 1;
+}
+
+template <int kG>
+__global__ void __launch_bounds__(kThreads, 2)
+    fused_linear_wide_pass1_kernel(const WideArgs a) {
+  constexpr int kSlots = 2 * kG;                 // (sample, branch) pairs
+  constexpr int kLaneCombos = kG >= 4 ? 16 : 4 * kG;  // combos of a warp
+  constexpr int kLaneRows = 32 / kLaneCombos;    // row quads of a warp
+  constexpr int kAStride = 2 * kCols * kG;       // A row: [kG][2][kCols]
+  extern __shared__ __align__(16) double smem_1[];
+  const int d = a.d, tn_max = a.tile_rows, ldn = wide1_ldn(tn_max);
+  const int n_rb = ldn / 8;  // slots reserved per parity (>= row blocks)
+  double* lpart = smem_1;                      // [2][kWarps][kSlots] prior
+  double* part = lpart + 2 * kWarps * kSlots;  // [2][n_rb][kSlots] data
+  float* as_ = reinterpret_cast<float*>(part + 2 * n_rb * kSlots);
+  float* sig = as_ + d * kCols;   // E[G], zero diagonal and past column d
+  float* th = sig + d * kCols;    // Theta
+  float* lpd = th + d * kCols;    // logN(Theta; mu_e, sig_e)
+  float* wt = lpd + d * kCols;    // observation weights [ldn][kCols]
+  float* rt = wt + ldn * kCols;   // resid_ref [ldn][kCols]
+  float* xt = rt + ldn * kCols;   // data tile, transposed [d][ldn]
+  float* aa = xt + d * ldn;       // the group's slabs [d][kG][2][kCols]
+
+  const int p = blockIdx.x, ct = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int j0 = ct * kCols, cw = min(kCols, d - j0);
+  const int n_obs = a.n_obs, n_smp = a.n_samples;
+  const int64_t pdd = static_cast<int64_t>(p) * d * d;
+  const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
+  const int n_tiles = (n_obs + tn_max - 1) / tn_max;
+  float* rr = a.resid_ref == nullptr
+                  ? nullptr
+                  : a.resid_ref +
+                        (static_cast<int64_t>(p) * a.n_ct + ct) * n_obs * kCols;
+
+  // --- per particle and column tile: the slabs, then resid_ref ---
+  for (int e = tid; e < d * kCols; e += kThreads) {
+    const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
+    float s = 0.0f, ref = 0.0f, t = 0.0f;
+    if (jj < cw) {
+      s = __fmul_rn(a.alpha, a.scores[pdd + i * d + j]);
+      ref = i == j ? 0.0f : 1.0f / (1.0f + expf(-s));
+      t = a.theta[pdd + i * d + j];
+    }
+    as_[e] = s;
+    sig[e] = ref;
+    th[e] = t;
+    const float zt = (t - a.mean_edge) / a.sig_edge;
+    lpd[e] = -0.5f * zt * zt - log_norm_e;
+    aa[e] = ref * t;  // E[G] * Theta, for resid_ref
+  }
+  // rows t0 .. t0 + tn of x (transposed), w and resid_ref; zero past tn
+  const bool x_vec = (d % 4 == 0) &&
+                     (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
+  auto load_tile = [&](int t0, int tn, bool with_rr) {
+    if (x_vec) {  // 16-byte loads of x
+      const int d4 = d / 4;
+      for (int idx = tid; idx < ldn * d4; idx += kThreads) {
+        const int n = idx / d4, i = 4 * (idx - n * d4);
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (n < tn) {
+          v = *reinterpret_cast<const float4*>(
+              a.x + static_cast<int64_t>(t0 + n) * d + i);
+        }
+        xt[i * ldn + n] = v.x;
+        xt[(i + 1) * ldn + n] = v.y;
+        xt[(i + 2) * ldn + n] = v.z;
+        xt[(i + 3) * ldn + n] = v.w;
+      }
+    } else {
+      for (int idx = tid; idx < ldn * d; idx += kThreads) {
+        const int n = idx / d, i = idx - n * d;
+        xt[i * ldn + n] =
+            n < tn ? a.x[static_cast<int64_t>(t0 + n) * d + i] : 0.0f;
+      }
+    }
+    for (int idx = tid; idx < ldn * kCols; idx += kThreads) {
+      const int n = idx / kCols, jj = idx - n * kCols;
+      wt[idx] = n < tn && jj < cw
+                    ? a.w[static_cast<int64_t>(t0 + n) * d + j0 + jj]
+                    : 0.0f;
+      rt[idx] = with_rr && n < tn ? rr[static_cast<int64_t>(t0) * kCols + idx]
+                                  : 0.0f;
+    }
+  };
+  __syncthreads();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
+    load_tile(t0, tn, false);
+    __syncthreads();
+    for (int idx = tid; idx < tn * kCols; idx += kThreads) {
+      const int n = idx / kCols, jj = idx - n * kCols;
+      float mean = 0.0f;
+      for (int i = 0; i < d; ++i) {
+        mean = fmaf(xt[i * ldn + n], aa[i * kCols + jj], mean);
+      }
+      const float r = jj < cw ? xt[(j0 + jj) * ldn + n] - mean : 0.0f;
+      if (n_tiles == 1) {
+        rt[idx] = r;  // resident for every sample
+      } else {
+        rr[static_cast<int64_t>(t0) * kCols + idx] = r;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int combo = lane % kLaneCombos;  // (sample, branch, column quad)
+  const int cq = combo & 1;
+  for (int m0 = 0, par = 0; m0 < n_smp; m0 += kG, par ^= 1) {
+    const int gl = min(kG, n_smp - m0);  // samples in this group
+    double* lp_out = lpart + par * kWarps * kSlots;
+    double* ld_out = part + par * n_rb * kSlots;
+
+    // --- 1. the group's slabs and prior terms ---
+    for (int g = 0; g < gl; ++g) {
+      const int m = m0 + g;
+      const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * d * d;
+      double lp_s = 0.0, lp_h = 0.0;
+      for (int e = tid; e < d * kCols; e += kThreads) {
+        const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
+        float g_soft = 0.0f, g_hard = 0.0f;
+        if (jj < cw && i != j) {
+          wide_sample_pair(a, nbase, static_cast<uint32_t>(i * d + j), m, p,
+                           as_[e], &g_soft, &g_hard);
+        }
+        const float ds = g_soft - sig[e], dh = g_hard - sig[e];
+        float* row = aa + i * kAStride + g * 2 * kCols + jj;
+        row[0] = ds * th[e];
+        row[kCols] = dh * th[e];
+        lp_s += static_cast<double>(ds * lpd[e]);
+        lp_h += static_cast<double>(dh * lpd[e]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        lp_s += __shfl_down_sync(0xFFFFFFFFu, lp_s, off);
+        lp_h += __shfl_down_sync(0xFFFFFFFFu, lp_h, off);
+      }
+      if (lane == 0) {
+        lp_out[warp * kSlots + 2 * g] = lp_s;
+        lp_out[warp * kSlots + 2 * g + 1] = lp_h;
+      }
+    }
+    for (int idx = tid; idx < n_rb * kSlots; idx += kThreads) {
+      ld_out[idx] = 0.0;
+    }
+    __syncthreads();
+
+    // --- 2. data tiles: delta and the data term, 4 x 4 per thread ---
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
+      if (n_tiles > 1) {
+        load_tile(t0, tn, true);
+        __syncthreads();
+      }
+      const int n_rq = (tn + 3) / 4;
+      const int n_blocks = (n_rq + kLaneRows - 1) / kLaneRows;
+      for (int rb = warp; rb < n_blocks; rb += kWarps) {
+        const int rq = rb * kLaneRows + lane / kLaneCombos;
+        double v = 0.0;
+        if (combo < 4 * gl && rq < n_rq) {
+          const float* xp = xt + 4 * rq;
+          const float* ap = aa + 4 * combo;
+          float acc[4][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+          }
+#pragma unroll 4
+          for (int i = 0; i < d; ++i) {
+            const float4 x4 = *reinterpret_cast<const float4*>(xp + i * ldn);
+            const float4 a4 =
+                *reinterpret_cast<const float4*>(ap + i * kAStride);
+            const float xr[4] = {x4.x, x4.y, x4.z, x4.w};
+            const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                acc[r][q] = fmaf(xr[r], ar[q], acc[r][q]);
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int idx = (4 * rq + r) * kCols + 4 * cq;
+            const float4 w4 = *reinterpret_cast<const float4*>(wt + idx);
+            const float4 r4 = *reinterpret_cast<const float4*>(rt + idx);
+            const float wr[4] = {w4.x, w4.y, w4.z, w4.w};
+            const float rf[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {  // 0 past column d and row tn
+              const float del = acc[r][q];
+              v += static_cast<double>(wr[q] * del * (del - 2.0f * rf[q]));
+            }
+          }
+        }
+        // lanes of one combo, then the combo's two column quads
+#pragma unroll
+        for (int off = 16; off >= kLaneCombos; off >>= 1) {
+          v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+        }
+        v += __shfl_down_sync(0xFFFFFFFFu, v, 1);
+        if (lane < kLaneCombos && cq == 0 && combo < 4 * gl) {
+          ld_out[rb * kSlots + combo / 2] += v;
+        }
+      }
+      __syncthreads();  // the next tile or group overwrites xt, rt, aa
+    }
+
+    // --- 3. the group's partial dll (float64, fixed order) ---
+    if (tid < 2 * gl) {
+      double ld = 0.0, lp = 0.0;
+      for (int rb = 0; rb < n_rb; ++rb) ld += ld_out[rb * kSlots + tid];
+      for (int k = 0; k < kWarps; ++k) lp += lp_out[k * kSlots + tid];
+      const int64_t o =
+          (static_cast<int64_t>(p) * n_smp + m0 + tid / 2) * a.n_ct + ct;
+      (tid % 2 == 0 ? a.dll_soft : a.dll_hard)[o] = -0.5 * a.inv_var * ld + lp;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Wide pass 2: fused_linear_wide_kernel (replaces _fused_pass2 past d = 70).
+//
+// Replays the samples per column tile with the softmax weights; a sample
+// whose two weights are both exactly 0 adds exactly 0 and is skipped (the
+// branch is uniform over the block). Inner products are register-tiled: a
+// thread owns one data row (delta) or one slab row (x^T resid) and four
+// columns of both branches, 8 FMAs per scalar and two float4 shared-memory
+// reads. Data rows are padded to an odd stride so a warp's 16 rows hit
+// distinct banks. The footprint (wide_smem_bytes) keeps the tier's
+// reduction head, so the slabs sit at the offsets the wrapper's formula
+// (fused_linear_wide_smem_bytes) states.
+// ---------------------------------------------------------------------------
+
 __host__ __device__ inline int wide_ldx(int d) { return d | 1; }
 
 size_t wide_smem_bytes(int d, int tile_rows) {
@@ -437,11 +749,9 @@ size_t wide_smem_bytes(int d, int tile_rows) {
                           static_cast<size_t>(tile_rows) * wide_ldx(d));
 }
 
-template <int kMode>
 __global__ void __launch_bounds__(kThreads)
     fused_linear_wide_kernel(const WideArgs a) {
   extern __shared__ __align__(16) double smem_w[];
-  double* red = smem_w;
   const int d = a.d, slab = d * kCols, tn_max = a.tile_rows;
   const int ldx = wide_ldx(d);
   float* as_ = reinterpret_cast<float*>(smem_w + kRedDoubles);  // alpha s
@@ -487,10 +797,8 @@ __global__ void __launch_bounds__(kThreads)
     sig[e] = ref;
     th[e] = t;
     a_s[e] = ref * t;  // E[G] * Theta, for resid_ref
-    if (kMode == kWide2) {
-      acc_s[e] = 0.0f;
-      acc_h[e] = 0.0f;
-    }
+    acc_s[e] = 0.0f;
+    acc_h[e] = 0.0f;
   }
   auto load_tile = [&](int t0, int tn, bool with_rr) {
     for (int idx = tid; idx < tn * d; idx += kThreads) {
@@ -525,55 +833,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int m = 0; m < n_smp; ++m) {
-    float w_s = 0.0f, w_h = 0.0f;
-    if (kMode == kWide2) {
-      w_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m];
-      w_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m];
-      if (w_s == 0.0f && w_h == 0.0f) continue;  // adds exactly 0
-    }
-    // --- 1. the sample pair on this slab and the parameter-prior term ---
-    double lp_s = 0.0, lp_h = 0.0;
+    const float w_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m];
+    const float w_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m];
+    if (w_s == 0.0f && w_h == 0.0f) continue;  // adds exactly 0
+    // --- 1. the sample pair on this slab ---
     const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * d * d;
     for (int e = tid; e < slab; e += kThreads) {
       const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
       float g_soft = 0.0f, g_hard = 0.0f;
       if (jj < cw && i != j) {
-        const uint32_t eg = static_cast<uint32_t>(i * d + j);
-        const float es =
-            a.eps_soft != nullptr
-                ? a.eps_soft[nbase + eg]
-                : dibs::philox_logistic(eg, m, p, a.stream_soft, a.k0, a.k1);
-        float eh;
-        if (a.eps_hard != nullptr) {
-          eh = a.eps_hard[nbase + eg];
-        } else if (a.stream_hard == a.stream_soft) {
-          eh = es;
-        } else {
-          eh = dibs::philox_logistic(eg, m, p, a.stream_hard, a.k0, a.k1);
-        }
-        g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
-        g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
+        wide_sample_pair(a, nbase, static_cast<uint32_t>(i * d + j), m, p,
+                         as_[e], &g_soft, &g_hard);
       }
       const float th_e = th[e];
-      const float ds = g_soft - sig[e], dh = g_hard - sig[e];
-      a_s[e] = ds * th_e;
-      a_h[e] = dh * th_e;
-      if (kMode == kWide1) {
-        const float zt = (th_e - a.mean_edge) / a.sig_edge;
-        const float lpdf = -0.5f * zt * zt - log_norm_e;
-        lp_s += static_cast<double>(ds * lpdf);
-        lp_h += static_cast<double>(dh * lpdf);
-      } else {
-        gs[e] = g_soft;
-        gh[e] = g_hard;
-        dws[e] = 0.0f;
-        dwh[e] = 0.0f;
-      }
+      a_s[e] = (g_soft - sig[e]) * th_e;
+      a_h[e] = (g_hard - sig[e]) * th_e;
+      gs[e] = g_soft;
+      gh[e] = g_hard;
+      dws[e] = 0.0f;
+      dwh[e] = 0.0f;
     }
     __syncthreads();
 
-    // --- 2. data tiles: delta, the data term of dll, residuals, x^T resid ---
-    double ld_s = 0.0, ld_h = 0.0;
+    // --- 2. data tiles: delta, residuals, x^T resid ---
     for (int t = 0; t < n_tiles; ++t) {
       const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
       if (n_tiles > 1) {
@@ -604,97 +886,106 @@ __global__ void __launch_bounds__(kThreads)
         for (int q = 0; q < 4; ++q) {
           const int idx = n * kCols + c0 + q;
           const float r = rt[idx], wv = wt[idx];  // 0 past column d
-          if (kMode == kWide1) {
-            ld_s += static_cast<double>(wv * del_s[q] * (del_s[q] - 2.0f * r));
-            ld_h += static_cast<double>(wv * del_h[q] * (del_h[q] - 2.0f * r));
-          } else {
-            res_s[idx] = (r - del_s[q]) * wv;
-            res_h[idx] = (r - del_h[q]) * wv;
-          }
+          res_s[idx] = (r - del_s[q]) * wv;
+          res_h[idx] = (r - del_h[q]) * wv;
         }
       }
-      if (kMode == kWide2) {
-        __syncthreads();
-        for (int item = tid; item < 2 * d; item += kThreads) {
-          const int i = item >> 1, c0 = (item & 1) * 4;
-          float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          float s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          for (int n = 0; n < tn; ++n) {
-            const float xv = xt[n * ldx + i];
-            const float4 r4 =
-                *reinterpret_cast<const float4*>(res_s + n * kCols + c0);
-            const float4 q4 =
-                *reinterpret_cast<const float4*>(res_h + n * kCols + c0);
-            s1[0] = fmaf(xv, r4.x, s1[0]);
-            s1[1] = fmaf(xv, r4.y, s1[1]);
-            s1[2] = fmaf(xv, r4.z, s1[2]);
-            s1[3] = fmaf(xv, r4.w, s1[3]);
-            s2[0] = fmaf(xv, q4.x, s2[0]);
-            s2[1] = fmaf(xv, q4.y, s2[1]);
-            s2[2] = fmaf(xv, q4.z, s2[2]);
-            s2[3] = fmaf(xv, q4.w, s2[3]);
-          }
-          float* ds_row = dws + i * kCols + c0;
-          float* dh_row = dwh + i * kCols + c0;
+      __syncthreads();
+      for (int item = tid; item < 2 * d; item += kThreads) {
+        const int i = item >> 1, c0 = (item & 1) * 4;
+        float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int n = 0; n < tn; ++n) {
+          const float xv = xt[n * ldx + i];
+          const float4 r4 =
+              *reinterpret_cast<const float4*>(res_s + n * kCols + c0);
+          const float4 q4 =
+              *reinterpret_cast<const float4*>(res_h + n * kCols + c0);
+          s1[0] = fmaf(xv, r4.x, s1[0]);
+          s1[1] = fmaf(xv, r4.y, s1[1]);
+          s1[2] = fmaf(xv, r4.z, s1[2]);
+          s1[3] = fmaf(xv, r4.w, s1[3]);
+          s2[0] = fmaf(xv, q4.x, s2[0]);
+          s2[1] = fmaf(xv, q4.y, s2[1]);
+          s2[2] = fmaf(xv, q4.z, s2[2]);
+          s2[3] = fmaf(xv, q4.w, s2[3]);
+        }
+        float* ds_row = dws + i * kCols + c0;
+        float* dh_row = dwh + i * kCols + c0;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            ds_row[q] += s1[q];
-            dh_row[q] += s2[q];
-          }
+        for (int q = 0; q < 4; ++q) {
+          ds_row[q] += s1[q];
+          dh_row[q] += s2[q];
         }
       }
       __syncthreads();  // the next tile or stage overwrites xt, rt, res
     }
 
-    if (kMode == kWide1) {
-      // --- 3. this tile's part of the sample pair's dll (float64) ---
-      double v_s = -0.5 * a.inv_var * ld_s + lp_s;
-      double v_h = -0.5 * a.inv_var * ld_h + lp_h;
-      block_sum2(&v_s, &v_h, red);
-      if (tid == 0) {
-        const int64_t o = (static_cast<int64_t>(p) * n_smp + m) * a.n_ct + ct;
-        a.dll_soft[o] = v_s;
-        a.dll_hard[o] = v_h;
-      }
-    } else {
-      // --- 4. weight and accumulate ---
-      for (int e = tid; e < slab; e += kThreads) {
-        const float th_e = th[e];
-        const float zt = (th_e - a.mean_edge) / a.sig_edge;
-        const float lpdf = -0.5f * zt * zt - log_norm_e;
-        const float g = gs[e];
-        const float c_s =
-            a.tau * a.alpha * g * (1.0f - g) * (th_e * (dws[e] * inv_var_f) + lpdf);
-        const float c_h =
-            gh[e] * (dwh[e] * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
-        acc_s[e] += w_s * c_s;
-        acc_h[e] += w_h * c_h;
-      }
-      __syncthreads();  // the next sample overwrites gs, gh, a_s, a_h, dws, dwh
+    // --- 3. weight and accumulate ---
+    for (int e = tid; e < slab; e += kThreads) {
+      const float th_e = th[e];
+      const float zt = (th_e - a.mean_edge) / a.sig_edge;
+      const float lpdf = -0.5f * zt * zt - log_norm_e;
+      const float g = gs[e];
+      const float c_s =
+          a.tau * a.alpha * g * (1.0f - g) * (th_e * (dws[e] * inv_var_f) + lpdf);
+      const float c_h =
+          gh[e] * (dwh[e] * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
+      acc_s[e] += w_s * c_s;
+      acc_h[e] += w_h * c_h;
     }
+    __syncthreads();  // the next sample overwrites gs, gh, a_s, a_h, dws, dwh
   }
 
-  if (kMode == kWide2) {
-    for (int e = tid; e < slab; e += kThreads) {
-      const int i = e / kCols, jj = e - i * kCols;
-      if (jj < cw) {
-        a.out_a[pdd + i * d + j0 + jj] = acc_s[e];
-        a.out_b[pdd + i * d + j0 + jj] = acc_h[e];
-      }
+  for (int e = tid; e < slab; e += kThreads) {
+    const int i = e / kCols, jj = e - i * kCols;
+    if (jj < cw) {
+      a.out_a[pdd + i * d + j0 + jj] = acc_s[e];
+      a.out_b[pdd + i * d + j0 + jj] = acc_h[e];
     }
   }
 }
 
-template <int kMode>
-int launch_wide(const WideArgs& a, int n_particles, cudaStream_t stream) {
+template <int kG>
+int launch_wide1(const WideArgs& a, int n_particles, size_t smem,
+                 cudaStream_t stream) {
+  const auto kernel = fused_linear_wide_pass1_kernel<kG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_particles, a.n_ct), kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wide(const WideArgs& a, int mode, int n_particles,
+                cudaStream_t stream) {
+  if (mode == kWide1) {
+    const int group = wide1_group(a.d, a.tile_rows);
+    const size_t smem = wide1_smem_bytes(a.d, a.tile_rows, group);
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    switch (group) {
+      case 4:
+        return launch_wide1<4>(a, n_particles, smem, stream);
+      case 2:
+        return launch_wide1<2>(a, n_particles, smem, stream);
+      default:
+        return launch_wide1<1>(a, n_particles, smem, stream);
+    }
+  }
+  if (mode != kWide2) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wide_smem_bytes(a.d, a.tile_rows);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
-      fused_linear_wide_kernel<kMode>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      fused_linear_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_linear_wide_kernel<kMode>
-      <<<dim3(n_particles, a.n_ct), kThreads, smem, stream>>>(a);
+  fused_linear_wide_kernel<<<dim3(n_particles, a.n_ct), kThreads, smem,
+                             stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -784,6 +1075,17 @@ DIBS_API size_t dibs_fused_linear_wide_smem_bytes(int d, int tile_rows) {
   return wide_smem_bytes(d, tile_rows);
 }
 
+// Pass 1's footprint with `group` samples a group, and the group it takes
+// for (d, tile_rows): the largest of 4, 2, 1 that leaves two blocks an SM.
+DIBS_API size_t dibs_fused_linear_wide_pass1_smem_bytes(int d, int tile_rows,
+                                                        int group) {
+  return wide1_smem_bytes(d, tile_rows, group);
+}
+
+DIBS_API int dibs_fused_linear_wide_pass1_group(int d, int tile_rows) {
+  return wide1_group(d, tile_rows);
+}
+
 // The wide tier. mode 3: pass 1 -> float64 partial dll [P, M, n_ct] per
 // column tile (n_ct = ceil(d / 8)); mode 4: pass 2 with weights ->
 // (dscores, dtheta). `resid_ref` is [P, n_ct, N, 8] floats of scratch when
@@ -831,12 +1133,5 @@ DIBS_API int dibs_fused_linear_wide(
   a.mean_edge = mean_edge;
   a.sig_edge = sig_edge;
   a.inv_var = inv_var;
-  switch (mode) {
-    case kWide1:
-      return launch_wide<kWide1>(a, n_particles, stream);
-    case kWide2:
-      return launch_wide<kWide2>(a, n_particles, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_wide(a, mode, n_particles, stream);
 }

@@ -36,8 +36,11 @@ These keep 11 ``[d, d]`` matrices in one block's shared memory, which serves
 ``d <= 70``. Past it ``fused_linear_pass1`` / ``fused_linear_pass2`` launch
 the wide tier (same source; launches counted as ``fused_linear_wide_pass1``
 / ``fused_linear_wide_pass2``), which computes the two passes per tile of 8
-node columns: the linear SEM factorizes over columns, so a block keeps 11
-``[d, 8]`` slabs (``d <= 602``); pass 1 writes float64 partial
+node columns: the linear SEM factorizes over columns, so a pass-2 block
+keeps 11 ``[d, 8]`` slabs (``d <= 602``). Pass 1 has a kernel of its own
+(``fused_linear_wide_pass1_kernel``: groups of up to 4 samples, register-
+tiled products over a transposed data tile, sized by
+:func:`fused_linear_wide_pass1_plan`) and writes float64 partial
 log-likelihoods per column tile, summed in a fixed order before the softmax.
 Both ``single_pass`` settings take the two passes there (the same
 estimand).
@@ -53,7 +56,7 @@ module, which take the same noise.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +83,10 @@ __all__ = [
     "fused_linear_pass2_plain",
     "fused_linear_wide_tile_rows",
     "fused_linear_wide_smem_bytes",
+    "fused_linear_wide_pass1_group",
+    "fused_linear_wide_pass1_plan",
+    "fused_linear_wide_pass1_smem_bytes",
+    "fused_linear_wide_pass1_tile_rows",
 ]
 
 # the kernel's shared-memory footprint (csrc/fused_linear.cu: smem_bytes)
@@ -95,6 +102,8 @@ _MODES = {"fused_linear_single": 0, "fused_linear_pass1": 1,
           "fused_linear_pass2": 2, "fused_linear_wide_pass1": 3,
           "fused_linear_wide_pass2": 4}
 _WIDE_COLS = 8  # node columns per wide-tier block
+# wide pass 1: two blocks share an SM's 228 KB (1 KB reserved per block)
+_TWO_PER_SM = 233472 // 2 - 1024
 
 
 def fused_linear_smem_bytes(d: int, tile_rows: int) -> int:
@@ -132,6 +141,66 @@ def fused_linear_wide_tile_rows(d: int, n_obs: int) -> Optional[int]:
             tile > _TILE_MIN:
         tile = max(_TILE_MIN, tile // 2)
     return tile if fused_linear_wide_smem_bytes(d, tile) <= _MAX_SMEM else None
+
+
+def fused_linear_wide_pass1_smem_bytes(d: int, tile_rows: int,
+                                       group: int) -> int:
+    """Shared memory of one wide pass-1 block (``csrc/fused_linear.cu:
+    wide1_smem_bytes``): the float64 partial slots (two parities of 8 warps
+    and ``ldn / 8`` row blocks, ``2 group`` each), 4 ``[d, 8]`` slabs
+    (alpha s, E[G], Theta, logN(Theta)), the ``w`` and ``resid_ref`` tiles
+    ``[ldn, 8]``, the transposed data tile ``[d, ldn]`` and the group's two
+    branches of ``[d, 8]`` slabs; ``ldn`` is ``tile_rows`` rounded up to 8."""
+    ldn = -(-tile_rows // 8) * 8
+    return (8 * 4 * group * (8 + ldn // 8)
+            + 4 * (4 * _WIDE_COLS * d + 2 * _WIDE_COLS * ldn + d * ldn
+                   + 2 * _WIDE_COLS * group * d))
+
+
+def fused_linear_wide_pass1_group(d: int, tile_rows: int) -> int:
+    """Samples per group of wide pass 1 (``wide1_group``): the largest of 4,
+    2, 1 whose footprint leaves two blocks an SM, else 1."""
+    for group in (4, 2):
+        if fused_linear_wide_pass1_smem_bytes(d, tile_rows, group) <= \
+                _TWO_PER_SM:
+            return group
+    return 1
+
+
+def fused_linear_wide_pass1_tile_rows(d: int, n_obs: int) -> Optional[int]:
+    """Data rows per tile of wide pass 1, or ``None`` where it does not fit:
+    up to 128 rows, halved down to 8 while the block (with its group) does
+    not leave two blocks an SM; at most 227 KB. Serves every ``(d, N)`` the
+    wide tier serves."""
+    def footprint(tile):
+        return fused_linear_wide_pass1_smem_bytes(
+            d, tile, fused_linear_wide_pass1_group(d, tile))
+
+    tile = min(n_obs, _TILE_MAX)
+    while footprint(tile) > _TWO_PER_SM and tile > _TILE_MIN:
+        tile = max(_TILE_MIN, tile // 2)
+    return tile if footprint(tile) <= _MAX_SMEM else None
+
+
+class WidePass1Plan(NamedTuple):
+    """The launch of wide pass 1 for ``(P, d, N)``."""
+    tile_rows: int
+    group: int
+    smem_bytes: int
+    grid: Tuple[int, int]  # (particles, column tiles)
+
+
+def fused_linear_wide_pass1_plan(n_particles: int, d: int,
+                                 n_obs: int) -> Optional[WidePass1Plan]:
+    """Tile rows, group, footprint and grid of wide pass 1 (``None`` where
+    it does not fit)."""
+    tile = fused_linear_wide_pass1_tile_rows(d, n_obs)
+    if tile is None:
+        return None
+    group = fused_linear_wide_pass1_group(d, tile)
+    return WidePass1Plan(tile, group,
+                         fused_linear_wide_pass1_smem_bytes(d, tile, group),
+                         (n_particles, -(-d // _WIDE_COLS)))
 
 
 def fused_linear_available(n_vars: int, n_obs: int) -> bool:
@@ -361,6 +430,8 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     if tile_rows is None:
         raise ValueError(f"{name}: d={d} exceeds the wide tier's shared-"
                          "memory limit (fused_linear_available)")
+    if name == "fused_linear_wide_pass1":  # its own footprint (a subset)
+        tile_rows = fused_linear_wide_pass1_tile_rows(d, n_obs)
     n_ct = -(-d // _WIDE_COLS)
     lib = build()
     dev = scores.device

@@ -252,12 +252,16 @@ def test_split_se_matrix_call_counts_one_launch(cuda):
         <= 1e-5
 
 
-@pytest.mark.parametrize("p,d,n", [(3, 72, 16), (2, 75, 300), (2, 130, 9)])
-def test_wide_fused_tier_matches_plain_versions(cuda, p, d, n):
-    """The wide tier (column tiles; ragged last tile, tiled rows at N=300)
-    against the plain passes and the one-pass plain version."""
+@pytest.mark.parametrize("p,d,n,m", [
+    (3, 72, 16, 9), (2, 75, 300, 9), (2, 130, 9, 9), (1, 71, 37, 5),
+    (2, 602, 30, 9)])
+def test_wide_fused_tier_matches_plain_versions(cuda, p, d, n, m):
+    """The wide tier (column tiles; ragged last tile, tiled rows at N=300
+    and at d=602) against the plain passes and the one-pass plain version;
+    pass 1's edges: one particle, d=71, M=5 and 9 (not a multiple of its
+    group of 4), N=37 (not a multiple of its row tiles)."""
     args = _fused_args(cuda, p=p, d=d, n=n)
-    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=d)}
+    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=d), "n_samples": m}
     before = dict(gk.LAUNCHES)
     lls = fl.fused_linear_pass1(*args, **kw)
     lls_p = fl.fused_linear_pass1_plain(*args, **kw)
@@ -276,3 +280,31 @@ def test_wide_fused_tier_matches_plain_versions(cuda, p, d, n):
     for got, want in pairs:
         tol = 1e-4 * max(1.0, float(want.abs().max()))
         assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("streams", [(4, 4), (4, 5)])
+def test_wide_pass1_is_bitwise_reproducible(cuda, streams):
+    """Two calls of wide pass 1 give bitwise-identical outputs (no atomics,
+    fixed-order float64 sums), shared and separate noise streams."""
+    args = _fused_args(cuda, p=5, d=128, n=100)
+    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=128), "n_samples": 32,
+          "streams": streams}
+    first = fl.fused_linear_pass1(*args, **kw)
+    second = fl.fused_linear_pass1(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("d,n", [(128, 100), (71, 1), (75, 600), (602, 30),
+                                 (128, 10_000), (300, 100)])
+def test_wide_pass1_footprint_and_group_agree_with_the_kernel(cuda, d, n):
+    """The launcher's pass-1 footprint and group (C) are the wrapper's
+    (Python)."""
+    lib = gk.build()
+    plan = fl.fused_linear_wide_pass1_plan(1, d, n)
+    assert lib.dibs_fused_linear_wide_pass1_group(d, plan.tile_rows) == \
+        plan.group
+    for group in (1, 2, 4):
+        assert lib.dibs_fused_linear_wide_pass1_smem_bytes(
+            d, plan.tile_rows, group) == \
+            fl.fused_linear_wide_pass1_smem_bytes(d, plan.tile_rows, group)
