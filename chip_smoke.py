@@ -11,14 +11,15 @@ Phases, one line each; any failure exits non-zero:
    TF32 off;
 2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed),
    with the registers, shared memory and spills ``-Xptxas -v`` reports for
-   #3's and #4's kernels;
+   the kernels of #3, #4, wide pass 1 and #8;
 3. kernel vs plain twin on the card at the main paths' shapes and more,
    with each kernel's and twin's median time (CUDA events), its bound (the
    least time an H100 SXM could take for the same work) and, where one
    PyTorch call computes the same function, that call's time; the fused
    linear-Gaussian kernels at the headline shape and at config 4's
    interventional d=30, N=600, and the fused MLP kernel #8 at config 3's
-   shape and at d=30, N=600 (tiled rows), relu and tanh;
+   shape and at d=30, N=600 (tiled rows), relu and tanh, with its plan, and
+   at the edges of its gate (``SHAPES_NL_EDGES``), two calls bitwise equal;
 4. in-kernel RNG: sample means of the hard and soft samplers against their
    expectations;
 5. end to end, marginal: ``MarginalDiBS`` on a d=20 Erdos-Renyi BGe problem
@@ -40,7 +41,9 @@ Phases, one line each; any failure exits non-zero:
    ``Theta`` families, the d=20 marginal family and config 3's tree family
    (the port's former ``torch.matmul`` route as the library time), the wide
    fused linear tier at config 5's d=128, N=100, P=1000, M=32 (and d=75,
-   N=600; d=602), the SE matrix #3 against its plain version and float64
+   N=600; d=602), the sampler #1 in soft mode at config 5's ``[1000, 8,
+   128, 128]`` (timed beside its plain version and its bound), the SE
+   matrix #3 against its plain version and float64
    from ``[1, 1]`` to config 5's ``[1000, 1000]`` over 32,768, symmetric
    (exactly, diagonal ``scale``) and not, timed at config 5 in turns with
    ``torch.cdist`` (#4 likewise with its former matmul route), and
@@ -202,7 +205,8 @@ def phase_build():
         + " | ".join(report))
     per_kernel = ptxas_report(log_text)
     for name in ("se_matrix_kernel", "se_reduce_kernel",
-                 "transport_phi_kernel", "fused_linear_wide_pass1_kernel"):
+                 "transport_phi_kernel", "fused_linear_wide_pass1_kernel",
+                 "fused_nl_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
         check(bool(found), f"no ptxas report for {name}")
         for k, v in sorted(found.items()):
@@ -496,15 +500,48 @@ def nonlinear_problem(rng, dev, p, d, n, h1, interv_blocks):
     return (scores, *kernel_layout(theta, model), x, w)
 
 
+# (P, d, N, h1, interventional blocks, M, activation) of #8's gate edges:
+# the widest d at h1 = 5 and at h1 = 16, one data row, and h1 = 1 at its
+# widest d over tiled rows; h1 = 16, 1 and 7 take the kernels whose hidden
+# width is rounded up (16, 4, 8), with sigmoid and leaky relu
+SHAPES_NL_EDGES = [(3, 40, 100, 5, 0, 9, "relu"),
+                   (2, 22, 100, 16, 0, 7, "sigmoid"),
+                   (2, 23, 1, 16, 0, 5, "tanh"),
+                   (3, 67, 37, 1, 0, 5, "leakyrelu"),
+                   (4, 13, 130, 7, 1, 6, "sigmoid")]
+
+
+def check_fused_nonlinear(fnl, args, kw, label):
+    """#8 against its plain version within ``1e-4 max(1, max|ref|)`` and
+    two calls bitwise equal; returns ``(worst / bar, max abs err)``."""
+    got = fnl.fused_nonlinear(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(
+        got, fnl.fused_nonlinear(*args, **kw))),
+        f"fused_nonlinear {label}: two calls differ")
+    worst, err_max = 0.0, 0.0
+    for a, b in zip(got, fnl.fused_nonlinear_plain(*args, **kw)):
+        e = float((a - b).abs().max())
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        check(e <= tol, f"fused_nonlinear {label}: max err {e} > {tol}")
+        worst, err_max = max(worst, e / tol), max(err_max, e)
+    return worst, err_max
+
+
 def phase_fused_nonlinear(dev, results):
     from dibs_tpu_torch.inference import fused_nonlinear as fnl
     from dibs_tpu_torch.models import DenseNonlinearGaussian
 
     rng = np.random.default_rng(5)
     worst, err_max = 0.0, 0.0
+
+    def run(args, kw, label):
+        nonlocal worst, err_max
+        w, e = check_fused_nonlinear(fnl, args, kw, label)
+        worst, err_max = max(worst, w), max(err_max, e)
+
     for p, d, n, h1, blocks in [(P, D, N_OBS, 5, 0), (20, 30, 600, 5, 5)]:
         args = nonlinear_problem(rng, dev, p, d, n, h1, blocks)
-        tile = fnl.fused_nonlinear_tile_rows(d, h1, n)
+        plan = fnl.fused_nonlinear_plan(d, h1, n)
         for activation in ("relu", "tanh"):
             model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
                                            activation=activation)
@@ -516,15 +553,8 @@ def phase_fused_nonlinear(dev, results):
                     if noise == "injected":
                         kw["eps"] = (logistic(rng, (p, M, d, d)).to(dev),
                                      logistic(rng, (p, M, d, d)).to(dev))
-                    got = fnl.fused_nonlinear(*args, **kw)
-                    want = fnl.fused_nonlinear_plain(*args, **kw)
-                    for a, b in zip(got, want):
-                        e = float((a - b).abs().max())
-                        tol = 1e-4 * max(1.0, float(b.abs().max()))
-                        check(e <= tol, f"fused_nonlinear d={d} N={n} "
-                                        f"{activation} {noise} alpha={alpha}"
-                                        f": max err {e} > {tol}")
-                        worst, err_max = max(worst, e / tol), max(err_max, e)
+                    run(args, kw, f"d={d} N={n} {activation} {noise} "
+                                  f"alpha={alpha}")
         model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
         kw = dict(seed=23, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=M,
                   model=model)
@@ -536,7 +566,7 @@ def phase_fused_nonlinear(dev, results):
         n_bytes = 4 * (sum(a.numel() for a in args)
                        + p * (d * d + h1 * d * d + (2 * h1 + 1) * d))
         b_ms, b_by = bound_ms(fused_nonlinear_flops(p, M, n, d, h1), n_bytes)
-        log(f"[3 fused_nonlinear P={p} d={d} N={n} h1={h1} M={M} tile={tile}]"
+        log(f"[3 fused_nonlinear P={p} d={d} N={n} h1={h1} M={M} {plan}]"
             f" kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms "
             f"({b_by}, {fused_nonlinear_flops(p, M, n, d, h1) / 1e9:.3f} "
             f"GFLOP)")
@@ -544,11 +574,24 @@ def phase_fused_nonlinear(dev, results):
             results["fused_nonlinear"] = dict(
                 ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
+    for p, d, n, h1, blocks, m, activation in SHAPES_NL_EDGES:
+        args = nonlinear_problem(rng, dev, p, d, n, h1, blocks)
+        model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
+                                       activation=activation)
+        for noise in ("injected", "philox"):
+            kw = dict(seed=29, streams=(4, 5), alpha=1.3, tau=0.9,
+                      n_samples=m, model=model)
+            if noise == "injected":
+                kw["eps"] = (logistic(rng, (p, m, d, d)).to(dev),
+                             logistic(rng, (p, m, d, d)).to(dev))
+            run(args, kw, f"edge d={d} N={n} h1={h1} {activation} {noise}")
     results["fused_nonlinear"]["max_abs_err"] = err_max
     log(f"[3 fused_nonlinear] kernel vs plain at (P,d,N,h1) in (30,20,100,5)"
         f",(20,30,600,5 with interventions, tiled rows), relu and tanh, "
-        f"injected / Philox / shared-stream noise, tau 1 and 0.8: within "
-        f"1e-4 max(1, max|ref|), worst {worst:.3f} of the bar")
+        f"injected / Philox / shared-stream noise, tau 1 and 0.8, and at the "
+        f"gate edges (P,d,N,h1,blocks,M,act) {SHAPES_NL_EDGES}: within "
+        f"1e-4 max(1, max|ref|), worst {worst:.3f} of the bar; two calls "
+        f"bitwise equal at every case")
 
 
 def transport_problem(gen, dev, p, n, joint):
@@ -749,6 +792,24 @@ def phase_config5_kernels(dev, results):
             f"samples (the rest have both weights 0)")
     for name, e in errs.items():
         results[name]["max_abs_err"] = e
+    # the sampler #1 at config 5's soft shape (the acyclicity prior's K
+    # samples): scores read once, [P, K, d, d] graphs written once
+    scores = torch.randn(P5, D5, D5, generator=gen, device=dev)
+    soft = gk.gumbel_graphs(scores, 7, 0, 1.0, 1.0, K_ACYC5, False)
+    e = float((soft - gk.gumbel_graphs_plain(scores, 7, 0, 1.0, 1.0, K_ACYC5,
+                                             False)).abs().max())
+    check(e <= 1e-5, f"gumbel soft at config 5: max err {e}")
+    del soft
+    t_k = cuda_median_ms(lambda: gk.gumbel_graphs(scores, 7, 0, 1.0, 1.0,
+                                                  K_ACYC5, False), reps=10)
+    t_p = cuda_median_ms(lambda: gk.gumbel_graphs_plain(
+        scores, 7, 0, 1.0, 1.0, K_ACYC5, False), reps=3)
+    n_el = P5 * K_ACYC5 * D5 * D5
+    b_ms, b_by = bound_ms(3 * n_el, 4 * (P5 * D5 * D5 + n_el))
+    log(f"[6 config 5: gumbel soft [{P5},{K_ACYC5},{D5},{D5}]] kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+        f"{P5 * K_ACYC5 * D5 * (D5 - 1)} Philox draws; kernel vs plain "
+        f"(same Philox) max err {e:.3g}")
     log(f"[6 config 5: fused wide] wide tier vs plain at (P,d,N,blocks,M) "
         f"in {SHAPES6} (interventional blocks of 100 rows; tiled rows past "
         f"each pass's tile), injected / Philox / shared-stream noise, "

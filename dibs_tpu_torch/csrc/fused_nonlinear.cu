@@ -32,38 +32,69 @@
 // tau = 1 is not used: drawing a sample is O(d^2) against O(h1 N d^2) of
 // scoring, and the plain form matches kernels #1 and #5.
 //
-// Design: three launches. (1) fused_nl_reference, one block per particle:
-// pre_ref and resid_ref into scratch [P, h1 + 1, N, d]. (2) fused_nl_kernel,
-// a grid of (particle, sample chunk) blocks (the TPU's sequential loop over
-// sample groups split across about two blocks per SM), each keeping an
-// online softmax per stream (running max, normaliser, accumulators rescaled
-// when the max moves) over its chunk. The [d, d] matrices live in shared
-// memory; the data rows, pre_ref and resid_ref stream through shared memory
-// in tiles of `tile_rows` rows, and pre = pre_ref + D is recomputed per tile
-// instead of being stored. A thread of the forward owns one node column j
-// and every (kThreads / d)-th row of a tile, two rows at a time, so its sums
-// over the rows (db1, dW2, db2) stay in registers until the block reduces
-// them in a fixed order; each thread of x^T u_h computes two outputs of one
-// column. (3) fused_nl_merge merges each particle's partial states in a fixed
-// order, so the result is deterministic. The per-sample log-likelihoods are
-// summed in float64, as in kernels #2 and #5-#7 and the plain version.
+// Three launches. (1) fused_nl_reference, one block per particle: pre_ref
+// and resid_ref into scratch [P, h1 + 1, N, d]. (2) fused_nl_kernel, a grid
+// of (particle, sample chunk) blocks that fills one wave, each keeping an
+// online softmax per stream over its chunk. (3) fused_nl_merge merges each
+// particle's partial states in a fixed order, so the result is
+// deterministic. The per-sample log-likelihoods are summed in float64, as
+// in kernels #2 and #5-#7 and the plain version.
 //
 // Bound on this card: 8 h1 N d^2 float32 FLOPs per sample (two streams, the
 // delta product and x^T u), 6.1 GFLOP at P = 30, M = 128, N = 100, d = 20,
 // h1 = 5, i.e. ~92 us at 67 TFLOP/s; the inputs and outputs are ~0.2 MB. The
-// kernel is bound by operations. Its products run out of shared memory
-// without register tiling or tensor cores: that is the next step.
+// kernel is bound by operations, in FP32 FFMA (no TF32).
+//
+// Design of fused_nl_kernel<kH, kPad, kAct>, one block of 512 threads per
+// SM (its registers fill the SM's; the grid is one wave of such blocks):
+//  * the data rows stay in shared memory across the block's samples: x
+//    (transposed for the delta product, row-major for x^T u), w, resid_ref
+//    and every pre_ref_h, in one tile of `tile_rows` rows. Where all N rows
+//    fit (config 3: N = 100, d = 20) they are loaded once per block; else a
+//    tile is loaded once per group of samples, its row-major x double-
+//    buffered so that x^T u of one tile runs beside the next tile's delta
+//    product;
+//  * samples run in groups of `group` (<= 2): one phase draws the group's
+//    G - E[G] and H - E[G] and their prior terms, then both products run on
+//    every (sample, stream) of the group at once; the float64 log-
+//    likelihoods and the softmax update are reduced once per group. A group
+//    takes sub-tiles + 4 block barriers (9 at config 3, for 2 samples);
+//  * the delta product is register-tiled: a thread owns one (sample,
+//    stream, node column j) and 4 data rows, for kH hidden units (4 kH
+//    accumulators), and per input i reads one float4 of x^T, the sample's
+//    difference and kH weights for 4 kH FFMA. It forms the masked weights
+//    (G - E[G]) W1_h on the fly, so no [h1, d, d] slab is stored per
+//    sample. The epilogue of each row (activation differences, the float64
+//    data term, delta, u_h and the hard stream's row sums of db1, dW2, db2)
+//    runs on those registers; the row sums stay in registers until the
+//    group ends and are reduced in a fixed order;
+//  * u_h of `sub_rows` rows at a time is staged in shared memory, double-
+//    buffered: the delta product of one sub-tile runs beside x^T u of the
+//    one before, one barrier apart. x^T u is register-tiled too: a thread
+//    owns 4 inputs i x kH of one (sample, stream, node column) and per row
+//    reads one float4 of x and kH values of u for 4 kH FFMA; its sums are
+//    added to the sample's x^T u_h (hard) or sum_h W1_h x^T u_h (soft) in
+//    shared memory, each element by one thread. Its tasks are dealt from
+//    the last thread down, so the two products spread over all the warps;
+//  * W1, pre_ref and u_h keep the hidden unit innermost, at the odd stride
+//    h1 | 1, so a thread's kH values sit at fixed offsets from one pointer
+//    and a warp's 32 node columns fall in distinct banks;
+//  * the activation is a template parameter and the hidden width kH a
+//    compile-time bound: kH = 5 exactly for h1 = 5 (config 3), else h1 is
+//    rounded up to 4, 8 or 16 and the units past h1 carry zero weights.
+// ---------------------------------------------------------------------------
 #include <cmath>
 
 #include "common.h"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRedDoubles = 2 * kWarps + 2;
+constexpr int kGroupMax = 2;                 // samples a group
+constexpr int kSlotsMax = 2 * kGroupMax;     // (sample, stream) slots
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can use
-constexpr int kMaxH = 16;            // widest hidden layer (register arrays)
+constexpr int kMaxH = 16;            // widest hidden layer
 
 enum Act : int { kRelu = 0, kTanh = 1, kSigmoid = 2, kLeaky = 3 };
 
@@ -78,27 +109,36 @@ struct Args {
   const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
   const float* ref;       // [P, h1 + 1, N, d]: pre_ref (h < h1), resid_ref
   float* part;            // [P, S, stride] scratch: partial states
-  int n_samples, d, h1, n_obs, tile_rows, n_split, chunk, act;
+  int n_samples, d, h1, n_obs, tile_rows, sub_rows, group, n_split, chunk;
   uint32_t k0, k1, stream_soft, stream_hard;
   float alpha, tau, inv_varp;
   double inv_var;
 };
 
+__host__ __device__ inline int round_up(int v, int k) {
+  return (v + k - 1) / k * k;
+}
+
 __host__ __device__ inline int part_stride(int d, int h1) {
   return 4 + (1 + h1) * d * d + (2 * h1 + 1) * d;
 }
 
-size_t smem_bytes(int d, int h1, int tile_rows) {
-  const size_t dd = static_cast<size_t>(d) * d;
-  const size_t tnd = static_cast<size_t>(tile_rows) * d;
-  const size_t rows = kThreads / d;
-  const size_t u_buf = 2 * h1 * tnd;
-  const size_t red_buf = (2 * h1 + 1) * rows * d;
-  return sizeof(double) * kRedDoubles +
-         sizeof(float) * ((7 + 5 * static_cast<size_t>(h1)) * dd +
-                          (3 * static_cast<size_t>(h1) + 1) * d +
-                          (3 + static_cast<size_t>(h1)) * tnd +
-                          (u_buf > red_buf ? u_buf : red_buf));
+// The block's shared memory, region by region in the kernel's order
+// (inference/fused_nonlinear.py mirrors it: fused_nonlinear_plan_smem_bytes).
+size_t smem_bytes(int d, int h1, int group, int sub_rows, int tile_rows,
+                  int n_obs) {
+  const size_t dd = static_cast<size_t>(d) * d, hh = h1, hs = h1 | 1;
+  const size_t g = group, t = tile_rows, ldt = round_up(tile_rows, 4);
+  const size_t ldx = round_up(d, 4), x_bufs = tile_rows < n_obs ? 2 : 1;
+  const size_t doubles = kThreads + kWarps * kSlotsMax;
+  const size_t tile = d * ldt + x_bufs * t * ldx + (2 + hs) * t * d;
+  const size_t stage = 2 * 2 * g * sub_rows * d * hs;
+  const size_t particle = (3 + hs) * dd + hh * d;
+  const size_t accs = (1 + hh) * dd + (2 * hh + 1) * d;
+  const size_t samples = g * (3 + hh) * dd;
+  const size_t sums = (2 * hh + 1) * (kThreads / 2) + kSlotsMax;
+  return sizeof(double) * doubles +
+         sizeof(float) * (tile + stage + particle + accs + samples + sums);
 }
 
 size_t ref_smem_bytes(int d, int h1) {
@@ -106,80 +146,61 @@ size_t ref_smem_bytes(int d, int h1) {
                           (2 * static_cast<size_t>(h1) + 1) * d);
 }
 
-__device__ __forceinline__ float act_f(int act, float v) {
-  switch (act) {
-    case kRelu:
-      return fmaxf(v, 0.0f);
-    case kTanh:
-      return tanhf(v);
-    case kSigmoid:
-      return 1.0f / (1.0f + expf(-v));
-    default:
-      return v > 0.0f ? v : 0.01f * v;
+template <int kAct>
+__device__ __forceinline__ float act_f(float v) {
+  if constexpr (kAct == kRelu) {
+    return fmaxf(v, 0.0f);
+  } else if constexpr (kAct == kTanh) {
+    return tanhf(v);
+  } else if constexpr (kAct == kSigmoid) {
+    return 1.0f / (1.0f + expf(-v));
+  } else {
+    return v > 0.0f ? v : 0.01f * v;
   }
 }
 
-__device__ __forceinline__ float dact_f(int act, float v) {
-  switch (act) {
-    case kRelu:
-      return v > 0.0f ? 1.0f : 0.0f;
-    case kTanh: {
-      const float t = tanhf(v);
-      return 1.0f - t * t;
-    }
-    case kSigmoid: {
-      const float s = 1.0f / (1.0f + expf(-v));
-      return s * (1.0f - s);
-    }
-    default:
-      return v > 0.0f ? 1.0f : 0.01f;
+template <int kAct>
+__device__ __forceinline__ float dact_f(float v) {
+  if constexpr (kAct == kRelu) {
+    return v > 0.0f ? 1.0f : 0.0f;
+  } else if constexpr (kAct == kTanh) {
+    const float t = tanhf(v);
+    return 1.0f - t * t;
+  } else if constexpr (kAct == kSigmoid) {
+    const float s = 1.0f / (1.0f + expf(-v));
+    return s * (1.0f - s);
+  } else {
+    return v > 0.0f ? 1.0f : 0.01f;
   }
 }
 
 // act(p + dl) - act(p) with pre = p + dl; relu in its exact branch form.
-__device__ __forceinline__ float act_diff(int act, float p, float dl,
-                                          float pre) {
-  if (act == kRelu) return p >= 0.0f ? fmaxf(dl, -p) : fmaxf(pre, 0.0f);
-  return act_f(act, pre) - act_f(act, p);
+template <int kAct>
+__device__ __forceinline__ float act_diff(float p, float dl, float pre) {
+  if constexpr (kAct == kRelu) {
+    return p >= 0.0f ? fmaxf(dl, -p) : fmaxf(pre, 0.0f);
+  } else {
+    return act_f<kAct>(pre) - act_f<kAct>(p);
+  }
 }
 
-// Sums two per-thread doubles over the block; every thread gets the sums.
-__device__ __forceinline__ void block_sum2(double* a, double* b,
-                                           double* red) {
-  double va = *a, vb = *b;
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    va += __shfl_down_sync(0xFFFFFFFFu, va, off);
-    vb += __shfl_down_sync(0xFFFFFFFFu, vb, off);
+    v += __shfl_down_sync(0xFFFFFFFFu, v, off);
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[2 * warp] = va;
-    red[2 * warp + 1] = vb;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double sa = 0.0, sb = 0.0;
-    for (int k = 0; k < kWarps; ++k) {
-      sa += red[2 * k];
-      sb += red[2 * k + 1];
-    }
-    red[2 * kWarps] = sa;
-    red[2 * kWarps + 1] = sb;
-  }
-  __syncthreads();
-  *a = red[2 * kWarps];
-  *b = red[2 * kWarps + 1];
+  return v;
 }
 
 // (1) The centring reference of each particle.
+template <int kAct>
 __global__ void __launch_bounds__(kThreads)
     fused_nl_reference(const float* __restrict__ scores,
                        const float* __restrict__ w1,
                        const float* __restrict__ b1,
                        const float* __restrict__ w2,
                        const float* __restrict__ x, float* __restrict__ ref,
-                       int d, int h1, int n_obs, float alpha, int act) {
+                       int d, int h1, int n_obs, float alpha) {
   extern __shared__ float smem_f[];
   const int p = blockIdx.x, tid = threadIdx.x, dd = d * d;
   float* sw = smem_f;           // [h1, d, d] E[G] * W1_h
@@ -207,54 +228,65 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < d; ++i) pre = fmaf(xr[i], sw[h * dd + i * d + j], pre);
       pre += bb[h * d + j];
       out[h * nd + idx] = pre;
-      mean = fmaf(act_f(act, pre), ww[h * d + j], mean);
+      mean = fmaf(act_f<kAct>(pre), ww[h * d + j], mean);
     }
     out[h1 * nd + idx] = xr[j] - mean;
   }
 }
 
-// (2) One pass over a chunk of samples with an online softmax per stream.
-template <int kH>
-__global__ void __launch_bounds__(kThreads, 2)
+// (2) One pass over a chunk of samples, in groups, with an online softmax
+// per stream. kH: the register arrays' hidden width; kPad: h1 < kH possible
+// (units past h1 read as zero), else h1 = kH.
+template <int kH, bool kPad, int kAct>
+__global__ void __launch_bounds__(kThreads, 1)
     fused_nl_kernel(const Args a) {
-  extern __shared__ double smem_d[];
-  double* red = smem_d;
-  const int d = a.d, dd = d * d, h1 = a.h1, act = a.act;
-  const int tn_max = a.tile_rows, tnd = tn_max * d;
-  const int rows = kThreads / d;
-  float* as_ = reinterpret_cast<float*>(smem_d + kRedDoubles);  // alpha s
-  float* sig = as_ + dd;          // E[G], zero diagonal
+  extern __shared__ __align__(16) double smem_d[];
+  const int d = a.d, dd = d * d, h1 = kPad ? a.h1 : kH;
+  const int G = a.group, T = a.tile_rows, R = a.sub_rows;
+  const int n_obs = a.n_obs, n_tiles = (n_obs + T - 1) / T;
+  const int ldt = round_up(T, 4), ldx = round_up(d, 4);
+  const int C = 2 * G * d, L = kThreads / C;  // delta product: combos x lanes
+  const int GD = G * d;                       // hard combos a lane
+  const int hs = h1 | 1;  // odd stride of the [.., h] rows: no bank conflicts
+  const int stage = R * d * hs;               // one (sample, stream) slot
+  double* ldp = smem_d;                       // [kThreads] data terms
+  double* lpp = ldp + kThreads;               // [kWarps][kSlotsMax] prior
+  float* xT = reinterpret_cast<float*>(lpp + kWarps * kSlotsMax);  // [d][ldt]
+  float* xr = xT + d * ldt;          // [1 or 2][T][ldx], 2 when tiled
+  float* ub = xr + (n_tiles > 1 ? 2 : 1) * T * ldx;  // [2][2 G][R][d][hs]
+  float* wt = ub + 2 * 2 * G * stage;  // [T][d]
+  float* rt = wt + T * d;              // resid_ref [T][d]
+  float* pt = rt + T * d;              // pre_ref [T][d][hs]
+  float* as_ = pt + T * d * hs;        // alpha s
+  float* sig = as_ + dd;               // E[G], zero diagonal
   float* l1 = sig + dd;
-  float* w1 = l1 + dd;            // [h1, d, d]
-  float* gs = w1 + h1 * dd;       // soft sample
-  float* gh = gs + dd;            // hard sample
-  float* am_s = gh + dd;          // [h1, d, d] (G - E[G]) W1_h
-  float* am_h = am_s + h1 * dd;   // [h1, d, d] (H - E[G]) W1_h
-  float* dg_s = am_h + h1 * dd;   // sum_h W1_h x^T u_h, soft, this sample
-  float* xtu_h = dg_s + dd;       // [h1, d, d] x^T u_h, hard, this sample
-  float* acc_ds = xtu_h + h1 * dd;
-  float* acc_dw1 = acc_ds + dd;   // [h1, d, d]
-  float* w2 = acc_dw1 + h1 * dd;  // [h1, d]
-  float* acc_sm = w2 + h1 * d;    // [2 h1 + 1, d]: db1, dW2, db2
-  float* xt = acc_sm + (2 * h1 + 1) * d;  // data tile [tile_rows, d]
-  float* wt = xt + tnd;
-  float* rt = wt + tnd;           // resid_ref tile
-  float* pt = rt + tnd;           // [h1, tile_rows, d] pre_ref tile
-  float* us = pt + h1 * tnd;      // [h1, tile_rows, d] u_h, soft
-  float* uh = us + h1 * tnd;      // [h1, tile_rows, d] u_h, hard
-  float* red_sm = us;             // [2 h1 + 1, rows, d], after the tiles
+  float* w1 = l1 + dd;                 // [d][d][hs]
+  float* w2 = w1 + dd * hs;            // [h1][d]
+  float* acc_ds = w2 + h1 * d;
+  float* acc_dw1 = acc_ds + dd;        // [h1][d][d]
+  float* acc_sm = acc_dw1 + h1 * dd;   // [2 h1 + 1][d]: db1, dW2, db2
+  float* dsm = acc_sm + (2 * h1 + 1) * d;  // [G][d][d] G - E[G]
+  float* dhm = dsm + G * dd;           // [G][d][d] H - E[G]
+  float* dgs = dhm + G * dd;           // [G][d][d] sum_h W1_h x^T u_h, soft
+  float* xtu = dgs + G * dd;           // [G][h1][d][d] x^T u_h, hard
+  float* rs = xtu + G * h1 * dd;       // [2 h1 + 1][kThreads / 2] row sums
+  float* sll = rs + (2 * h1 + 1) * (kThreads / 2);  // [kSlotsMax] dll
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
-  const int n_obs = a.n_obs, n_smp = a.n_samples;
+  const int warp = tid / 32, lane = tid % 32;
+  const int n_smp = a.n_samples;
   const int m_begin = split * a.chunk;
   const int m_end = min(n_smp, m_begin + a.chunk);
   const int64_t ps = static_cast<int64_t>(p) * a.n_split + split;
-  const int jr = tid % d, rr = tid / d;  // forward: node column, row lane
-  const bool fwd = rr < rows;
   const int64_t nd = static_cast<int64_t>(n_obs) * d;
   const float* refp = a.ref + static_cast<int64_t>(p) * (h1 + 1) * nd;
   const float inv_var_f = static_cast<float>(a.inv_var);
-  const float sens_c = a.tau * a.alpha;
+  // this thread's (sample, stream, node column) and row lane in the delta
+  // product; slot = 2 sample + stream (0 soft, 1 hard)
+  const bool fwd = tid < C * L;
+  const int cmb = tid % C, lane_r = tid / C;
+  const int slot_f = cmb / d, jq = cmb - slot_f * d, gq = slot_f >> 1;
+  const int hr = lane_r * GD + gq * d + jq;  // row-sum index (hard)
 
   // --- per particle ---
   for (int e = tid; e < dd; e += kThreads) {
@@ -265,37 +297,55 @@ __global__ void __launch_bounds__(kThreads, 2)
     l1[e] = a.l1[static_cast<int64_t>(p) * dd + e];
     acc_ds[e] = 0.0f;
   }
-  for (int k = tid; k < h1 * dd; k += kThreads) {
-    w1[k] = a.w1[static_cast<int64_t>(p) * h1 * dd + k];
+  for (int k = tid; k < h1 * dd; k += kThreads) {  // [h][e] -> [e][h]
+    const int h = k / dd, e = k - h * dd;
+    w1[e * hs + h] = a.w1[static_cast<int64_t>(p) * h1 * dd + k];
     acc_dw1[k] = 0.0f;
   }
   for (int k = tid; k < h1 * d; k += kThreads)
     w2[k] = a.w2[static_cast<int64_t>(p) * (h1 + 1) * d + k];
   for (int k = tid; k < (2 * h1 + 1) * d; k += kThreads) acc_sm[k] = 0.0f;
 
-  const int n_tiles = (n_obs + tn_max - 1) / tn_max;
-  auto load_tile = [&](int t0, int tn) {
+  // rows t0 .. t0 + tn of the data, zero past tn (and past column d of x);
+  // x row-major into buffer xb, which the previous tile's x^T u may still
+  // read
+  auto load_tile = [&](int t0, int tn, int xb) {
     const int64_t base = static_cast<int64_t>(t0) * d;
+    float* xo = xr + xb * T * ldx;
+    for (int idx = tid; idx < ldt * d; idx += kThreads) {
+      const int n = idx / d, i = idx - n * d;
+      xT[i * ldt + n] = n < tn ? a.x[base + idx] : 0.0f;
+    }
+    for (int idx = tid; idx < T * ldx; idx += kThreads) {
+      const int n = idx / ldx, i = idx - n * ldx;
+      xo[idx] = n < tn && i < d ? a.x[base + n * d + i] : 0.0f;
+    }
     for (int idx = tid; idx < tn * d; idx += kThreads) {
-      xt[idx] = a.x[base + idx];
       wt[idx] = a.w[base + idx];
       rt[idx] = refp[h1 * nd + base + idx];
     }
     for (int k = tid; k < h1 * tn * d; k += kThreads) {
       const int h = k / (tn * d), rem = k - h * tn * d;
-      pt[h * tnd + rem] = refp[h * nd + base + rem];
+      pt[rem * hs + h] = refp[h * nd + base + rem];
     }
   };
-  if (n_tiles == 1) load_tile(0, n_obs);  // resident for every sample
+  if (n_tiles == 1) load_tile(0, n_obs, 0);  // resident for every sample
   __syncthreads();
 
+  float w2r[kH];  // W2[h][jq], zero past h1
+#pragma unroll
+  for (int h = 0; h < kH; ++h) w2r[h] = (!kPad || h < h1) ? w2[h * d + jq] : 0.0f;
+
   float m_s = -INFINITY, z_s = 0.0f, m_h = -INFINITY, z_h = 0.0f;
-  for (int m = m_begin; m < m_end; ++m) {
-    // --- 1. the sample pair, masked first-layer weights, prior term ---
-    double lp_s = 0.0, lp_h = 0.0;
-    const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * dd;
-    for (int e = tid; e < dd; e += kThreads) {
-      const int i = e / d;
+  for (int m0 = m_begin; m0 < m_end; m0 += G) {
+    const int gl = min(G, m_end - m0);  // samples in this group
+    const bool fwd_g = fwd && gq < gl;
+
+    // --- 1. the group's samples as G - E[G], H - E[G]; prior terms ---
+    double lp0s = 0.0, lp0h = 0.0, lp1s = 0.0, lp1h = 0.0;
+    for (int idx = tid; idx < gl * dd; idx += kThreads) {
+      const int g = idx / dd, e = idx - g * dd, m = m0 + g, i = e / d;
+      const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * dd;
       float g_soft = 0.0f, g_hard = 0.0f;
       if (i != e - i * d) {
         const float es =
@@ -314,194 +364,273 @@ __global__ void __launch_bounds__(kThreads, 2)
         g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
       }
       const float ds = g_soft - sig[e], dh = g_hard - sig[e];
-      gs[e] = g_soft;
-      gh[e] = g_hard;
-      lp_s += static_cast<double>(ds * l1[e]);
-      lp_h += static_cast<double>(dh * l1[e]);
-      for (int h = 0; h < h1; ++h) {
-        am_s[h * dd + e] = ds * w1[h * dd + e];
-        am_h[h * dd + e] = dh * w1[h * dd + e];
-        xtu_h[h * dd + e] = 0.0f;
+      dsm[idx] = ds;
+      dhm[idx] = dh;
+      const double ts = static_cast<double>(ds * l1[e]);
+      const double th = static_cast<double>(dh * l1[e]);
+      if (g == 0) {
+        lp0s += ts;
+        lp0h += th;
+      } else {
+        lp1s += ts;
+        lp1h += th;
       }
-      dg_s[e] = 0.0f;
+    }
+    for (int k = tid; k < G * (1 + h1) * dd; k += kThreads) dgs[k] = 0.0f;
+    lp0s = warp_sum(lp0s);
+    lp0h = warp_sum(lp0h);
+    lp1s = warp_sum(lp1s);
+    lp1h = warp_sum(lp1h);
+    if (lane == 0) {
+      lpp[warp * kSlotsMax + 0] = lp0s;
+      lpp[warp * kSlotsMax + 1] = lp0h;
+      lpp[warp * kSlotsMax + 2] = lp1s;
+      lpp[warp * kSlotsMax + 3] = lp1h;
     }
     __syncthreads();
 
-    // --- 2. data tiles: forward, dll terms, u_h, x^T u_h ---
-    double ld_s = 0.0, ld_h = 0.0;
+    // --- 2. per sub-tile: the delta product and its row epilogue (u_h
+    // staged), beside x^T u of the sub-tile before ---
+    double ld = 0.0;
     float s_db1[kH], s_dw2[kH], s_db2 = 0.0f;
 #pragma unroll
     for (int h = 0; h < kH; ++h) {
       s_db1[h] = 0.0f;
       s_dw2[h] = 0.0f;
     }
-    for (int t = 0; t < n_tiles; ++t) {
-      const int t0 = t * tn_max;
-      const int tn = min(tn_max, n_obs - t0);
-      if (n_tiles > 1) {
-        load_tile(t0, tn);
-        __syncthreads();
-      }
-      // one data row n of node column jr, both streams: the dll terms,
-      // u_h into the tiles, and the hard stream's row sums
-      auto row_epilogue = [&](int n, const float (&dsv)[kH],
-                              const float (&dhv)[kH]) {
-        const int nj = n * d + jr;
-        const float r = rt[nj], wv = wt[nj];
-        float md_s = 0.0f, md_h = 0.0f;
+
+    // delta product of rows c0 .. c0 + rc of the tile into stage buffer buf
+    auto forward = [&](int c0, int rc, int buf) {
+      if (!fwd_g) return;
+      const int nq = (rc + 3) / 4;
+      const float* dgm = ((slot_f & 1) ? dhm : dsm) + gq * dd + jq;
+      float* uo = ub + (buf * 2 * G + slot_f) * stage + jq * hs;
+      for (int q = lane_r; q < nq; q += L) {
+        const int r0 = c0 + 4 * q;
+        float f[kH][4];
 #pragma unroll
         for (int h = 0; h < kH; ++h) {
-          if (h < h1) {
-            const float pr = pt[h * tnd + nj], wo = w2[h * d + jr];
-            md_s += act_diff(act, pr, dsv[h], pr + dsv[h]) * wo;
-            md_h += act_diff(act, pr, dhv[h], pr + dhv[h]) * wo;
-          }
-        }
-        ld_s += static_cast<double>(wv * md_s * (md_s - 2.0f * r));
-        ld_h += static_cast<double>(wv * md_h * (md_h - 2.0f * r));
-        const float del_s = inv_var_f * ((r - md_s) * wv);
-        const float del_h = inv_var_f * ((r - md_h) * wv);
 #pragma unroll
-        for (int h = 0; h < kH; ++h) {
-          if (h < h1) {
-            const float pr = pt[h * tnd + nj], wo = w2[h * d + jr];
-            const float pre_s = pr + dsv[h], pre_h = pr + dhv[h];
-            us[h * tnd + nj] = del_s * dact_f(act, pre_s) * wo;
-            const float u = del_h * dact_f(act, pre_h) * wo;
-            uh[h * tnd + nj] = u;
-            s_db1[h] += u;
-            s_dw2[h] += del_h * act_f(act, pre_h);
-          }
+          for (int r = 0; r < 4; ++r) f[h][r] = 0.0f;
         }
-        s_db2 += del_h;
-      };
-      // first-layer deltas D_h, two rows (n, n + rows) per thread so that
-      // each masked-weight load feeds four products
-      if (fwd) {
-        for (int n = rr; n < tn; n += 2 * rows) {
-          const int n2 = n + rows;
-          const bool two = n2 < tn;
-          float ds0[kH], dh0[kH], ds1[kH], dh1[kH];
+        const float* xp = xT + r0;         // x^T[i][r0 ..]
+        const float* cp = dgm;             // (G - E[G])[i][jq]
+        const float* wp = w1 + jq * hs;    // W1[i][jq][0 ..]
+#pragma unroll 2
+        for (int i = 0; i < d; ++i, xp += ldt, cp += d, wp += d * hs) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xp);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float cg = *cp;
 #pragma unroll
           for (int h = 0; h < kH; ++h) {
-            ds0[h] = 0.0f;
-            dh0[h] = 0.0f;
-            ds1[h] = 0.0f;
-            dh1[h] = 0.0f;
+            const float av = (!kPad || h < h1) ? cg * wp[h] : 0.0f;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) f[h][r] = fmaf(xv[r], av, f[h][r]);
           }
-          const float* x0 = xt + n * d;
-          const float* x1 = xt + (two ? n2 : n) * d;
-          for (int i = 0; i < d; ++i) {
-            const float xv0 = x0[i], xv1 = x1[i];
-            const float* cs = am_s + i * d + jr;
-            const float* ch = am_h + i * d + jr;
+        }
+        // row epilogue: data row n, node column jq, this thread's stream
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = r0 + r;
+          if (n >= c0 + rc) break;
+          const int nj = n * d + jq;
+          const float rv = rt[nj], wv = wt[nj];
+          const float* pp = pt + nj * hs;
+          float pr[kH];
+          float md = 0.0f;
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            pr[h] = (!kPad || h < h1) ? pp[h] : 0.0f;
+            md += act_diff<kAct>(pr[h], f[h][r], pr[h] + f[h][r]) * w2r[h];
+          }
+          ld += static_cast<double>(wv * md * (md - 2.0f * rv));
+          const float del = inv_var_f * ((rv - md) * wv);
+          float* un = uo + (n - c0) * d * hs;
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            if (!kPad || h < h1) {
+              const float pre = pr[h] + f[h][r];
+              const float u = del * dact_f<kAct>(pre) * w2r[h];
+              un[h] = u;
+              s_db1[h] += u;  // kept for the hard stream only
+              s_dw2[h] += del * act_f<kAct>(pre);
+            }
+          }
+          s_db2 += del;
+        }
+      }
+    };
+
+    // x^T u of rows c0 .. c0 + rc from stage buffer buf and x buffer xb,
+    // into dgs / xtu
+    auto xtu_product = [&](int c0, int rc, int buf, int xb) {
+      const int n_iq = (d + 3) / 4;
+      const int n_tasks = 2 * gl * n_iq * d;
+      // tasks from the last thread down: the threads past the delta
+      // product's combos take x^T u first, so the two spread over the warps
+      for (int k = kThreads - 1 - tid; k < n_tasks; k += kThreads) {
+        const int j = k % d, rest = k / d;
+        const int iq = rest % n_iq, slot = rest / n_iq;
+        float acc[kH][4];
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[h][r] = 0.0f;
+        }
+        const float* xp = xr + xb * T * ldx + c0 * ldx + 4 * iq;
+        const float* up = ub + (buf * 2 * G + slot) * stage + j * hs;
+#pragma unroll 2
+        for (int n = 0; n < rc; ++n, xp += ldx, up += d * hs) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xp);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            const float uv = (!kPad || h < h1) ? up[h] : 0.0f;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[h][r] = fmaf(xv[r], uv, acc[h][r]);
+          }
+        }
+        const int g = slot >> 1;
+        const bool hard = slot & 1;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * iq + r;
+          if (i >= d) break;
+          const int e = i * d + j;
+          if (hard) {
 #pragma unroll
             for (int h = 0; h < kH; ++h) {
-              if (h < h1) {
-                const float c_s = cs[h * dd], c_h = ch[h * dd];
-                ds0[h] = fmaf(xv0, c_s, ds0[h]);
-                dh0[h] = fmaf(xv0, c_h, dh0[h]);
-                ds1[h] = fmaf(xv1, c_s, ds1[h]);
-                dh1[h] = fmaf(xv1, c_h, dh1[h]);
+              if (!kPad || h < h1) xtu[(g * h1 + h) * dd + e] += acc[h][r];
+            }
+          } else {
+            float dg = 0.0f;
+#pragma unroll
+            for (int h = 0; h < kH; ++h) {
+              if (!kPad || h < h1) dg = fmaf(w1[e * hs + h], acc[h][r], dg);
+            }
+            dgs[g * dd + e] += dg;
+          }
+        }
+      }
+    };
+
+    // sub-tiles in order over the tiles; the x^T u of each runs in the
+    // next interval, beside the next delta product (of the next tile
+    // too: x is double-buffered by tile where the rows are tiled)
+    int c_all = 0, p_c0 = 0, p_rc = 0, p_buf = 0, p_xb = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t * T, tn = min(T, n_obs - t0), xb = t & 1;
+      if (n_tiles > 1) {
+        load_tile(t0, tn, xb);
+        __syncthreads();
+      }
+      const int n_sub = (tn + R - 1) / R;
+      for (int c = 0; c < n_sub; ++c, ++c_all) {
+        const int c0 = c * R, rc = min(R, tn - c0), buf = c_all & 1;
+        forward(c0, rc, buf);
+        if (c_all > 0) xtu_product(p_c0, p_rc, p_buf, p_xb);
+        if (t == n_tiles - 1 && c == n_sub - 1 && fwd_g) {
+          ldp[tid] = ld;  // the group's row partials
+          if (slot_f & 1) {
+#pragma unroll
+            for (int h = 0; h < kH; ++h) {
+              if (!kPad || h < h1) {
+                rs[h * (kThreads / 2) + hr] = s_db1[h];
+                rs[(h1 + h) * (kThreads / 2) + hr] = s_dw2[h];
               }
             }
+            rs[2 * h1 * (kThreads / 2) + hr] = s_db2;
           }
-          row_epilogue(n, ds0, dh0);
-          if (two) row_epilogue(n2, ds1, dh1);
         }
+        p_c0 = c0;
+        p_rc = rc;
+        p_buf = buf;
+        p_xb = xb;
+        __syncthreads();
       }
-      __syncthreads();
-      // x^T u_h: two outputs (i0, j), (i0 + 1, j) per work item share the
-      // u loads
-      const int half = (d + 1) / 2;
-      for (int k = tid; k < half * d; k += kThreads) {
-        const int ip = k / d, j = k - ip * d;
-        const int i0 = 2 * ip, i1 = min(i0 + 1, d - 1);
-        float ss0[kH], sh0[kH], ss1[kH], sh1[kH];
-#pragma unroll
-        for (int h = 0; h < kH; ++h) {
-          ss0[h] = 0.0f;
-          sh0[h] = 0.0f;
-          ss1[h] = 0.0f;
-          sh1[h] = 0.0f;
-        }
-        for (int n = 0; n < tn; ++n) {
-          const float xv0 = xt[n * d + i0], xv1 = xt[n * d + i1];
-          const int nj = n * d + j;
-#pragma unroll
-          for (int h = 0; h < kH; ++h) {
-            if (h < h1) {
-              const float u_s = us[h * tnd + nj], u_h = uh[h * tnd + nj];
-              ss0[h] = fmaf(xv0, u_s, ss0[h]);
-              sh0[h] = fmaf(xv0, u_h, sh0[h]);
-              ss1[h] = fmaf(xv1, u_s, ss1[h]);
-              sh1[h] = fmaf(xv1, u_h, sh1[h]);
-            }
-          }
-        }
-        const int e0 = i0 * d + j, e1 = i1 * d + j;
-        float dg0 = 0.0f, dg1 = 0.0f;
-#pragma unroll
-        for (int h = 0; h < kH; ++h) {
-          if (h < h1) {
-            dg0 = fmaf(w1[h * dd + e0], ss0[h], dg0);
-            xtu_h[h * dd + e0] += sh0[h];
-            if (i1 != i0) {
-              dg1 = fmaf(w1[h * dd + e1], ss1[h], dg1);
-              xtu_h[h * dd + e1] += sh1[h];
-            }
-          }
-        }
-        dg_s[e0] += dg0;
-        if (i1 != i0) dg_s[e1] += dg1;
-      }
-      __syncthreads();  // the next tile (or step 3) overwrites us, uh
     }
+    xtu_product(p_c0, p_rc, p_buf, p_xb);
+    __syncthreads();
 
-    // --- 3. dll of the sample pair (float64 block sums) ---
-    double v_s = -0.5 * a.inv_var * ld_s + lp_s;
-    double v_h = -0.5 * a.inv_var * ld_h + lp_h;
-    block_sum2(&v_s, &v_h, red);
-    const float ll_s = static_cast<float>(v_s), ll_h = static_cast<float>(v_h);
+    // --- 3. dll of each (sample, stream): float64, fixed order ---
+    if (warp < 2 * gl) {
+      double v = 0.0;
+      for (int k = lane; k < L * d; k += 32) {
+        const int l = k / d, j = k - l * d;
+        v += ldp[l * C + warp * d + j];
+      }
+      v = warp_sum(v);
+      if (lane == 0) {
+        double lp = 0.0;
+        for (int k = 0; k < kWarps; ++k) lp += lpp[k * kSlotsMax + warp];
+        sll[warp] = static_cast<float>(-0.5 * a.inv_var * v + lp);
+      }
+    }
+    __syncthreads();
 
-    // --- 4. online softmax: exp(-inf) = 0 at the first sample ---
-    const float nm_s = fmaxf(m_s, ll_s), nm_h = fmaxf(m_h, ll_h);
+    // --- 4. online softmax: exp(-inf) = 0 at the first group ---
+    float nm_s = m_s, nm_h = m_h;
+    for (int g = 0; g < gl; ++g) {
+      nm_s = fmaxf(nm_s, sll[2 * g]);
+      nm_h = fmaxf(nm_h, sll[2 * g + 1]);
+    }
     const float sc_s = expf(m_s - nm_s), sc_h = expf(m_h - nm_h);
-    const float w_s = expf(ll_s - nm_s), w_h = expf(ll_h - nm_h);
-    z_s = z_s * sc_s + w_s;
-    z_h = z_h * sc_h + w_h;
+    float w_s[kGroupMax], w_h[kGroupMax];
+    z_s *= sc_s;
+    z_h *= sc_h;
+#pragma unroll
+    for (int g = 0; g < kGroupMax; ++g) {
+      w_s[g] = g < gl ? expf(sll[2 * g] - nm_s) : 0.0f;
+      w_h[g] = g < gl ? expf(sll[2 * g + 1] - nm_h) : 0.0f;
+      z_s += w_s[g];
+      z_h += w_h[g];
+    }
     m_s = nm_s;
     m_h = nm_h;
 
-    // --- 5. weight and accumulate ---
-    if (fwd) {
+    // --- 5. weight and accumulate the group ---
+    const float sens_c = a.tau * a.alpha;
+    for (int e = tid; e < dd; e += kThreads) {
+      const float sg = sig[e];
+      float v = acc_ds[e] * sc_s;
+      float hv[kGroupMax];
 #pragma unroll
-      for (int h = 0; h < kH; ++h) {
-        if (h < h1) {
-          red_sm[(h * rows + rr) * d + jr] = s_db1[h];
-          red_sm[((h1 + h) * rows + rr) * d + jr] = s_dw2[h];
+      for (int g = 0; g < kGroupMax; ++g) {
+        if (g < gl) {
+          const float gv = dsm[g * dd + e] + sg;
+          v += w_s[g] * (sens_c * gv * (1.0f - gv) * (l1[e] + dgs[g * dd + e]));
+          hv[g] = dhm[g * dd + e] + sg > 0.5f ? 1.0f : 0.0f;
         }
       }
-      red_sm[(2 * h1 * rows + rr) * d + jr] = s_db2;
-    }
-    __syncthreads();
-    for (int k = tid; k < (2 * h1 + 1) * d; k += kThreads) {
-      const int q = k / d, j = k - q * d;
-      float s = 0.0f;
-      for (int r = 0; r < rows; ++r) s += red_sm[(q * rows + r) * d + j];
-      acc_sm[k] = acc_sm[k] * sc_h + w_h * s;
-    }
-    for (int e = tid; e < dd; e += kThreads) {
-      const float g = gs[e], hv = gh[e];
-      acc_ds[e] = acc_ds[e] * sc_s +
-                  w_s * (sens_c * g * (1.0f - g) * (l1[e] + dg_s[e]));
+      acc_ds[e] = v;
       for (int h = 0; h < h1; ++h) {
         const int k = h * dd + e;
-        acc_dw1[k] = acc_dw1[k] * sc_h +
-                     w_h * (hv * (xtu_h[k] - w1[k] * a.inv_varp));
+        float u = acc_dw1[k] * sc_h;
+#pragma unroll
+        for (int g = 0; g < kGroupMax; ++g) {
+          if (g < gl) {
+            u += w_h[g] * (hv[g] * (xtu[(g * h1 + h) * dd + e] -
+                                    w1[e * hs + h] * a.inv_varp));
+          }
+        }
+        acc_dw1[k] = u;
       }
     }
-    __syncthreads();  // the next sample overwrites gs, gh, am_*, dg_s, xtu_h
+    for (int k = tid; k < (2 * h1 + 1) * d; k += kThreads) {
+      const int qq = k / d, j = k - qq * d;
+      float v = acc_sm[k] * sc_h;
+#pragma unroll
+      for (int g = 0; g < kGroupMax; ++g) {
+        if (g < gl) {
+          const float* rq = rs + qq * (kThreads / 2) + g * d + j;
+          float s = 0.0f;
+          for (int l = 0; l < L; ++l) s += rq[l * GD];
+          v += w_h[g] * s;
+        }
+      }
+      acc_sm[k] = v;
+    }
+    __syncthreads();  // the next group overwrites the samples and sums
   }
 
   // this block's partial state, merged by fused_nl_merge
@@ -561,53 +690,94 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kH>
-int launch_main(const Args& a, int n_particles, size_t smem,
-                cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_nl_kernel<kH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fused_nl_kernel<kH>
-      <<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+using MainKernel = void (*)(Args);
+using RefKernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, float*, int, int, int,
+                           float);
+
+// kH = 5 exactly for config 3's width, else h1 rounded up to 4, 8 or 16
+template <int kAct>
+MainKernel main_kernel_for(int h1) {
+  if (h1 == 5) return fused_nl_kernel<5, false, kAct>;
+  if (h1 <= 4) return fused_nl_kernel<4, true, kAct>;
+  if (h1 <= 8) return fused_nl_kernel<8, true, kAct>;
+  return fused_nl_kernel<kMaxH, true, kAct>;
+}
+
+MainKernel main_kernel(int h1, int act) {
+  switch (act) {
+    case kRelu:
+      return main_kernel_for<kRelu>(h1);
+    case kTanh:
+      return main_kernel_for<kTanh>(h1);
+    case kSigmoid:
+      return main_kernel_for<kSigmoid>(h1);
+    default:
+      return main_kernel_for<kLeaky>(h1);
+  }
+}
+
+RefKernel ref_kernel(int act) {
+  switch (act) {
+    case kRelu:
+      return fused_nl_reference<kRelu>;
+    case kTanh:
+      return fused_nl_reference<kTanh>;
+    case kSigmoid:
+      return fused_nl_reference<kSigmoid>;
+    default:
+      return fused_nl_reference<kLeaky>;
+  }
+}
+
+bool plan_ok(int d, int h1, int n_obs, int group, int sub_rows,
+             int tile_rows) {
+  return d >= 1 && h1 >= 1 && h1 <= kMaxH && n_obs >= 1 &&
+         group >= 1 && group <= kGroupMax && 2 * group * d <= kThreads &&
+         sub_rows >= 4 && sub_rows % 4 == 0 && tile_rows >= 1 &&
+         tile_rows <= n_obs &&
+         (tile_rows == n_obs || tile_rows % sub_rows == 0) &&
+         smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs) <= kMaxSmem;
 }
 
 }  // namespace
 
-DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int tile_rows) {
-  return smem_bytes(d, h1, tile_rows);
+DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int group,
+                                                int sub_rows, int tile_rows,
+                                                int n_obs) {
+  return smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs);
 }
 
 // -> dscores [P, d, d], dW1 [P, h1, d, d] (layout of w1), small [P, 2 h1 + 1,
 // d] (db1, dW2, db2 rows), before the wrapper's prior terms. `chunk`
-// samples per block; the scratch holds [P, h1 + 1, N, d] (ref) and
-// [P, S, 4 + (1 + h1) d^2 + (2 h1 + 1) d] (part) floats, S = ceil(M / chunk).
+// samples per block in groups of `group`; data tiles of `tile_rows` rows
+// (all n_obs: resident), u_h staged `sub_rows` rows at a time; the scratch
+// holds [P, h1 + 1, N, d] (ref) and [P, S, 4 + (1 + h1) d^2 + (2 h1 + 1) d]
+// (part) floats, S = ceil(M / chunk).
 DIBS_API int dibs_fused_nonlinear(
     const float* scores, const float* w1, const float* l1, const float* b1,
     const float* w2, const float* x, const float* w, const float* eps_soft,
     const float* eps_hard, float* ref, float* part, float* out_ds,
     float* out_dw1, float* out_small, int n_particles, int n_samples, int d,
-    int h1, int n_obs, int tile_rows, int chunk, int act, uint64_t seed,
-    uint32_t stream_soft, uint32_t stream_hard, float alpha, float tau,
-    double inv_var, float inv_varp, cudaStream_t stream) {
-  if (d < 1 || d > kThreads || h1 < 1 || h1 > kMaxH || n_obs < 1 ||
-      n_samples < 1 || tile_rows < 1 || tile_rows > n_obs || chunk < 1 ||
-      act < kRelu || act > kLeaky) {
+    int h1, int n_obs, int tile_rows, int sub_rows, int group, int chunk,
+    int act, uint64_t seed, uint32_t stream_soft, uint32_t stream_hard,
+    float alpha, float tau, double inv_var, float inv_varp,
+    cudaStream_t stream) {
+  if (!plan_ok(d, h1, n_obs, group, sub_rows, tile_rows) || n_samples < 1 ||
+      chunk < 1 || act < kRelu || act > kLeaky) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
-  const size_t smem = smem_bytes(d, h1, tile_rows);
+  const size_t smem = smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs);
   const size_t smem_ref = ref_smem_bytes(d, h1);
-  if (smem > kMaxSmem || smem_ref > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (smem_ref > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const RefKernel reference = ref_kernel(act);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_nl_reference, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      reference, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_ref));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_nl_reference<<<n_particles, kThreads, smem_ref, stream>>>(
-      scores, w1, b1, w2, x, ref, d, h1, n_obs, alpha, act);
+  reference<<<n_particles, kThreads, smem_ref, stream>>>(
+      scores, w1, b1, w2, x, ref, d, h1, n_obs, alpha);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -627,9 +797,10 @@ DIBS_API int dibs_fused_nonlinear(
   a.h1 = h1;
   a.n_obs = n_obs;
   a.tile_rows = tile_rows;
+  a.sub_rows = sub_rows;
+  a.group = group;
   a.chunk = chunk;
   a.n_split = (n_samples + chunk - 1) / chunk;
-  a.act = act;
   a.k0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a.k1 = static_cast<uint32_t>(seed >> 32);
   a.stream_soft = stream_soft;
@@ -638,17 +809,14 @@ DIBS_API int dibs_fused_nonlinear(
   a.tau = tau;
   a.inv_varp = inv_varp;
   a.inv_var = inv_var;
-  int rc;
-  if (h1 <= 4) {
-    rc = launch_main<4>(a, n_particles, smem, stream);
-  } else if (h1 == 5) {  // the repository's configurations
-    rc = launch_main<5>(a, n_particles, smem, stream);
-  } else if (h1 <= 8) {
-    rc = launch_main<8>(a, n_particles, smem, stream);
-  } else {
-    rc = launch_main<kMaxH>(a, n_particles, smem, stream);
-  }
-  if (rc != 0) return rc;
+  const MainKernel kernel = main_kernel(h1, act);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   fused_nl_merge<<<n_particles, kThreads, 0, stream>>>(
       part, out_ds, out_dw1, out_small, a.n_split, d, h1);
   return static_cast<int>(cudaGetLastError());

@@ -33,8 +33,9 @@ to the plain version in this module.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -53,16 +54,20 @@ __all__ = [
     "fused_nonlinear_decline_reason",
     "fused_nonlinear_tile_rows",
     "fused_nonlinear_smem_bytes",
+    "NonlinearPlan",
+    "fused_nonlinear_plan",
+    "fused_nonlinear_plan_smem_bytes",
     "fused_nonlinear_estimators",
     "fused_nonlinear",
     "fused_nonlinear_plain",
 ]
 
-# the kernel's shared-memory footprint (csrc/fused_nonlinear.cu: smem_bytes)
 _MAX_SMEM = 232448  # 227 KB, the most one block can use on Hopper
 _HALF_SMEM = 115712  # two blocks per SM: (228 KB - 2 x 1 KB reserved) / 2
 _THREADS = 256
+_BLOCK = 512  # threads of a fused_nl_kernel block
 _MAX_H = 16  # the kernel's register arrays
+_GROUP_MAX = 2  # samples a group (csrc/fused_nonlinear.cu: kGroupMax)
 _RED_BYTES = 8 * (2 * 8 + 2)
 _TILE_MAX, _TILE_MIN = 128, 8
 _MIN_CHUNK = 4  # fewest samples a block loops over
@@ -88,12 +93,18 @@ def _act_diff(activation, act, p, dl, pre):
     return act(pre) - act(p)
 
 
+# The shapes kernel #8 serves (the gate) are those where the following
+# measure fits one block at tiles of min(N, 8) rows or more. The gate keeps
+# this measure, so that the set of served shapes does not change with the
+# kernel's layout; the kernel's own footprint (fused_nonlinear_plan) fits
+# wherever the measure does (tests/test_torch_fused_nonlinear_plan.py).
+
+
 def fused_nonlinear_smem_bytes(d: int, h1: int, tile_rows: int) -> int:
-    """Shared memory of one kernel block: ``(7 + 5 h1)`` ``[d, d]``
-    matrices, ``3 h1 + 1`` rows of ``d``, ``3 + h1`` data tiles of
-    ``tile_rows`` rows, the two ``u_h`` tiles (or, reusing them, the row
-    reduction of the block's ``256 // d`` row lanes) and the float64
-    reduction slots."""
+    """The gate's measure: ``(7 + 5 h1)`` ``[d, d]`` matrices, ``3 h1 + 1``
+    rows of ``d``, ``3 + h1`` data tiles of ``tile_rows`` rows, two
+    ``[h1, tile_rows, d]`` tiles (or ``(2 h1 + 1)`` rows of ``256 // d``
+    lanes) and 18 float64 slots, in bytes."""
     tnd = tile_rows * d
     floats = ((7 + 5 * h1) * d * d + (3 * h1 + 1) * d + (3 + h1) * tnd
               + max(2 * h1 * tnd, (2 * h1 + 1) * (_THREADS // d) * d))
@@ -101,9 +112,9 @@ def fused_nonlinear_smem_bytes(d: int, h1: int, tile_rows: int) -> int:
 
 
 def fused_nonlinear_tile_rows(d: int, h1: int, n_obs: int) -> Optional[int]:
-    """Data rows per shared-memory tile, or ``None`` where the kernel does
-    not fit: the largest of ``min(N, 128)`` halved down to 8 with which two
-    blocks share an SM, else with which one block fits in 227 KB."""
+    """The gate's tile of the measure, or ``None`` where the kernel does
+    not serve ``(d, h1, N)``: the largest of ``min(N, 128)`` halved down to
+    8 with which the measure fits half an SM, else 227 KB."""
     for budget in (_HALF_SMEM, _MAX_SMEM):
         tile = min(n_obs, _TILE_MAX)
         while (fused_nonlinear_smem_bytes(d, h1, tile) > budget
@@ -140,6 +151,73 @@ def fused_nonlinear_decline_reason(model, n_obs: int) -> Optional[str]:
 def fused_nonlinear_available(model, n_obs: int) -> bool:
     """True when kernel #8 serves ``model`` with ``N = n_obs`` rows."""
     return fused_nonlinear_decline_reason(model, n_obs) is None
+
+
+class NonlinearPlan(NamedTuple):
+    """How ``fused_nl_kernel`` runs one shape: samples a group, rows of u_h
+    staged at once (a multiple of 4), data rows a tile (``N``: resident for
+    every sample), and the block's shared memory in bytes."""
+    group: int
+    sub_rows: int
+    tile_rows: int
+    smem_bytes: int
+
+
+def fused_nonlinear_plan_smem_bytes(d: int, h1: int, group: int,
+                                    sub_rows: int, tile_rows: int,
+                                    n_obs: int) -> int:
+    """Shared memory of one ``fused_nl_kernel`` block, region by region
+    (``csrc/fused_nonlinear.cu: smem_bytes``): float64 row and prior
+    partials; the data tile (x transposed and row-major, the row-major
+    copy twice where the rows are tiled, w, resid_ref, pre_ref_h); the
+    double-buffered u_h stage of every (sample, stream); the particle's
+    ``[d, d]`` slabs and W2; the accumulators; the group's sample slabs
+    and x^T u sums; the hard stream's row sums and the group's dll. The
+    hidden unit is the innermost index of W1, pre_ref and u_h, at the odd
+    stride ``h1 | 1``."""
+    ldt, ldx = -(-tile_rows // 4) * 4, -(-d // 4) * 4
+    dd, hs = d * d, h1 | 1  # [.., h] rows at an odd stride
+    doubles = _BLOCK + _BLOCK // 32 * 2 * _GROUP_MAX
+    x_bufs = 2 if tile_rows < n_obs else 1
+    tile = d * ldt + x_bufs * tile_rows * ldx + (2 + hs) * tile_rows * d
+    stage = 2 * 2 * group * sub_rows * d * hs
+    particle = (3 + hs) * dd + h1 * d
+    accs = (1 + h1) * dd + (2 * h1 + 1) * d
+    samples = group * (3 + h1) * dd
+    sums = (2 * h1 + 1) * _BLOCK // 2 + 2 * _GROUP_MAX
+    return 8 * doubles + 4 * (tile + stage + particle + accs + samples + sums)
+
+
+@functools.lru_cache(maxsize=None)
+def fused_nonlinear_plan(d: int, h1: int, n_obs: int) -> Optional[NonlinearPlan]:
+    """The kernel's plan for ``(d, h1, N)``, or ``None`` where it does not
+    fit. A thread of the delta product owns one (sample, stream, node
+    column) and row quads, so a group of ``g`` samples has ``512 // (2 g
+    d)`` row lanes. First choice: every data row resident, groups of 2
+    (else 1), u_h staged in sub-tiles of whole rounds of the lanes,
+    balanced over the rows (smaller where that does not fit). Else tiles of
+    whole sub-tiles, as many rows as fit, loaded once per group."""
+    def smem(group, sub, tile):
+        return fused_nonlinear_plan_smem_bytes(d, h1, group, sub, tile, n_obs)
+
+    quads = -(-n_obs // 4)
+    groups = [g for g in range(_GROUP_MAX, 0, -1) if 2 * g * d <= _BLOCK]
+    for group in groups:  # all rows resident
+        lanes = _BLOCK // (2 * group * d)
+        first = 4 * -(-quads // -(-quads // lanes))
+        for sub in range(first, 0, -4):
+            if smem(group, sub, n_obs) <= _MAX_SMEM:
+                return NonlinearPlan(group, sub, n_obs, smem(group, sub, n_obs))
+    for group in groups:  # tiles of whole sub-tiles
+        lanes = _BLOCK // (2 * group * d)
+        for sub in range(min(4 * lanes, 4 * quads), 0, -4):
+            base = smem(group, sub, 0)
+            per_row = smem(group, sub, 4) - base  # tiles are whole quads
+            fit = (_MAX_SMEM - base) // per_row * 4 if base < _MAX_SMEM else 0
+            tile = min((n_obs - 1) // sub, fit // sub) * sub
+            if tile >= sub:
+                return NonlinearPlan(group, sub, tile, smem(group, sub, tile))
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -230,12 +308,12 @@ def fused_nonlinear_plain(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams,
 # ---------------------------------------------------------------------------
 
 
-def _chunk(p: int, n_samples: int, smem: int, n_sms: int) -> int:
+def _chunk(p: int, n_samples: int, n_sms: int) -> int:
     """Samples per block: the (particle, chunk) grid fills one wave of the
-    blocks the card holds at once (two per SM where two fit), never more,
-    so no second wave of a few blocks doubles the time."""
-    resident = (2 if smem <= _HALF_SMEM else 1) * n_sms
-    splits = max(1, min(n_samples // _MIN_CHUNK, resident // max(p, 1)))
+    blocks the card holds at once, one an SM (a block's 512 threads take
+    the SM's registers), never more, so no second wave of a few blocks
+    doubles the time."""
+    splits = max(1, min(n_samples // _MIN_CHUNK, n_sms // max(p, 1)))
     return -(-n_samples // splits)
 
 
@@ -268,10 +346,11 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
             or model.n_vars != d:
         raise ValueError(f"{name}: the kernel does not serve this model: "
                          f"{reason or 'model and tensors disagree'}")
-    tile_rows = fused_nonlinear_tile_rows(d, h1, n_obs)
-    chunk = _chunk(p, n_samples, fused_nonlinear_smem_bytes(d, h1, tile_rows),
-                   torch.cuda.get_device_properties(
-                       scores.device).multi_processor_count)
+    plan = fused_nonlinear_plan(d, h1, n_obs)
+    if plan is None:
+        raise ValueError(f"{name}: no plan fits d={d}, h1={h1}, N={n_obs}")
+    chunk = _chunk(p, n_samples, torch.cuda.get_device_properties(
+        scores.device).multi_processor_count)
     n_split = -(-n_samples // chunk)
     lib = build()
     empty = dict(dtype=torch.float32, device=scores.device)
@@ -286,8 +365,9 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
             scores.data_ptr(), w1t.data_ptr(), l1.data_ptr(), b1t.data_ptr(),
             w2t.data_ptr(), x.data_ptr(), w.data_ptr(), *eps_ptrs,
             ref.data_ptr(), part.data_ptr(), ds.data_ptr(), dw1.data_ptr(),
-            small.data_ptr(), p, n_samples, d, h1, n_obs, tile_rows, chunk,
-            _ACT_CODES[model.activation], seed & 0xFFFFFFFFFFFFFFFF,
+            small.data_ptr(), p, n_samples, d, h1, n_obs, plan.tile_rows,
+            plan.sub_rows, plan.group, chunk, _ACT_CODES[model.activation],
+            seed & 0xFFFFFFFFFFFFFFFF,
             streams[0] & 0xFFFFFFFF, streams[1] & 0xFFFFFFFF, float(alpha),
             float(tau), 1.0 / model.obs_noise,
             1.0 / (model.sig_param * model.sig_param),

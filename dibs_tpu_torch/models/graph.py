@@ -40,10 +40,12 @@ class ErdosReniDAGDistribution:
         self.n_edges = n_edges_per_node * n_vars
         self.p = self.n_edges / ((self.n_vars * (self.n_vars - 1)) / 2)
 
-    def sample_G(self, generator: torch.Generator,
+    def sample_G(self, generator: torch.Generator, return_mat=True,
                  device=DEFAULT_DEVICE) -> torch.Tensor:
         """One DAG as a ``[d, d]`` int32 adjacency matrix: a Bernoulli matrix,
-        strictly lower-triangular, conjugated by a random permutation."""
+        strictly lower-triangular, conjugated by a random permutation.
+        ``return_mat`` is accepted, as in the reference, which always
+        returns matrices."""
         device = resolve_device(device)
         d = self.n_vars
         probs = torch.full((d, d), self.p)
@@ -93,10 +95,11 @@ class ScaleFreeDAGDistribution:
         self.n_edges_per_node = n_edges_per_node
         self.verbose = verbose
 
-    def sample_G(self, generator: torch.Generator,
+    def sample_G(self, generator: torch.Generator, return_mat=True,
                  device=DEFAULT_DEVICE) -> torch.Tensor:
         """One DAG as a ``[d, d]`` int32 adjacency matrix; the numpy sampler
-        is seeded from ``generator``."""
+        is seeded from ``generator``. ``return_mat`` as in
+        :meth:`ErdosReniDAGDistribution.sample_G`."""
         device = resolve_device(device)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         mat = barabasi_albert(self.n_vars, self.n_edges_per_node,
@@ -118,15 +121,17 @@ class UniformDAGDistributionRejection:
     def __init__(self, n_vars):
         self.n_vars = n_vars
 
-    def sample_G(self, generator: torch.Generator,
+    def sample_G(self, generator: torch.Generator, return_mat=True,
                  device=DEFAULT_DEVICE) -> torch.Tensor:
+        """One DAG as a ``[d, d]`` int32 adjacency matrix by rejection;
+        ``return_mat`` as in :meth:`ErdosReniDAGDistribution.sample_G`."""
         device = resolve_device(device)
         d = self.n_vars
         while True:
             mat = zero_diagonal(torch.bernoulli(
                 torch.full((d, d), 0.5), generator=generator))
             # h(G) is exactly 0 for a 0/1 DAG and positive otherwise
-            if float(acyclic_constr(mat)) == 0.0:
+            if float(acyclic_constr(mat, d)) == 0.0:
                 return mat.to(torch.int32).to(device)
 
     def unnormalized_log_prob_soft(self, *, soft_g):

@@ -62,6 +62,13 @@ class BGe:
                 f"alpha_lambd must exceed n_vars + 1 = {n_vars + 1}, "
                 f"got {self.alpha_lambd}")
 
+    def sample_obs(self, *, generator, n_samples, g, theta, toporder=None,
+                   interv=None):
+        """Not available for the BGe score, as in the reference: use
+        :class:`LinearGaussian`."""
+        raise NotImplementedError(
+            "Not available for the BGe score; use the `LinearGaussian` model.")
+
     def _small_t(self):
         d = self.n_vars
         return (self.alpha_mu * (self.alpha_lambd - d - 1)) / (self.alpha_mu + 1)
@@ -201,9 +208,11 @@ class LinearGaussian:
             shape, generator=generator)
         return (theta + torch.sign(theta) * self.min_edge).to(device)
 
-    def sample_obs(self, *, generator, n_samples, g, theta, interv=None):
+    def sample_obs(self, *, generator, n_samples, g, theta, toporder=None,
+                   interv=None):
         """Ancestral sampling of ``[n_samples, d]`` observations; ``g`` is a
-        ``[d, d]`` adjacency matrix."""
+        ``[d, d]`` adjacency matrix. ``toporder`` is accepted, as in the
+        reference, and ignored: the fixed-point sampler needs no order."""
         w = g.to(theta.dtype) * theta
         mask, values = interv_to_vectors(interv, self.n_vars, theta.device)
         return sample_sem_obs(

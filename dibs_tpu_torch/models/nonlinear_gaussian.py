@@ -114,11 +114,13 @@ class DenseNonlinearGaussian:
 
     # --- generative sampling ---
 
-    def sample_obs(self, *, generator, n_samples, g, theta, interv=None):
+    def sample_obs(self, *, generator, n_samples, g, theta, toporder=None,
+                   interv=None):
         """Ancestral sampling of ``[n_samples, d]`` observations for one
         particle's ``theta`` and a ``[d, d]`` adjacency ``g``. Parentless
         nodes are pure noise ``N(0, obs_noise)`` (their MLP, bias included,
-        is bypassed, as in the reference); intervened nodes are clamped."""
+        is bypassed, as in the reference); intervened nodes are clamped.
+        ``toporder`` is accepted, as in the reference, and ignored."""
         g = g.to(torch.float32)
         has_parents = (g.sum(0) > 0).to(torch.float32)
         mask, values = interv_to_vectors(interv, self.n_vars, g.device)

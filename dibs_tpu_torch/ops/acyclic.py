@@ -17,6 +17,7 @@ DAGs are never rescaled (see the overflow note in the reference module).
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -82,17 +83,19 @@ class _AcyclicConstr(torch.autograd.Function):
         return h_bar[..., None, None] * grad
 
 
-def acyclic_constr(g: torch.Tensor) -> torch.Tensor:
+def acyclic_constr(g: torch.Tensor,
+                   n_vars: Optional[int] = None) -> torch.Tensor:
     """``h(G)`` for ``[..., d, d]`` (soft) adjacencies -> ``[...]``, with the
-    closed-form backward."""
+    closed-form backward; ``n_vars``, where given (the reference's
+    ``acyclic_constr(g, n_vars)``), must be ``d``."""
+    if n_vars is not None and g.shape[-1] != n_vars:
+        raise ValueError(f"expected d = {n_vars}, got {g.shape[-1]}")
     return _AcyclicConstr.apply(g)
 
 
 def elwise_acyclic_constr(gs: torch.Tensor, n_vars: int) -> torch.Tensor:
     """Batched ``h(G)`` over a leading batch dimension: ``[n, d, d] -> [n]``."""
-    if gs.shape[-1] != n_vars:
-        raise ValueError(f"expected d = {n_vars}, got {gs.shape[-1]}")
-    return acyclic_constr(gs)
+    return acyclic_constr(gs, n_vars)
 
 
 # --- spectral-radius penalty (the reference's beyond-reference option) ---

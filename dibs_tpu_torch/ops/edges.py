@@ -76,7 +76,7 @@ def latent_log_prob(single_g: torch.Tensor, single_z: torch.Tensor,
     return (single_g * log_p + (1 - single_g) * log_1_p).sum()
 
 
-def grad_latent_log_prob_batch(gs: torch.Tensor, z: torch.Tensor,
+def grad_latent_log_prob_batch(gs: torch.Tensor, single_z: torch.Tensor,
                                alpha) -> torch.Tensor:
     """Closed-form ``grad_Z log p(G | Z)`` for a batch of graph samples.
 
@@ -85,14 +85,14 @@ def grad_latent_log_prob_batch(gs: torch.Tensor, z: torch.Tensor,
 
     Args:
         gs: ``[..., M, d, d]`` graph samples
-        z: ``[..., d, k, 2]`` (leading dims match those of ``gs``)
+        single_z: ``[..., d, k, 2]`` (leading dims match those of ``gs``)
         alpha: edge-prob inverse temperature
 
     Returns:
         ``[..., M, d, k, 2]``
     """
-    u, v = z[..., 0], z[..., 1]
-    p = edge_probs(z, alpha)
+    u, v = single_z[..., 0], single_z[..., 1]
+    p = edge_probs(single_z, alpha)
     resid = zero_diagonal(alpha * (gs - p.unsqueeze(-3)))  # [..., M, d, d]
     grad_u = torch.matmul(resid, v.unsqueeze(-3))
     grad_v = torch.matmul(resid.transpose(-1, -2), u.unsqueeze(-3))

@@ -91,8 +91,9 @@ def test_fused_nonlinear_wrapper_counts_and_rejects(cuda):
         fnl.fused_nonlinear(*args, **{**kw, "model": DenseNonlinearGaussian(
             n_vars=5, hidden_layers=(3,), bias=False)})
     lib = gk.build()
-    assert lib.dibs_fused_nonlinear_smem_bytes(20, 5, 25) == \
-        fnl.fused_nonlinear_smem_bytes(20, 5, 25)
+    plan = fnl.fused_nonlinear_plan(20, 5, 100)
+    assert lib.dibs_fused_nonlinear_smem_bytes(20, 5, *plan[:3], 100) == \
+        plan.smem_bytes
 
 
 def _fused_args(device, p=3, d=5, n=7):
@@ -308,3 +309,33 @@ def test_wide_pass1_footprint_and_group_agree_with_the_kernel(cuda, d, n):
         assert lib.dibs_fused_linear_wide_pass1_smem_bytes(
             d, plan.tile_rows, group) == \
             fl.fused_linear_wide_pass1_smem_bytes(d, plan.tile_rows, group)
+
+
+@pytest.mark.parametrize("p,d,n,h1,blocks,m,activation",
+                         chip_smoke.SHAPES_NL_EDGES)
+def test_fused_nonlinear_gate_edges(cuda, p, d, n, h1, blocks, m,
+                                    activation):
+    """#8 at the gate's edges (the widest d at h1 = 5 and 16, N = 1, h1 = 1
+    over tiled rows, the hidden widths rounded up to 16, 4 and 8) against
+    its plain version within 1e-4 max(1, max|ref|), Philox noise on two
+    streams, two calls bitwise equal."""
+    import numpy as np
+
+    args = chip_smoke.nonlinear_problem(np.random.default_rng(d), cuda, p, d,
+                                        n, h1, blocks)
+    model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
+                                   activation=activation)
+    kw = dict(seed=3, streams=(4, 5), alpha=1.3, tau=0.9, n_samples=m,
+              model=model)
+    chip_smoke.check_fused_nonlinear(fnl, args, kw, f"d={d} h1={h1} N={n}")
+
+
+@pytest.mark.parametrize("d,h1,n", [(20, 5, 100), (30, 5, 600), (40, 5, 100),
+                                    (22, 16, 100), (23, 16, 1), (67, 1, 37),
+                                    (13, 7, 130)])
+def test_fused_nonlinear_plan_agrees_with_the_kernel(cuda, d, h1, n):
+    """The launcher's footprint (C) is the wrapper's plan (Python)."""
+    lib = gk.build()
+    plan = fnl.fused_nonlinear_plan(d, h1, n)
+    assert lib.dibs_fused_nonlinear_smem_bytes(d, h1, *plan[:3], n) == \
+        plan.smem_bytes
