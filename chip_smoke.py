@@ -206,7 +206,7 @@ def phase_build():
     per_kernel = ptxas_report(log_text)
     for name in ("se_matrix_kernel", "se_reduce_kernel",
                  "transport_phi_kernel", "fused_linear_wide_pass1_kernel",
-                 "fused_nl_kernel"):
+                 "fused_linear_wide_kernel", "fused_nl_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
         check(bool(found), f"no ptxas report for {name}")
         for k, v in sorted(found.items()):
@@ -678,18 +678,30 @@ def phase_transport(dev, results):
 
 
 # (P, d, N, interventional blocks, M) of the wide tier's checks: config 5,
-# a ragged column tile with tiled, interventional rows, the tier's edge, and
+# a ragged column tile with tiled, interventional rows, the tier's edge,
 # pass 1's edges (one particle, d = 71, M not a multiple of its group of 4,
-# N not a multiple of its row quads; a group of 2 over tiled rows)
+# N not a multiple of its row quads; a group of 2 over tiled rows), and
+# M = 40, past one 32-sample ballot of pass 2's replay list
 SHAPES6 = [(P5, D5, N5, 0, M5), (6, 75, 600, 5, 8), (2, 602, 30, 0, 8),
-           (1, 71, 37, 0, 5), (3, 200, 300, 2, 7)]
+           (1, 71, 37, 0, 5), (3, 200, 300, 2, 7), (2, 100, 200, 1, 40)]
+
+
+def weight_edges(p, m, dev):
+    """Pass 2's weight edges: uniform weights 1/M (every sample replayed)
+    and one-hot weights (sample p mod M soft, the next one hard)."""
+    uni = torch.full((p, m), 1.0 / m, device=dev)
+    hot = torch.zeros(p, m, device=dev)
+    hot[torch.arange(p), torch.arange(p) % m] = 1.0
+    return {"uniform": (uni, uni), "one-hot": (hot, hot.roll(1, dims=1))}
 
 
 def phase_config5_kernels(dev, results):
     """The wide fused linear tier against the plain versions at every shape
-    of ``SHAPES6``, two calls of pass 1 bitwise equal at each, and both
-    passes timed at config 5's shape (d=128, N=100, P=1000, M=32); pass 1
-    also with two noise streams, which adds one Philox draw an element."""
+    of ``SHAPES6`` (pass 2 also with uniform and one-hot weights), two calls
+    of each pass bitwise equal at each, and both passes timed at config 5's
+    shape (d=128, N=100, P=1000, M=32); pass 1 also with two noise streams,
+    which adds one Philox draw an element, pass 2 also with every sample
+    replayed."""
     from dibs_tpu_torch.inference import fused_linear as fl
     from dibs_tpu_torch.models import LinearGaussian
     from dibs_tpu_torch.ops import gpu_kernels as gk
@@ -731,6 +743,10 @@ def phase_config5_kernels(dev, results):
                                            ref))
                 weights = tuple(torch.softmax(ll, dim=1) for ll in lls_p)
                 two = fl.fused_linear_pass2(*args, weights, **kw)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    two, fl.fused_linear_pass2(*args, weights, **kw))),
+                    f"wide pass 2 at (P,d,N,M)={(p, d, n, m)}: two calls "
+                    "differ")
                 two_p = fl.fused_linear_pass2_plain(*args, weights, **kw)
                 for got, ref in zip(two, two_p):
                     worst = max(worst, err("fused_linear_wide_pass2", got,
@@ -744,6 +760,11 @@ def phase_config5_kernels(dev, results):
                     worst = max(worst, err("wide two-pass vs one-pass plain",
                                            got, ref))
                 kw.pop("eps", None)
+        for wts in weight_edges(p, m, dev).values():
+            for got, ref in zip(fl.fused_linear_pass2(*args, wts, **kw),
+                                fl.fused_linear_pass2_plain(*args, wts,
+                                                            **kw)):
+                worst = max(worst, err("fused_linear_wide_pass2", got, ref))
         if (p, d, n) != (P5, D5, N5):
             continue
         # times at config 5's shape, in-kernel shared noise (the main path)
@@ -777,6 +798,17 @@ def phase_config5_kernels(dev, results):
         log(f"[6 config 5: wide pass 1] {plan}; shared stream {t_shared:.4f}"
             f" ms, two streams {t_two:.4f} ms (one more draw an element: "
             f"{t_two - t_shared:.4f} ms for {p * m * d * (d - 1)} draws)")
+        # pass 2's cost per replayed sample: these weights against uniform
+        # ones (every sample replayed), in turns
+        uni = weight_edges(p, m, dev)["uniform"]
+        t_kept, t_all, four = in_turns(
+            lambda: fl.fused_linear_pass2(*args, weights, **kw),
+            lambda: fl.fused_linear_pass2(*args, uni, **kw), reps=10)
+        log(f"[6 config 5: wide pass 2] "
+            f"{fl.fused_linear_wide_pass2_plan(p, d, n)}; in turns: "
+            f"{kept} of {p * m} samples replayed {t_kept:.4f} ms, all "
+            f"{p * m} replayed {t_all:.4f} ms ("
+            + ", ".join(f"{t:.4f}" for t in four) + ")")
         line = []
         for name, (kern, plain, flops, n_bytes) in cases.items():
             t_k = cuda_median_ms(kern, reps=10)
@@ -813,9 +845,10 @@ def phase_config5_kernels(dev, results):
     log(f"[6 config 5: fused wide] wide tier vs plain at (P,d,N,blocks,M) "
         f"in {SHAPES6} (interventional blocks of 100 rows; tiled rows past "
         f"each pass's tile), injected / Philox / shared-stream noise, "
-        f"alpha,tau in (2,1),(0.7,0.8), and vs the one-pass plain version: "
-        f"within 1e-4 max(1, max|ref|), worst {worst:.3f} of the bar; pass 1 "
-        f"bitwise equal over two calls at every case")
+        f"alpha,tau in (2,1),(0.7,0.8), pass 2 also with uniform and one-hot "
+        f"weights, and vs the one-pass plain version: within 1e-4 max(1, "
+        f"max|ref|), worst {worst:.3f} of the bar; passes 1 and 2 bitwise "
+        f"equal over two calls at every case")
 
 
 

@@ -446,6 +446,77 @@ __device__ __forceinline__ void wide_sample_pair(const WideArgs& a,
   *g_hard = __fadd_rn(eh, as) > 0.0f ? 1.0f : 0.0f;
 }
 
+// Rows t0 .. t0 + tn of the data tile, transposed into xt [d][ldn], and of
+// the w and resid_ref tiles [ldn][kCols] (resid_ref from `rr` if `with_rr`),
+// zero past row tn and past column d. Both wide passes load their tiles
+// through it. A warp reads 16 rows x 2 column quads of x with 16-byte loads
+// where d % 4 == 0 and x is 16-byte aligned, else 4 rows x 8 columns: whole
+// 32-byte sectors, and its transposed stores fall into 32 distinct banks
+// where ldn % 8 == 4 (pass 2; two ways where ldn % 8 == 0). kBatch loads
+// are in flight per thread before their stores.
+__device__ void wide_load_tile(const WideArgs& a, const float* rr, float* xt,
+                               float* wt, float* rt, int ldn, int j0, int cw,
+                               int t0, int tn, bool with_rr) {
+  constexpr int kBatch = 4;
+  const int d = a.d, tid = threadIdx.x;
+  const bool x_vec = (d % 4 == 0) &&
+                     (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
+  if (x_vec) {
+    const int d4 = d / 4, blk = 16 * d4, total = (ldn + 15) / 16 * blk;
+    for (int base = tid; base < total; base += kBatch * kThreads) {
+      float4 v[kBatch];
+      int off[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kThreads, nb = idx / blk;
+        const int r = idx - nb * blk, i = 4 * (r / 16), n = 16 * nb + r % 16;
+        v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        off[u] = idx < total && n < ldn ? i * ldn + n : -1;
+        if (off[u] >= 0 && n < tn) {
+          v[u] = *reinterpret_cast<const float4*>(
+              a.x + static_cast<int64_t>(t0 + n) * d + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (off[u] < 0) continue;
+        xt[off[u]] = v[u].x;
+        xt[off[u] + ldn] = v[u].y;
+        xt[off[u] + 2 * ldn] = v[u].z;
+        xt[off[u] + 3 * ldn] = v[u].w;
+      }
+    }
+  } else {
+    const int blk = 4 * d, total = (ldn + 3) / 4 * blk;
+    for (int base = tid; base < total; base += kBatch * kThreads) {
+      float v[kBatch];
+      int off[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int idx = base + u * kThreads, nb = idx / blk;
+        const int r = idx - nb * blk, i = r / 4, n = 4 * nb + r % 4;
+        v[u] = 0.0f;
+        off[u] = idx < total && n < ldn ? i * ldn + n : -1;
+        if (off[u] >= 0 && n < tn) {
+          v[u] = a.x[static_cast<int64_t>(t0 + n) * d + i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (off[u] >= 0) xt[off[u]] = v[u];
+      }
+    }
+  }
+  for (int idx = tid; idx < ldn * kCols; idx += kThreads) {
+    const int n = idx / kCols, jj = idx - n * kCols;
+    wt[idx] = n < tn && jj < cw
+                  ? a.w[static_cast<int64_t>(t0 + n) * d + j0 + jj]
+                  : 0.0f;
+    rt[idx] = with_rr && n < tn ? rr[static_cast<int64_t>(t0) * kCols + idx]
+                                : 0.0f;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Wide pass 1: fused_linear_wide_pass1_kernel.
 //
@@ -555,44 +626,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     lpd[e] = -0.5f * zt * zt - log_norm_e;
     aa[e] = ref * t;  // E[G] * Theta, for resid_ref
   }
-  // rows t0 .. t0 + tn of x (transposed), w and resid_ref; zero past tn
-  const bool x_vec = (d % 4 == 0) &&
-                     (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
-  auto load_tile = [&](int t0, int tn, bool with_rr) {
-    if (x_vec) {  // 16-byte loads of x
-      const int d4 = d / 4;
-      for (int idx = tid; idx < ldn * d4; idx += kThreads) {
-        const int n = idx / d4, i = 4 * (idx - n * d4);
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (n < tn) {
-          v = *reinterpret_cast<const float4*>(
-              a.x + static_cast<int64_t>(t0 + n) * d + i);
-        }
-        xt[i * ldn + n] = v.x;
-        xt[(i + 1) * ldn + n] = v.y;
-        xt[(i + 2) * ldn + n] = v.z;
-        xt[(i + 3) * ldn + n] = v.w;
-      }
-    } else {
-      for (int idx = tid; idx < ldn * d; idx += kThreads) {
-        const int n = idx / d, i = idx - n * d;
-        xt[i * ldn + n] =
-            n < tn ? a.x[static_cast<int64_t>(t0 + n) * d + i] : 0.0f;
-      }
-    }
-    for (int idx = tid; idx < ldn * kCols; idx += kThreads) {
-      const int n = idx / kCols, jj = idx - n * kCols;
-      wt[idx] = n < tn && jj < cw
-                    ? a.w[static_cast<int64_t>(t0 + n) * d + j0 + jj]
-                    : 0.0f;
-      rt[idx] = with_rr && n < tn ? rr[static_cast<int64_t>(t0) * kCols + idx]
-                                  : 0.0f;
-    }
-  };
   __syncthreads();
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
-    load_tile(t0, tn, false);
+    wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, false);
     __syncthreads();
     for (int idx = tid; idx < tn * kCols; idx += kThreads) {
       const int n = idx / kCols, jj = idx - n * kCols;
@@ -655,7 +692,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int t = 0; t < n_tiles; ++t) {
       const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
       if (n_tiles > 1) {
-        load_tile(t0, tn, true);
+        wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, true);
         __syncthreads();
       }
       const int n_rq = (tn + 3) / 4;
@@ -729,49 +766,132 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 // Wide pass 2: fused_linear_wide_kernel (replaces _fused_pass2 past d = 70).
 //
-// Replays the samples per column tile with the softmax weights; a sample
-// whose two weights are both exactly 0 adds exactly 0 and is skipped (the
-// branch is uniform over the block). Inner products are register-tiled: a
-// thread owns one data row (delta) or one slab row (x^T resid) and four
-// columns of both branches, 8 FMAs per scalar and two float4 shared-memory
-// reads. Data rows are padded to an odd stride so a warp's 16 rows hit
-// distinct banks. The footprint (wide_smem_bytes) keeps the tier's
-// reduction head, so the slabs sit at the offsets the wrapper's formula
-// (fused_linear_wide_smem_bytes) states.
+// Replays the samples per column tile with the softmax weights into the
+// block's [d, kCols] slabs of d scores and d Theta. A sample whose two
+// weights are both exactly 0 adds exactly 0 and is skipped.
+//
+// What bounds it on this card: float32 FFMA, 2 branches x (the delta product
+// + the x^T resid product) = 8 N d kCols FLOPs per replayed (particle,
+// sample, tile), plus 2 N d kCols once a block for resid_ref (0.36 ms at
+// config 5, where 1,598 of 32,000 samples are replayed). That is about 1.6
+// replayed samples for each of the 16,000 (particle, column tile) blocks, so
+// what a block does once (the weight scan, the tile load, resid_ref) costs
+// as much as its products and is designed like them:
+//  * the replay list: every warp reads the particle's weights 32 samples at
+//    a time and takes the ballot of the non-zero pairs; the block loops over
+//    the set bits in ascending m (one load round trip per 32 samples, the
+//    branch uniform over the block);
+//  * the data tile transposed, [d][ldn], with 16-byte loads of x
+//    (wide_load_tile, shared with pass 1);
+//  * delta and resid_ref run through one register-tiled routine
+//    (wide_tile_product): a thread owns 4 data rows x 4 columns of one
+//    (branch, column quad) and a share of the inner dimension d, so 200 of
+//    256 threads work at N = 100; the shares are combined by warp shuffles;
+//  * x^T resid reads 4 data rows of the transposed tile as one float4, and
+//    the sample's weighted gradient terms are added where its last tile
+//    ends (no separate pass over the slab).
+// Shared memory (wide2_smem_bytes): 10 [d, kCols] slabs, the w, resid_ref
+// and residual tiles and the transposed data tile; E[G] is recomputed from
+// alpha s where it is needed. The plan (Python: fused_linear_wide_pass2_plan)
+// keeps up to 128 rows resident while two blocks share an SM.
 // ---------------------------------------------------------------------------
 
-__host__ __device__ inline int wide_ldx(int d) { return d | 1; }
-
-size_t wide_smem_bytes(int d, int tile_rows) {
-  return sizeof(double) * kRedDoubles +
-         sizeof(float) * (11 * static_cast<size_t>(d) * kCols +
-                          4 * static_cast<size_t>(tile_rows) * kCols +
-                          static_cast<size_t>(tile_rows) * wide_ldx(d));
+// rows rounded up to 4 (16-byte rows), odd in units of 4 (ldn % 8 == 4):
+// the tile load's transposed stores then meet no bank twice
+__host__ __device__ inline int wide2_ldn(int tile_rows) {
+  return ((tile_rows + 3) & ~3) | 4;
 }
 
-__global__ void __launch_bounds__(kThreads)
+size_t wide2_smem_bytes(int d, int tile_rows) {
+  const size_t ldn = wide2_ldn(tile_rows), dd = static_cast<size_t>(d);
+  return sizeof(float) * (10 * kCols * dd + 4 * kCols * ldn + dd * ldn);
+}
+
+// out[n][c] = sum_i xt[i][n] A[i][c] over the tn rows of one data tile,
+// register-tiled. A thread owns 4 rows x 4 columns of one combo (branch,
+// column quad) and one of kSplit shares of the inner dimension d (i = s mod
+// kSplit: the shares' loads fall into distinct banks); the shares of a tile
+// sit in lanes of one warp and are summed by xor shuffles, which give every
+// lane the same bits (commutative adds in a fixed tree).
+// kBr = 2: A is [d][2][kCols] (both branches, two shares); kBr = 1: A is
+// [d][kCols] (four shares). A warp covers 4 row quads, the 8 warps 128
+// rows (the largest tile). epi(n, combo, v) gets the 4 sums of row n, each
+// row from one lane, for every row of the tile's row quads (the rows past
+// tn sum the tile's zero rows).
+template <int kBr, typename Epi>
+__device__ __forceinline__ void wide_tile_product(const float* xt, int ldn,
+                                                  const float* A, int d,
+                                                  int tn, Epi epi) {
+  constexpr int kCombos = 2 * kBr;
+  constexpr int kSplit = 8 / kCombos;
+  constexpr int kRowsEach = 4 / kSplit;
+  constexpr int kAStride = kBr * kCols;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int combo = lane % kCombos, s = (lane / kCombos) % kSplit;
+  const int rq = 4 * warp + lane / 8, n_rq = (tn + 3) / 4;
+  if (4 * warp >= n_rq) return;  // uniform over the warp
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+  }
+  if (rq < n_rq) {
+    const float* xp = xt + 4 * rq;
+    const float* ap = A + 4 * combo;
+#pragma unroll 4
+    for (int i = s; i < d; i += kSplit) {
+      const float4 x4 = *reinterpret_cast<const float4*>(xp + i * ldn);
+      const float4 a4 = *reinterpret_cast<const float4*>(ap + i * kAStride);
+      const float xr[4] = {x4.x, x4.y, x4.z, x4.w};
+      const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(xr[r], ar[q], acc[r][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kCombos; off < 8; off *= 2) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[r][q] += __shfl_xor_sync(0xFFFFFFFFu, acc[r][q], off);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (r / kRowsEach == s && rq < n_rq) {
+      epi(4 * rq + r, combo,
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
     fused_linear_wide_kernel(const WideArgs a) {
-  extern __shared__ __align__(16) double smem_w[];
+  extern __shared__ __align__(16) float smem_w[];
   const int d = a.d, slab = d * kCols, tn_max = a.tile_rows;
-  const int ldx = wide_ldx(d);
-  float* as_ = reinterpret_cast<float*>(smem_w + kRedDoubles);  // alpha s
-  float* sig = as_ + slab;   // E[G], zero diagonal and zero past column d
-  float* th = sig + slab;    // Theta
-  float* gs = th + slab;     // soft sample
-  float* gh = gs + slab;     // hard sample
-  float* a_s = gh + slab;    // (G - E[G]) Theta
-  float* a_h = a_s + slab;   // (H - E[G]) Theta
-  float* dws = a_h + slab;   // x^T resid_soft of this sample
-  float* dwh = dws + slab;   // x^T resid_hard
-  float* acc_s = dwh + slab;  // dscores accumulator
+  const int ldn = wide2_ldn(tn_max);
+  float* as_ = smem_w;          // alpha s
+  float* th = as_ + slab;       // Theta
+  float* aa = th + slab;        // [d][2][kCols]: (G - E[G]) Theta, (H - E[G]) Theta
+  float* gs = aa + 2 * slab;    // soft sample
+  float* gh = gs + slab;        // hard sample
+  float* dws = gh + slab;       // x^T resid_soft of the tiles so far
+  float* dwh = dws + slab;      // x^T resid_hard
+  float* acc_s = dwh + slab;    // dscores accumulator
   float* acc_h = acc_s + slab;  // dtheta accumulator
-  float* wt = acc_h + slab;  // observation weights tile [tile_rows, kCols]
-  float* rt = wt + tn_max * kCols;     // resid_ref tile
-  float* res_s = rt + tn_max * kCols;  // weighted residual tiles
-  float* res_h = res_s + tn_max * kCols;
-  float* xt = res_h + tn_max * kCols;  // data tile [tile_rows, ldx]
+  float* wt = acc_h + slab;     // observation weights [ldn][kCols]
+  float* rt = wt + ldn * kCols;      // resid_ref [ldn][kCols]
+  float* rs = rt + ldn * kCols;      // weighted residuals [ldn][2][kCols]
+  float* xt = rs + 2 * ldn * kCols;  // data tile, transposed [d][ldn]
 
   const int p = blockIdx.x, ct = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid % 32;
   const int j0 = ct * kCols, cw = min(kCols, d - j0);
   const int n_obs = a.n_obs, n_smp = a.n_samples;
   const int64_t pdd = static_cast<int64_t>(p) * d * d;
@@ -794,147 +914,134 @@ __global__ void __launch_bounds__(kThreads)
       t = a.theta[pdd + i * d + j];
     }
     as_[e] = s;
-    sig[e] = ref;
     th[e] = t;
-    a_s[e] = ref * t;  // E[G] * Theta, for resid_ref
+    aa[e] = ref * t;  // E[G] * Theta as [d][kCols], for resid_ref
     acc_s[e] = 0.0f;
     acc_h[e] = 0.0f;
   }
-  auto load_tile = [&](int t0, int tn, bool with_rr) {
-    for (int idx = tid; idx < tn * d; idx += kThreads) {
-      const int n = idx / d, i = idx - n * d;
-      xt[n * ldx + i] = a.x[static_cast<int64_t>(t0 + n) * d + i];
-    }
-    for (int idx = tid; idx < tn * kCols; idx += kThreads) {
-      const int n = idx / kCols, jj = idx - n * kCols;
-      wt[idx] = jj < cw ? a.w[static_cast<int64_t>(t0 + n) * d + j0 + jj]
-                        : 0.0f;
-      if (with_rr) rt[idx] = rr[static_cast<int64_t>(t0) * kCols + idx];
-    }
-  };
-  __syncthreads();
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
-    load_tile(t0, tn, false);
+    wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, false);
     __syncthreads();
-    for (int idx = tid; idx < tn * kCols; idx += kThreads) {
-      const int n = idx / kCols, jj = idx - n * kCols;
-      const float* xr = xt + n * ldx;
-      float mean = 0.0f;
-      for (int i = 0; i < d; ++i) mean = fmaf(xr[i], a_s[i * kCols + jj], mean);
-      const float r = jj < cw ? xr[j0 + jj] - mean : 0.0f;
-      if (n_tiles == 1) {
-        rt[idx] = r;  // resident for every sample
-      } else {
-        rr[static_cast<int64_t>(t0) * kCols + idx] = r;
+    float* rr_t = n_tiles == 1 ? rt : rr + static_cast<int64_t>(t0) * kCols;
+    wide_tile_product<1>(xt, ldn, aa, d, tn, [&](int n, int cq, float4 v) {
+      if (n >= tn) return;
+      const float mean[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int jj = 4 * cq + q;  // resident for every sample if one tile
+        rr_t[n * kCols + jj] =
+            jj < cw ? xt[(j0 + jj) * ldn + n] - mean[q] : 0.0f;
       }
-    }
+    });
     __syncthreads();
   }
 
-  for (int m = 0; m < n_smp; ++m) {
-    const float w_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m];
-    const float w_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m];
-    if (w_s == 0.0f && w_h == 0.0f) continue;  // adds exactly 0
-    // --- 1. the sample pair on this slab ---
-    const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * d * d;
-    for (int e = tid; e < slab; e += kThreads) {
-      const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
-      float g_soft = 0.0f, g_hard = 0.0f;
-      if (jj < cw && i != j) {
-        wide_sample_pair(a, nbase, static_cast<uint32_t>(i * d + j), m, p,
-                         as_[e], &g_soft, &g_hard);
-      }
-      const float th_e = th[e];
-      a_s[e] = (g_soft - sig[e]) * th_e;
-      a_h[e] = (g_hard - sig[e]) * th_e;
-      gs[e] = g_soft;
-      gh[e] = g_hard;
-      dws[e] = 0.0f;
-      dwh[e] = 0.0f;
+  for (int m0 = 0; m0 < n_smp; m0 += 32) {
+    // the chunk's replay list: every warp takes the same ballot
+    float w_lane_s = 0.0f, w_lane_h = 0.0f;
+    if (m0 + lane < n_smp) {
+      w_lane_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m0 + lane];
+      w_lane_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m0 + lane];
     }
-    __syncthreads();
+    unsigned live = __ballot_sync(0xFFFFFFFFu,
+                                  w_lane_s != 0.0f || w_lane_h != 0.0f);
+    while (live != 0u) {
+      const int b = __ffs(live) - 1;
+      live &= live - 1u;
+      const int m = m0 + b;
+      const float w_s = __shfl_sync(0xFFFFFFFFu, w_lane_s, b);
+      const float w_h = __shfl_sync(0xFFFFFFFFu, w_lane_h, b);
 
-    // --- 2. data tiles: delta, residuals, x^T resid ---
-    for (int t = 0; t < n_tiles; ++t) {
-      const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
-      if (n_tiles > 1) {
-        load_tile(t0, tn, true);
-        __syncthreads();
-      }
-      for (int item = tid; item < 2 * tn; item += kThreads) {
-        const int n = item >> 1, c0 = (item & 1) * 4;
-        const float* xr = xt + n * ldx;
-        float del_s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float del_h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int i = 0; i < d; ++i) {
-          const float xv = xr[i];
-          const float4 s4 =
-              *reinterpret_cast<const float4*>(a_s + i * kCols + c0);
-          const float4 h4 =
-              *reinterpret_cast<const float4*>(a_h + i * kCols + c0);
-          del_s[0] = fmaf(xv, s4.x, del_s[0]);
-          del_s[1] = fmaf(xv, s4.y, del_s[1]);
-          del_s[2] = fmaf(xv, s4.z, del_s[2]);
-          del_s[3] = fmaf(xv, s4.w, del_s[3]);
-          del_h[0] = fmaf(xv, h4.x, del_h[0]);
-          del_h[1] = fmaf(xv, h4.y, del_h[1]);
-          del_h[2] = fmaf(xv, h4.z, del_h[2]);
-          del_h[3] = fmaf(xv, h4.w, del_h[3]);
+      // --- 1. the sample pair on this slab ---
+      const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * d * d;
+      for (int e = tid; e < slab; e += kThreads) {
+        const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
+        float g_soft = 0.0f, g_hard = 0.0f, ref = 0.0f;
+        if (jj < cw && i != j) {
+          const float s = as_[e];
+          wide_sample_pair(a, nbase, static_cast<uint32_t>(i * d + j), m, p,
+                           s, &g_soft, &g_hard);
+          ref = 1.0f / (1.0f + expf(-s));  // E[G]
         }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int idx = n * kCols + c0 + q;
-          const float r = rt[idx], wv = wt[idx];  // 0 past column d
-          res_s[idx] = (r - del_s[q]) * wv;
-          res_h[idx] = (r - del_h[q]) * wv;
-        }
+        const float th_e = th[e];
+        aa[i * 2 * kCols + jj] = (g_soft - ref) * th_e;
+        aa[i * 2 * kCols + kCols + jj] = (g_hard - ref) * th_e;
+        gs[e] = g_soft;
+        gh[e] = g_hard;
+        dws[e] = 0.0f;
+        dwh[e] = 0.0f;
       }
       __syncthreads();
-      for (int item = tid; item < 2 * d; item += kThreads) {
-        const int i = item >> 1, c0 = (item & 1) * 4;
-        float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        float s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        for (int n = 0; n < tn; ++n) {
-          const float xv = xt[n * ldx + i];
-          const float4 r4 =
-              *reinterpret_cast<const float4*>(res_s + n * kCols + c0);
-          const float4 q4 =
-              *reinterpret_cast<const float4*>(res_h + n * kCols + c0);
-          s1[0] = fmaf(xv, r4.x, s1[0]);
-          s1[1] = fmaf(xv, r4.y, s1[1]);
-          s1[2] = fmaf(xv, r4.z, s1[2]);
-          s1[3] = fmaf(xv, r4.w, s1[3]);
-          s2[0] = fmaf(xv, q4.x, s2[0]);
-          s2[1] = fmaf(xv, q4.y, s2[1]);
-          s2[2] = fmaf(xv, q4.z, s2[2]);
-          s2[3] = fmaf(xv, q4.w, s2[3]);
-        }
-        float* ds_row = dws + i * kCols + c0;
-        float* dh_row = dwh + i * kCols + c0;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          ds_row[q] += s1[q];
-          dh_row[q] += s2[q];
-        }
-      }
-      __syncthreads();  // the next tile or stage overwrites xt, rt, res
-    }
 
-    // --- 3. weight and accumulate ---
-    for (int e = tid; e < slab; e += kThreads) {
-      const float th_e = th[e];
-      const float zt = (th_e - a.mean_edge) / a.sig_edge;
-      const float lpdf = -0.5f * zt * zt - log_norm_e;
-      const float g = gs[e];
-      const float c_s =
-          a.tau * a.alpha * g * (1.0f - g) * (th_e * (dws[e] * inv_var_f) + lpdf);
-      const float c_h =
-          gh[e] * (dwh[e] * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
-      acc_s[e] += w_s * c_s;
-      acc_h[e] += w_h * c_h;
+      // --- 2. data tiles: delta, residuals, x^T resid, then the terms ---
+      for (int t = 0; t < n_tiles; ++t) {
+        const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
+        const bool last = t + 1 == n_tiles;
+        if (n_tiles > 1) {
+          wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, true);
+          __syncthreads();
+        }
+        wide_tile_product<2>(
+            xt, ldn, aa, d, tn, [&](int n, int combo, float4 v) {
+              const int c = n * kCols + 4 * (combo & 1);
+              const float4 r4 = *reinterpret_cast<const float4*>(rt + c);
+              const float4 w4 = *reinterpret_cast<const float4*>(wt + c);
+              *reinterpret_cast<float4*>(rs + n * 2 * kCols + 4 * combo) =
+                  make_float4((r4.x - v.x) * w4.x, (r4.y - v.y) * w4.y,
+                              (r4.z - v.z) * w4.z, (r4.w - v.w) * w4.w);
+            });
+        __syncthreads();
+        const int n_q = (tn + 3) / 4;
+        for (int item = tid; item < 2 * d; item += kThreads) {
+          const int i = item >> 1, c0 = (item & 1) * 4;
+          const float* xr = xt + i * ldn;
+          float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int nq = 0; nq < n_q; ++nq) {
+            const float4 x4 = *reinterpret_cast<const float4*>(xr + 4 * nq);
+            const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float* row = rs + (4 * nq + k) * 2 * kCols;
+              const float4 r4 = *reinterpret_cast<const float4*>(row + c0);
+              const float4 q4 =
+                  *reinterpret_cast<const float4*>(row + kCols + c0);
+              s1[0] = fmaf(xv[k], r4.x, s1[0]);
+              s1[1] = fmaf(xv[k], r4.y, s1[1]);
+              s1[2] = fmaf(xv[k], r4.z, s1[2]);
+              s1[3] = fmaf(xv[k], r4.w, s1[3]);
+              s2[0] = fmaf(xv[k], q4.x, s2[0]);
+              s2[1] = fmaf(xv[k], q4.y, s2[1]);
+              s2[2] = fmaf(xv[k], q4.z, s2[2]);
+              s2[3] = fmaf(xv[k], q4.w, s2[3]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int e = i * kCols + c0 + q;
+            const float dw_s = dws[e] + s1[q], dw_h = dwh[e] + s2[q];
+            if (!last) {
+              dws[e] = dw_s;
+              dwh[e] = dw_h;
+              continue;
+            }
+            // --- 3. weight and accumulate this thread's elements ---
+            const float th_e = th[e];
+            const float zt = (th_e - a.mean_edge) / a.sig_edge;
+            const float lpdf = -0.5f * zt * zt - log_norm_e;
+            const float g = gs[e];
+            const float c_s = a.tau * a.alpha * g * (1.0f - g) *
+                              (th_e * (dw_s * inv_var_f) + lpdf);
+            const float c_h =
+                gh[e] * (dw_h * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
+            acc_s[e] += w_s * c_s;
+            acc_h[e] += w_h * c_h;
+          }
+        }
+        __syncthreads();  // the next tile or sample overwrites xt, rt, rs, aa
+      }
     }
-    __syncthreads();  // the next sample overwrites gs, gh, a_s, a_h, dws, dwh
   }
 
   for (int e = tid; e < slab; e += kThreads) {
@@ -944,6 +1051,20 @@ __global__ void __launch_bounds__(kThreads)
       a.out_b[pdd + i * d + j0 + jj] = acc_h[e];
     }
   }
+}
+
+// The wide tier's gate (fused_linear_wide_tile_rows in Python): the
+// footprint of its first pass-2 design, 11 [d, kCols] slabs, 4 [tile_rows,
+// kCols] tiles, the data tile at an odd row stride and the reduction head.
+// Both passes now have smaller plans of their own; this measure stays so
+// that the served shapes do not change.
+__host__ __device__ inline int wide_ldx(int d) { return d | 1; }
+
+size_t wide_smem_bytes(int d, int tile_rows) {
+  return sizeof(double) * kRedDoubles +
+         sizeof(float) * (11 * static_cast<size_t>(d) * kCols +
+                          4 * static_cast<size_t>(tile_rows) * kCols +
+                          static_cast<size_t>(tile_rows) * wide_ldx(d));
 }
 
 template <int kG>
@@ -978,11 +1099,15 @@ int launch_wide(const WideArgs& a, int mode, int n_particles,
     }
   }
   if (mode != kWide2) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = wide_smem_bytes(a.d, a.tile_rows);
+  const size_t smem = wide2_smem_bytes(a.d, a.tile_rows);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       fused_linear_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(fused_linear_wide_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_linear_wide_kernel<<<dim3(n_particles, a.n_ct), kThreads, smem,
                              stream>>>(a);
@@ -1084,6 +1209,12 @@ DIBS_API size_t dibs_fused_linear_wide_pass1_smem_bytes(int d, int tile_rows,
 
 DIBS_API int dibs_fused_linear_wide_pass1_group(int d, int tile_rows) {
   return wide1_group(d, tile_rows);
+}
+
+// Pass 2's footprint with `tile_rows` data rows a tile (the wrapper's
+// fused_linear_wide_pass2_plan picks them).
+DIBS_API size_t dibs_fused_linear_wide_pass2_smem_bytes(int d, int tile_rows) {
+  return wide2_smem_bytes(d, tile_rows);
 }
 
 // The wide tier. mode 3: pass 1 -> float64 partial dll [P, M, n_ct] per

@@ -37,11 +37,14 @@ These keep 11 ``[d, d]`` matrices in one block's shared memory, which serves
 the wide tier (same source; launches counted as ``fused_linear_wide_pass1``
 / ``fused_linear_wide_pass2``), which computes the two passes per tile of 8
 node columns: the linear SEM factorizes over columns, so a pass-2 block
-keeps 11 ``[d, 8]`` slabs (``d <= 602``). Pass 1 has a kernel of its own
-(``fused_linear_wide_pass1_kernel``: groups of up to 4 samples, register-
-tiled products over a transposed data tile, sized by
-:func:`fused_linear_wide_pass1_plan`) and writes float64 partial
+keeps ``[d, 8]`` slabs (the gate, :func:`fused_linear_wide_tile_rows`:
+``d <= 602``). Pass 1 (``fused_linear_wide_pass1_kernel``: groups of up to
+4 samples, register-tiled products over a transposed data tile, sized by
+:func:`fused_linear_wide_pass1_plan`) writes float64 partial
 log-likelihoods per column tile, summed in a fixed order before the softmax.
+Pass 2 (``fused_linear_wide_kernel``, sized by
+:func:`fused_linear_wide_pass2_plan`) replays only the samples with a
+non-zero weight over the same transposed tile.
 Both ``single_pass`` settings take the two passes there (the same
 estimand).
 
@@ -87,6 +90,8 @@ __all__ = [
     "fused_linear_wide_pass1_plan",
     "fused_linear_wide_pass1_smem_bytes",
     "fused_linear_wide_pass1_tile_rows",
+    "fused_linear_wide_pass2_plan",
+    "fused_linear_wide_pass2_smem_bytes",
 ]
 
 # the kernel's shared-memory footprint (csrc/fused_linear.cu: smem_bytes)
@@ -201,6 +206,42 @@ def fused_linear_wide_pass1_plan(n_particles: int, d: int,
     return WidePass1Plan(tile, group,
                          fused_linear_wide_pass1_smem_bytes(d, tile, group),
                          (n_particles, -(-d // _WIDE_COLS)))
+
+
+def fused_linear_wide_pass2_smem_bytes(d: int, tile_rows: int) -> int:
+    """Shared memory of one wide pass-2 block (``csrc/fused_linear.cu:
+    wide2_smem_bytes``): 10 ``[d, 8]`` slabs (alpha s, Theta, the two
+    branches' ``(G - E[G]) Theta``, the soft and hard samples, the two
+    branches' ``x^T resid`` and the two accumulators), the ``w`` and
+    ``resid_ref`` tiles ``[ldn, 8]``, the two branches' weighted residuals
+    ``[ldn, 16]`` and the transposed data tile ``[d, ldn]``; ``ldn`` is
+    ``tile_rows`` rounded up to 4, then to 4 mod 8 (conflict-free stores of
+    the transposed tile)."""
+    ldn = -(-tile_rows // 4) * 4 | 4
+    return 4 * (10 * _WIDE_COLS * d + 4 * _WIDE_COLS * ldn + d * ldn)
+
+
+class WidePass2Plan(NamedTuple):
+    """The launch of wide pass 2 for ``(P, d, N)``."""
+    tile_rows: int
+    smem_bytes: int
+    grid: Tuple[int, int]  # (particles, column tiles)
+
+
+def fused_linear_wide_pass2_plan(n_particles: int, d: int,
+                                 n_obs: int) -> Optional[WidePass2Plan]:
+    """Tile rows, footprint and grid of wide pass 2 (``None`` where it does
+    not fit): up to 128 rows, halved down to 8 while two blocks do not
+    share an SM; at most 227 KB. Serves every ``(d, N)`` the wide tier
+    serves (the footprint is below the gate's at every tile)."""
+    tile = min(n_obs, _TILE_MAX)
+    while fused_linear_wide_pass2_smem_bytes(d, tile) > _TWO_PER_SM and \
+            tile > _TILE_MIN:
+        tile = max(_TILE_MIN, tile // 2)
+    smem = fused_linear_wide_pass2_smem_bytes(d, tile)
+    if smem > _MAX_SMEM:
+        return None
+    return WidePass2Plan(tile, smem, (n_particles, -(-d // _WIDE_COLS)))
 
 
 def fused_linear_available(n_vars: int, n_obs: int) -> bool:
@@ -430,8 +471,11 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     if tile_rows is None:
         raise ValueError(f"{name}: d={d} exceeds the wide tier's shared-"
                          "memory limit (fused_linear_available)")
-    if name == "fused_linear_wide_pass1":  # its own footprint (a subset)
+    # each pass has its own plan, which fits wherever the gate does
+    if name == "fused_linear_wide_pass1":
         tile_rows = fused_linear_wide_pass1_tile_rows(d, n_obs)
+    else:
+        tile_rows = fused_linear_wide_pass2_plan(p, d, n_obs).tile_rows
     n_ct = -(-d // _WIDE_COLS)
     lib = build()
     dev = scores.device

@@ -161,6 +161,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear_wide_pass1_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_fused_linear_wide_pass1_group.argtypes = [i32, i32]
     lib.dibs_fused_linear_wide_pass1_group.restype = i32
+    lib.dibs_fused_linear_wide_pass2_smem_bytes.argtypes = [i32, i32]
+    lib.dibs_fused_linear_wide_pass2_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, f32, f32, i32,
                                                vp]
     lib.dibs_transport_phi.restype = i32

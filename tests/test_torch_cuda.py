@@ -311,6 +311,66 @@ def test_wide_pass1_footprint_and_group_agree_with_the_kernel(cuda, d, n):
             fl.fused_linear_wide_pass1_smem_bytes(d, plan.tile_rows, group)
 
 
+@pytest.mark.parametrize("streams", [(4, 4), (4, 5)])
+def test_wide_pass2_is_bitwise_reproducible(cuda, streams):
+    """Two calls of wide pass 2 give bitwise-identical outputs (no atomics,
+    each output element written by one block, shuffle sums in a fixed
+    tree), shared and separate noise streams."""
+    args = _fused_args(cuda, p=5, d=128, n=100)
+    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=128), "n_samples": 32,
+          "streams": streams}
+    weights = tuple(torch.softmax(ll, dim=1)
+                    for ll in fl.fused_linear_pass1(*args, **kw))
+    first = fl.fused_linear_pass2(*args, weights, **kw)
+    second = fl.fused_linear_pass2(*args, weights, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("d,n", [(128, 100), (71, 1), (75, 600), (602, 30),
+                                 (128, 10_000), (300, 100), (652, 1)])
+def test_wide_pass2_plan_agrees_with_the_kernel(cuda, d, n):
+    """The launcher's pass-2 footprint (C) is the wrapper's plan (Python)."""
+    lib = gk.build()
+    plan = fl.fused_linear_wide_pass2_plan(1, d, n)
+    assert lib.dibs_fused_linear_wide_pass2_smem_bytes(d, plan.tile_rows) == \
+        plan.smem_bytes
+
+
+def _pass2_weights(kind, p, m, device):
+    if kind == "uniform":  # every sample replayed
+        uni = torch.full((p, m), 1.0 / m, device=device)
+        return uni, uni
+    hot = torch.zeros(p, m, device=device)
+    hot[torch.arange(p), (3 * torch.arange(p)) % m] = 1.0
+    if kind == "one-hot":  # one sample a particle, another one hard
+        return hot, hot.roll(1, dims=1)
+    hot[1:] = 0.0  # all but particle 0 at zero weight
+    return hot, hot.roll(2, dims=1)
+
+
+@pytest.mark.parametrize("kind,p,d,n,m", [
+    ("uniform", 3, 128, 100, 32), ("one-hot", 4, 128, 100, 32),
+    ("one-particle", 4, 128, 100, 32), ("uniform", 2, 75, 300, 37),
+    ("one-hot", 3, 100, 200, 64), ("uniform", 2, 72, 16, 64)])
+def test_wide_pass2_weight_edges(cuda, kind, p, d, n, m):
+    """Wide pass 2 against its plain version at the weights' edges (all
+    samples replayed, one a particle, one particle only) and past one
+    32-sample ballot (M = 37, 64), within 1e-4 max(1, max|ref|)."""
+    args = _fused_args(cuda, p=p, d=d, n=n)
+    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=d), "n_samples": m,
+          "streams": (4, 5)}
+    weights = _pass2_weights(kind, p, m, cuda)
+    got = fl.fused_linear_pass2(*args, weights, **kw)
+    want = fl.fused_linear_pass2_plain(*args, weights, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+    if kind == "one-particle":  # zero weights add exactly 0
+        assert not got[0][1:].any() and not got[1][1:].any()
+
+
 @pytest.mark.parametrize("p,d,n,h1,blocks,m,activation",
                          chip_smoke.SHAPES_NL_EDGES)
 def test_fused_nonlinear_gate_edges(cuda, p, d, n, h1, blocks, m,
