@@ -904,20 +904,42 @@ __global__ void __launch_bounds__(kThreads, 2)
                   : a.resid_ref +
                         (static_cast<int64_t>(p) * a.n_ct + ct) * n_obs * kCols;
 
+  // the first chunk of weights, loaded before the prologue (its latency
+  // overlaps the slabs)
+  const float* wts_s = a.wts_soft + static_cast<int64_t>(p) * n_smp;
+  const float* wts_h = a.wts_hard + static_cast<int64_t>(p) * n_smp;
+  float w_lane_s = lane < n_smp ? wts_s[lane] : 0.0f;
+  float w_lane_h = lane < n_smp ? wts_h[lane] : 0.0f;
+
   // --- per particle and column tile: the slabs and resid_ref ---
-  for (int e = tid; e < slab; e += kThreads) {
-    const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
-    float s = 0.0f, ref = 0.0f, t = 0.0f;
-    if (jj < cw) {
-      s = __fmul_rn(a.alpha, a.scores[pdd + i * d + j]);
-      ref = i == j ? 0.0f : 1.0f / (1.0f + expf(-s));
-      t = a.theta[pdd + i * d + j];
+  constexpr int kBatch = 4;  // loads in flight per thread
+  for (int e0 = tid; e0 < slab; e0 += kBatch * kThreads) {
+    float sc[kBatch], tv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads, i = e / kCols, jj = e - i * kCols;
+      sc[u] = 0.0f;
+      tv[u] = 0.0f;
+      if (e < slab && jj < cw) {
+        sc[u] = a.scores[pdd + i * d + j0 + jj];
+        tv[u] = a.theta[pdd + i * d + j0 + jj];
+      }
     }
-    as_[e] = s;
-    th[e] = t;
-    aa[e] = ref * t;  // E[G] * Theta as [d][kCols], for resid_ref
-    acc_s[e] = 0.0f;
-    acc_h[e] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads, i = e / kCols, jj = e - i * kCols;
+      if (e >= slab) break;
+      float s = 0.0f, ref = 0.0f;
+      if (jj < cw) {
+        s = __fmul_rn(a.alpha, sc[u]);
+        ref = i == j0 + jj ? 0.0f : 1.0f / (1.0f + expf(-s));
+      }
+      as_[e] = s;
+      th[e] = tv[u];
+      aa[e] = ref * tv[u];  // E[G] * Theta as [d][kCols], for resid_ref
+      acc_s[e] = 0.0f;
+      acc_h[e] = 0.0f;
+    }
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
@@ -939,10 +961,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int m0 = 0; m0 < n_smp; m0 += 32) {
     // the chunk's replay list: every warp takes the same ballot
-    float w_lane_s = 0.0f, w_lane_h = 0.0f;
-    if (m0 + lane < n_smp) {
-      w_lane_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m0 + lane];
-      w_lane_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m0 + lane];
+    if (m0 > 0) {
+      w_lane_s = m0 + lane < n_smp ? wts_s[m0 + lane] : 0.0f;
+      w_lane_h = m0 + lane < n_smp ? wts_h[m0 + lane] : 0.0f;
     }
     unsigned live = __ballot_sync(0xFFFFFFFFu,
                                   w_lane_s != 0.0f || w_lane_h != 0.0f);
