@@ -782,14 +782,17 @@ __global__ void __launch_bounds__(kThreads, 2)
 //    the set bits in ascending m (one load round trip per 32 samples, the
 //    branch uniform over the block);
 //  * the data tile transposed, [d][ldn], with 16-byte loads of x
-//    (wide_load_tile, shared with pass 1);
+//    (wide_load_tile, shared with pass 1), and the slab loads batched four
+//    a thread, so that load latencies overlap;
 //  * delta and resid_ref run through one register-tiled routine
 //    (wide_tile_product): a thread owns 4 data rows x 4 columns of one
 //    (branch, column quad) and a share of the inner dimension d, so 200 of
 //    256 threads work at N = 100; the shares are combined by warp shuffles;
-//  * x^T resid reads 4 data rows of the transposed tile as one float4, and
-//    the sample's weighted gradient terms are added where its last tile
-//    ends (no separate pass over the slab).
+//  * x^T resid reads 4 data rows of the transposed tile as one float4, the
+//    residual rows as broadcasts, and the sample's weighted gradient terms
+//    are added where its last tile ends (no separate pass over the slab). A
+//    4 x 4 register tiling of x^T resid over two shares of N measured slower
+//    on an H100 (PERF.md, kernel #7).
 // Shared memory (wide2_smem_bytes): 10 [d, kCols] slabs, the w, resid_ref
 // and residual tiles and the transposed data tile; E[G] is recomputed from
 // alpha s where it is needed. The plan (Python: fused_linear_wide_pass2_plan)

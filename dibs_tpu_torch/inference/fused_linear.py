@@ -130,9 +130,12 @@ def fused_linear_tile_rows(d: int, n_obs: int) -> Optional[int]:
 
 
 def fused_linear_wide_smem_bytes(d: int, tile_rows: int) -> int:
-    """Shared memory of one wide-tier block: 11 ``[d, 8]`` column slabs, 4
-    ``[tile_rows, 8]`` tiles, the data tile (rows padded to an odd stride)
-    and the block-reduction slots."""
+    """The wide tier's gate measure (``csrc/fused_linear.cu:
+    wide_smem_bytes``): the footprint of the tier's first pass-2 block, 11
+    ``[d, 8]`` column slabs, 4 ``[tile_rows, 8]`` tiles, the data tile (rows
+    padded to an odd stride) and the block-reduction slots. Both passes now
+    launch with smaller plans of their own; the gate keeps this measure so
+    that the served shapes do not change."""
     return _RED_BYTES + 4 * (11 * d * _WIDE_COLS + 4 * tile_rows * _WIDE_COLS
                              + tile_rows * (d | 1))
 
@@ -232,8 +235,8 @@ def fused_linear_wide_pass2_plan(n_particles: int, d: int,
                                  n_obs: int) -> Optional[WidePass2Plan]:
     """Tile rows, footprint and grid of wide pass 2 (``None`` where it does
     not fit): up to 128 rows, halved down to 8 while two blocks do not
-    share an SM; at most 227 KB. Serves every ``(d, N)`` the wide tier
-    serves (the footprint is below the gate's at every tile)."""
+    share an SM; at most 227 KB. It fits at every ``(d, N)`` the wide
+    tier's gate serves (``tests/test_torch_wide_pass2.py``)."""
     tile = min(n_obs, _TILE_MAX)
     while fused_linear_wide_pass2_smem_bytes(d, tile) > _TWO_PER_SM and \
             tile > _TILE_MIN:
