@@ -11,7 +11,7 @@ Phases, one line each; any failure exits non-zero:
    TF32 off;
 2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed),
    with the registers, shared memory and spills ``-Xptxas -v`` reports for
-   the kernels of #3, #4, wide pass 1 and #8;
+   the kernels of #1, #3, #4, wide passes 1 and 2 and #8;
 3. kernel vs plain twin on the card at the main paths' shapes and more,
    with each kernel's and twin's median time (CUDA events), its bound (the
    least time an H100 SXM could take for the same work) and, where one
@@ -90,6 +90,17 @@ P, D, K_LAT, M, K_ACYC, N_OBS, STEPS = 30, 20, 20, 128, 32, 100, 1000
 STEPS_NL = 2000  # config 3's quality length (benchmarks/run_benchmarks.py)
 # config 5 (benchmarks/run_benchmarks.py:171-185), nothing cut
 P5, D5, K5, M5, K_ACYC5, N5, STEPS5 = 1000, 128, 128, 32, 8, 100, 100
+# the sampler #1's phase-3 cases (B, M, d): injected noise, and Philox noise
+# with (alpha, tau, misaligned scores); d = 5 and 13 and misaligned scores
+# take the scalar path, 600 x 128 passes 65,535 (B * M), 140,000 samples
+# pass gridDim.y's 65,535 groups
+SHAPES_GUMBEL = [(30, 128, 20), (30, 32, 20), (4, 8, 5), (4, 8, 13),
+                 (4, 8, 128), (600, 128, 5)]
+SHAPES_PHILOX = [(P, M, D, 1.0, 1.0, False), (4, 8, 5, 1.0, 1.0, False),
+                 (4, 8, 13, 1.7, 1.3, False), (600, 128, 5, 1.0, 1.0, False),
+                 (30, 32, 20, 1.0, 0.7, False), (30, 128, 20, 1.0, 1.0, True),
+                 (4, 8, 128, 2.0, 1.0, False),
+                 (1, 140_000, 2, 1.0, 1.0, False)]
 # kernel #9 at its microbenchmark's defaults (benchmarks/bench_acyclic_kernel.py)
 P9, D9, K9 = 1000, 128, 8
 SHAPES9 = [(64, 13, 4), (64, 30, 4), (32, 137, 2), (8, 139, 2), (16, 128, 3)]
@@ -204,9 +215,10 @@ def phase_build():
     log(f"[2 build] nvcc sm_90a build+load {secs:.2f} s; ptxas: "
         + " | ".join(report))
     per_kernel = ptxas_report(log_text)
-    for name in ("se_matrix_kernel", "se_reduce_kernel",
-                 "transport_phi_kernel", "fused_linear_wide_pass1_kernel",
-                 "fused_linear_wide_kernel", "fused_nl_kernel"):
+    for name in ("gumbel_graphs_kernel", "se_matrix_kernel",
+                 "se_reduce_kernel", "transport_phi_kernel",
+                 "fused_linear_wide_pass1_kernel", "fused_linear_wide_kernel",
+                 "fused_nl_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
         check(bool(found), f"no ptxas report for {name}")
         for k, v in sorted(found.items()):
@@ -225,7 +237,7 @@ def phase_kernels(dev, results):
 
     # --- Gumbel sampler, injected noise ---
     err_g = 0.0
-    for (b, m, d) in [(30, 128, 20), (30, 32, 20), (4, 8, 5), (4, 8, 128)]:
+    for (b, m, d) in SHAPES_GUMBEL:
         scores = torch.from_numpy(
             rng.normal(size=(b, d, d)).astype(np.float32)).to(dev)
         eps = logistic(rng, (b, m, d, d)).to(dev)
@@ -244,13 +256,39 @@ def phase_kernels(dev, results):
                 check(float(diff.max()) <= 1e-6,
                       f"gumbel soft {b, m, d}: max err {float(diff.max())}")
                 err_g = max(err_g, float(diff.max()))
-    # in-kernel Philox vs the twin's Philox (same stream, same maths)
+    # in-kernel Philox vs the twin's Philox (same uniforms; the twin's log
+    # form against the kernel's fast form at tau = 1 and its log form
+    # otherwise): soft within 1e-5, hard exact off ties, two calls bitwise
+    # equal; runs of 4 and the scalar path (d * d % 4 != 0, misaligned
+    # scores), B * M > 65,535 and more samples than gridDim.y holds
+    philox_err = 0.0
+    for (b, m, d, alpha, tau, misaligned) in SHAPES_PHILOX:
+        scores = torch.from_numpy(
+            (2.0 * rng.normal(size=(b, d, d))).astype(np.float32)).to(dev)
+        if misaligned:  # 4 bytes past a 16-byte boundary: the scalar path
+            scores = torch.empty(b * d * d + 1, device=dev)[1:].view(
+                b, d, d).copy_(scores)
+        u = gk.philox_uniform((b, m, d, d), 5, 9, dev)
+        logit = torch.log(u) - torch.log1p(-u) + alpha * scores[:, None]
+        for hard in (True, False):
+            out = gk.gumbel_graphs(scores, 5, 9, alpha, tau, m, hard)
+            again = gk.gumbel_graphs(scores, 5, 9, alpha, tau, m, hard)
+            ref = gk.gumbel_graphs_plain(scores, 5, 9, alpha, tau, m, hard)
+            check(torch.equal(out, again),
+                  f"gumbel {b, m, d} hard={hard}: two calls differ")
+            diff = (out - ref).abs()
+            if hard:
+                bad = int(((diff > 0) & (logit.abs() >= 1e-5)).sum())
+                check(bad == 0, f"gumbel Philox hard {b, m, d}: {bad} "
+                                f"mismatches off ties")
+            else:
+                err = float(diff.max())
+                check(err <= 1e-5, f"gumbel Philox soft {b, m, d} tau={tau}:"
+                                   f" max err {err}")
+                philox_err = max(philox_err, err)
+        del u, logit, out, again, ref, diff
     scores = torch.from_numpy(
         rng.normal(size=(P, D, D)).astype(np.float32)).to(dev)
-    soft_k = gk.gumbel_graphs(scores, 5, 9, 1.0, 1.0, M, False)
-    soft_p = gk.gumbel_graphs_plain(scores, 5, 9, 1.0, 1.0, M, False)
-    philox_err = float((soft_k - soft_p).abs().max())
-    check(philox_err <= 1e-5, f"in-kernel Philox vs twin: {philox_err}")
     t_g = cuda_median_ms(lambda: gk.gumbel_graphs(scores, 5, 9, 1.0, 1.0, M,
                                                   True))
     t_gp = cuda_median_ms(lambda: gk.gumbel_graphs_plain(scores, 5, 9, 1.0,
@@ -259,9 +297,11 @@ def phase_kernels(dev, results):
                                                    K_ACYC, False))
     t_gsp = cuda_median_ms(lambda: gk.gumbel_graphs_plain(
         scores, 5, 9, 1.0, 1.0, K_ACYC, False))
-    log(f"[3 gumbel] hard exact off ties, soft atol 1e-6 at (B,M,d) in "
-        f"(30,128,20),(30,32,20),(4,8,5),(4,8,128): max err {err_g:.3g}; "
-        f"Philox kernel vs twin {philox_err:.3g}; hard [30,128,20,20] "
+    log(f"[3 gumbel] injected noise: hard exact off ties, soft atol 1e-6 at "
+        f"(B,M,d) in {SHAPES_GUMBEL}: max err {err_g:.3g}; Philox noise at "
+        f"(B,M,d,alpha,tau,misaligned) in {SHAPES_PHILOX}: hard exact off "
+        f"ties, soft max err {philox_err:.3g} (bar 1e-5), two calls bitwise "
+        f"equal; hard [30,128,20,20] "
         f"kernel {t_g:.4f} ms twin {t_gp:.4f} ms; soft [30,32,20,20] "
         f"kernel {t_gs:.4f} ms twin {t_gsp:.4f} ms")
     # elementwise: scores read once, [P, M, d, d] samples written once

@@ -27,6 +27,7 @@ import math
 import os
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -37,9 +38,11 @@ __all__ = [
     "LAUNCHES",
     "acyclic_grad",
     "acyclic_grad_plain",
+    "GumbelPlan",
     "build",
     "gumbel_graphs",
     "gumbel_graphs_plain",
+    "gumbel_plan",
     "philox_uniform",
     "se_matrix",
     "se_matrix_plain",
@@ -136,7 +139,7 @@ def build() -> ctypes.CDLL:
                          ctypes.c_float)
     lib.dibs_gumbel_graphs.argtypes = [vp, vp, vp, i64, i32, i32,
                                        ctypes.c_uint64, ctypes.c_uint32, f32,
-                                       f32, i32, vp]
+                                       f32, i32, i32, i32, i32, vp]
     lib.dibs_gumbel_graphs.restype = i32
     lib.dibs_bge_pairs.argtypes = [vp, vp, vp, vp, i32, i32, vp]
     lib.dibs_bge_pairs.restype = i32
@@ -274,6 +277,47 @@ def gumbel_graphs_plain(scores: torch.Tensor, seed: int, stream: int,
     return zero_diagonal(g)
 
 
+GUMBEL_THREADS = 256
+# threads a launch should reach before samples stop being split over the
+# grid: two waves of a full SM (2,048 resident threads) on every SM
+_GUMBEL_WAVES = 2
+
+
+class GumbelPlan(NamedTuple):
+    """Launch plan of the sampler kernel (``csrc/gumbel.cu``)."""
+    vec: int  # adjacent elements a thread (4: 16-byte loads and stores)
+    threads: int  # threads a block
+    group: int  # samples a thread loops over
+    grid: tuple  # (blocks over particles x element runs, sample groups)
+
+
+def gumbel_plan(batch: int, n_samples: int, d: int, aligned: bool,
+                sm_count: int) -> GumbelPlan:
+    """Runs of 4 elements where ``d * d % 4 == 0`` and the tensors are
+    16-byte aligned, else 1; the samples split into as few groups as give
+    ``_GUMBEL_WAVES`` full waves of threads on ``sm_count`` SMs (one group,
+    all samples a thread, once the element runs alone fill them), at most
+    65,535 groups (``gridDim.y``). Every group but the last holds ``group``
+    samples."""
+    vec = 4 if aligned and d * d % 4 == 0 else 1
+    units = batch * (d * d // vec)
+    target = _GUMBEL_WAVES * sm_count * 2048
+    groups = max(1, min(n_samples, -(-target // max(1, units))))
+    group = max(1, -(-n_samples // groups), -(-n_samples // 65535))
+    return GumbelPlan(vec, GUMBEL_THREADS, group,
+                      (-(-units // GUMBEL_THREADS), -(-n_samples // group)))
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(device) -> int:
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]
+
+
 def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
                   tau: float, n_samples: int, hard: bool,
                   eps: torch.Tensor | None = None) -> torch.Tensor:
@@ -282,7 +326,9 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
     ``hard``: ``1[eps + alpha s > 0]`` (Bernoulli(sigmoid(alpha s)));
     otherwise ``sigmoid(tau (eps + alpha s))``. The diagonal is zero. The
     noise is Logistic(0, 1) drawn in the kernel from (``seed``, ``stream``),
-    or the injected ``eps [B, n_samples, d, d]``. Any ``d >= 1``.
+    or the injected ``eps [B, n_samples, d, d]``. Any ``d >= 1``. Soft
+    samples at ``tau == 1`` with in-kernel noise take the kernel's fast
+    form, within a few float32 ulps of the twin's log form.
     """
     if scores.device.type == "cpu":
         return gumbel_graphs_plain(scores, seed, stream, alpha, tau,
@@ -299,12 +345,15 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
     lib = build()
     out = torch.empty((b, n_samples, d, d), dtype=torch.float32,
                       device=scores.device)
+    aligned = scores.data_ptr() % 16 == 0 and (eps is None
+                                               or eps.data_ptr() % 16 == 0)
+    plan = gumbel_plan(b, n_samples, d, aligned, _sm_count(scores.device))
     with torch.cuda.device(scores.device):
         rc = lib.dibs_gumbel_graphs(
             scores.data_ptr(), None if eps is None else eps.data_ptr(),
             out.data_ptr(), b, n_samples, d, seed & 0xFFFFFFFFFFFFFFFF,
             stream & _MASK32, float(alpha), float(tau), int(bool(hard)),
-            _stream(scores.device))
+            plan.vec, plan.threads, plan.group, _stream(scores.device))
     _check_launch(lib, rc, "gumbel_graphs")
     return out
 

@@ -148,6 +148,39 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     assert gk.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
 
+@pytest.mark.parametrize("b,m,d,tau,misaligned", [
+    (4, 8, 5, 1.0, False),  # the scalar path (d * d % 4 != 0)
+    (4, 8, 13, 0.7, False),
+    (600, 128, 5, 1.0, False),  # B * M > 65,535
+    (30, 128, 20, 1.0, True),  # misaligned scores: the scalar path
+    (2, 3, 6, 1.0, False),  # runs of 4 across rows
+    (1, 140_000, 2, 1.0, False),  # more samples than gridDim.y holds
+    (3, 2, 1, 1.0, False),  # the diagonal alone
+    (8, 3, 128, 1.3, False),
+])
+def test_sampler_at_its_plan_edges(cuda, b, m, d, tau, misaligned):
+    """#1 against its twin on the same Philox uniforms at the edges of its
+    launch plan: hard exact off ties, soft within 1e-5; two calls bitwise
+    equal."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + d)
+    scores = 2.0 * torch.randn(b, d, d, generator=gen, device=cuda)
+    if misaligned:
+        scores = torch.empty(b * d * d + 1, device=cuda)[1:].view(
+            b, d, d).copy_(scores)
+    u = gk.philox_uniform((b, m, d, d), 3, 1, cuda)
+    logit = torch.log(u) - torch.log1p(-u) + 1.5 * scores[:, None]
+    for hard in (True, False):
+        out = gk.gumbel_graphs(scores, 3, 1, 1.5, tau, m, hard)
+        again = gk.gumbel_graphs(scores, 3, 1, 1.5, tau, m, hard)
+        ref = gk.gumbel_graphs_plain(scores, 3, 1, 1.5, tau, m, hard)
+        assert torch.equal(out, again)
+        diff = (out - ref).abs()
+        if hard:
+            assert int(((diff > 0) & (logit.abs() >= 1e-5)).sum()) == 0
+        else:
+            assert float(diff.max()) <= 1e-5
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.randn(4, 6, device=cuda)
     with pytest.raises(ValueError):
