@@ -11,7 +11,7 @@ Phases, one line each; any failure exits non-zero:
    TF32 off;
 2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed),
    with the registers, shared memory and spills ``-Xptxas -v`` reports for
-   the kernels of #1, #3, #4, wide passes 1 and 2 and #8;
+   the kernels of #1, #2 (d <= 32), #3, #4, wide passes 1 and 2 and #8;
 3. kernel vs plain twin on the card at the main paths' shapes and more,
    with each kernel's and twin's median time (CUDA events), its bound (the
    least time an H100 SXM could take for the same work) and, where one
@@ -101,6 +101,11 @@ SHAPES_PHILOX = [(P, M, D, 1.0, 1.0, False), (4, 8, 5, 1.0, 1.0, False),
                  (30, 32, 20, 1.0, 0.7, False), (30, 128, 20, 1.0, 1.0, True),
                  (4, 8, 128, 2.0, 1.0, False),
                  (1, 140_000, 2, 1.0, 1.0, False)]
+# the BGe pairs #2's phase-3 cases (d, graphs, collinear data): the warp
+# tier up to d = 32 (d = 31 and 32 at its lane edges), the block tier above
+SHAPES_BGE = [(2, 3840, False), (7, 3840, False), (20, 3840, False),
+              (20, 512, True), (31, 512, False), (32, 512, False),
+              (64, 256, False), (128, 48, False)]
 # kernel #9 at its microbenchmark's defaults (benchmarks/bench_acyclic_kernel.py)
 P9, D9, K9 = 1000, 128, 8
 SHAPES9 = [(64, 13, 4), (64, 30, 4), (32, 137, 2), (8, 139, 2), (16, 128, 3)]
@@ -215,8 +220,9 @@ def phase_build():
     log(f"[2 build] nvcc sm_90a build+load {secs:.2f} s; ptxas: "
         + " | ".join(report))
     per_kernel = ptxas_report(log_text)
-    for name in ("gumbel_graphs_kernel", "se_matrix_kernel",
-                 "se_reduce_kernel", "transport_phi_kernel",
+    for name in ("gumbel_graphs_kernel", "bge_pairs_warp_kernel",
+                 "se_matrix_kernel", "se_reduce_kernel",
+                 "transport_phi_kernel",
                  "fused_linear_wide_pass1_kernel", "fused_linear_wide_kernel",
                  "fused_nl_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
@@ -313,9 +319,8 @@ def phase_kernels(dev, results):
     # --- BGe determinant pairs ---
     err_b, err_64 = 0.0, 0.0
     t_b = t_bp = None
-    for d, b, collinear in [(2, 3840, False), (7, 3840, False),
-                            (20, 3840, False), (20, 512, True),
-                            (64, 256, False), (128, 48, False)]:
+    bitwise = []  # d values where the kernel equals the twin bit for bit
+    for d, b, collinear in SHAPES_BGE:
         x = rng.normal(size=(N_OBS, d)).astype(np.float32)
         if collinear:
             x[:, 1] = x[:, 0] + 1e-3 * x[:, 1]
@@ -327,9 +332,15 @@ def phase_kernels(dev, results):
         gs = (rng.uniform(size=(b, d, d)) < 0.3).astype(np.float32)
         gs[:, np.arange(d), np.arange(d)] = 0.0
         gs[0] = 0.0  # all-zero masks must give logdet_pa == 0
+        gs[1] = 1.0 - np.eye(d)  # full masks: d - 1 parents
         gs_t = torch.from_numpy(gs).to(dev)
         pa, full = bge_logdet_pairs(r_mats, gs_t)
+        again = bge_logdet_pairs(r_mats, gs_t)
         pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs_t)
+        check(torch.equal(pa, again[0]) and torch.equal(full, again[1]),
+              f"bge d={d}: two calls differ")
+        if torch.equal(pa, pa_p) and torch.equal(full, full_p):
+            bitwise.append(f"{d} collinear" if collinear else d)
         for got, ref in ((pa, pa_p), (full, full_p)):
             ok = torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
             check(ok, f"bge d={d} collinear={collinear}: max err "
@@ -363,13 +374,18 @@ def phase_kernels(dev, results):
             # what this data needs: a k^3/3 elimination plus its k^2 border
             # per (graph, node) with k parents
             k = par.sum(-1).double()
-            b_ms, b_by = bound_ms(float((2 * (k ** 3 / 3 + k ** 2)).sum()),
-                                  4 * (d ** 3 + b * d * d + 2 * b * d))
+            flops_b = float((2 * (k ** 3 / 3 + k ** 2)).sum())
+            bytes_b = 4 * (d ** 3 + b * d * d + 2 * b * d)
+            b_ms, b_by = bound_ms(flops_b, bytes_b)
     check(err_64 <= 1e-4, f"bge vs float64 slogdet: rel err {err_64}")
-    log(f"[3 bge] d in 2,7,20,20(collinear),64,128 vs twin (rtol=atol=1e-4) "
-        f"max err {err_b:.3g}; vs float64 slogdet max |err|/(1+|ref|) "
+    log(f"[3 bge] (d, graphs, collinear) in {SHAPES_BGE}, masks of density "
+        f"0.3 with one empty and one full, vs twin (rtol=atol=1e-4) max err "
+        f"{err_b:.3g}, bitwise equal to the twin at d in {bitwise}, two "
+        f"calls bitwise equal; vs float64 slogdet max |err|/(1+|ref|) "
         f"{err_64:.3g}; [3840 graphs, d=20] kernel {t_b:.4f} ms twin "
-        f"{t_bp:.4f} ms slogdet {t_lib:.4f} ms bound {b_ms:.5f} ms ({b_by})")
+        f"{t_bp:.4f} ms slogdet {t_lib:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
+        f"operations {1e3 * flops_b / F32_FLOPS:.5f} ms for {flops_b:.4g} "
+        f"FLOP, bytes {1e3 * bytes_b / HBM_BYTES_PER_S:.5f} ms)")
     results["bge_pairs"] = dict(max_abs_err=err_b, ms=t_b, plain_ms=t_bp,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=t_lib)

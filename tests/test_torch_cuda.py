@@ -26,12 +26,16 @@ import chip_smoke  # noqa: E402
 from dibs_tpu_torch.inference import fused_linear as fl  # noqa: E402
 from dibs_tpu_torch.inference import fused_nonlinear as fnl  # noqa: E402
 from dibs_tpu_torch.models import (  # noqa: E402
+    BGe,
     DenseNonlinearGaussian,
     LinearGaussian,
 )
 from dibs_tpu_torch.ops import gpu_kernels as gk  # noqa: E402
 from dibs_tpu_torch.ops import transport_kernel as tk  # noqa: E402
-from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs  # noqa: E402
+from dibs_tpu_torch.ops.bge_kernel import (  # noqa: E402
+    bge_logdet_pairs,
+    bge_logdet_pairs_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -179,6 +183,38 @@ def test_sampler_at_its_plan_edges(cuda, b, m, d, tau, misaligned):
             assert int(((diff > 0) & (logit.abs() >= 1e-5)).sum()) == 0
         else:
             assert float(diff.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("d", [31, 32])
+@pytest.mark.parametrize("kind", ["empty", "full"])
+def test_bge_warp_tier_at_its_lane_edges(cuda, d, kind):
+    """#2's d <= 32 tier with no parents and with d - 1 (the most its
+    32 lanes take: d - 1 columns and the border): equal to the twin within
+    rtol = atol = 1e-4 and to float64 slogdet within 1e-4 relative, an
+    empty mask exactly 0, two calls bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    x = torch.randn(100, d, generator=gen, device=cuda)
+    r_mats, _ = BGe(n_vars=d, device=cuda)._posterior_r_mats(
+        x, torch.zeros_like(x, dtype=torch.int32))
+    r_mats = r_mats.contiguous()
+    eye = torch.eye(d, device=cuda)
+    gs = (torch.zeros(6, d, d, device=cuda) if kind == "empty"
+          else (1.0 - eye).expand(6, d, d).contiguous())
+    pa, full = bge_logdet_pairs(r_mats, gs)
+    again = bge_logdet_pairs(r_mats, gs)
+    assert torch.equal(pa, again[0]) and torch.equal(full, again[1])
+    pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs)
+    assert torch.allclose(pa, pa_p, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(full, full_p, rtol=1e-4, atol=1e-4)
+    if kind == "empty":
+        assert bool((pa == 0).all())
+    r64, eye64 = r_mats.double(), eye.double()
+    for j in range(d):
+        par = gs[0, :, j].double()
+        for mask, got in ((par, pa[0, j]), (par + eye64[j], full[0, j])):
+            outer = mask[:, None] * mask[None, :]
+            ref = torch.linalg.slogdet(outer * r64[j] + (1 - outer) * eye64)[1]
+            assert abs(float(got) - float(ref)) <= 1e-4 * (1 + abs(float(ref)))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
