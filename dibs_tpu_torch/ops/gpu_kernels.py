@@ -277,7 +277,7 @@ def gumbel_graphs_plain(scores: torch.Tensor, seed: int, stream: int,
     return zero_diagonal(g)
 
 
-GUMBEL_THREADS = 256
+_GUMBEL_THREADS = 256
 # threads a launch should reach before samples stop being split over the
 # grid: two waves of a full SM (2,048 resident threads) on every SM
 _GUMBEL_WAVES = 2
@@ -304,18 +304,8 @@ def gumbel_plan(batch: int, n_samples: int, d: int, aligned: bool,
     target = _GUMBEL_WAVES * sm_count * 2048
     groups = max(1, min(n_samples, -(-target // max(1, units))))
     group = max(1, -(-n_samples // groups), -(-n_samples // 65535))
-    return GumbelPlan(vec, GUMBEL_THREADS, group,
-                      (-(-units // GUMBEL_THREADS), -(-n_samples // group)))
-
-
-_sm_counts: dict = {}
-
-
-def _sm_count(device) -> int:
-    if device.index not in _sm_counts:
-        _sm_counts[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _sm_counts[device.index]
+    return GumbelPlan(vec, _GUMBEL_THREADS, group,
+                      (-(-units // _GUMBEL_THREADS), -(-n_samples // group)))
 
 
 def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
@@ -347,7 +337,8 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
                       device=scores.device)
     aligned = scores.data_ptr() % 16 == 0 and (eps is None
                                                or eps.data_ptr() % 16 == 0)
-    plan = gumbel_plan(b, n_samples, d, aligned, _sm_count(scores.device))
+    sms = torch.cuda.get_device_properties(scores.device).multi_processor_count
+    plan = gumbel_plan(b, n_samples, d, aligned, sms)
     with torch.cuda.device(scores.device):
         rc = lib.dibs_gumbel_graphs(
             scores.data_ptr(), None if eps is None else eps.data_ptr(),

@@ -22,27 +22,13 @@ bitwise equal). The arms' outputs go to ``_tree_check/ab_out/``.
 """
 import json
 import os
-import statistics
 import subprocess
 import sys
 
+# the sibling script's timing (this script's directory is sys.path[0])
+from ab_wide_pass2 import median_ms
+
 OUT = "_tree_check/ab_out/ab_sampler_bge"  # outputs of each tree's first arm
-
-
-def median_ms(torch, fn, reps):
-    for _ in range(max(20, reps // 5)):  # warm-up: clocks settle
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def device_ms(torch, fn, name, calls):
