@@ -222,7 +222,7 @@ def phase_build():
     per_kernel = ptxas_report(log_text)
     for name in ("gumbel_graphs_kernel", "bge_pairs_warp_kernel",
                  "se_matrix_kernel", "se_reduce_kernel",
-                 "transport_phi_kernel",
+                 "transport_phi_kernel", "fused_linear_kernel",
                  "fused_linear_wide_pass1_kernel", "fused_linear_wide_kernel",
                  "fused_nl_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
@@ -442,6 +442,53 @@ def fused_problem(rng, dev, p, d, n, interv_blocks):
                                                    1.0 - mask)]
 
 
+# the row tier's edges (d, N): d from 2 to the gate's 70, N from one row to
+# tiled rows (129: one row past a 128-row tile); P=3, M=9 (a partial group)
+SHAPES_ROW_EDGES = [(d, n) for d in (2, 7, 20, 30, 69, 70)
+                    for n in (1, 100, 128, 129, 600)]
+
+
+def check_row_edges(fl, dev, rng, err, shapes=SHAPES_ROW_EDGES):
+    """Kernels #5-#7 at ``shapes`` (d, N) against their plain versions
+    under injected, Philox and shared-stream noise, with interventional
+    rows past the first 100; two calls of each bitwise equal. Returns the
+    worst error as a share of the bar."""
+    from dibs_tpu_torch.models import LinearGaussian
+
+    worst, p, m = 0.0, 3, 9
+    for d, n in shapes:
+        scores, thetas, x, w = fused_problem(rng, dev, p, d, n,
+                                             max(0, (n - 1) // 100))
+        args = (scores, thetas, x, w)
+        for noise in ("injected", "philox", "philox-shared"):
+            kw = dict(seed=23, streams=(6, 6 if noise == "philox-shared"
+                                        else 7),
+                      alpha=1.3, tau=0.9, n_samples=m,
+                      model=LinearGaussian(n_vars=d))
+            if noise == "injected":
+                kw["eps"] = (logistic(rng, (p, m, d, d)).to(dev),
+                             logistic(rng, (p, m, d, d)).to(dev))
+            lls_p = fl.fused_linear_pass1_plain(*args, **kw)
+            weights = tuple(torch.softmax(ll, dim=1) for ll in lls_p)
+            calls = {
+                "fused_linear_single": (
+                    lambda: fl.fused_linear_single(*args, **kw),
+                    fl.fused_linear_single_plain(*args, **kw)),
+                "fused_linear_pass1": (
+                    lambda: fl.fused_linear_pass1(*args, **kw), lls_p),
+                "fused_linear_pass2": (
+                    lambda: fl.fused_linear_pass2(*args, weights, **kw),
+                    fl.fused_linear_pass2_plain(*args, weights, **kw)),
+            }
+            for name, (kern, refs) in calls.items():
+                got, again = kern(), kern()
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"{name} d={d} N={n} {noise}: two calls differ")
+                for a, b in zip(got, refs):
+                    worst = max(worst, err(name, a, b))
+    return worst
+
+
 def phase_fused(dev, results):
     from dibs_tpu_torch.inference import fused_linear as fl
     from dibs_tpu_torch.models import LinearGaussian
@@ -490,6 +537,18 @@ def phase_fused(dev, results):
                     e = float((got - ref).abs().max())
                     tol = 1e-4 * max(1.0, float(ref.abs().max()))
                     check(e <= tol, f"fused single vs two-pass: {e} > {tol}")
+                for name, again in (
+                        ("fused_linear_single",
+                         fl.fused_linear_single(*args, **kw)),
+                        ("fused_linear_pass1",
+                         fl.fused_linear_pass1(*args, **kw)),
+                        ("fused_linear_pass2",
+                         fl.fused_linear_pass2(*args, weights, **kw))):
+                    first = {"fused_linear_single": single,
+                             "fused_linear_pass1": lls,
+                             "fused_linear_pass2": two}[name]
+                    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                          f"{name} P={p} d={d} N={n}: two calls differ")
         # times at this shape, in-kernel noise (the main path's mode)
         kw = dict(seed=17, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=M,
                   model=model)
@@ -524,7 +583,16 @@ def phase_fused(dev, results):
             if d == D:  # the headline shape is the one the main path runs
                 results[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=None)
-        log(f"[3 fused P={p} d={d} N={n} M={M}] " + "; ".join(line))
+        plan = fl.fused_linear_row_plan(
+            p, d, n, M, torch.cuda.get_device_properties(
+                dev).multi_processor_count)
+        log(f"[3 fused P={p} d={d} N={n} M={M}] " + "; ".join(line)
+            + f"; plan {plan}")
+    edges = check_row_edges(fl, dev, rng, err)
+    log(f"[3 fused edges] #5-#7 at d in (2, 7, 20, 30, 69, 70) x N in (1, "
+        f"100, 128, 129, 600), P=3, M=9, injected / Philox / shared-stream "
+        f"noise: within 1e-4 max(1, max|ref|), worst {edges:.3f} of the bar; "
+        f"two calls bitwise equal")
     for name, e in errs.items():
         results[name]["max_abs_err"] = e
     log(f"[3 fused] kernels vs plain at (P,d,N) in (30,20,100),(20,30,600 "

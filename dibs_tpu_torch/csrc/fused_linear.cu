@@ -4,11 +4,11 @@
 //   mode 0, single pass: _fused_single (online softmax over the samples),
 //   mode 1, pass 1:      _fused_pass1 (the [P, M] soft and hard log-lik.),
 //   mode 2, pass 2:      _fused_pass2 (replays the samples with weights).
-// One __device__ routine per stage serves all three (template on the mode).
-// Past d = 70, where the [d, d] matrices no longer fit one block's shared
-// memory, the wide tier (modes 3 and 4, below) computes the same estimand
-// as passes 1 and 2 over column tiles; the JAX package's own gate for these
-// kernels is d <= 384.
+// One template (fused_linear_kernel<kMode, kItems>) serves all three for
+// d <= 70, the row tier. Past d = 70, where the [d, d] matrices no longer fit
+// one block's shared memory, the wide tier (modes 3 and 4, below) computes
+// the same estimand as passes 1 and 2 over column tiles; the JAX package's
+// own gate for these kernels is d <= 384.
 //
 // For particle p with edge scores s, weights Theta, data x [N, d] and
 // observation weights w = 1 - intervention mask, each of the M samples is
@@ -25,8 +25,8 @@
 //   dtheta  = sum_m softmax(dll_hard)_m H (dW + (mu_e - Theta) / sig_e^2).
 // The softmax is shift-invariant, so the dropped reference log-likelihood
 // never matters. Nothing but the [P, d, d] (or [P, M]) outputs and small
-// scratch (resid_ref, the blocks' partial states) touches device memory: no
-// sample, weight matrix or noise tensor is stored.
+// scratch (the blocks' partial states; resid_ref where the rows are tiled)
+// touches device memory: no sample, weight matrix or noise tensor is stored.
 //
 // Noise: eps is Logistic(0, 1) from dibs::philox_logistic with counter
 // (element, sample, particle, stream) and key = the 64-bit seed, exactly the
@@ -36,29 +36,42 @@
 // the soft sample's noise). With eps_soft / eps_hard non-null the kernel
 // reads the injected noise [P, M, d, d] instead.
 //
-// Design: a grid of (particle, sample chunk) blocks, each looping over its
-// `chunk` samples (the TPU kernel's sequential grid over sample groups); a
-// second small kernel merges the S = ceil(M / chunk) partial states of each
-// particle (running maxima, normalisers and [d, d] sums) in a fixed order,
-// so the result is deterministic. The wrapper picks `chunk` so that about
-// two blocks per SM are in flight. The [d, d]
-// per-particle and per-sample matrices live in shared memory; the data rows
-// stream through shared memory in tiles of `tile_rows` rows, and when one
-// tile holds all N rows it is loaded once and stays resident for every
-// sample. Shared memory: 144 + 4 (11 d^2 + 5 tile_rows d) bytes, at most
-// 227 KB, which bounds d (d <= 70 at tile_rows = 8) but not N. The
-// per-sample log-likelihood sums are accumulated in float64, so the kernel
-// and its PyTorch twin, which sum the same float32 terms in another order,
-// give the same softmax weights to ~1e-12 relative. The single pass keeps a
-// running max and normaliser per stream and rescales the [d, d]
-// accumulators when the max advances.
-//
-// Bound on this card: 8 N d^2 float32 FLOPs per sample (two branches, the
-// delta product and the x^T resid product), 1.23 GFLOP at P = 30, M = 128,
-// N = 100, d = 20, i.e. ~18 us at 67 TFLOP/s; the bytes (inputs read once,
-// outputs written once) are ~0.1 MB. The kernel is bound by operations. Its
-// products run out of shared memory, one output per thread, without
-// register tiling or tensor cores: that is the next step.
+// The row tier. Bound on this card: 8 N d^2 float32 FLOPs per sample pair in
+// modes 0 and 2 (two branches, the delta product and the x^T resid product;
+// mode 1 half of it), 1.23 GFLOP at config 2 (P = 30, M = 128, N = 100,
+// d = 20), ~18 us at 67 TFLOP/s, and 11 GFLOP (~0.17 ms) at config 4's
+// shape (P = 20, d = 30, N = 600); the bytes are ~0.1 MB. It is bound by
+// operations, which all run in FP32 FFMA (no TF32: every path held to
+// dibs_tpu stays full float32). Design, against that floor:
+//  * a grid of (particle, sample chunk) blocks sized to one wave of the
+//    blocks the footprint lets an SM hold (fused_linear_row_plan in Python);
+//    a second small kernel merges the S partial states of each particle
+//    (running maxima, normalisers and [d, d] sums) in a fixed order, so two
+//    calls give the same bits;
+//  * a block works on groups of kG <= 4 samples: one phase draws the group's
+//    matrices A = (G - E[G]) Theta of both branches side by side into
+//    shared memory, [d][2 kG][dp] (dp = d rounded up to 4, zero padded), so
+//    delta of the whole group is one product x @ [A_0 | A_1 | ...];
+//  * the 2 kG (sample, branch) combos each own a team of 256 / (2 kG)
+//    threads (whole warps). Both products are register-tiled, 4 x 4 outputs
+//    a thread, 16 FFMA per two 16-byte shared loads: delta reads the data
+//    tile transposed, x^T [d][ldn], and a row of A; x^T resid reads a row of
+//    x [ldn][dp] and a row of the residuals, over chunks of `sub` rows,
+//    into accumulators that stay in registers (kItems 4 x 4 tiles a thread)
+//    across chunks and tiles;
+//  * where all N rows fit one tile (config 2) the data, w and resid_ref stay
+//    resident in shared memory for every group; else (config 4) the tiles
+//    stream once per group (tiles outer, the group's samples inner) and
+//    resid_ref comes from a per-block scratch [N][dp] computed once;
+//  * the float64 log-likelihood partials stay in a thread's registers across
+//    chunks and tiles (its combo is fixed), are reduced once a group by warp
+//    shuffles into per-warp slots and summed in a fixed order; the single
+//    pass's online softmax then advances once a group: the group's maximum,
+//    one rescale of the [d, d] accumulators, then the kG weighted terms in
+//    ascending m;
+// What still holds it: the barriers a chunk (two) and a group (three or
+// four), the tile loads of tiled rows, and the partially filled rounds of
+// the products where 8 dp / 4 x (sub / 4) is not a multiple of a team.
 #include <cmath>
 
 #include "common.h"
@@ -81,82 +94,100 @@ struct Args {
   const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
   const float* wts_soft;  // [P, M] softmax weights (pass 2)
   const float* wts_hard;  // [P, M]
-  float* resid_ref;       // [P, S, N, d] scratch
+  float* resid_ref;       // [P, S, N, dp] scratch (tiled rows only)
   float* part;            // [P, S, 4 + 2 d^2] scratch: partial states
   float* out_a;           // dscores [P, d, d]; pass 1: dll_soft [P, M]
   float* out_b;           // dtheta [P, d, d];  pass 1: dll_hard [P, M]
-  int n_samples, d, n_obs, tile_rows, n_split, chunk;
+  int n_samples, d, n_obs, tile_rows, n_split, chunk, group, sub_rows;
   uint32_t k0, k1, stream_soft, stream_hard;
   float alpha, tau, mean_edge, sig_edge;
   double inv_var;
 };
 
+// The row tier's gate (fused_linear_tile_rows in Python): the footprint of
+// its first design, 11 [d, d] matrices, 5 data tiles and the reduction
+// slots. The kernel below has a plan of its own (row_smem_bytes); this
+// measure stays so that the served (d, N) do not change.
 size_t smem_bytes(int d, int tile_rows) {
   return sizeof(double) * kRedDoubles +
          sizeof(float) * (11 * static_cast<size_t>(d) * d +
                           5 * static_cast<size_t>(tile_rows) * d);
 }
 
-// Sums two per-thread doubles over the block; every thread gets the sums.
-__device__ __forceinline__ void block_sum2(double* a, double* b,
-                                           double* red) {
-  double va = *a, vb = *b;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    va += __shfl_down_sync(0xFFFFFFFFu, va, off);
-    vb += __shfl_down_sync(0xFFFFFFFFu, vb, off);
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[2 * warp] = va;
-    red[2 * warp + 1] = vb;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double sa = 0.0, sb = 0.0;
-    for (int k = 0; k < kWarps; ++k) {
-      sa += red[2 * k];
-      sb += red[2 * k + 1];
-    }
-    red[2 * kWarps] = sa;
-    red[2 * kWarps + 1] = sb;
-  }
-  __syncthreads();
-  *a = red[2 * kWarps];
-  *b = red[2 * kWarps + 1];
+constexpr int kMaxGroup = 4;
+constexpr int kMaxCombos = 2 * kMaxGroup;
+// the float64 slots (prior partials [2 parities][kWarps][kMaxCombos], data
+// partials [kWarps]), then the group's sample indices, its pass-2 weights
+// [2][kMaxGroup] and a count: 1,152 bytes, a multiple of 16
+constexpr size_t kRowHeadBytes =
+    sizeof(double) * (2 * kWarps * kMaxCombos + kWarps) + 64;
+
+__host__ __device__ inline int row_dp(int d) { return (d + 3) & ~3; }
+__host__ __device__ inline int row_ldn(int tile_rows) {
+  return (tile_rows + 3) & ~3;
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory of a row-tier block with `group` samples a group, data
+// tiles of `tile_rows` rows and x^T resid chunks of `sub_rows` rows
+// (Python: fused_linear_row_smem_bytes): the head, the group's A / dW
+// [d][2 group][dp], x^T [d][ldn], x, w and resid_ref [ldn][dp], the
+// residuals [2 group][sub][dp], then alpha s, E[G], Theta, logN(Theta) and
+// the two accumulators [d, d] and the group's soft and hard samples.
+size_t row_smem_bytes(int d, int tile_rows, int group, int sub_rows) {
+  const size_t dd = static_cast<size_t>(d), dp = row_dp(d),
+               ldn = row_ldn(tile_rows), nc = 2 * static_cast<size_t>(group);
+  return kRowHeadBytes +
+         sizeof(float) * (nc * dd * dp + dd * ldn + 3 * ldn * dp +
+                          nc * static_cast<size_t>(sub_rows) * dp +
+                          (6 + nc) * dd * dd);
+}
+
+// 4 x 4 tiles of x^T resid a thread: ceil((dp / 4)^2 / team), team =
+// 256 / (2 group) threads
+__host__ __device__ inline int row_items(int d, int group) {
+  const int dq = row_dp(d) / 4, team = kThreads / (2 * group);
+  return (dq * dq + team - 1) / team;
+}
+
+template <int kMode, int kItems>
+__global__ void __launch_bounds__(kThreads, 2)
     fused_linear_kernel(const Args a) {
-  extern __shared__ double smem_d[];
-  double* red = smem_d;
-  const int d = a.d, dd = d * d, tn_max = a.tile_rows, tnd = tn_max * d;
-  float* as_ = reinterpret_cast<float*>(smem_d + kRedDoubles);  // alpha s
-  float* sig = as_ + dd;   // E[G] = sigmoid(alpha s), zero diagonal
-  float* th = sig + dd;    // Theta
-  float* gs = th + dd;     // soft sample
-  float* gh = gs + dd;     // hard sample
-  float* a_s = gh + dd;    // (G - E[G]) Theta
-  float* a_h = a_s + dd;   // (H - E[G]) Theta
-  float* dws = a_h + dd;   // x^T resid_soft of this sample
-  float* dwh = dws + dd;   // x^T resid_hard
-  float* acc_s = dwh + dd;  // dscores accumulator
-  float* acc_h = acc_s + dd;  // dtheta accumulator
-  float* xt = acc_h + dd;  // data tile [tile_rows, d]
-  float* wt = xt + tnd;
-  float* rt = wt + tnd;    // resid_ref tile
-  float* res_s = rt + tnd;
-  float* res_h = res_s + tnd;
+  extern __shared__ __align__(16) double smem_d[];
+  const int d = a.d, dd = d * d, dp = row_dp(d), dq = dp / 4;
+  const int kg = a.group, nc = 2 * kg, tn_max = a.tile_rows;
+  const int ldn = row_ldn(tn_max), sub = a.sub_rows;
+  double* lp_slot = smem_d;                           // [2][kWarps][kMaxCombos]
+  double* ld_slot = lp_slot + 2 * kWarps * kMaxCombos;  // [kWarps]
+  int* gidx = reinterpret_cast<int*>(ld_slot + kWarps);  // [kMaxGroup]
+  float* gwt = reinterpret_cast<float*>(gidx + kMaxGroup);  // [2][kMaxGroup]
+  float* aw = reinterpret_cast<float*>(smem_d) + kRowHeadBytes / 4;
+  float* xt = aw + nc * d * dp;   // data tile, transposed [d][ldn]
+  float* xr = xt + d * ldn;       // data tile [ldn][dp]
+  float* wt = xr + ldn * dp;      // observation weights [ldn][dp]
+  float* rt = wt + ldn * dp;      // resid_ref [ldn][dp]
+  float* res = rt + ldn * dp;     // weighted residuals [nc][sub][dp]
+  float* as_ = res + nc * sub * dp;  // alpha s
+  float* sig = as_ + dd;          // E[G] = sigmoid(alpha s), zero diagonal
+  float* th = sig + dd;           // Theta
+  float* lpd = th + dd;           // logN(Theta; mu_e, sig_e)
+  float* acc_s = lpd + dd;        // dscores accumulator
+  float* acc_h = acc_s + dd;      // dtheta accumulator
+  float* gsv = acc_h + dd;        // the group's soft samples [kg][d, d]
+  float* ghv = gsv + kg * dd;     // the group's hard samples
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wpc = kWarps / nc;          // warps of a combo's team
+  const int combo = warp / wpc;         // (sample g = combo / 2, branch)
+  const int tl = (warp % wpc) * 32 + lane, team = 32 * wpc;
   const int n_obs = a.n_obs, n_smp = a.n_samples;
   const int m_begin = split * a.chunk;
   const int m_end = min(n_smp, m_begin + a.chunk);
+  const int n_tiles = (n_obs + tn_max - 1) / tn_max;
   const int64_t ps = static_cast<int64_t>(p) * a.n_split + split;
   const float* sc = a.scores + static_cast<int64_t>(p) * dd;
   const float* tp = a.theta + static_cast<int64_t>(p) * dd;
-  float* rr = a.resid_ref + ps * n_obs * d;
+  float* rr = n_tiles > 1 ? a.resid_ref + ps * n_obs * dp : nullptr;
   // log(sig_e) + 0.5 log(2 pi)
   const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
   const float inv_var_f = static_cast<float>(a.inv_var);
@@ -164,172 +195,328 @@ __global__ void __launch_bounds__(kThreads)
 
   // --- per particle: hoisted transcendentals and the centring reference ---
   for (int e = tid; e < dd; e += kThreads) {
-    const int i = e / d;
+    const int i = e / d, j = e - i * d;
     const float s = __fmul_rn(a.alpha, sc[e]);
     as_[e] = s;
-    const float ref = (i == e - i * d) ? 0.0f : 1.0f / (1.0f + expf(-s));
+    const float ref = i == j ? 0.0f : 1.0f / (1.0f + expf(-s));
     sig[e] = ref;
-    th[e] = tp[e];
-    a_s[e] = ref * tp[e];  // E[G] * Theta, for resid_ref
+    const float th_e = tp[e];
+    th[e] = th_e;
+    const float zt = (th_e - a.mean_edge) / a.sig_edge;
+    lpd[e] = -0.5f * zt * zt - log_norm_e;
+    aw[i * dp + j] = ref * th_e;  // E[G] * Theta, for resid_ref
     if (kMode != kPass1) {
       acc_s[e] = 0.0f;
       acc_h[e] = 0.0f;
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < n_obs * d; idx += kThreads) {
-    const int n = idx / d, j = idx - n * d;
-    const float* xr = a.x + static_cast<int64_t>(n) * d;
-    float mean = 0.0f;
-    for (int i = 0; i < d; ++i) mean = fmaf(xr[i], a_s[i * d + j], mean);
-    rr[idx] = xr[j] - mean;
+  // resid_ref, zero past row N and column d: resident in rt where one tile
+  // holds every row, else into this block's scratch
+  {
+    float* dst = rr != nullptr ? rr : rt;
+    const int rows = rr != nullptr ? n_obs : ldn;
+    for (int idx = tid; idx < rows * dp; idx += kThreads) {
+      const int n = idx / dp, j = idx - n * dp;
+      float r = 0.0f;
+      if (n < n_obs && j < d) {
+        const float* xg = a.x + static_cast<int64_t>(n) * d;
+        float mean = 0.0f;
+        for (int i = 0; i < d; ++i) mean = fmaf(xg[i], aw[i * dp + j], mean);
+        r = xg[j] - mean;
+      }
+      dst[idx] = r;
+    }
   }
-  __syncthreads();
-
-  const int n_tiles = (n_obs + tn_max - 1) / tn_max;
+  // rows t0 .. t0 + tn of x (both layouts), w and, where tiled, resid_ref;
+  // zero past row tn and column d
   auto load_tile = [&](int t0, int tn) {
-    for (int idx = tid; idx < tn * d; idx += kThreads) {
-      const int64_t g = static_cast<int64_t>(t0) * d + idx;
-      xt[idx] = a.x[g];
-      wt[idx] = a.w[g];
-      rt[idx] = rr[g];
+    for (int idx = tid; idx < ldn * dp; idx += kThreads) {
+      const int n = idx / dp, j = idx - n * dp;
+      float xv = 0.0f, wv = 0.0f, rv = 0.0f;
+      if (n < tn && j < d) {
+        const int64_t g = static_cast<int64_t>(t0 + n) * d + j;
+        xv = a.x[g];
+        wv = a.w[g];
+        if (rr != nullptr) rv = rr[static_cast<int64_t>(t0 + n) * dp + j];
+      }
+      xr[idx] = xv;
+      wt[idx] = wv;
+      if (rr != nullptr) rt[idx] = rv;
+      if (j < d) xt[j * ldn + n] = xv;
     }
   };
-  if (n_tiles == 1) load_tile(0, n_obs);  // resident for every sample
+  if (n_tiles == 1) load_tile(0, n_obs);  // resident for every group
   __syncthreads();
 
   float m_s = -INFINITY, z_s = 0.0f, m_h = -INFINITY, z_h = 0.0f;
-  for (int m = m_begin; m < m_end; ++m) {
-    // --- 1. the sample pair and the parameter-prior term of dll ---
-    double lp_s = 0.0, lp_h = 0.0;
-    const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * dd;
-    for (int e = tid; e < dd; e += kThreads) {
-      const int i = e / d;
-      float g_soft = 0.0f, g_hard = 0.0f;
-      if (i != e - i * d) {
-        const float es =
-            a.eps_soft != nullptr
-                ? a.eps_soft[nbase + e]
-                : dibs::philox_logistic(e, m, p, a.stream_soft, a.k0, a.k1);
-        float eh;
-        if (a.eps_hard != nullptr) {
-          eh = a.eps_hard[nbase + e];
-        } else if (a.stream_hard == a.stream_soft) {
-          eh = es;
-        } else {
-          eh = dibs::philox_logistic(e, m, p, a.stream_hard, a.k0, a.k1);
-        }
-        g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
-        g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
+  for (int m0 = m_begin, par = 0;; m0 += kg, par ^= 1) {
+    // --- 0. the group's samples (pass 2: with their weights) ---
+    if (m0 >= m_end) break;
+    const int gl = min(kg, m_end - m0);
+    if (kMode == kPass2) {
+      if (tid < gl) {
+        const int64_t o = static_cast<int64_t>(p) * n_smp + m0 + tid;
+        gidx[tid] = m0 + tid;
+        gwt[tid] = a.wts_soft[o];
+        gwt[kMaxGroup + tid] = a.wts_hard[o];
       }
-      const float th_e = th[e];
-      const float zt = (th_e - a.mean_edge) / a.sig_edge;
-      const float lpdf = -0.5f * zt * zt - log_norm_e;
-      const float ds = g_soft - sig[e], dh = g_hard - sig[e];
-      gs[e] = g_soft;
-      gh[e] = g_hard;
-      a_s[e] = ds * th_e;
-      a_h[e] = dh * th_e;
-      lp_s += static_cast<double>(ds * lpdf);
-      lp_h += static_cast<double>(dh * lpdf);
-      if (kMode != kPass1) {
-        dws[e] = 0.0f;
-        dwh[e] = 0.0f;
+      __syncthreads();
+    }
+    double* lp_out = lp_slot + par * kWarps * kMaxCombos;
+    const bool active = combo < 2 * gl;  // uniform over a warp
+
+    // --- 1. the group's A matrices, samples and prior terms ---
+    for (int g = 0; g < gl; ++g) {
+      const int m = kMode == kPass2 ? gidx[g] : m0 + g;
+      const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * dd;
+      double lp_s = 0.0, lp_h = 0.0;
+      for (int idx = tid; idx < d * dp; idx += kThreads) {
+        const int i = idx / dp, j = idx - i * dp;
+        float a_s = 0.0f, a_h = 0.0f;
+        if (j < d) {
+          const int e = i * d + j;
+          float g_soft = 0.0f, g_hard = 0.0f;
+          if (i != j) {
+            const float es =
+                a.eps_soft != nullptr
+                    ? a.eps_soft[nbase + e]
+                    : dibs::philox_logistic(e, m, p, a.stream_soft, a.k0, a.k1);
+            float eh;
+            if (a.eps_hard != nullptr) {
+              eh = a.eps_hard[nbase + e];
+            } else if (a.stream_hard == a.stream_soft) {
+              eh = es;
+            } else {
+              eh = dibs::philox_logistic(e, m, p, a.stream_hard, a.k0, a.k1);
+            }
+            g_soft =
+                1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
+            g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
+          }
+          const float th_e = th[e];
+          const float ds = g_soft - sig[e], dh = g_hard - sig[e];
+          a_s = ds * th_e;
+          a_h = dh * th_e;
+          lp_s += static_cast<double>(ds * lpd[e]);
+          lp_h += static_cast<double>(dh * lpd[e]);
+          if (kMode != kPass1) {
+            gsv[g * dd + e] = g_soft;
+            ghv[g * dd + e] = g_hard;
+          }
+        }
+        float* row = aw + (i * nc + 2 * g) * dp + j;
+        row[0] = a_s;
+        row[dp] = a_h;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        lp_s += __shfl_down_sync(0xFFFFFFFFu, lp_s, off);
+        lp_h += __shfl_down_sync(0xFFFFFFFFu, lp_h, off);
+      }
+      if (lane == 0) {
+        lp_out[warp * kMaxCombos + 2 * g] = lp_s;
+        lp_out[warp * kMaxCombos + 2 * g + 1] = lp_h;
       }
     }
     __syncthreads();
 
-    // --- 2. data tiles: delta, the data term of dll, residuals, x^T resid ---
-    double ld_s = 0.0, ld_h = 0.0;
+    // --- 2. data tiles and row chunks: delta, the data term, residuals,
+    //        x^T resid (modes 0 and 2) ---
+    float dw[kItems][16];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+#pragma unroll
+      for (int u = 0; u < 16; ++u) dw[k][u] = 0.0f;
+    }
+    double v = 0.0;  // this thread's share of its combo's data term
+    const float* ap = aw + combo * dp;
+    float* rs = res + combo * sub * dp;
     for (int t = 0; t < n_tiles; ++t) {
-      const int t0 = t * tn_max;
-      const int tn = min(tn_max, n_obs - t0);
+      const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
       if (n_tiles > 1) {
         load_tile(t0, tn);
         __syncthreads();
       }
-      for (int idx = tid; idx < tn * d; idx += kThreads) {
-        const int n = idx / d, j = idx - n * d;
-        const float* xr = xt + n * d;
-        float del_s = 0.0f, del_h = 0.0f;
-        for (int i = 0; i < d; ++i) {
-          const float xv = xr[i];
-          del_s = fmaf(xv, a_s[i * d + j], del_s);
-          del_h = fmaf(xv, a_h[i * d + j], del_h);
-        }
-        const float r = rt[idx], wv = wt[idx];
-        if (kMode != kPass2) {
-          ld_s += static_cast<double>(wv * del_s * (del_s - 2.0f * r));
-          ld_h += static_cast<double>(wv * del_h * (del_h - 2.0f * r));
+      const int n_rq = (tn + 3) / 4;
+      for (int c0 = 0; c0 < 4 * n_rq; c0 += sub) {
+        const int ch_rq = min(sub / 4, n_rq - c0 / 4);  // row quads here
+        if (active) {
+          for (int it = tl; it < ch_rq * dq; it += team) {
+            const int rq = it / dq, cq = it - rq * dq;
+            const float* xp = xt + c0 + 4 * rq;
+            const float* apq = ap + 4 * cq;
+            float acc[4][4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
+            }
+#pragma unroll 4
+            for (int i = 0; i < d; ++i) {
+              const float4 x4 = *reinterpret_cast<const float4*>(xp + i * ldn);
+              const float4 a4 =
+                  *reinterpret_cast<const float4*>(apq + i * nc * dp);
+              const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+              const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+              for (int r = 0; r < 4; ++r) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                  acc[r][q] = fmaf(xv[r], av[q], acc[r][q]);
+                }
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {  // zero past row tn and column d
+              const int idx = (c0 + 4 * rq + r) * dp + 4 * cq;
+              const float4 r4 = *reinterpret_cast<const float4*>(rt + idx);
+              const float4 w4 = *reinterpret_cast<const float4*>(wt + idx);
+              const float rf[4] = {r4.x, r4.y, r4.z, r4.w};
+              const float wf[4] = {w4.x, w4.y, w4.z, w4.w};
+              float out[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float del = acc[r][q];
+                if (kMode != kPass2) {
+                  v += static_cast<double>(wf[q] * del * (del - 2.0f * rf[q]));
+                }
+                out[q] = (rf[q] - del) * wf[q];
+              }
+              if (kMode != kPass1) {
+                *reinterpret_cast<float4*>(rs + (4 * rq + r) * dp + 4 * cq) =
+                    make_float4(out[0], out[1], out[2], out[3]);
+              }
+            }
+          }
         }
         if (kMode != kPass1) {
-          res_s[idx] = (r - del_s) * wv;
-          res_h[idx] = (r - del_h) * wv;
-        }
-      }
-      if (kMode != kPass1) {
-        __syncthreads();
-        for (int e = tid; e < dd; e += kThreads) {
-          const int i = e / d, j = e - i * d;
-          float s1 = 0.0f, s2 = 0.0f;
-          for (int n = 0; n < tn; ++n) {
-            const float xv = xt[n * d + i];
-            s1 = fmaf(xv, res_s[n * d + j], s1);
-            s2 = fmaf(xv, res_h[n * d + j], s2);
+          __syncthreads();  // the chunk's residuals are in
+          if (active) {
+#pragma unroll
+            for (int k = 0; k < kItems; ++k) {
+              const int item = tl + k * team;
+              if (item >= dq * dq) break;
+              const int iq = item / dq, jq = item - iq * dq;
+              const float* xp = xr + c0 * dp + 4 * iq;
+              const float* rp = rs + 4 * jq;
+#pragma unroll 4
+              for (int n = 0; n < 4 * ch_rq; ++n) {
+                const float4 x4 = *reinterpret_cast<const float4*>(xp + n * dp);
+                const float4 r4 = *reinterpret_cast<const float4*>(rp + n * dp);
+                const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+                const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) {
+                    dw[k][4 * r + q] = fmaf(xv[r], rv[q], dw[k][4 * r + q]);
+                  }
+                }
+              }
+            }
           }
-          dws[e] += s1;
-          dwh[e] += s2;
+          __syncthreads();  // the next chunk overwrites the residuals
         }
       }
-      if (n_tiles > 1) __syncthreads();  // the next tile overwrites xt, rt
+      if (kMode == kPass1 && n_tiles > 1) __syncthreads();  // next tile
     }
 
-    // --- 3. dll of the sample pair (float64 block sums) ---
-    float ll_s = 0.0f, ll_h = 0.0f;
+    // --- 3. the group's log-likelihoods (float64, fixed order) and x^T
+    //        resid, which replaces A in shared memory as dW [nc][d][dp] ---
     if (kMode != kPass2) {
-      double v_s = -0.5 * a.inv_var * ld_s + lp_s;
-      double v_h = -0.5 * a.inv_var * ld_h + lp_h;
-      block_sum2(&v_s, &v_h, red);
-      ll_s = static_cast<float>(v_s);
-      ll_h = static_cast<float>(v_h);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_down_sync(0xFFFFFFFFu, v, off);
+      }
+      if (lane == 0) ld_slot[warp] = v;
+    }
+    if (kMode != kPass1 && active) {
+#pragma unroll
+      for (int k = 0; k < kItems; ++k) {
+        const int item = tl + k * team;
+        if (item >= dq * dq) break;
+        const int iq = item / dq, jq = item - iq * dq;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * iq + r;
+          if (i < d) {
+            *reinterpret_cast<float4*>(aw + (combo * d + i) * dp + 4 * jq) =
+                make_float4(dw[k][4 * r], dw[k][4 * r + 1], dw[k][4 * r + 2],
+                            dw[k][4 * r + 3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // the group's log-likelihood of combo c: -(1/2 sigma^2) (its team's data
+    // partials) + (the prior partials of every warp), in a fixed order
+    auto group_ll = [&](int c) {
+      double ld = 0.0, lp = 0.0;
+      for (int k = 0; k < wpc; ++k) ld += ld_slot[c * wpc + k];
+      for (int k = 0; k < kWarps; ++k) lp += lp_out[k * kMaxCombos + c];
+      return static_cast<float>(-0.5 * a.inv_var * ld + lp);
+    };
+    if (kMode == kPass1) {
+      if (tid < 2 * gl) {
+        const int64_t o = static_cast<int64_t>(p) * n_smp + m0 + tid / 2;
+        (tid % 2 == 0 ? a.out_a : a.out_b)[o] = group_ll(tid);
+      }
+      continue;  // the next group's prior slots are the other parity's
     }
 
-    // --- 4. weight and accumulate ---
-    if (kMode == kPass1) {
-      if (tid == 0) {
-        a.out_a[static_cast<int64_t>(p) * n_smp + m] = ll_s;
-        a.out_b[static_cast<int64_t>(p) * n_smp + m] = ll_h;
+    // --- 4. weight and accumulate, the samples in ascending m ---
+    float w_s[kMaxGroup], w_h[kMaxGroup], sc_s = 1.0f, sc_h = 1.0f;
+    if (kMode == kSingle) {  // online softmax: exp(-inf) = 0 at the start
+      float ll[kMaxCombos], nm_s = m_s, nm_h = m_h;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        ll[2 * g] = g < gl ? group_ll(2 * g) : -INFINITY;
+        ll[2 * g + 1] = g < gl ? group_ll(2 * g + 1) : -INFINITY;
+        nm_s = fmaxf(nm_s, ll[2 * g]);
+        nm_h = fmaxf(nm_h, ll[2 * g + 1]);
       }
+      sc_s = expf(m_s - nm_s);
+      sc_h = expf(m_h - nm_h);
+      z_s *= sc_s;
+      z_h *= sc_h;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        w_s[g] = g < gl ? expf(ll[2 * g] - nm_s) : 0.0f;
+        w_h[g] = g < gl ? expf(ll[2 * g + 1] - nm_h) : 0.0f;
+        z_s += w_s[g];
+        z_h += w_h[g];
+      }
+      m_s = nm_s;
+      m_h = nm_h;
     } else {
-      float sc_s = 1.0f, sc_h = 1.0f, w_s, w_h;
-      if (kMode == kSingle) {  // online softmax: exp(-inf) = 0 at m = 0
-        const float nm_s = fmaxf(m_s, ll_s), nm_h = fmaxf(m_h, ll_h);
-        sc_s = expf(m_s - nm_s);
-        sc_h = expf(m_h - nm_h);
-        w_s = expf(ll_s - nm_s);
-        w_h = expf(ll_h - nm_h);
-        z_s = z_s * sc_s + w_s;
-        z_h = z_h * sc_h + w_h;
-        m_s = nm_s;
-        m_h = nm_h;
-      } else {
-        w_s = a.wts_soft[static_cast<int64_t>(p) * n_smp + m];
-        w_h = a.wts_hard[static_cast<int64_t>(p) * n_smp + m];
-      }
-      for (int e = tid; e < dd; e += kThreads) {
-        const float th_e = th[e];
-        const float zt = (th_e - a.mean_edge) / a.sig_edge;
-        const float lpdf = -0.5f * zt * zt - log_norm_e;
-        const float g = gs[e];
-        const float c_s =
-            a.tau * a.alpha * g * (1.0f - g) * (th_e * (dws[e] * inv_var_f) + lpdf);
-        const float c_h =
-            gh[e] * (dwh[e] * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
-        acc_s[e] = acc_s[e] * sc_s + w_s * c_s;
-        acc_h[e] = acc_h[e] * sc_h + w_h * c_h;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        w_s[g] = g < gl ? gwt[g] : 0.0f;
+        w_h[g] = g < gl ? gwt[kMaxGroup + g] : 0.0f;
       }
     }
-    __syncthreads();  // the next sample overwrites gs, gh, a_s, a_h, dws, dwh
+    for (int e = tid; e < dd; e += kThreads) {
+      const int i = e / d, j = e - i * d;
+      const float th_e = th[e], lpdf = lpd[e];
+      float a_s = acc_s[e] * sc_s, a_h = acc_h[e] * sc_h;
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g) {
+        if (g >= gl) break;
+        const float dw_s = aw[(2 * g * d + i) * dp + j];
+        const float dw_h = aw[((2 * g + 1) * d + i) * dp + j];
+        const float gg = gsv[g * dd + e];
+        const float c_s = a.tau * a.alpha * gg * (1.0f - gg) *
+                          (th_e * (dw_s * inv_var_f) + lpdf);
+        const float c_h = ghv[g * dd + e] *
+                          (dw_h * inv_var_f + (a.mean_edge - th_e) * inv_sig2_e);
+        a_s += w_s[g] * c_s;
+        a_h += w_h[g] * c_h;
+      }
+      acc_s[e] = a_s;
+      acc_h[e] = a_h;
+    }
+    __syncthreads();  // the next group overwrites A, the samples and slots
   }
 
   if (kMode != kPass1) {  // this block's partial state, merged below
@@ -378,6 +565,7 @@ __global__ void __launch_bounds__(kThreads)
     out_b[static_cast<int64_t>(p) * dd + e] = acc_h * inv_h;
   }
 }
+
 
 // ---------------------------------------------------------------------------
 // The wide tier (d > 70): column-tiled pass 1 and pass 2.
@@ -1138,16 +1326,19 @@ int launch_wide(const WideArgs& a, int mode, int n_particles,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kMode>
-int launch(const Args& a, int n_particles, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.d, a.tile_rows);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_linear_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <int kMode, int kItems>
+int launch_row(const Args& a, int n_particles, size_t smem,
+               cudaStream_t stream) {
+  const auto kernel = fused_linear_kernel<kMode, kItems>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_linear_kernel<kMode>
-      <<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
   if (kMode != kPass1) {
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return static_cast<int>(launched);
@@ -1157,26 +1348,58 @@ int launch(const Args& a, int n_particles, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The x^T resid accumulators a thread holds: 1, 2 or 4 tiles of 4 x 4.
+template <int kMode>
+int launch(const Args& a, int n_particles, cudaStream_t stream) {
+  const size_t smem = row_smem_bytes(a.d, a.tile_rows, a.group, a.sub_rows);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int items = row_items(a.d, a.group);
+  if (items <= 1) return launch_row<kMode, 1>(a, n_particles, smem, stream);
+  if (items <= 2) return launch_row<kMode, 2>(a, n_particles, smem, stream);
+  if (items <= 4) return launch_row<kMode, 4>(a, n_particles, smem, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 DIBS_API size_t dibs_fused_linear_smem_bytes(int d, int tile_rows) {
   return smem_bytes(d, tile_rows);
 }
 
+// The row tier's footprint with `group` samples a group, `tile_rows` data
+// rows a tile and `sub_rows` rows an x^T resid chunk, and the 4 x 4 tiles
+// of x^T resid a thread holds (the kernel takes at most 4).
+DIBS_API size_t dibs_fused_linear_row_smem_bytes(int d, int tile_rows,
+                                                 int group, int sub_rows) {
+  return row_smem_bytes(d, tile_rows, group, sub_rows);
+}
+
+DIBS_API int dibs_fused_linear_row_items(int d, int group) {
+  return row_items(d, group);
+}
+
 // mode 0: single pass -> (dscores, dtheta); mode 1: pass 1 -> (dll_soft,
-// dll_hard) [P, M]; mode 2: pass 2 with weights -> (dscores, dtheta).
-// `chunk` samples per block; the scratch holds [P, S, N, d] (resid_ref)
-// and [P, S, 4 + 2 d^2] (partial states) floats, S = ceil(M / chunk).
+// dll_hard) [P, M]; mode 2: pass 2 with weights -> (dscores, dtheta). The
+// plan (Python: fused_linear_row_plan) gives `tile_rows`, `group` (1, 2 or
+// 4), `sub_rows` (a multiple of 4, at most tile_rows rounded up to 4) and
+// `chunk` (samples a block); the scratch holds [P, S, N, dp] floats of
+// resid_ref where tile_rows < N (else `resid_ref` may be null) and [P, S,
+// 4 + 2 d^2] floats of partial states, S = ceil(M / chunk), dp = d rounded
+// up to 4.
 DIBS_API int dibs_fused_linear(
     int mode, const float* scores, const float* theta, const float* x,
     const float* w, const float* eps_soft, const float* eps_hard,
     const float* wts_soft, const float* wts_hard, float* resid_ref,
     float* part, float* out_a, float* out_b, int n_particles, int n_samples,
-    int d, int n_obs, int tile_rows, int chunk, uint64_t seed,
+    int d, int n_obs, int tile_rows, int chunk, int group, int sub_rows,
+    uint64_t seed,
     uint32_t stream_soft, uint32_t stream_hard, float alpha, float tau, double inv_var,
     float mean_edge, float sig_edge, cudaStream_t stream) {
   if (d < 1 || n_obs < 1 || n_samples < 1 || tile_rows < 1 ||
-      tile_rows > n_obs || chunk < 1) {
+      tile_rows > n_obs || chunk < 1 ||
+      (group != 1 && group != 2 && group != kMaxGroup) || sub_rows < 4 ||
+      sub_rows % 4 != 0 || sub_rows > row_ldn(tile_rows) ||
+      (tile_rows < n_obs && resid_ref == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -1198,6 +1421,8 @@ DIBS_API int dibs_fused_linear(
   a.n_obs = n_obs;
   a.tile_rows = tile_rows;
   a.chunk = chunk;
+  a.group = group;
+  a.sub_rows = sub_rows;
   a.n_split = (n_samples + chunk - 1) / chunk;
   a.k0 = static_cast<uint32_t>(seed & 0xFFFFFFFFull);
   a.k1 = static_cast<uint32_t>(seed >> 32);

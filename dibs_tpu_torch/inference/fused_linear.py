@@ -32,8 +32,11 @@ Three hand-written CUDA kernels of one source (``csrc/fused_linear.cu``):
 * ``fused_linear_pass2`` (replaces ``_fused_pass2``): replays the same
   samples with those weights into ``d scores`` and ``d Theta``.
 
-These keep 11 ``[d, d]`` matrices in one block's shared memory, which serves
-``d <= 70``. Past it ``fused_linear_pass1`` / ``fused_linear_pass2`` launch
+These are one template, the row tier (``fused_linear_kernel``): a block
+keeps its particle's ``[d, d]`` matrices in shared memory and works on
+groups of up to 4 samples with register-tiled products, sized by
+:func:`fused_linear_row_plan`; the gate (:func:`fused_linear_tile_rows`)
+serves ``d <= 70``. Past it ``fused_linear_pass1`` / ``fused_linear_pass2`` launch
 the wide tier (same source; launches counted as ``fused_linear_wide_pass1``
 / ``fused_linear_wide_pass2``), which computes the two passes per tile of 8
 node columns: the linear SEM factorizes over columns, so a pass-2 block
@@ -84,6 +87,9 @@ __all__ = [
     "fused_linear_pass1_plain",
     "fused_linear_pass2",
     "fused_linear_pass2_plain",
+    "fused_linear_row_items",
+    "fused_linear_row_plan",
+    "fused_linear_row_smem_bytes",
     "fused_linear_wide_tile_rows",
     "fused_linear_wide_smem_bytes",
     "fused_linear_wide_pass1_group",
@@ -98,9 +104,13 @@ __all__ = [
 _MAX_SMEM = 232448  # 227 KB, the most one block can use on Hopper
 _RED_BYTES = 8 * (2 * 8 + 2)
 _TILE_MAX, _TILE_MIN = 128, 8
-# blocks to keep in flight (two per SM of an H100) and the fewest samples a
-# block loops over (each block also computes its particle's resid_ref)
-_TARGET_BLOCKS, _MIN_CHUNK = 264, 8
+# the row-tier kernel's plan (csrc/fused_linear.cu: row_smem_bytes): the
+# float64 slots and group head (1,152 bytes), groups of up to 4 samples,
+# x^T resid chunks of up to 64 rows, at most 4 register tiles of x^T resid a
+# thread; the grid fills one wave of the blocks an SM holds (one, or two
+# where a block leaves room for a second in the SM's 228 KB)
+_ROW_HEAD = 8 * (2 * 8 * 8 + 8) + 64
+_ROW_GROUPS, _ROW_SUBS, _ROW_MAX_ITEMS = (4, 2, 1), (64, 32), 4
 # samples per step of the plain versions' loop (bounds their memory)
 _PLAIN_CHUNK = 16
 _MODES = {"fused_linear_single": 0, "fused_linear_pass1": 1,
@@ -127,6 +137,84 @@ def fused_linear_tile_rows(d: int, n_obs: int) -> Optional[int]:
     while fused_linear_smem_bytes(d, tile) > _MAX_SMEM and tile > _TILE_MIN:
         tile = max(_TILE_MIN, tile // 2)
     return tile if fused_linear_smem_bytes(d, tile) <= _MAX_SMEM else None
+
+
+def fused_linear_row_smem_bytes(d: int, tile_rows: int, group: int,
+                                sub_rows: int) -> int:
+    """Shared memory of one row-tier block (``csrc/fused_linear.cu:
+    row_smem_bytes``): the float64 slots and group head, the group's ``A``
+    (later ``x^T resid``) ``[d][2 group][dp]``, the transposed data tile
+    ``[d][ldn]``, the data, ``w`` and ``resid_ref`` tiles ``[ldn][dp]``, the
+    residuals of one chunk ``[2 group][sub_rows][dp]``, and ``6 + 2 group``
+    ``[d, d]`` matrices (alpha s, E[G], Theta, logN(Theta), the two
+    accumulators, the group's soft and hard samples); ``dp`` and ``ldn`` are
+    ``d`` and ``tile_rows`` rounded up to 4."""
+    dp, ldn, nc = -(-d // 4) * 4, -(-tile_rows // 4) * 4, 2 * group
+    return _ROW_HEAD + 4 * (nc * d * dp + d * ldn + 3 * ldn * dp
+                            + nc * sub_rows * dp + (6 + nc) * d * d)
+
+
+def fused_linear_row_items(d: int, group: int) -> int:
+    """4 x 4 tiles of ``x^T resid`` a thread holds in registers
+    (``row_items``): the ``(dp / 4)^2`` tiles of one (sample, branch) over
+    its team of ``256 / (2 group)`` threads."""
+    dq, team = -(-d // 4), 256 // (2 * group)
+    return -(-dq * dq // team)
+
+
+class RowPlan(NamedTuple):
+    """The launch of the row-tier kernel for ``(P, d, N, M)``."""
+    tile_rows: int
+    group: int  # samples a group
+    sub_rows: int  # rows of an x^T resid chunk
+    smem_bytes: int
+    grid: Tuple[int, int]  # (particles, sample chunks)
+    chunk: int  # samples a block
+
+
+def _halvings(n_obs):
+    """The gate's tile rows: ``min(N, 128)``, halved down to 8."""
+    tile = min(n_obs, _TILE_MAX)
+    out = [tile]
+    while tile > _TILE_MIN:
+        tile = max(_TILE_MIN, tile // 2)
+        out.append(tile)
+    return out
+
+
+def fused_linear_row_plan(n_particles: int, d: int, n_obs: int,
+                          n_samples: int, sms: int) -> Optional[RowPlan]:
+    """Tile rows, group, chunk rows, footprint, grid and samples a block of
+    the row-tier kernel on a card of ``sms`` SMs (``None`` where nothing
+    fits 227 KB). Of the (group, tile, chunk) that fit, with at most 4
+    register tiles a thread, it takes the one that keeps tiles of at least
+    ``min(N, 32)`` rows, then two blocks an SM, then the largest group, chunk
+    and tile, in that order. The grid is one wave: ``blocks an SM x sms``
+    blocks over the particles, each a multiple of ``group`` samples. It fits
+    wherever :func:`fused_linear_tile_rows` admits ``(d, N)``
+    (``tests/test_torch_fused_linear_row.py``)."""
+    best = None
+    for group in _ROW_GROUPS:
+        if fused_linear_row_items(d, group) > _ROW_MAX_ITEMS:
+            continue
+        for tile in _halvings(n_obs):
+            ldn = -(-tile // 4) * 4
+            for sub in sorted({min(s, ldn) for s in _ROW_SUBS}):
+                smem = fused_linear_row_smem_bytes(d, tile, group, sub)
+                if smem > _MAX_SMEM:
+                    continue
+                per_sm = 2 if smem <= _TWO_PER_SM else 1
+                key = (min(tile, 32), per_sm, group, sub, tile)
+                if best is None or key > best[0]:
+                    best = (key, (tile, group, sub, smem, per_sm))
+    if best is None:
+        return None
+    tile, group, sub, smem, per_sm = best[1]
+    splits = max(1, per_sm * sms // max(n_particles, 1))
+    chunk = -(-n_samples // splits)
+    chunk = -(-chunk // group) * group
+    return RowPlan(tile, group, sub, smem,
+                   (n_particles, -(-n_samples // chunk)), chunk)
 
 
 def fused_linear_wide_smem_bytes(d: int, tile_rows: int) -> int:
@@ -430,33 +518,37 @@ def _checked_ptrs(name, scores, thetas, x, w, n_samples, eps, weights):
 
 
 def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
-            n_samples, model, eps, weights=None):
+            n_samples, model, eps, weights=None, plan=None):
+    """Launches the row-tier kernel; ``plan`` (a :class:`RowPlan`) replaces
+    :func:`fused_linear_row_plan`'s, for timing other plans."""
     eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
                                        eps, weights)
     p, d, _ = scores.shape
     n_obs = x.shape[0]
-    tile_rows = fused_linear_tile_rows(d, n_obs)
-    if tile_rows is None:
+    if fused_linear_tile_rows(d, n_obs) is None:
         raise ValueError(f"{name}: d={d} exceeds the kernel's shared-memory "
                          "limit (fused_linear_available)")
-    # samples per block: about _TARGET_BLOCKS blocks over the (P, S) grid
-    chunk = min(n_samples, max(_MIN_CHUNK,
-                               -(-p * n_samples // _TARGET_BLOCKS)))
-    n_split = -(-n_samples // chunk)
+    if plan is None:
+        plan = fused_linear_row_plan(p, d, n_obs, n_samples,
+                                     torch.cuda.get_device_properties(
+                                         scores.device).multi_processor_count)
+    n_split = plan.grid[1]
     lib = build()
     out_shape = (p, n_samples) if name == "fused_linear_pass1" else (p, d, d)
     empty = dict(dtype=torch.float32, device=scores.device)
     out_a, out_b = torch.empty(out_shape, **empty), torch.empty(out_shape,
                                                                 **empty)
-    resid_ref = torch.empty((p, n_split, n_obs, d), **empty)
+    resid_ref = (torch.empty((p, n_split, n_obs, -(-d // 4) * 4), **empty)
+                 if plan.tile_rows < n_obs else None)
     part = torch.empty((p, n_split, 4 + 2 * d * d), **empty)
     with torch.cuda.device(scores.device):
         rc = lib.dibs_fused_linear(
             _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
-            w.data_ptr(), *eps_ptrs, *wts_ptrs, resid_ref.data_ptr(),
+            w.data_ptr(), *eps_ptrs, *wts_ptrs,
+            None if resid_ref is None else resid_ref.data_ptr(),
             part.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), p,
-            n_samples, d, n_obs, tile_rows, chunk,
-            seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
+            n_samples, d, n_obs, plan.tile_rows, plan.chunk, plan.group,
+            plan.sub_rows, seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
             streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
             1.0 / model.obs_noise, float(model.mean_edge),
             float(model.sig_edge), _stream(scores.device))

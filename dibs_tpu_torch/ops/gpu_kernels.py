@@ -148,12 +148,16 @@ def build() -> ctypes.CDLL:
     lib.dibs_se_matrix_slots.argtypes = [i32, ctypes.POINTER(i32)]
     lib.dibs_se_matrix_slots.restype = i32
     u32, f64 = ctypes.c_uint32, ctypes.c_double
-    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 12 + [i32] * 6
+    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 12 + [i32] * 8
                                       + [ctypes.c_uint64, u32, u32, f32, f32,
                                          f64, f32, f32, vp])
     lib.dibs_fused_linear.restype = i32
     lib.dibs_fused_linear_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_fused_linear_row_smem_bytes.argtypes = [i32] * 4
+    lib.dibs_fused_linear_row_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_fused_linear_row_items.argtypes = [i32, i32]
+    lib.dibs_fused_linear_row_items.restype = i32
     lib.dibs_fused_linear_wide.argtypes = ([i32] + [vp] * 13 + [i32] * 5
                                            + [ctypes.c_uint64, u32, u32, f32,
                                               f32, f64, f32, f32, vp])

@@ -406,6 +406,37 @@ def test_wide_pass2_plan_agrees_with_the_kernel(cuda, d, n):
         plan.smem_bytes
 
 
+@pytest.mark.parametrize("d,n", chip_smoke.SHAPES_ROW_EDGES)
+def test_row_tier_edges_match_plain_versions(cuda, d, n):
+    """#5-#7 (the row tier) at its edges, d from 2 to 70 and N from one row
+    to tiled rows, injected, Philox and shared-stream noise, within 1e-4
+    max(1, max|ref|); two calls bitwise equal."""
+    import numpy as np
+
+    def err(name, got, ref):
+        e = float((got - ref).abs().max())
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        assert e <= tol, (name, e, tol)
+        return e / tol
+
+    chip_smoke.check_row_edges(fl, cuda, np.random.default_rng(d * n), err,
+                               [(d, n)])
+
+
+@pytest.mark.parametrize("d,n", [(20, 100), (30, 600), (70, 10_000),
+                                 (2, 1), (7, 129), (69, 128), (48, 100)])
+def test_row_plan_agrees_with_the_kernel(cuda, d, n):
+    """The launcher's footprint and register tiles (C) are the wrapper's
+    plan (Python)."""
+    lib = gk.build()
+    plan = fl.fused_linear_row_plan(1, d, n, 128, 132)
+    assert lib.dibs_fused_linear_row_smem_bytes(
+        d, plan.tile_rows, plan.group, plan.sub_rows) == plan.smem_bytes
+    for group in (1, 2, 4):
+        assert lib.dibs_fused_linear_row_items(d, group) == \
+            fl.fused_linear_row_items(d, group)
+
+
 def _pass2_weights(kind, p, m, device):
     if kind == "uniform":  # every sample replayed
         uni = torch.full((p, m), 1.0 / m, device=device)
