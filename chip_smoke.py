@@ -586,8 +586,10 @@ def phase_fused(dev, results):
         plan = fl.fused_linear_row_plan(
             p, d, n, M, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
+        kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
         log(f"[3 fused P={p} d={d} N={n} M={M}] " + "; ".join(line)
-            + f"; plan {plan}")
+            + f"; plan {plan}; pass 2 replays {kept} of {p * M} (particle, "
+            f"sample) pairs (the rest have both weights exactly 0)")
     edges = check_row_edges(fl, dev, rng, err)
     log(f"[3 fused edges] #5-#7 at d in (2, 7, 20, 30, 69, 70) x N in (1, "
         f"100, 128, 129, 600), P=3, M=9, injected / Philox / shared-stream "
@@ -1168,6 +1170,29 @@ def phase_e2e(dev, card, steps):
     return launches
 
 
+def replayed_share(step, state, steps):
+    """``"k of n"``: the (particle, sample) pairs of ``steps`` steps whose
+    pass-2 weights are not both exactly 0 (counted on the device, outside
+    the launch counts)."""
+    from dibs_tpu_torch.inference import fused_linear as fl
+
+    pass2, counts = fl.fused_linear_pass2, []
+
+    def counting(scores, thetas, x, w, weights, **kw):
+        counts.append(((weights[0] != 0) | (weights[1] != 0)).sum())
+        return pass2(scores, thetas, x, w, weights, **kw)
+
+    fl.fused_linear_pass2 = counting
+    try:
+        for _ in range(steps):
+            state = step(state)
+    finally:
+        fl.fused_linear_pass2 = pass2
+    check(len(counts) == steps, f"pass 2 ran {len(counts)} times in {steps} "
+                                "two-pass steps")
+    return f"{int(torch.stack(counts).sum())} of {steps * P * M}"
+
+
 def phase_joint(dev, card, steps):
     from dibs_tpu_torch.inference import JointDiBS
     from dibs_tpu_torch.metrics import threshold_metrics
@@ -1232,6 +1257,11 @@ def phase_joint(dev, card, steps):
         check(auc_m > 0.6, f"joint {route} mixture AUROC {auc_m} <= 0.6")
         for name, count in launches.items():
             total[name] += count
+        if not single_pass:  # pass 2's replayed share, 200 further steps
+            log(f"[6 e2e joint two-pass] pass 2 replayed "
+                f"{replayed_share(step, state, 200)} (particle, sample) "
+                f"pairs over 200 further steps (the rest have both weights "
+                f"exactly 0)")
 
     # teacher-forced: kernels (card) vs plain versions (CPU), same state
     # and noise, over the first 20 steps

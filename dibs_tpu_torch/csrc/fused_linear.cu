@@ -69,6 +69,11 @@
 //    pass's online softmax then advances once a group: the group's maximum,
 //    one rescale of the [d, d] accumulators, then the kG weighted terms in
 //    ascending m;
+//  * pass 2 replays only the samples whose two weights are not both exactly
+//    0 (such a sample adds exactly 0): warp 0 builds each group from
+//    ballots over the particle's weights, 32 samples at a time, taking the
+//    set bits in ascending m; a block with none in its chunk writes a zero
+//    partial state and skips even resid_ref.
 // What still holds it: the barriers a chunk (two) and a group (three or
 // four), the tile loads of tiled rows, and the partially filled rounds of
 // the products where 8 dp / 4 x (sub / 4) is not a multiple of a team.
@@ -118,7 +123,7 @@ constexpr int kMaxGroup = 4;
 constexpr int kMaxCombos = 2 * kMaxGroup;
 // the float64 slots (prior partials [2 parities][kWarps][kMaxCombos], data
 // partials [kWarps]), then the group's sample indices, its pass-2 weights
-// [2][kMaxGroup] and a count: 1,152 bytes, a multiple of 16
+// [2][kMaxGroup] and its size: 1,152 bytes, a multiple of 16
 constexpr size_t kRowHeadBytes =
     sizeof(double) * (2 * kWarps * kMaxCombos + kWarps) + 64;
 
@@ -160,6 +165,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   double* ld_slot = lp_slot + 2 * kWarps * kMaxCombos;  // [kWarps]
   int* gidx = reinterpret_cast<int*>(ld_slot + kWarps);  // [kMaxGroup]
   float* gwt = reinterpret_cast<float*>(gidx + kMaxGroup);  // [2][kMaxGroup]
+  int* gcount = reinterpret_cast<int*>(gwt + 2 * kMaxGroup);
   float* aw = reinterpret_cast<float*>(smem_d) + kRowHeadBytes / 4;
   float* xt = aw + nc * d * dp;   // data tile, transposed [d][ldn]
   float* xr = xt + d * ldn;       // data tile [ldn][dp]
@@ -192,6 +198,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
   const float inv_var_f = static_cast<float>(a.inv_var);
   const float inv_sig2_e = 1.0f / (a.sig_edge * a.sig_edge);
+
+  if (kMode == kPass2) {  // a chunk with nothing to replay adds exactly 0
+    int live = 0;
+    for (int m = m_begin + tid; m < m_end; m += kThreads) {
+      const int64_t o = static_cast<int64_t>(p) * n_smp + m;
+      live |= a.wts_soft[o] != 0.0f || a.wts_hard[o] != 0.0f;
+    }
+    if (!__syncthreads_or(live)) {
+      float* out = a.part + ps * (4 + 2 * dd);
+      for (int e = tid; e < 4 + 2 * dd; e += kThreads) out[e] = 0.0f;
+      return;
+    }
+  }
 
   // --- per particle: hoisted transcendentals and the centring reference ---
   for (int e = tid; e < dd; e += kThreads) {
@@ -250,18 +269,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   float m_s = -INFINITY, z_s = 0.0f, m_h = -INFINITY, z_h = 0.0f;
+  int cur = m_begin;  // pass 2: where warp 0's scan resumes
   for (int m0 = m_begin, par = 0;; m0 += kg, par ^= 1) {
-    // --- 0. the group's samples (pass 2: with their weights) ---
-    if (m0 >= m_end) break;
-    const int gl = min(kg, m_end - m0);
+    // --- 0. the group's samples (pass 2: the next kg whose weights are
+    //        not both exactly 0, found by warp 0's ballots) ---
+    int gl;
     if (kMode == kPass2) {
-      if (tid < gl) {
-        const int64_t o = static_cast<int64_t>(p) * n_smp + m0 + tid;
-        gidx[tid] = m0 + tid;
-        gwt[tid] = a.wts_soft[o];
-        gwt[kMaxGroup + tid] = a.wts_hard[o];
+      if (warp == 0) {
+        const float* ws_p = a.wts_soft + static_cast<int64_t>(p) * n_smp;
+        const float* wh_p = a.wts_hard + static_cast<int64_t>(p) * n_smp;
+        int found = 0;
+        while (found < kg && cur < m_end) {
+          const int m = cur + lane;
+          const float ws = m < m_end ? ws_p[m] : 0.0f;
+          const float wh = m < m_end ? wh_p[m] : 0.0f;
+          unsigned live = __ballot_sync(0xFFFFFFFFu, ws != 0.0f || wh != 0.0f);
+          while (live != 0u && found < kg) {
+            const int b = __ffs(live) - 1;
+            live &= live - 1u;
+            if (lane == b) {
+              gidx[found] = m;
+              gwt[found] = ws;
+              gwt[kMaxGroup + found] = wh;
+            }
+            ++found;
+          }
+          cur = live != 0u ? cur + __ffs(live) - 1 : cur + 32;
+        }
+        if (lane == 0) *gcount = found;
       }
       __syncthreads();
+      gl = *gcount;
+      if (gl == 0) break;
+    } else {
+      if (m0 >= m_end) break;
+      gl = min(kg, m_end - m0);
     }
     double* lp_out = lp_slot + par * kWarps * kMaxCombos;
     const bool active = combo < 2 * gl;  // uniform over a warp

@@ -471,6 +471,29 @@ def test_wide_pass2_weight_edges(cuda, kind, p, d, n, m):
         assert not got[0][1:].any() and not got[1][1:].any()
 
 
+@pytest.mark.parametrize("kind,p,d,n,m", [
+    ("uniform", 3, 20, 100, 128), ("one-hot", 4, 20, 100, 37),
+    ("one-particle", 4, 30, 600, 64), ("uniform", 2, 7, 129, 37),
+    ("one-hot", 3, 70, 100, 9), ("one-particle", 3, 2, 1, 33)])
+def test_row_pass2_weight_edges(cuda, kind, p, d, n, m):
+    """The row tier's pass 2 (#7, d <= 70), which replays only samples with
+    a non-zero weight, against its plain version at the weights' edges and
+    past one 32-sample ballot, within 1e-4 max(1, max|ref|); particles at
+    zero weight get exactly 0."""
+    args = _fused_args(cuda, p=p, d=d, n=n)
+    kw = {**_FUSED_KW, "model": LinearGaussian(n_vars=d), "n_samples": m,
+          "streams": (4, 5)}
+    weights = _pass2_weights(kind, p, m, cuda)
+    got = fl.fused_linear_pass2(*args, weights, **kw)
+    want = fl.fused_linear_pass2_plain(*args, weights, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= tol
+    if kind == "one-particle":
+        assert not got[0][1:].any() and not got[1][1:].any()
+
+
 @pytest.mark.parametrize("p,d,n,h1,blocks,m,activation",
                          chip_smoke.SHAPES_NL_EDGES)
 def test_fused_nonlinear_gate_edges(cuda, p, d, n, h1, blocks, m,

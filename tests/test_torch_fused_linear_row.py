@@ -6,10 +6,12 @@ the launch plan, its shared-memory footprint region by region, and the gate
 kernel's launcher checks it in C (the card-side agreement is
 ``tests/test_torch_cuda.py``). Runs on the CPU: no kernel is launched.
 """
+import numpy as np
 import pytest
 import torch
 
 from dibs_tpu_torch.inference import fused_linear as fl
+from dibs_tpu_torch.models import LinearGaussian
 
 torch.set_num_threads(1)
 
@@ -140,3 +142,43 @@ def test_grid_is_one_wave():
     assert fl.fused_linear_row_plan(30, 20, 100, 128, 66).grid == (30, 4)
     plan = fl.fused_linear_row_plan(1000, 20, 100, 128, 132)
     assert plan.grid == (1000, 1) and plan.chunk == 128
+
+
+@pytest.mark.parametrize("seed,soft,hard", [(0, 3, 37), (1, 20, 20),
+                                            (2, 39, 0)])
+def test_pass2_skipping_zero_weights_is_exact(seed, soft, hard):
+    """Pass 2's replay list: dropping the samples whose two weights are both
+    exactly 0 leaves the plain pass 2 bitwise unchanged. The weights are the
+    softmax of log-likelihoods ~200 nats apart, so all but one a branch
+    underflow to exact 0 (the live samples sit in different 16-sample
+    chunks of the plain loop in the two runs)."""
+    rng = np.random.default_rng(seed)
+    p, d, n, m = 1, 5, 7, 40
+
+    def arr(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    scores, thetas, x = arr(p, d, d), arr(p, d, d), arr(n, d)
+    w = torch.from_numpy((rng.uniform(size=(n, d)) > 0.2).astype(np.float32))
+    u = rng.uniform(np.finfo(np.float32).tiny, 1.0, size=(2, p, m, d, d))
+    eps = torch.from_numpy((np.log(u) - np.log1p(-u)).astype(np.float32))
+    lls = -200.0 - 50.0 * torch.rand(2, p, m,
+                                     generator=torch.Generator().manual_seed(
+                                         seed))
+    lls[0, :, soft] = 0.0
+    lls[1, :, hard] = 0.0
+    weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
+    assert all(int((wt != 0).sum()) == 1 for wt in weights)
+    kw = dict(seed=0, streams=(0, 1), alpha=1.5, tau=0.8,
+              model=LinearGaussian(n_vars=d))
+    full = fl.fused_linear_pass2_plain(scores, thetas, x, w, weights,
+                                       n_samples=m, eps=(eps[0], eps[1]),
+                                       **kw)
+    live = ((weights[0] != 0) | (weights[1] != 0))[0].nonzero()[:, 0]
+    kept = fl.fused_linear_pass2_plain(
+        scores, thetas, x, w, tuple(wt[:, live] for wt in weights),
+        n_samples=len(live), eps=(eps[0][:, live], eps[1][:, live]), **kw)
+    assert len(live) == len({soft, hard})
+    for a, b in zip(full, kept):
+        assert torch.equal(a, b)
+        assert bool(a.abs().sum() > 0)
