@@ -54,9 +54,12 @@ Phases, one line each; any failure exits non-zero:
    state, and teacher-forced ``phi`` for 3 steps against the plain versions
    on the card and for 5 steps at P=16 against those on the CPU;
 7. profile: ``torch.profiler`` over 50 steady steps of the marginal
-   (``score``), the joint linear, the joint nonlinear and the config-5
-   step: wall and device time per step, the device's busy share, kernel
-   launches per step, the top kernels;
+   (``score``), the joint linear, the joint nonlinear, the config-5 and the
+   config-4 step (``JointDiBS`` + ``LinearGaussian``, scale-free d=30, 100
+   observational and 5 x 100 interventional rows, P=20, M=128, K=32; #5
+   launched exactly once a step, finite state): wall and device time per
+   step, the device's busy share, kernel launches per step, the top
+   kernels;
 8. the fused acyclicity gradient #9 against its plain version at the
    microbenchmark's P=1000, d=128, K=8 and at ragged d (13, 30, 137, 139),
    Philox and injected noise, scores below -88/alpha, each particle within
@@ -90,6 +93,8 @@ P, D, K_LAT, M, K_ACYC, N_OBS, STEPS = 30, 20, 20, 128, 32, 100, 1000
 STEPS_NL = 2000  # config 3's quality length (benchmarks/run_benchmarks.py)
 # config 5 (benchmarks/run_benchmarks.py:171-185), nothing cut
 P5, D5, K5, M5, K_ACYC5, N5, STEPS5 = 1000, 128, 128, 32, 8, 100, 100
+# config 4 (benchmarks/run_benchmarks.py:137-168): d=30, 600 rows, P=20
+P4, D4 = 20, 30
 # the sampler #1's phase-3 cases (B, M, d): injected noise, and Philox noise
 # with (alpha, tau, misaligned scores); d = 5 and 13 and misaligned scores
 # take the scalar path, 600 x 128 passes 65,535 (B * M), 140,000 samples
@@ -555,6 +560,7 @@ def phase_fused(dev, results):
         args = (scores, thetas, x, w)
         lls = fl.fused_linear_pass1(*args, **kw)
         weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
+        kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
         in_bytes = 4 * (2 * p * d * d + 2 * n * d)
         times = {
             "fused_linear_single": (
@@ -570,7 +576,8 @@ def phase_fused(dev, results):
             "fused_linear_pass2": (
                 lambda: fl.fused_linear_pass2(*args, weights, **kw),
                 lambda: fl.fused_linear_pass2_plain(*args, weights, **kw),
-                fused_linear_flops("pass2", p, M, n, d),
+                # the replayed samples' products, resid_ref once a particle
+                2 * kept * (4 * n * d * d + 2 * n * d) + 2 * p * n * d * d,
                 in_bytes + 4 * 2 * p * M + 4 * 2 * p * d * d),
         }
         line = []
@@ -586,7 +593,6 @@ def phase_fused(dev, results):
         plan = fl.fused_linear_row_plan(
             p, d, n, M, torch.cuda.get_device_properties(
                 dev).multi_processor_count)
-        kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
         log(f"[3 fused P={p} d={d} N={n} M={M}] " + "; ".join(line)
             + f"; plan {plan}; pass 2 replays {kept} of {p * M} (particle, "
             f"sample) pairs (the rest have both weights exactly 0)")
@@ -1569,11 +1575,38 @@ def profile_steps(step, state, n_steps=50):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy=device_ms / wall_ms, launches=launches / n_steps,
-                top=[(name[:40], ms / n_steps) for name, ms in top])
+                top=[(name[:40], ms / n_steps) for name, ms in top],
+                state=state)
+
+
+def config4_joint(dev):
+    """``JointDiBS`` + ``LinearGaussian`` at config 4
+    (``benchmarks/run_benchmarks.py:137-168``): scale-free d=30, 100
+    observational rows and the first 5 of the interventional sets, 100 rows
+    each with ``ceil(0.1 d)`` nodes clamped, the joint defaults (M=128,
+    K=32)."""
+    from dibs_tpu_torch.inference import JointDiBS
+    from dibs_tpu_torch.ops.ancestral import interv_to_vectors
+    from dibs_tpu_torch.target import make_linear_gaussian_model
+
+    data, gm, lm = make_linear_gaussian_model(
+        generator=torch.Generator().manual_seed(123), n_vars=D4,
+        graph_prior_str="sf", device=dev)
+    xs = [data.x]
+    masks = [torch.zeros_like(data.x, dtype=torch.int32)]
+    for interv, x_int in data.x_interv[:5]:
+        mask_vec, _ = interv_to_vectors(interv, data.n_vars, device=dev)
+        xs.append(x_int)
+        masks.append(mask_vec.to(torch.int32).expand_as(x_int))
+    return JointDiBS(x=torch.cat(xs), interv_mask=torch.cat(masks),
+                     graph_model=gm, likelihood_model=lm,
+                     n_grad_mc_samples=M, n_acyclicity_mc_samples=K_ACYC,
+                     device=dev)
 
 
 def phase_profile(dev, card):
     from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+    from dibs_tpu_torch.ops import gpu_kernels as gk
     from dibs_tpu_torch.target import (
         make_linear_gaussian_equivalent_model,
         make_linear_gaussian_model,
@@ -1605,13 +1638,28 @@ def phase_profile(dev, card):
     joint5 = JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
                        n_grad_mc_samples=M5, n_acyclicity_mc_samples=K_ACYC5,
                        device=dev)
+    joint4 = config4_joint(dev)
+    check(tuple(joint4.x.shape) == (600, D4)
+          and int(joint4.interv_mask.sum()) == 5 * 100 * math.ceil(0.1 * D4),
+          "config 4's data is not 100 + 5 x 100 rows with 3 clamped nodes")
     for name, dibs, p, k in (("marginal score", marginal, P, K_LAT),
                              ("joint", joint, P, K_LAT),
                              ("joint nonlinear", joint_nl, P, K_LAT),
-                             ("joint config 5", joint5, P5, K5)):
+                             ("joint config 5", joint5, P5, K5),
+                             ("joint config 4", joint4, P4, D4)):
         step = dibs._make_step(dibs._resolve_latent_std(k))
+        for kern in gk.LAUNCHES:
+            gk.LAUNCHES[kern] = 0
         prof = profile_steps(step, dibs.init_state(
             seed=3, n_particles=p, n_dim_particles=k))
+        if dibs is joint4:  # 10 warm-up and 50 profiled steps
+            check(gk.LAUNCHES["fused_linear_single"] == 60,
+                  f"config 4: #5 launched {gk.LAUNCHES['fused_linear_single']}"
+                  " times in 60 steps")
+            state = prof["state"]
+            for tensor, what in ((state.z, "z"), (state.theta, "theta")):
+                check(bool(torch.isfinite(tensor).all()),
+                      f"config 4: {what} not finite")
         top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
         log(f"[7 profile {name}] on '{card}', 50 steps: wall "
             f"{prof['wall_ms']:.3f} ms/step, device kernels "

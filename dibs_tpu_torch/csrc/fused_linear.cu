@@ -74,9 +74,13 @@
 //    ballots over the particle's weights, 32 samples at a time, taking the
 //    set bits in ascending m; a block with none in its chunk writes a zero
 //    partial state and skips even resid_ref.
-// What still holds it: the barriers a chunk (two) and a group (three or
-// four), the tile loads of tiled rows, and the partially filled rounds of
-// the products where 8 dp / 4 x (sub / 4) is not a multiple of a team.
+// Measured on an H100 (PERF.md): #5 takes 5.8x the bound at config
+// 2 and 3.9x at config 4's shape. What still holds it, from the code (no
+// stall reasons without ncu): two barriers a chunk and three or four a
+// group; the scalar, transposing tile loads of tiled rows, once a group;
+// and rounds of a team that its items fill only in part (at d = 20, delta's
+// (dp / 4) x (rows / 4) items of a 64-row chunk take 3 rounds of 32 lanes
+// for 80 items, and x^T resid's 25 items use 25 of 32 lanes).
 #include <cmath>
 
 #include "common.h"

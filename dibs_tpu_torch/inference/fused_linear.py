@@ -61,6 +61,7 @@ module, which take the same noise.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -182,6 +183,7 @@ def _halvings(n_obs):
     return out
 
 
+@functools.lru_cache(maxsize=None)  # once a shape: the engine calls it a step
 def fused_linear_row_plan(n_particles: int, d: int, n_obs: int,
                           n_samples: int, sms: int) -> Optional[RowPlan]:
     """Tile rows, group, chunk rows, footprint, grid and samples a block of
