@@ -11,7 +11,8 @@ Phases, one line each; any failure exits non-zero:
    TF32 off;
 2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed),
    with the registers, shared memory and spills ``-Xptxas -v`` reports for
-   the kernels of #1, #2 (d <= 32), #3, #4, wide passes 1 and 2 and #8;
+   the kernels of #1, #2 (d <= 32), #3, #4, wide passes 1 and 2, #8 and
+   both tiers of #9;
 3. kernel vs plain twin on the card at the main paths' shapes and more,
    with each kernel's and twin's median time (CUDA events), its bound (the
    least time an H100 SXM could take for the same work) and, where one
@@ -61,16 +62,22 @@ Phases, one line each; any failure exits non-zero:
    step, the device's busy share, kernel launches per step, the top
    kernels;
 8. the fused acyclicity gradient #9 against its plain version at the
-   microbenchmark's P=1000, d=128, K=8 and at ragged d (13, 30, 137, 139),
-   Philox and injected noise, scores below -88/alpha, each particle within
-   ``1e-4 max(1, max|plain[p]|)``; its time beside the
-   plain version's, the engine route's (the library column) and the bound;
+   microbenchmark's P=1000, d=128, K=8 and at its tiers' edges and ragged d
+   (``SHAPES9``: 1, 2, 4, 5, 13, 30, 64, 65, 128, 129, 137, 139), Philox
+   and injected noise, scores below -88/alpha, each particle within
+   ``1e-4 max(1, max|plain[p]|)``, two calls bitwise equal; its time
+   beside the plain version's, the engine route's (the library column),
+   the cuBLAS chain's alone (``acyclic_constr`` forward on the ``[1000, 8,
+   128, 128]`` soft samples) and the bound;
    its entry point ``python -m dibs_tpu_torch.ops.acyclic_kernel`` at its
    defaults, with exact launches and the 64-sample Monte Carlo agreement
    with the engine route; ``acyclicity='spectral'`` in ``MarginalDiBS``
    (bench shape, ``'sampled'``) and ``JointDiBS`` (config 2, ``'mean'``),
    100 steps each with exact launch counts; and a checkpoint round trip on
-   the card (50 steps, save, load, 50 more equal 100 straight).
+   the card (50 steps, save, load, 50 more equal 100 straight);
+9. BGe past its kernel's range: the per-node scores of 20 graphs at
+   d = 130 on the card (``masked_logdet_pd_pair`` over the nodes, no
+   kernel launch) against the CPU's at ``rtol = atol = 1e-4``.
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -113,7 +120,13 @@ SHAPES_BGE = [(2, 3840, False), (7, 3840, False), (20, 3840, False),
               (64, 256, False), (128, 48, False)]
 # kernel #9 at its microbenchmark's defaults (benchmarks/bench_acyclic_kernel.py)
 P9, D9, K9 = 1000, 128, 8
-SHAPES9 = [(64, 13, 4), (64, 30, 4), (32, 137, 2), (8, 139, 2), (16, 128, 3)]
+# (P, d, K): the quad tier's edges (1, 2, 4, 5; 64 | 65, 128) and the
+# strided tier's (129, 139), and ragged d
+SHAPES9 = [(64, 1, 4), (64, 2, 4), (64, 4, 4), (64, 5, 4), (64, 13, 4),
+           (64, 30, 4), (32, 64, 4), (32, 65, 3), (16, 128, 3), (8, 129, 2),
+           (32, 137, 2), (8, 139, 2)]
+# BGe past its kernel's range (phase 9): d, graphs, observations
+D_BGE_LARGE, B_BGE_LARGE, N_BGE_LARGE = 130, 20, 60
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 
 
@@ -229,7 +242,8 @@ def phase_build():
                  "se_matrix_kernel", "se_reduce_kernel",
                  "transport_phi_kernel", "fused_linear_kernel",
                  "fused_linear_wide_pass1_kernel", "fused_linear_wide_kernel",
-                 "fused_nl_kernel"):
+                 "fused_nl_kernel", "acyclic_grad_quad_kernel",
+                 "acyclic_grad_kernel"):
         found = {k: v for k, v in per_kernel.items() if name in k}
         check(bool(found), f"no ptxas report for {name}")
         for k, v in sorted(found.items()):
@@ -1678,15 +1692,17 @@ def acyclic_grad_flops(p, d, k):
 
 
 def phase_acyclic(dev, card, results):
-    """Kernel #9 against its plain version (P=1000, d=128, K=8 and the
-    ragged d = 13, 30, 137, 139; Philox and injected noise; scores below
-    -88/alpha; each particle within ``1e-4 max(1, max|plain[p]|)``), its
-    times beside the engine route's and the bound, then its entry point
-    ``python -m dibs_tpu_torch.ops.acyclic_kernel`` at its defaults as the
-    path it serves, with exact launch counts (counts set to 0 just before
-    it). Returns that path's launch counts."""
+    """Kernel #9 against its plain version (P=1000, d=128, K=8 and
+    ``SHAPES9``; Philox and injected noise; scores below -88/alpha; each
+    particle within ``1e-4 max(1, max|plain[p]|)``; two calls bitwise
+    equal), its times beside the engine route's, the cuBLAS chain's alone
+    and the bound, then its entry point ``python -m
+    dibs_tpu_torch.ops.acyclic_kernel`` at its defaults as the path it
+    serves, with exact launch counts (counts set to 0 just before it).
+    Returns that path's launch counts."""
     from dibs_tpu_torch.ops import acyclic_kernel as ak
     from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.ops.acyclic import acyclic_constr
 
     gen = torch.Generator(device=dev).manual_seed(21)
     worst, err_main, alpha = 0.0, 0.0, 0.2
@@ -1702,9 +1718,11 @@ def phase_acyclic(dev, card, results):
         eps = (torch.randn((p, k, d, d), generator=gen, device=dev)
                if injected else None)
         got = gk.acyclic_grad(scores, 7, alpha, k, eps=eps)
+        again = gk.acyclic_grad(scores, 7, alpha, k, eps=eps)
         torch.cuda.synchronize()
         want = gk.acyclic_grad_plain(scores, 7, alpha, k, eps=eps)
         check(bool(torch.isfinite(got).all()), f"#9 at {p, d, k}: not finite")
+        check(torch.equal(got, again), f"#9 at {p, d, k}: two calls differ")
         # the bar is each particle's own: a deep particle's values are ~1e8
         # below the widest particle's at d = 128
         err = (got - want).abs().amax(dim=(1, 2))
@@ -1722,6 +1740,10 @@ def phase_acyclic(dev, card, results):
                          reps=3)
     t_e = cuda_median_ms(lambda: ak.engine_acyclic_grad(
         scores, 7, alpha, n_vars=d, kmc=k), reps=10)
+    soft = gk.gumbel_graphs(scores, 7, 0, alpha, 1.0, k, False)
+    with torch.no_grad():
+        t_c = cuda_median_ms(lambda: acyclic_constr(soft), reps=10)
+    del soft
     b_ms, b_by = bound_ms(acyclic_grad_flops(p, d, k), 2 * 4 * p * d * d)
     results["acyclic_grad"] = dict(max_abs_err=err_main, ms=t_k, plain_ms=t_p,
                                    bound_ms=b_ms, bound_by=b_by,
@@ -1730,9 +1752,12 @@ def phase_acyclic(dev, card, results):
         f"{[(P9, D9, K9)] + SHAPES9}, Philox and injected noise, scores below "
         f"-88/alpha: finite, within 1e-4 max(1, max|plain[p]|) per "
         f"particle p, worst "
-        f"{worst:.4f} of the bar; at P={p} d={d} K={k} on "
+        f"{worst:.4f} of the bar, two calls bitwise equal; at P={p} d={d} "
+        f"K={k} ({gk.acyclic_grad_plan(d)}) on "
         f"'{card}': kernel {t_k:.4f} ms, plain {t_p:.4f} ms, engine route "
-        f"{t_e:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{t_e:.4f} ms, the cuBLAS chain alone (acyclic_constr forward on "
+        f"[{p}, {k}, {d}, {d}] soft samples) {t_c:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
 
     for name in gk.LAUNCHES:
         gk.LAUNCHES[name] = 0
@@ -1754,6 +1779,43 @@ def phase_acyclic(dev, card, results):
         f"{out['mc_disagreement']:.4f} (bar {ak.MC_AGREEMENT_BAR}); "
         f"launches {launches}")
     return launches
+
+
+def phase_bge_large(dev, card):
+    """BGe past its kernel's range: the per-node scores of
+    ``B_BGE_LARGE`` graphs (density 0.3) at d = ``D_BGE_LARGE`` on the card
+    against the CPU's, ``rtol = atol = 1e-4`` (float32 Cholesky factors of
+    ~40 x 40 parent blocks, logs summed in another order); the path
+    launches no kernel."""
+    from dibs_tpu_torch.models.linear_gaussian import BGe
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    d, b, n = D_BGE_LARGE, B_BGE_LARGE, N_BGE_LARGE
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    interv = torch.zeros((n, d), dtype=torch.int32)
+    gs = (rng.uniform(size=(b, d, d)) < 0.3).astype(np.float32)
+    gs *= 1.0 - np.eye(d, dtype=np.float32)
+    gs = torch.from_numpy(gs)
+    want = BGe(n_vars=d, device="cpu").batched_node_log_marginal_likelihoods(
+        gs=gs, x=x, interv_targets=interv)
+    model = BGe(n_vars=d, device=dev)
+    args = dict(gs=gs.to(dev), x=x.to(dev), interv_targets=interv.to(dev))
+    before = dict(gk.LAUNCHES)
+    got = model.batched_node_log_marginal_likelihoods(**args)
+    torch.cuda.synchronize()
+    check(dict(gk.LAUNCHES) == before, "BGe at d=130 launched a kernel")
+    check(got.shape == (b, d) and bool(torch.isfinite(got).all()),
+          "BGe at d=130: not finite or wrong shape")
+    err = float((got.cpu() - want).abs().max())
+    check(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4),
+          f"BGe at d=130: card vs CPU max |diff| {err}")
+    t = cuda_median_ms(
+        lambda: model.batched_node_log_marginal_likelihoods(**args), reps=5)
+    log(f"[9 BGe d={d}] {b} graphs, N={n}, past the kernel's range "
+        f"(masked_logdet_pd_pair over the nodes, no kernel launch): card vs "
+        f"CPU max |diff| {err:.3g} (rtol = atol = 1e-4), {t:.3f} ms on "
+        f"'{card}'")
 
 
 def phase_spectral_checkpoint(dev, card, steps):
@@ -1873,6 +1935,7 @@ def main():
         launches[name] += count
     for name, count in phase_spectral_checkpoint(dev, card, 100).items():
         launches[name] += count
+    phase_bge_large(dev, card)
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",

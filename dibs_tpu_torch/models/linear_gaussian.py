@@ -1,11 +1,13 @@
 """Linear-Gaussian models: the closed-form BGe score and the linear SEM with
 its joint likelihood (PyTorch twin of ``dibs_tpu/models/linear_gaussian.py``).
 
-``BGe`` scores a whole ``[B, d, d]`` hard-graph batch per call; its
-determinant pairs go through :func:`dibs_tpu_torch.ops.bge_kernel.
-bge_logdet_pairs` (the CUDA kernel for CUDA tensors, the plain twin on the
-CPU). Scoring is forward only: the marginal estimators treat graph samples
-as constants.
+``BGe`` scores a whole ``[B, d, d]`` hard-graph batch per call; for
+``2 <= d <= 128`` its determinant pairs go through :func:`dibs_tpu_torch.
+ops.bge_kernel.bge_logdet_pairs` (the CUDA kernel for CUDA tensors, the
+plain twin on the CPU), elsewhere through :func:`dibs_tpu_torch.ops.logdet.
+masked_logdet_pd_pair` over the nodes, in graph chunks past d = 64, as the
+reference does where its kernel does not serve. Scoring is forward only:
+the marginal estimators treat graph samples as constants.
 
 ``LinearGaussian`` scores ``log p(Theta, D | G)`` for graph and parameter
 batches that broadcast over leading dimensions, differentiable through
@@ -22,10 +24,14 @@ from torch.special import gammaln
 
 from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from dibs_tpu_torch.ops.ancestral import interv_to_vectors, sample_sem_obs
-from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs
+from dibs_tpu_torch.ops.bge_kernel import BGE_MAX_D, bge_logdet_pairs
 from dibs_tpu_torch.ops.logdet import masked_logdet_pd_pair
 
 __all__ = ["BGe", "LinearGaussian"]
+
+# Floats of masked [d, d] matrices one graph chunk of the determinant path
+# past the kernel's range may form (dibs_tpu's _BGE_CHUNK_ELEMS): ~0.5 GB.
+_BGE_CHUNK_ELEMS = 2 ** 27
 
 
 def _isclose0(n):
@@ -144,11 +150,26 @@ class BGe:
 
     def batched_node_log_marginal_likelihoods(self, *, gs, x, interv_targets):
         """Per-node BGe scores ``[B, d]`` of a hard-graph batch ``[B, d, d]``
-        (row sums are the marginal likelihoods); the determinant pairs of the
-        whole batch come from one :func:`bge_logdet_pairs` call."""
+        (row sums are the marginal likelihoods). For ``2 <= d <= 128`` the
+        determinant pairs of the whole batch come from one
+        :func:`bge_logdet_pairs` call; elsewhere from
+        :func:`masked_logdet_pd_pair` over every (graph, node), past d = 64
+        in graph chunks of at most ``_BGE_CHUNK_ELEMS`` masked floats."""
         r_mats, n_obs = self._posterior_r_mats(x, interv_targets)
         gs = gs.to(torch.float32).contiguous()
-        logdet_pa, logdet_paj = bge_logdet_pairs(r_mats.contiguous(), gs)
+        d = self.n_vars
+        if 2 <= d <= BGE_MAX_D:
+            logdet_pa, logdet_paj = bge_logdet_pairs(r_mats.contiguous(), gs)
+        else:
+            # node j's parents are column j: row j of the transposed graphs
+            eye = torch.eye(d, dtype=r_mats.dtype, device=r_mats.device)
+            per_chunk = (max(1, _BGE_CHUNK_ELEMS // d ** 3) if d > 64
+                         else max(1, gs.shape[0]))
+            pairs = [masked_logdet_pd_pair(r_mats, chunk.transpose(-1, -2),
+                                           eye)
+                     for chunk in gs.split(per_chunk)]
+            logdet_pa = torch.cat([pa for pa, _ in pairs])
+            logdet_paj = torch.cat([paj for _, paj in pairs])
         return self._score(n_obs[None, :], gs.sum(-2), logdet_pa, logdet_paj)
 
     def log_marginal_likelihood(self, *, g, x, interv_targets):

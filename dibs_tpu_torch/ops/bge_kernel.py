@@ -20,9 +20,10 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     build,
 )
 
-__all__ = ["bge_logdet_pairs", "bge_logdet_pairs_plain"]
+__all__ = ["BGE_MAX_D", "bge_logdet_pairs", "bge_logdet_pairs_plain"]
 
-_MAX_D = 128
+# the largest d the kernel serves (from d = 2), as in dibs_tpu
+BGE_MAX_D = 128
 
 
 def bge_logdet_pairs_plain(r_mats: torch.Tensor, gs: torch.Tensor):
@@ -66,8 +67,8 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
         ``(logdet_pa, logdet_full)``, each ``[B, d]``.
     """
     b, d, _ = gs.shape
-    if not 2 <= d <= _MAX_D:
-        raise ValueError(f"bge_logdet_pairs serves 2 <= d <= {_MAX_D}, "
+    if not 2 <= d <= BGE_MAX_D:
+        raise ValueError(f"bge_logdet_pairs serves 2 <= d <= {BGE_MAX_D}, "
                          f"got d={d}")
     if tuple(r_mats.shape) != (d, d, d):
         raise ValueError(f"r_mats must be {(d, d, d)}, got "

@@ -35,9 +35,11 @@ from dibs_tpu_torch.utils.func import zero_diagonal
 
 __all__ = [
     "ACYCLIC_GRAD_MAX_D",
+    "AcyclicGradPlan",
     "LAUNCHES",
     "acyclic_grad",
     "acyclic_grad_plain",
+    "acyclic_grad_plan",
     "GumbelPlan",
     "build",
     "gumbel_graphs",
@@ -179,9 +181,11 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_nonlinear.restype = i32
     lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32] * 6
     lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
-    lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, i32, i32, i32,
-                                      ctypes.c_uint64, f32, vp]
+    lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, vp, i32, i32, i32,
+                                      ctypes.c_uint64, f32, i32, i32, vp]
     lib.dibs_acyclic_grad.restype = i32
+    lib.dibs_acyclic_grad_smem_bytes.argtypes = [i32]
+    lib.dibs_acyclic_grad_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_error_string.argtypes = [i32]
     lib.dibs_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -489,6 +493,34 @@ def se_matrix(x: torch.Tensor, y: torch.Tensor, h: float,
 # the largest d whose three [d, d|1] float32 matrices fit the 232,448 bytes
 # of shared memory a block may use (csrc/acyclic_grad.cu)
 ACYCLIC_GRAD_MAX_D = 139
+# the quad tier's last d: 8 x 8 outputs a thread of 16 x 16 threads
+_ACYCLIC_QUAD_MAX_D = 128
+_ACYCLIC_THREADS = 256
+
+
+class AcyclicGradPlan(NamedTuple):
+    """Kernel #9's tier for one d (``csrc/acyclic_grad.cu``)."""
+    tier: str  # "quad" (row reads, 16-byte fragments) or "strided"
+    tile: int  # outputs a thread a side: 4 or 8 (quad), 9 (strided)
+    stride: int  # row stride of the three shared matrices, in floats
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def acyclic_grad_plan(d: int) -> AcyclicGradPlan:
+    """The quad tier up to d = 64 (4 x 4 outputs a thread, stride 64) and
+    up to d = 128 (8 x 8, stride 128), its rows rounded up to a multiple
+    of 4; the strided first design (9 x 9, stride ``d | 1``) for 128 < d <=
+    ``ACYCLIC_GRAD_MAX_D``. The launcher refuses any other tile or
+    stride."""
+    if not 1 <= d <= ACYCLIC_GRAD_MAX_D:
+        raise ValueError(f"acyclic_grad serves 1 <= d <= "
+                         f"{ACYCLIC_GRAD_MAX_D}, got d={d}")
+    if d <= _ACYCLIC_QUAD_MAX_D:
+        tile = 4 if d <= 64 else 8
+        stride = 16 * tile
+        return AcyclicGradPlan("quad", tile, stride,
+                               4 * 3 * (-(-d // 4) * 4) * stride)
+    return AcyclicGradPlan("strided", 9, d | 1, 4 * 3 * d * (d | 1))
 
 
 def _check_acyclic_args(scores, n_samples, eps):
@@ -550,7 +582,8 @@ def acyclic_grad(scores: torch.Tensor, seed: int, alpha: float,
     Uniforms from Philox keyed by ``seed`` (counter (element, sample,
     particle, 0)), or the injected Logistic ``eps [P, n_samples, d, d]``.
     Serves ``d <= ACYCLIC_GRAD_MAX_D`` (raises ``ValueError`` otherwise, on
-    any device).
+    any device); on the card through the tier :func:`acyclic_grad_plan`
+    names, whose outputs are bitwise those of the strided first design.
     """
     _check_acyclic_args(scores, n_samples, eps)
     if scores.device.type == "cpu":
@@ -560,11 +593,18 @@ def acyclic_grad(scores: torch.Tensor, seed: int, alpha: float,
         _check_cuda("acyclic_grad", eps)
     lib = build()
     p, d, _ = scores.shape
+    plan = acyclic_grad_plan(d)
     out = torch.empty((p, d, d), dtype=torch.float32, device=scores.device)
+    # the quad tier's w = alpha g (1 - g), kept from the draw to the
+    # accumulation in the threads' order (coalesced)
+    scratch = (torch.empty((p, plan.tile * plan.tile * _ACYCLIC_THREADS),
+                           dtype=torch.float32, device=scores.device)
+               if plan.tier == "quad" else None)
     with torch.cuda.device(scores.device):
         rc = lib.dibs_acyclic_grad(
             scores.data_ptr(), None if eps is None else eps.data_ptr(),
-            out.data_ptr(), p, d, n_samples, seed & 0xFFFFFFFFFFFFFFFF,
-            float(alpha), _stream(scores.device))
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            p, d, n_samples, seed & 0xFFFFFFFFFFFFFFFF, float(alpha),
+            plan.tile, plan.stride, _stream(scores.device))
     _check_launch(lib, rc, "acyclic_grad")
     return out

@@ -169,3 +169,36 @@ def test_monte_carlo_agreement_with_the_jax_route(bench):
         jnp.asarray(s), random.PRNGKey(9), 0.2, n_vars=d, kmc=64)))
     assert ak.mc_disagreement(ours, ref) < ak.MC_AGREEMENT_BAR
     assert ak.mc_disagreement(0.7 * ours, ref) > ak.MC_AGREEMENT_BAR
+
+
+@pytest.mark.parametrize("d, want", [
+    (1, ("quad", 4, 64, 4 * 3 * 4 * 64)),
+    (5, ("quad", 4, 64, 4 * 3 * 8 * 64)),
+    (64, ("quad", 4, 64, 4 * 3 * 64 * 64)),
+    (65, ("quad", 8, 128, 4 * 3 * 68 * 128)),
+    (128, ("quad", 8, 128, 196_608)),
+    (129, ("strided", 9, 129, 4 * 3 * 129 * 129)),
+    (139, ("strided", 9, 139, 231_852)),
+])
+def test_plan_picks_the_tier_stride_and_bytes(d, want):
+    """The quad tier's tile and stride (16 threads a side times 4 or 8
+    outputs; rows rounded up to a multiple of 4) up to d = 128, the strided
+    first design (9 x 9 outputs a thread, stride d | 1) past it."""
+    assert tuple(gk.acyclic_grad_plan(d)) == want
+
+
+def test_plan_fits_shared_memory_at_every_d():
+    for d in range(1, gk.ACYCLIC_GRAD_MAX_D + 1):
+        plan = gk.acyclic_grad_plan(d)
+        assert plan.smem_bytes <= 232_448, d
+        assert plan.tier == ("quad" if d <= 128 else "strided"), d
+        # a thread grid of 16 x 16 covers d with its tile
+        assert d <= 16 * plan.tile and d <= plan.stride
+        if plan.tier == "quad":
+            # rows of the grid's width, whose column quads the swizzle
+            # permutes in eights
+            assert plan.stride == 16 * plan.tile and plan.stride % 32 == 0
+    with pytest.raises(ValueError, match="d <= 139"):
+        gk.acyclic_grad_plan(gk.ACYCLIC_GRAD_MAX_D + 1)
+    with pytest.raises(ValueError, match="d <= 139"):
+        gk.acyclic_grad(torch.zeros(1, 140, 140), 0, 0.2, 1)

@@ -249,6 +249,47 @@ def test_acyclic_grad_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         gk.acyclic_grad(torch.zeros(1, 140, 140, device=cuda), 0, 0.2, 1)
 
 
+@pytest.mark.parametrize("d", [1, 2, 4, 5, 64, 65, 128, 129, 139])
+def test_acyclic_grad_at_its_tier_edges(cuda, d):
+    """Kernel #9 against its plain version at the quad tier's edges (4 x 4
+    tiles up to d = 64, 8 x 8 up to 128) and the strided tier's (129,
+    139), Philox and injected noise, each particle within ``1e-4 max(1,
+    max|plain[p]|)``, and two calls bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    p, k, alpha = 6, 3, 0.2
+    scores = 0.5 * torch.randn((p, d, d), generator=gen, device=cuda)
+    scores[0, :, : d // 2] = -100.0 / alpha  # exp(-alpha s) overflows
+    for eps in (None, torch.randn((p, k, d, d), generator=gen, device=cuda)):
+        got = gk.acyclic_grad(scores, 3, alpha, k, eps=eps)
+        again = gk.acyclic_grad(scores, 3, alpha, k, eps=eps)
+        want = gk.acyclic_grad_plain(scores, 3, alpha, k, eps=eps)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        err = (got - want).abs().amax(dim=(1, 2))
+        tol = 1e-4 * want.abs().amax(dim=(1, 2)).clamp(min=1.0)
+        assert bool((err <= tol).all()), (d, eps is None, err, tol)
+
+
+@pytest.mark.parametrize("d", [1, 64, 65, 128, 129, 139])
+def test_acyclic_grad_plan_agrees_with_the_kernel(cuda, d):
+    lib = gk.build()
+    assert lib.dibs_acyclic_grad_smem_bytes(d) == gk.acyclic_grad_plan(
+        d).smem_bytes
+    # the launcher refuses a stride other than the plan's
+    plan = gk.acyclic_grad_plan(d)
+    s = torch.zeros((1, d, d), device=cuda)
+    scratch = torch.zeros((1, plan.tile * plan.tile * 256), device=cuda)
+    rc = lib.dibs_acyclic_grad(s.data_ptr(), None, s.data_ptr(),
+                               scratch.data_ptr(), 1, d, 1, 0, 0.2, plan.tile,
+                               plan.stride + 4, None)
+    assert rc != 0
+
+
+def test_bge_past_the_kernel_range_on_the_card(cuda):
+    """BGe at d = 130 on the card (no kernel) against the CPU."""
+    chip_smoke.phase_bge_large(cuda, "card")
+
+
 def test_spectral_engine_and_checkpoint_on_the_card(cuda):
     """``acyclicity='spectral'`` in both classes with exact launch counts,
     and a checkpoint round trip equal to a straight run."""
