@@ -11,12 +11,16 @@ Phases, one line each; any failure exits non-zero:
    TF32 off;
 2. build: compiles the CUDA kernels of ``dibs_tpu_torch/csrc`` (timed),
    with the registers, shared memory and spills ``-Xptxas -v`` reports for
-   the kernels of #1, #2 (d <= 32), #3, #4, wide passes 1 and 2, #8 and
-   both tiers of #9;
+   the kernels of #1, #2 (d <= 32, and past it the bits pass, the warp route
+   and the block route's three frames), #3, #4, wide passes 1 and 2, #8
+   and both tiers of #9;
 3. kernel vs plain twin on the card at the main paths' shapes and more,
    with each kernel's and twin's median time (CUDA events), its bound (the
    least time an H100 SXM could take for the same work) and, where one
-   PyTorch call computes the same function, that call's time; the fused
+   PyTorch call computes the same function, that call's time; #2 bit for
+   bit against its twin at every ``SHAPES_BGE`` case (d = 2 to 128, each
+   with an empty, a full and a k-edge graph that reaches every route's
+   parent-count edge); the fused
    linear-Gaussian kernels at the headline shape and at config 4's
    interventional d=30, N=600, and the fused MLP kernel #8 at config 3's
    shape and at d=30, N=600 (tiled rows), relu and tanh, with its plan, and
@@ -77,7 +81,18 @@ Phases, one line each; any failure exits non-zero:
    the card (50 steps, save, load, 50 more equal 100 straight);
 9. BGe past its kernel's range: the per-node scores of 20 graphs at
    d = 130 on the card (``masked_logdet_pd_pair`` over the nodes, no
-   kernel launch) against the CPU's at ``rtol = atol = 1e-4``.
+   kernel launch) against the CPU's at ``rtol = atol = 1e-4``;
+10. config 6: ``MarginalDiBS`` + BGe at ``benchmarks/run_benchmarks.py``'s
+   config 6 (scale-free d=128, N=100, P=100, M=64, K=8; nothing cut) for
+   3 warm-up and 10 timed steps: steps/s, peak device memory, finite state,
+   exact launch counts (#2 once a step); then one step's 6,400 hard graphs
+   captured: the histogram of parent counts k over its 819,200 (graph,
+   node) pairs, #2 on them against its plain twin bit for bit (the twin in
+   chunks of 64 graphs) and against float64 ``slogdet``, two calls bitwise
+   equal; #2 timed there by CUDA events and profiler device time beside its
+   bound, the twin (one chunk, scaled up) and ``torch.linalg.cholesky`` of
+   the j-last masked matrices (one chunk, scaled up); then a 10-step
+   profile.
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -114,10 +129,15 @@ SHAPES_PHILOX = [(P, M, D, 1.0, 1.0, False), (4, 8, 5, 1.0, 1.0, False),
                  (4, 8, 128, 2.0, 1.0, False),
                  (1, 140_000, 2, 1.0, 1.0, False)]
 # the BGe pairs #2's phase-3 cases (d, graphs, collinear data): the warp
-# tier up to d = 32 (d = 31 and 32 at its lane edges), the block tier above
+# tier up to d = 32 (d = 31 and 32 at its lane edges), past it every pair
+# routed by its parent count k; every case has an empty, a full (k = d - 1)
+# and a k-edge graph (``K_EDGES``, k capped at d - 1)
 SHAPES_BGE = [(2, 3840, False), (7, 3840, False), (20, 3840, False),
               (20, 512, True), (31, 512, False), (32, 512, False),
-              (64, 256, False), (128, 48, False)]
+              (33, 256, False), (64, 256, False), (64, 256, True),
+              (100, 64, False), (128, 48, False), (128, 48, True)]
+# parent counts of the k-edge graph's nodes, in turn: the routes' edges
+K_EDGES = (0, 1, 15, 16, 31, 32, 33, 63, 64, 65, 95, 96, 127)
 # kernel #9 at its microbenchmark's defaults (benchmarks/bench_acyclic_kernel.py)
 P9, D9, K9 = 1000, 128, 8
 # (P, d, K): the quad tier's edges (1, 2, 4, 5; 64 | 65, 128) and the
@@ -127,6 +147,9 @@ SHAPES9 = [(64, 1, 4), (64, 2, 4), (64, 4, 4), (64, 5, 4), (64, 13, 4),
            (32, 137, 2), (8, 139, 2)]
 # BGe past its kernel's range (phase 9): d, graphs, observations
 D_BGE_LARGE, B_BGE_LARGE, N_BGE_LARGE = 130, 20, 60
+# config 6 (benchmarks/run_benchmarks.py:188-211), nothing cut: warm-up and
+# timed steps, and the graphs a chunk of the twin and the library call take
+P6, D6, M6, K_ACYC6, WARM6, STEPS6, CHUNK6 = 100, 128, 64, 8, 3, 10, 64
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 
 
@@ -217,6 +240,27 @@ def ptxas_report(text):
     return out
 
 
+def kernel_device_split(fn, name, calls):
+    """Mean device ms a call of ``fn`` spends in each CUDA kernel whose
+    name holds ``name``, from ``torch.profiler``: ``{kernel name: ms}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and name in evt.name:
+            split[evt.name] = (split.get(evt.name, 0.0)
+                               + evt.time_range.elapsed_us() / 1e3 / calls)
+    return split
+
+
 def in_turns(first, second, reps):
     """Median ms of ``first`` and of ``second`` timed in turns in one
     call (first, second, second, first), each the mean of its two
@@ -239,6 +283,8 @@ def phase_build():
         + " | ".join(report))
     per_kernel = ptxas_report(log_text)
     for name in ("gumbel_graphs_kernel", "bge_pairs_warp_kernel",
+                 "bge_pairs_bits_kernel", "bge_pairs_warp_route_kernel",
+                 "bge_pairs_block_kernel",
                  "se_matrix_kernel", "se_reduce_kernel",
                  "transport_phi_kernel", "fused_linear_kernel",
                  "fused_linear_wide_pass1_kernel", "fused_linear_wide_kernel",
@@ -248,6 +294,17 @@ def phase_build():
         check(bool(found), f"no ptxas report for {name}")
         for k, v in sorted(found.items()):
             log(f"[2 build] ptxas {k}: {v}")
+
+
+def k_edge_graph(rng, d):
+    """A ``[d, d]`` mask whose node j has ``K_EDGES[j % len(K_EDGES)]``
+    parents (at most d - 1), drawn at random from the other nodes."""
+    g = np.zeros((d, d), np.float32)
+    for j in range(d):
+        k = min(K_EDGES[j % len(K_EDGES)], d - 1)
+        others = np.delete(np.arange(d), j)
+        g[rng.choice(others, size=k, replace=False), j] = 1.0
+    return g
 
 
 def phase_kernels(dev, results):
@@ -352,14 +409,16 @@ def phase_kernels(dev, results):
         gs[:, np.arange(d), np.arange(d)] = 0.0
         gs[0] = 0.0  # all-zero masks must give logdet_pa == 0
         gs[1] = 1.0 - np.eye(d)  # full masks: d - 1 parents
+        gs[2] = k_edge_graph(rng, d)
         gs_t = torch.from_numpy(gs).to(dev)
         pa, full = bge_logdet_pairs(r_mats, gs_t)
         again = bge_logdet_pairs(r_mats, gs_t)
         pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs_t)
         check(torch.equal(pa, again[0]) and torch.equal(full, again[1]),
               f"bge d={d}: two calls differ")
-        if torch.equal(pa, pa_p) and torch.equal(full, full_p):
-            bitwise.append(f"{d} collinear" if collinear else d)
+        check(torch.equal(pa, pa_p) and torch.equal(full, full_p),
+              f"bge d={d} collinear={collinear}: not bitwise the twin")
+        bitwise.append(f"{d} collinear" if collinear else d)
         for got, ref in ((pa, pa_p), (full, full_p)):
             ok = torch.allclose(got, ref, rtol=1e-4, atol=1e-4)
             check(ok, f"bge d={d} collinear={collinear}: max err "
@@ -390,15 +449,12 @@ def phase_kernels(dev, results):
             stacked = (outer * r_mats[None] + (1 - outer) * eye).reshape(
                 -1, d, d).contiguous()
             t_lib = cuda_median_ms(lambda: torch.linalg.slogdet(stacked))
-            # what this data needs: a k^3/3 elimination plus its k^2 border
-            # per (graph, node) with k parents
-            k = par.sum(-1).double()
-            flops_b = float((2 * (k ** 3 / 3 + k ** 2)).sum())
-            bytes_b = 4 * (d ** 3 + b * d * d + 2 * b * d)
+            flops_b, bytes_b = bge_flops_bytes(gs_t)
             b_ms, b_by = bound_ms(flops_b, bytes_b)
     check(err_64 <= 1e-4, f"bge vs float64 slogdet: rel err {err_64}")
     log(f"[3 bge] (d, graphs, collinear) in {SHAPES_BGE}, masks of density "
-        f"0.3 with one empty and one full, vs twin (rtol=atol=1e-4) max err "
+        f"0.3 with one empty, one full and one k-edge graph (k in {K_EDGES}), "
+        f"vs twin (rtol=atol=1e-4) max err "
         f"{err_b:.3g}, bitwise equal to the twin at d in {bitwise}, two "
         f"calls bitwise equal; vs float64 slogdet max |err|/(1+|ref|) "
         f"{err_64:.3g}; [3840 graphs, d=20] kernel {t_b:.4f} ms twin "
@@ -1818,6 +1874,205 @@ def phase_bge_large(dev, card):
         f"'{card}'")
 
 
+def bge_flops_bytes(gs):
+    """#2's work on ``gs [B, d, d]``: float32 operations a k^3/3
+    elimination and its k^2 border need per (graph, node) with k parents,
+    2 (k^3/3 + k^2), over the actual masks; bytes: R, the masks and the
+    two outputs, each once."""
+    b, d, _ = gs.shape
+    k = gs.sum(1).double()
+    return (float((2 * (k ** 3 / 3 + k ** 2)).sum()),
+            4 * (d ** 3 + b * d * d + 2 * b * d))
+
+
+def j_last_masked(r_mats, gs):
+    """The masked matrices of ``torch.linalg.cholesky``'s route to the
+    pairs (``ops/logdet.py``'s d > 64 tier): per (graph, node j) the mask
+    Pa u j with node j permuted last, ``[B, d, d, d]``."""
+    b, d, _ = gs.shape
+    dev = gs.device
+    perm = torch.stack([torch.cat([torch.arange(j, device=dev),
+                                   torch.arange(j + 1, d, device=dev),
+                                   torch.tensor([j], device=dev)])
+                        for j in range(d)])  # [j, d]: node j last
+    jj = torch.arange(d, device=dev)
+    r_p = r_mats[jj[:, None, None], perm[:, :, None], perm[:, None, :]]
+    eye = torch.eye(d, device=dev)
+    mask = torch.clamp(gs.transpose(1, 2) + eye, max=1.0)  # [B, j, r]
+    mask_p = torch.gather(mask, 2, perm[None].expand(b, d, d))
+    outer = mask_p[..., :, None] * mask_p[..., None, :]
+    return outer * r_p[None] + (1.0 - outer) * eye
+
+
+def phase_config6(dev, card, results):
+    """``MarginalDiBS`` + BGe at config 6 (``benchmarks/run_benchmarks.py
+    :188-211``, nothing cut): scale-free d=128, N=100, P=100, M=64, K=8,
+    the marginal defaults (``score``, rmsprop 0.005, SE h=5). ``WARM6``
+    warm-up and ``STEPS6`` timed steps with exact launch counts and a finite
+    state; then one step's hard graphs, captured where the BGe score hands
+    them to #2: the parent counts' histogram, #2 against its twin bit for
+    bit over all of them, its times beside the bound, the twin's and the
+    library's; then a 10-step profile. Returns the timed steps' launch
+    counts; adds the timings to ``results["bge_pairs"]["block_tier"]``."""
+    from dibs_tpu_torch.inference import MarginalDiBS
+    from dibs_tpu_torch.models import linear_gaussian as lg
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.ops.bge_kernel import (
+        bge_logdet_pairs,
+        bge_logdet_pairs_plain,
+    )
+    from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
+
+    d, steps = D6, STEPS6
+    data, gm, lm = make_linear_gaussian_equivalent_model(
+        generator=torch.Generator().manual_seed(123), n_vars=d,
+        graph_prior_str="sf", device=dev)
+    dibs = MarginalDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                        n_grad_mc_samples=M6,
+                        n_acyclicity_mc_samples=K_ACYC6, device=dev)
+    step = dibs._make_step(dibs._resolve_latent_std(d))
+    state = dibs.init_state(seed=1, n_particles=P6)
+    # reckoned: the hard graphs alone are P M d^2 floats, the soft graphs
+    # and each power of the acyclicity chain P K d^2
+    hard_gb = 4 * P6 * M6 * d * d / 1e9
+    soft_gb = 4 * P6 * K_ACYC6 * d * d / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(WARM6):
+        state = step(state)
+    torch.cuda.synchronize()
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    rate = steps / (time.perf_counter() - t0)
+    launches = dict(gk.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for tensor, what in ((state.z, "z"), (state.opt_state_z[0].nu, "nu"),
+                         (state.sf_baseline, "sf_baseline")):
+        check(bool(torch.isfinite(tensor).all()),
+              f"config 6: {what} not finite")
+    want = dict.fromkeys(gk.LAUNCHES, 0)
+    want.update(gumbel_graphs=2 * steps, bge_pairs=steps, se_matrix=steps,
+                transport_phi=steps)
+    check(launches == want, f"config 6 launches {launches}, expected {want}")
+    log(f"[10 config 6: e2e] MarginalDiBS + BGe, sf d={d} N={data.x.shape[0]}"
+        f" P={P6} M={M6} K={K_ACYC6}: {steps} steps after {WARM6} warm-up, "
+        f"{rate:.4f} steps/s on '{card}'; peak device memory {peak_gb:.3f} GB "
+        f"(reckoned: hard graphs {hard_gb:.3f} GB, soft graphs "
+        f"{soft_gb:.3f} GB); launches {launches}")
+
+    # one step's hard graphs, as the BGe score hands them to #2
+    captured = []
+    pairs = lg.bge_logdet_pairs
+
+    def capture(r_mats, gs):
+        captured.append((r_mats, gs))
+        return pairs(r_mats, gs)
+
+    lg.bge_logdet_pairs = capture
+    try:
+        state = step(state)
+    finally:
+        lg.bge_logdet_pairs = pairs
+    check(len(captured) == 1, f"config 6: {len(captured)} #2 calls a step")
+    r_mats, gs = captured[0]
+    b = gs.shape[0]
+    check(tuple(gs.shape) == (P6 * M6, d, d), f"config 6: graphs "
+                                              f"{tuple(gs.shape)}")
+    k = gs.sum(1)  # [B, j]: node j's parent count
+    qs = torch.quantile(k.flatten().float(), torch.tensor(
+        [0.0, 0.25, 0.5, 0.75, 1.0], device=dev)).tolist()
+    hist = torch.bincount(k.flatten().long(), minlength=d + 1).cpu()
+    edges = [0, 16, 32, 48, 64, 96, d + 1]  # the routes' k ranges
+    split = {f"{lo}-{hi - 1}": int(hist[lo:hi].sum())
+             for lo, hi in zip(edges, edges[1:])}
+    log(f"[10 config 6: k] parent counts over {b} graphs x {d} nodes = "
+        f"{b * d} pairs: min {qs[0]:.0f} quartiles {qs[1]:.0f} / {qs[2]:.0f} "
+        f"/ {qs[3]:.0f} max {qs[4]:.0f}; mean {float(k.float().mean()):.3f};"
+        f" pairs by k {split}")
+
+    pa, full = bge_logdet_pairs(r_mats, gs)
+    again = bge_logdet_pairs(r_mats, gs)
+    check(torch.equal(pa, again[0]) and torch.equal(full, again[1]),
+          "config 6: two calls of #2 differ")
+    mismatch, err = 0, 0.0
+    for c0 in range(0, b, CHUNK6):
+        pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs[c0:c0 + CHUNK6])
+        for got, ref in ((pa[c0:c0 + CHUNK6], pa_p),
+                         (full[c0:c0 + CHUNK6], full_p)):
+            mismatch += int((got != ref).sum())
+            err = max(err, float((got - ref).abs().max()))
+        del pa_p, full_p
+    check(mismatch == 0, f"config 6: #2 differs from its twin at {mismatch} "
+                         f"of {2 * b * d} values (max |diff| {err})")
+    # float64 slogdet of the masked matrices, the first 2 graphs
+    r64, eye = r_mats.double(), torch.eye(d, dtype=torch.float64, device=dev)
+    err_64 = 0.0
+    for g in range(2):
+        for mask, got in ((gs[g].t().double(), pa[g]),
+                          (gs[g].t().double() + eye, full[g])):
+            outer = mask[:, :, None] * mask[:, None, :]  # [j, r, c]
+            ref = torch.linalg.slogdet(outer * r64 + (1 - outer) * eye)[1]
+            err_64 = max(err_64, float(((got.double() - ref).abs()
+                                        / (1 + ref.abs())).max()))
+    check(err_64 <= 1e-4, f"config 6: #2 vs float64 slogdet {err_64}")
+
+    t_k = cuda_median_ms(lambda: bge_logdet_pairs(r_mats, gs), reps=10)
+    split = kernel_device_split(lambda: bge_logdet_pairs(r_mats, gs),
+                                "bge_pairs", 5)
+    t_dev = sum(split.values())
+    chunk = gs[:CHUNK6]
+    t_plain = cuda_median_ms(lambda: bge_logdet_pairs_plain(r_mats, chunk),
+                             reps=3) * b / CHUNK6
+    mats = j_last_masked(r_mats, chunk)
+    chol = torch.linalg.cholesky(mats)
+    logd = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).double()
+    lib_err = max(float((logd[..., :-1].sum(-1).float() - pa[:CHUNK6]).abs()
+                        .max()),
+                  float((logd.sum(-1).float() - full[:CHUNK6]).abs().max()))
+    t_lib = cuda_median_ms(lambda: torch.linalg.cholesky(mats),
+                           reps=3) * b / CHUNK6
+    del mats, chol, logd
+    flops, n_bytes = bge_flops_bytes(gs)
+    b_ms, b_by = bound_ms(flops, n_bytes)
+    log(f"[10 config 6: #2] on one step's {b} hard graphs at d={d}: bitwise "
+        f"equal to the twin at all {2 * b * d} values (twin in chunks of "
+        f"{CHUNK6} graphs), two calls bitwise equal, vs float64 slogdet "
+        f"max |err|/(1+|ref|) {err_64:.3g} (2 graphs); kernel {t_k:.4f} ms "
+        f"(events), {t_dev:.4f} ms (profiler device time); twin {t_plain:.2f}"
+        f" ms (one chunk of {CHUNK6} graphs x {b // CHUNK6}); library "
+        f"torch.linalg.cholesky of the j-last masked [{d}, {d}] matrices "
+        f"{t_lib:.2f} ms (one chunk of {CHUNK6 * d} matrices x "
+        f"{b // CHUNK6}; its logdets within {lib_err:.3g} of the kernel's); "
+        f"bound {b_ms:.4f} ms ({b_by}; operations "
+        f"{1e3 * flops / F32_FLOPS:.4f} ms for {flops:.4g} FLOP, bytes "
+        f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms) on '{card}'")
+    short = {re.search(r"bge_pairs\w*(<[^>]*>)?", n).group(0): ms
+             for n, ms in split.items()}
+    log("[10 config 6: #2 by kernel] device ms a call: " + ", ".join(
+        f"{n} {ms:.4f}" for n, ms in sorted(short.items(),
+                                            key=lambda kv: -kv[1])))
+    results["bge_pairs"]["block_tier"] = dict(
+        shape=f"config 6: {b} graphs, d={d}", launches=launches["bge_pairs"],
+        max_abs_err=err, ms=t_k, device_ms=t_dev, plain_ms=t_plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=t_lib,
+        library_chunk_graphs=CHUNK6, k_quartiles=qs)
+
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    prof = profile_steps(step, state, n_steps=10)
+    check(bool(torch.isfinite(prof["state"].z).all()),
+          "config 6: z not finite after the profile")
+    top = ", ".join(f"{n} {v:.4f} ms" for n, v in prof["top"])
+    log(f"[10 config 6: profile] on '{card}', 10 steps after 10 warm-up: wall "
+        f"{prof['wall_ms']:.3f} ms/step, device kernels "
+        f"{prof['device_ms']:.3f} ms/step, busy share {prof['busy']:.3f}, "
+        f"kernel launches/step {prof['launches']:.1f}; top: {top}")
+    return launches
+
+
 def phase_spectral_checkpoint(dev, card, steps):
     """``acyclicity='spectral'``: ``MarginalDiBS`` at the ``bench.py`` shape
     (``'sampled'``) and ``JointDiBS`` at config 2 (``'mean'``), ``steps``
@@ -1936,6 +2191,8 @@ def main():
     for name, count in phase_spectral_checkpoint(dev, card, 100).items():
         launches[name] += count
     phase_bge_large(dev, card)
+    for name, count in phase_config6(dev, card, results).items():
+        launches[name] += count
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",

@@ -5,18 +5,23 @@ Counterpart of ``dibs_tpu/ops/bge_kernel.py``. For every graph ``b`` and
 node ``j``, with parent mask ``gs[b, :, j]`` and node ``j``'s posterior
 matrix ``R_j``, it returns ``logdet R_j[Pa, Pa]`` and
 ``logdet R_j[Pa u j, Pa u j]`` from one bordered-Schur elimination (see
-``csrc/bge_pairs.cu``). Forward only: the REINFORCE estimators treat graph
-samples as constants. Serves ``2 <= d <= 128``; an all-zero mask gives
+``csrc/bge_pairs.cu``; on the card each pair takes the route
+:func:`dibs_tpu_torch.ops.gpu_kernels.bge_pairs_plan` names for its parent
+count). Forward only: the REINFORCE estimators treat graph samples as
+constants. Serves ``2 <= d <= 128``; an all-zero mask gives
 ``logdet_pa == 0``.
 """
 from __future__ import annotations
 
 import torch
 
+import ctypes
+
 from dibs_tpu_torch.ops.gpu_kernels import (
     _check_cuda,
     _check_launch,
     _stream,
+    bge_route_plans,
     build,
 )
 
@@ -79,9 +84,23 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
     lib = build()
     out_pa = torch.empty((b, d), dtype=torch.float32, device=gs.device)
     out_full = torch.empty((b, d), dtype=torch.float32, device=gs.device)
+    # past d = 32: each pair's parent set as four 32-bit words, node-major,
+    # a flag a graph for mask values other than 0 and 1, and each route's
+    # chunk counter
+    plans = bge_route_plans()
+    words = soft = counters = None
+    if d > 32:
+        words = torch.empty((d, b, 4), dtype=torch.int32, device=gs.device)
+        soft = torch.empty(b, dtype=torch.int32, device=gs.device)
+        counters = torch.empty(len(plans) - 1, dtype=torch.int32,
+                               device=gs.device)
+    plan = [v for p in plans for v in (p.threads, p.smem_bytes)]
     with torch.cuda.device(gs.device):
-        rc = lib.dibs_bge_pairs(r_mats.data_ptr(), gs.data_ptr(),
-                                out_pa.data_ptr(), out_full.data_ptr(), b, d,
-                                _stream(gs.device))
+        rc = lib.dibs_bge_pairs(
+            r_mats.data_ptr(), gs.data_ptr(), out_pa.data_ptr(),
+            out_full.data_ptr(),
+            *(None if t is None else t.data_ptr()
+              for t in (words, soft, counters)),
+            b, d, (ctypes.c_int * len(plan))(*plan), _stream(gs.device))
     _check_launch(lib, rc, "bge_pairs")
     return out_pa, out_full

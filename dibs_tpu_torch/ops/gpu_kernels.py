@@ -36,10 +36,14 @@ from dibs_tpu_torch.utils.func import zero_diagonal
 __all__ = [
     "ACYCLIC_GRAD_MAX_D",
     "AcyclicGradPlan",
+    "BGE_WARP_MAX_K",
+    "BgePairsPlan",
     "LAUNCHES",
     "acyclic_grad",
     "acyclic_grad_plain",
     "acyclic_grad_plan",
+    "bge_pairs_plan",
+    "bge_route_plans",
     "GumbelPlan",
     "build",
     "gumbel_graphs",
@@ -143,8 +147,11 @@ def build() -> ctypes.CDLL:
                                        ctypes.c_uint64, ctypes.c_uint32, f32,
                                        f32, i32, i32, i32, i32, vp]
     lib.dibs_gumbel_graphs.restype = i32
-    lib.dibs_bge_pairs.argtypes = [vp, vp, vp, vp, i32, i32, vp]
+    lib.dibs_bge_pairs.argtypes = [vp] * 7 + [i32, i32,
+                                              ctypes.POINTER(i32), vp]
     lib.dibs_bge_pairs.restype = i32
+    lib.dibs_bge_pairs_smem_bytes.argtypes = [i32, i32]
+    lib.dibs_bge_pairs_smem_bytes.restype = i32
     lib.dibs_se_matrix.argtypes = [vp] * 4 + [i32] * 7 + [f32, f32, vp]
     lib.dibs_se_matrix.restype = i32
     lib.dibs_se_matrix_slots.argtypes = [i32, ctypes.POINTER(i32)]
@@ -355,6 +362,80 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
             plan.vec, plan.threads, plan.group, _stream(scores.device))
     _check_launch(lib, rc, "gumbel_graphs")
     return out
+
+
+# ---------------------------------------------------------------------------
+# BGe determinant pairs: the routes (csrc/bge_pairs.cu)
+# ---------------------------------------------------------------------------
+
+# past d = 32 a pair with at most this many parents takes the warp route
+BGE_WARP_MAX_K = 15
+# the block route's frames: (largest k, thread rows TR, thread columns TC,
+# tile rows AR, tile columns AC); each frame is TR AR = TC AC wide
+_BGE_FRAMES = ((31, 4, 8, 8, 4), (47, 4, 8, 12, 6), (63, 8, 8, 8, 8),
+               (95, 8, 8, 12, 12), (127, 16, 16, 8, 8))
+_BGE_WARPS = 4  # warps a block of the warp routes
+
+
+class BgePairsPlan(NamedTuple):
+    """The route of #2 for one (d, k) (``csrc/bge_pairs.cu``)."""
+    route: str  # "warp" (one warp a pair) or "block" (one block a pair)
+    threads: int  # threads a block
+    grid: tuple  # the block's threads as (rows, columns) of the tile layout
+    tile: tuple  # values a thread holds: (rows, columns) of C and v
+    smem_bytes: int  # static shared memory a block
+
+
+def _bge_frame_smem(tr: int, tc: int, ar: int, ac: int) -> int:
+    """``sizeof(BlockSmem<TR, TC, AR, AC>)``: the chunk's parent sets,
+    float64 log-pivots, two column and two row buffers, pivots,
+    reciprocals, border values, mask values, two reciprocals, the parent
+    list, the chunk's pair list (int64), its count and its index, 16-byte
+    aligned."""
+    w, acp, nt = tr * ar, -(-ac // 4) * 4, tr * tc
+    raw = (16 * nt + 8 * w + 4 * (2 * w + 2 * tc * acp + 4 * w + 2 + w)
+           + 8 * nt + 8)
+    return -(-raw // 16) * 16
+
+
+def bge_pairs_plan(d: int, k: int) -> BgePairsPlan:
+    """#2's route for a node with ``k`` parents at ``d``: up to d = 32 the
+    warp kernel for every k <= 31 (its mask staged as floats); past it the
+    warp route for k <= ``BGE_WARP_MAX_K`` and the block route's frames
+    ``_BGE_FRAMES`` above, up to k = 127. Raises ``ValueError`` for what no
+    route serves (k = 32 at d = 32, k = 128 at d = 128: a self-loop on every
+    node of the mask, with no lane or column for the border; the kernel
+    writes NaN there)."""
+    if not 2 <= d <= 128 or not 0 <= k <= d:
+        raise ValueError(f"bge_pairs serves 2 <= d <= 128 and 0 <= k <= d, "
+                         f"got d={d}, k={k}")
+    threads = 32 * _BGE_WARPS
+    if d <= 32 or k <= BGE_WARP_MAX_K:
+        if k > 31:
+            raise ValueError(f"no route for k={k} parents at d={d}: the "
+                             "warp kernel has no lane for the border")
+        rows = next(r for r in (4, 8, 16, 32) if k <= r)
+        if d <= 32:  # the [32][33] float mask and 4 parent lists
+            smem = 4 * 32 * 33 + 4 * _BGE_WARPS * 32
+        else:  # 128 parent sets and int64 pairs, 4 x 128 mask values, 4
+            # lists, the count and the chunk's index, 16-byte aligned
+            smem = -(-(24 * threads + 4 * _BGE_WARPS * (128 + 32) + 8)
+                     // 16) * 16
+        return BgePairsPlan("warp", threads, (1, 32), (rows, 1), smem)
+    for k_max, tr, tc, ar, ac in _BGE_FRAMES:
+        if k <= k_max:
+            return BgePairsPlan("block", tr * tc, (tr, tc), (ar, ac),
+                                _bge_frame_smem(tr, tc, ar, ac))
+    raise ValueError(f"no route for k={k} parents at d={d}: the widest "
+                     "frame has no column for the border")
+
+
+def bge_route_plans():
+    """The plans of #2's seven kernels in the launcher's order (the d <= 32
+    warp kernel, the warp route, the five frames), which the launcher holds
+    to its own."""
+    return (bge_pairs_plan(32, 0), bge_pairs_plan(128, 0),
+            *(bge_pairs_plan(128, k_max) for k_max, *_ in _BGE_FRAMES))
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ checks.
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -215,6 +216,93 @@ def test_bge_warp_tier_at_its_lane_edges(cuda, d, kind):
             outer = mask[:, None] * mask[None, :]
             ref = torch.linalg.slogdet(outer * r64[j] + (1 - outer) * eye64)[1]
             assert abs(float(got) - float(ref)) <= 1e-4 * (1 + abs(float(ref)))
+
+
+def _bge_problem(cuda, d, collinear=False, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(1000 * d + seed)
+    x = torch.randn(100, d, generator=gen, device=cuda)
+    if collinear:  # chip_smoke.py phase 3's collinear case
+        x[:, 1] = x[:, 0] + 1e-3 * x[:, 1]
+    r_mats, _ = BGe(n_vars=d, device=cuda)._posterior_r_mats(
+        x, torch.zeros_like(x, dtype=torch.int32))
+    return r_mats.contiguous()
+
+
+def _k_masks(d, ks, b, seed):
+    """``b`` graphs whose node j has ``ks[j % len(ks)]`` parents (at most
+    d - 1), drawn at random, zero diagonal."""
+    rng = np.random.default_rng(seed)
+    gs = np.zeros((b, d, d), np.float32)
+    for g in range(b):
+        for j in range(d):
+            k = min(ks[j % len(ks)], d - 1)
+            gs[g, rng.choice(np.delete(np.arange(d), j), size=k,
+                             replace=False), j] = 1.0
+    return torch.from_numpy(gs)
+
+
+@pytest.mark.parametrize("d", [33, 64, 128])
+@pytest.mark.parametrize("collinear", [False, True])
+def test_bge_routes_at_their_k_edges_are_bitwise_the_twin(cuda, d,
+                                                          collinear):
+    """#2 past d = 32 at every route's parent-count edge (k = 0, 15 | 16,
+    31 | 32, 33, 63 | 64, 95 | 96, 127), on random and collinear data: bitwise the
+    twin, two calls bitwise equal, within 1e-4 relative of float64
+    slogdet, each launch counted once."""
+    r_mats = _bge_problem(cuda, d, collinear)
+    gs = _k_masks(d, (0, 15, 16, 31, 32, 33, 63, 64, 95, 96, 127), 5,
+                  d).to(cuda)
+    if collinear:
+        gs[:, :2, 5] = 1.0  # nodes 0 and 1, collinear, parents of node 5
+    before = gk.LAUNCHES["bge_pairs"]
+    pa, full = bge_logdet_pairs(r_mats, gs)
+    again = bge_logdet_pairs(r_mats, gs)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["bge_pairs"] == before + 2
+    assert torch.equal(pa, again[0]) and torch.equal(full, again[1])
+    pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs)
+    assert torch.equal(pa, pa_p) and torch.equal(full, full_p)
+    r64, eye64 = r_mats.double(), torch.eye(d, dtype=torch.float64,
+                                            device=cuda)
+    mask = gs[0].t().double()  # [j, r]
+    for m, got in ((mask, pa[0]), (mask + eye64, full[0])):
+        outer = m[:, :, None] * m[:, None, :]
+        ref = torch.linalg.slogdet(outer * r64 + (1 - outer) * eye64)[1]
+        assert bool(((got.double() - ref).abs()
+                     <= 1e-4 * (1 + ref.abs())).all())
+
+
+def test_bge_soft_masks_past_d32_are_bitwise_the_twin(cuda):
+    """Mask values other than 0 and 1 are read back from the graphs."""
+    r_mats = _bge_problem(cuda, 64, seed=1)
+    gs = _k_masks(64, (3, 40, 70), 4, 7).to(cuda)
+    gs[1] *= 0.75
+    gs[2, :, 7] *= 0.5
+    pa, full = bge_logdet_pairs(r_mats, gs)
+    pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs)
+    assert torch.equal(pa, pa_p) and torch.equal(full, full_p)
+
+
+def test_bge_plan_agrees_with_the_kernel(cuda):
+    lib = gk.build()
+    for d in range(2, 129):
+        for k in range(d + 1):
+            try:
+                want = gk.bge_pairs_plan(d, k).smem_bytes
+            except ValueError:
+                want = -1
+            assert lib.dibs_bge_pairs_smem_bytes(d, k) == want, (d, k)
+
+
+def test_bge_launcher_refuses_a_plan_it_does_not_name(cuda, monkeypatch):
+    from dibs_tpu_torch.ops import bge_kernel
+
+    plans = gk.bge_route_plans()
+    wrong = plans[:2] + (plans[2]._replace(smem_bytes=0),) + plans[3:]
+    monkeypatch.setattr(bge_kernel, "bge_route_plans", lambda: wrong)
+    r_mats = _bge_problem(cuda, 40)
+    with pytest.raises(RuntimeError):
+        bge_logdet_pairs(r_mats, torch.zeros(2, 40, 40, device=cuda))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
