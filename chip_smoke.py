@@ -100,6 +100,7 @@ the card's ``nvidia-smi`` name and power limit; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -150,7 +151,11 @@ D_BGE_LARGE, B_BGE_LARGE, N_BGE_LARGE = 130, 20, 60
 # config 6 (benchmarks/run_benchmarks.py:188-211), nothing cut: warm-up and
 # timed steps, and the graphs a chunk of the twin and the library call take
 P6, D6, M6, K_ACYC6, WARM6, STEPS6, CHUNK6 = 100, 128, 64, 8, 3, 10, 64
+# phase 11, joint score at config 2: warm-up steps, then the timed window
+WARM11, STEPS11 = 10, 200
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
+# steps/s of phase 5 by estimator, for phase 12(d)'s StepTimer check
+RATES = {}
 
 
 def log(msg):
@@ -187,6 +192,16 @@ def bound_ms(flops, n_bytes):
     t_ops, t_bytes = flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def joint_state_cpu(state):
+    """A joint state's ``z``, ``theta`` (a tree) and baseline on the CPU
+    (the optimizer states stay: ``phi`` does not read them)."""
+    from dibs_tpu_torch.utils.tree import tree_map
+
+    return state._replace(z=state.z.cpu(),
+                          theta=tree_map(lambda a: a.cpu(), state.theta),
+                          sf_baseline=state.sf_baseline.cpu())
 
 
 def logistic(rng, shape):
@@ -1200,6 +1215,7 @@ def phase_e2e(dev, card, steps):
         auc_e = threshold_metrics(dist=dibs.get_empirical(g), g=data.g)["roc_auc"]
         auc_m = threshold_metrics(dist=dibs.get_mixture(g), g=data.g)["roc_auc"]
         final[estimator] = dibs
+        RATES[estimator] = rate
         log(f"[5 e2e {estimator}] {steps} steps, {rate:.2f} steps/s on "
             f"'{card}'; AUROC empirical {auc_e:.4f} mixture {auc_m:.4f}")
         if estimator == "score_rb":
@@ -1352,12 +1368,9 @@ def phase_joint(dev, card, steps):
         eps = logistic(rng, (P, M, D, D))  # shared: soft and hard
         noise = (eps, eps, logistic(rng, (P, K_ACYC, D, D)))
         noise_dev = tuple(e.to(dev) for e in noise)
-        st_cpu = state._replace(
-            z=state.z.cpu(), theta=state.theta.cpu(),
-            sf_baseline=state.sf_baseline.cpu())
         with torch.no_grad():
             got = phi_gpu(state, noise_dev)
-            want = phi_cpu(st_cpu, noise)
+            want = phi_cpu(joint_state_cpu(state), noise)
         for a, b, what in zip(got, want, ("z", "theta")):
             err = float((a.cpu() - b).abs().max())
             tol = 1e-4 * float(b.abs().max())
@@ -1383,7 +1396,7 @@ def phase_joint_nonlinear(dev, card, steps):
     from dibs_tpu_torch.models import DenseNonlinearGaussian
     from dibs_tpu_torch.ops import gpu_kernels as gk
     from dibs_tpu_torch.target import make_nonlinear_gaussian_model
-    from dibs_tpu_torch.utils.tree import tree_leaves, tree_map
+    from dibs_tpu_torch.utils.tree import tree_leaves
 
     gen = torch.Generator().manual_seed(0)
     data, gm, lm = make_nonlinear_gaussian_model(
@@ -1439,16 +1452,13 @@ def phase_joint_nonlinear(dev, card, steps):
     phi_gpu, phi_cpu = dibs._make_phi(std), cpu._make_phi(std)
     state = dibs.init_state(seed=2, n_particles=P, n_dim_particles=K_LAT)
     worst = 0.0
-    to_cpu = lambda tree: tree_map(lambda a: a.cpu(), tree)  # noqa: E731
     for _ in range(20):
         eps = logistic(rng, (P, M, D, D))  # shared: soft and hard
         noise = (eps, eps, logistic(rng, (P, K_ACYC, D, D)))
         noise_dev = tuple(e.to(dev) for e in noise)
-        st_cpu = state._replace(z=state.z.cpu(), theta=to_cpu(state.theta),
-                                sf_baseline=state.sf_baseline.cpu())
         with torch.no_grad():
             got = phi_gpu(state, noise_dev)
-            want_phi = phi_cpu(st_cpu, noise)
+            want_phi = phi_cpu(joint_state_cpu(state), noise)
         for k, (a, b) in enumerate(zip(tree_leaves(list(got)),
                                        tree_leaves(list(want_phi)))):
             err = float((a.cpu() - b).abs().max())
@@ -1463,35 +1473,19 @@ def phase_joint_nonlinear(dev, card, steps):
     return launches
 
 
-class plain_on_card:
-    """Within the block, every kernel wrapper of the joint linear path is
-    replaced by its plain version, so a phi built there runs the plain
-    versions on the card (where the wrappers would launch the kernels)."""
+@contextlib.contextmanager
+def plain_on_card():
+    """Within the block the kill switch is off
+    (``config.set_pallas_enabled(False)``): every kernel wrapper sends its
+    CUDA tensors to its plain version, so a phi built there runs the plain
+    versions on the card."""
+    from dibs_tpu_torch import config
 
-    def __enter__(self):
-        from dibs_tpu_torch import kernel
-        from dibs_tpu_torch.inference import fused_linear as fl
-        from dibs_tpu_torch.inference import transport
-        from dibs_tpu_torch.ops import gpu_kernels as gk
-        from dibs_tpu_torch.ops import soft_graphs
-        from dibs_tpu_torch.ops import transport_kernel as tk
-
-        self.saved = []
-        for mod, name, plain in (
-                (soft_graphs, "gumbel_graphs", gk.gumbel_graphs_plain),
-                (kernel, "se_matrix", gk.se_matrix_plain),
-                (transport, "transport_phi", tk.transport_phi_plain),
-                (fl, "fused_linear_single", fl.fused_linear_single_plain),
-                (fl, "fused_linear_pass1", fl.fused_linear_pass1_plain),
-                (fl, "fused_linear_pass2", fl.fused_linear_pass2_plain)):
-            self.saved.append((mod, name, getattr(mod, name)))
-            setattr(mod, name, plain)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
-            setattr(mod, name, fn)
-        return False
+    config.set_pallas_enabled(False)
+    try:
+        yield
+    finally:
+        config.set_pallas_enabled(None)
 
 
 def phase_config5(dev, card, steps):
@@ -1597,11 +1591,9 @@ def phase_config5(dev, card, steps):
         eps = logistic(rng, (p_small, M5, D5, D5))
         noise = (eps, eps, logistic(rng, (p_small, K_ACYC5, D5, D5)))
         noise_dev = tuple(e.to(dev) for e in noise)
-        st_cpu = state._replace(z=state.z.cpu(), theta=state.theta.cpu(),
-                                sf_baseline=state.sf_baseline.cpu())
         with torch.no_grad():
             got = phi_gpu(state, noise_dev)
-            want_phi = phi_cpu(st_cpu, noise)
+            want_phi = phi_cpu(joint_state_cpu(state), noise)
         for a, b, what in zip(got, want_phi, ("z", "theta")):
             e = float((a.cpu() - b).abs().max())
             tol = 1e-4 * float(b.abs().max())
@@ -2157,6 +2149,317 @@ def phase_spectral_checkpoint(dev, card, steps):
     return total
 
 
+def joint_score_problem(dev):
+    """Config 2's data and priors (``benchmarks/run_benchmarks.py:99-116``)
+    and a builder of ``JointDiBS(grad_estimator_z='score')`` on it."""
+    from dibs_tpu_torch.inference import JointDiBS
+    from dibs_tpu_torch.target import make_linear_gaussian_model
+
+    data, gm, lm = make_linear_gaussian_model(
+        generator=torch.Generator().manual_seed(0), n_vars=D,
+        n_observations=N_OBS, n_ho_observations=N_OBS, device=dev)
+
+    def make(device, lik, baseline):
+        return JointDiBS(x=data.x.to(device), graph_model=gm,
+                         likelihood_model=lik, n_grad_mc_samples=M,
+                         n_acyclicity_mc_samples=K_ACYC,
+                         grad_estimator_z="score",
+                         score_function_baseline=baseline, device=device)
+
+    return data, lm, make
+
+
+def joint_noise(rng, dev=None):
+    """Injected Logistic noise of one joint step: the Z estimator's hard
+    samples, the Theta estimator's, the acyclicity samples."""
+    noise = (logistic(rng, (P, M, D, D)), logistic(rng, (P, M, D, D)),
+             logistic(rng, (P, K_ACYC, D, D)))
+    return noise if dev is None else tuple(e.to(dev) for e in noise)
+
+
+def phase_joint_score(dev, card):
+    """Phase 11: ``JointDiBS`` + ``LinearGaussian`` with
+    ``grad_estimator_z='score'`` at config 2's full width, without and with
+    the EMA baseline: ``WARM11`` + ``STEPS11`` steps with exact launches
+    (#1 three times a step: the Z and Theta estimators' hard samples and
+    the acyclicity samples), steps/s over the window, peak memory; 20
+    teacher-forced steps against the CPU's plain versions; one step's hard
+    graphs, as the estimators drew them through #1, bitwise those of the
+    plain twin on the same noise (injected, and #1's own Philox noise)."""
+    from dibs_tpu_torch.inference import estimators
+    from dibs_tpu_torch.metrics import threshold_metrics
+    from dibs_tpu_torch.models import LinearGaussian
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.ops.edges import edge_scores
+
+    data, lm, make = joint_score_problem(dev)
+    total = dict.fromkeys(gk.LAUNCHES, 0)
+    steps = WARM11 + STEPS11
+    for baseline in (0.0, 0.5):
+        dibs = make(dev, lm, baseline)
+        std = dibs._resolve_latent_std(K_LAT)
+        step = dibs._make_step(std)
+        for name in gk.LAUNCHES:
+            gk.LAUNCHES[name] = 0
+        state = dibs.init_state(seed=1, n_particles=P, n_dim_particles=K_LAT)
+        for _ in range(WARM11):
+            state = step(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(STEPS11):
+            state = step(state)
+        torch.cuda.synchronize()
+        rate = STEPS11 / (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e6
+        launches = dict(gk.LAUNCHES)
+        want = dict.fromkeys(gk.LAUNCHES, 0)
+        want.update(gumbel_graphs=3 * steps, se_matrix=2 * steps,
+                    transport_phi=2 * steps)
+        check(launches == want, f"joint score c={baseline}: launches "
+                                f"{launches}, expected {want}")
+        for tensor, what in ((state.z, "z"), (state.theta, "theta"),
+                             (state.sf_baseline, "sf_baseline")):
+            check(bool(torch.isfinite(tensor).all()),
+                  f"joint score c={baseline}: {what} not finite")
+        for name, count in launches.items():
+            total[name] += count
+        g = dibs.particle_to_g_lim(state.z)
+        auc = threshold_metrics(dist=dibs.get_mixture(g, state.theta),
+                                g=data.g)["roc_auc"]
+        log(f"[11 joint score c={baseline}] {WARM11} + {STEPS11} steps, "
+            f"{rate:.2f} steps/s over the last {STEPS11} on '{card}'; peak "
+            f"device memory {peak:.1f} MB; #1 launches/step "
+            f"{launches['gumbel_graphs'] / steps:g} (hard: Z score, Theta; "
+            f"soft: acyclicity); launches {launches}; mixture AUROC "
+            f"{auc:.4f} after {steps} steps (no floor: the score estimator "
+            f"at this length)")
+        prof = profile_steps(step, state)
+        top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
+        log(f"[11 profile joint score c={baseline}] on '{card}', 50 steps: "
+            f"wall {prof['wall_ms']:.3f} ms/step, device kernels "
+            f"{prof['device_ms']:.3f} ms/step, busy share "
+            f"{prof['busy']:.3f}, kernel launches/step "
+            f"{prof['launches']:.1f}; top: {top}")
+
+        # teacher-forced: kernels (card) vs plain versions (CPU)
+        rng = np.random.default_rng(5)
+        cpu = make("cpu", LinearGaussian(n_vars=D), baseline)
+        tr_gpu, tr_cpu = dibs._make_transport(std), cpu._make_transport(std)
+        state = dibs.init_state(seed=2, n_particles=P, n_dim_particles=K_LAT)
+        worst, worst_b = 0.0, 0.0
+        for _ in range(20):
+            noise = joint_noise(rng)
+            noise_dev = tuple(e.to(dev) for e in noise)
+            with torch.no_grad():
+                got = tr_gpu(state, noise_dev)
+                want_phi = tr_cpu(joint_state_cpu(state), noise)
+            for a, b, what in zip(got[:2], want_phi[:2], ("z", "theta")):
+                err = float((a.cpu() - b).abs().max())
+                tol = 1e-4 * float(b.abs().max())
+                worst = max(worst, err / max(tol, 1e-30))
+                check(err <= tol, f"joint score c={baseline} phi_{what} "
+                                  f"t={state.t}: {err} > {tol}")
+            b_err = float((got[2].cpu() - want_phi[2]).abs().max())
+            b_tol = 1e-5 * max(1.0, float(want_phi[2].abs().max()))
+            worst_b = max(worst_b, b_err / b_tol)
+            check(b_err <= b_tol, f"joint score c={baseline} baseline "
+                                  f"t={state.t}: {b_err} > {b_tol}")
+            state = step(state, noise_dev)
+        log(f"[11 teacher-forced joint score c={baseline}] steps t=0..19: "
+            f"max |phi_kernel - phi_plain| / (1e-4 max|phi|) = {worst:.3f} "
+            f"(phi_z and phi_theta); baseline / (1e-5 max(1, |b|)) = "
+            f"{worst_b:.3f}")
+
+    # #1's hard graphs, as the estimators drew them, against the twin
+    drawn = []
+    sampler = estimators.sample_hard_graphs
+
+    def capture(scores, seed, stream, alpha, n_samples, eps=None):
+        drawn.append((scores, seed, stream, alpha, eps))
+        return sampler(scores, seed, stream, alpha, n_samples, eps=eps)
+
+    noise_dev = joint_noise(rng, dev)
+    estimators.sample_hard_graphs = capture
+    try:
+        with torch.no_grad():
+            tr_gpu(state, noise_dev)
+    finally:
+        estimators.sample_hard_graphs = sampler
+    check(len(drawn) == 2, f"{len(drawn)} hard draws in one step, not 2")
+    for scores, seed, stream, alpha, eps in drawn:
+        for e in (eps, None):  # the injected noise, then #1's Philox noise
+            a = gk.gumbel_graphs(scores, seed, stream, alpha, 1.0, M,
+                                 hard=True, eps=e)
+            b = gk.gumbel_graphs_plain(scores, seed, stream, alpha, 1.0, M,
+                                       hard=True, eps=e)
+            check(torch.equal(a, b), f"#1 hard graphs differ from the twin "
+                                     f"(stream {stream}, injected "
+                                     f"{e is not None})")
+    check(torch.equal(drawn[1][0], edge_scores(state.z)),
+          "the Z estimator drew from other scores")
+    log(f"[11 #1 hard graphs] one step's 2 x {P * M} graphs (Z score, "
+        f"Theta) bitwise the plain twin's on the injected noise and on "
+        f"#1's own Philox noise")
+    return total
+
+
+def phase_switches(dev, card):
+    """Phase 12: (a) the kill switch, (b) the default precision, (c) the
+    acyclicity chain at 'highest' and 'high', (d) ``StepTimer``, (e)
+    ``trace()``."""
+    import tempfile
+
+    from dibs_tpu_torch import config, profiling
+    from dibs_tpu_torch.inference import MarginalDiBS, transport
+    from dibs_tpu_torch.models import linear_gaussian, nonlinear_gaussian
+    from dibs_tpu_torch.ops import acyclic
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
+
+    data, gm, bge = make_linear_gaussian_equivalent_model(
+        generator=torch.Generator().manual_seed(0), n_vars=D,
+        graph_prior_str="er", n_observations=N_OBS, device=dev)
+    marginal = MarginalDiBS(x=data.x, graph_model=gm, likelihood_model=bge,
+                            n_grad_mc_samples=M,
+                            n_acyclicity_mc_samples=K_ACYC, device=dev)
+    _, lm, make = joint_score_problem(dev)
+    joint = make(dev, lm, 0.0)
+    rng = np.random.default_rng(7)
+    std = marginal._resolve_latent_std(K_LAT)
+
+    # (a) the kill switch: no launch, the kernels' phi, launches resume
+    for name, dibs, noise in (
+            ("marginal", marginal, (logistic(rng, (P, M, D, D)),
+                                    logistic(rng, (P, K_ACYC, D, D)))),
+            ("joint score", joint, joint_noise(rng))):
+        noise = tuple(e.to(dev) for e in noise)
+        phi, step = dibs._make_phi(std), dibs._make_step(std)
+        state = step(dibs.init_state(seed=4, n_particles=P,
+                                     n_dim_particles=K_LAT))
+        with torch.no_grad():
+            want = phi(state, noise)
+        before = dict(gk.LAUNCHES)
+        with plain_on_card():
+            with torch.no_grad():
+                got = phi(state, noise)
+            step(state)
+        check(gk.LAUNCHES == before, f"12a {name}: a kernel launched with "
+                                     "the kill switch off")
+        worst = 0.0
+        for a, b in zip(got[:1] if name == "marginal" else got,
+                        want[:1] if name == "marginal" else want):
+            err = float((a - b).abs().max())
+            tol = 1e-4 * float(b.abs().max())
+            worst = max(worst, err / max(tol, 1e-30))
+            check(err <= tol, f"12a {name}: plain phi {err} > {tol}")
+        step(state)
+        resumed = {k: gk.LAUNCHES[k] - before[k] for k in gk.LAUNCHES
+                   if gk.LAUNCHES[k] != before[k]}
+        check("gumbel_graphs" in resumed and "transport_phi" in resumed,
+              f"12a {name}: launches did not resume: {resumed}")
+        log(f"[12a kill switch {name}] switch off: one step and one phi, 0 "
+            f"launches; |phi_plain - phi_kernel| / (1e-4 max|phi|) = "
+            f"{worst:.3f}; switch None: one step launched {resumed}")
+
+    # (b) the default precision leaves phase 11's phi bitwise unchanged
+    phi, step = joint._make_phi(std), joint._make_step(std)
+    state = step(joint.init_state(seed=5, n_particles=P,
+                                  n_dim_particles=K_LAT))
+    noise = joint_noise(rng, dev)
+    with torch.no_grad():
+        first, again = phi(state, noise), phi(state, noise)
+    holders = (linear_gaussian, nonlinear_gaussian, transport, acyclic)
+    saved = [mod.matmul_precision for mod in holders]
+    for mod in holders:
+        mod.matmul_precision = lambda p: contextlib.nullcontext()
+    try:
+        with torch.no_grad():
+            bare = phi(state, noise)
+    finally:
+        for mod, ctx in zip(holders, saved):
+            mod.matmul_precision = ctx
+    for a, b, c in zip(first, again, bare):
+        check(torch.equal(a, b) and torch.equal(a, c),
+              "12b: the default precision changed phase 11's phi")
+    config.set_likelihood_matmul_precision("high")
+    try:
+        with torch.no_grad():
+            tf32 = phi(state, noise)
+    finally:
+        config.set_likelihood_matmul_precision("highest")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "12b: the global precision was not restored")
+    moved = [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(tf32, first)]
+    log(f"[12b default precision] phase 11's phi bitwise equal with and "
+        f"without the precision contexts (phi_z, phi_theta); likelihood "
+        f"'high' (TF32) moves them by {moved[0]:.3e} and {moved[1]:.3e} of "
+        f"max|phi| (information only)")
+
+    # (c) the acyclicity chain at 'highest' and 'high' (TF32), config 5's
+    # soft shape [P5 * K_ACYC5, D5, D5]
+    scores = torch.randn((P5, D5, D5), generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    g = gk.gumbel_graphs(scores, 9, 0, 1.0, 1.0, K_ACYC5, hard=False
+                         ).reshape(P5 * K_ACYC5, D5, D5)
+
+    def fwd_bwd(precision):
+        g_req = g.detach().requires_grad_(True)
+        h = acyclic.acyclic_constr(g_req, precision=precision)
+        (grad,) = torch.autograd.grad(h, g_req, torch.ones_like(h))
+        return h, grad
+
+    h_hi, grad_hi = fwd_bwd("highest")
+    h_lo, grad_lo = fwd_bwd("high")
+    check(bool(torch.isfinite(h_lo).all() & torch.isfinite(grad_lo).all()),
+          "12c: 'high' gave non-finite values")
+    h_lo, h_hi = h_lo.detach(), h_hi.detach()
+    rel_h = float(((h_lo - h_hi).abs() / h_hi.abs()).max())
+    rel_g = float((grad_lo - grad_hi).abs().max() / grad_hi.abs().max())
+    ms_hi, ms_lo, turns = in_turns(lambda: fwd_bwd("highest"),
+                                   lambda: fwd_bwd("high"), reps=5)
+    check(torch.get_float32_matmul_precision() == "highest",
+          "12c: the global precision was not restored")
+    log(f"[12c acyclicity precision] acyclic_constr forward + backward at "
+        f"[{P5 * K_ACYC5}, {D5}, {D5}] on '{card}': 'highest' {ms_hi:.4f} "
+        f"ms, 'high' (TF32) {ms_lo:.4f} ms (in turns: "
+        f"{', '.join(f'{t:.4f}' for t in turns)}); 'high' against "
+        f"'highest': max |dh| / |h| {rel_h:.3e}, max |d grad| / max|grad| "
+        f"{rel_g:.3e} (no engine path uses 'high')")
+    del g, h_hi, grad_hi, h_lo, grad_lo
+
+    # (d) StepTimer over 3 chunks of the marginal path
+    chunk = 100
+    timer = profiling.StepTimer()
+    marginal.sample(seed=6, n_particles=P, steps=4 * chunk,
+                    n_dim_particles=K_LAT, callback=timer,
+                    callback_every=chunk)
+    summary = timer.summary()
+    check(summary["chunks"] == 3, f"12d: {summary['chunks']} chunks")
+    ratio = summary["steps_per_sec"] / RATES["score"]
+    check(0.5 <= ratio <= 2.0, f"12d: StepTimer {summary} against phase "
+                               f"5's {RATES['score']:.2f} steps/s")
+    log(f"[12d StepTimer] marginal score, 3 chunks of {chunk} steps: "
+        f"{summary['steps_per_sec']:.2f} steps/s over the last 2 "
+        f"(phase 5: {RATES['score']:.2f}; ratio {ratio:.3f})")
+
+    # (e) trace(): one marginal and one joint score step
+    names = ("gumbel_graphs_kernel", "bge_pairs_warp_kernel")
+    with tempfile.TemporaryDirectory() as where:
+        with profiling.trace(where):
+            marginal._make_step(std)(marginal.init_state(
+                seed=8, n_particles=P, n_dim_particles=K_LAT))
+            joint._make_step(std)(joint.init_state(
+                seed=8, n_particles=P, n_dim_particles=K_LAT))
+        with open(f"{where}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    seen = {n: sum(n in str(e.get("name", "")) for e in events)
+            for n in names}
+    check(all(seen.values()), f"12e: trace events by name {seen}")
+    log(f"[12e trace] {len(events)} events; kernel events by name {seen}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2164,6 +2467,12 @@ def main():
         return 1
     import dibs_tpu_torch  # noqa: F401  (fails here, before any output,
     #                         when the script runs outside the repository)
+    from dibs_tpu_torch.config import pallas_override
+
+    if pallas_override() is False:
+        print("chip_smoke: DIBS_DISABLE_PALLAS is set: the kernels would "
+              "not run", file=sys.stderr)
+        return 1
 
     dev = torch.device("cuda:0")
     card = phase_env()
@@ -2193,6 +2502,9 @@ def main():
     phase_bge_large(dev, card)
     for name, count in phase_config6(dev, card, results).items():
         launches[name] += count
+    for name, count in phase_joint_score(dev, card).items():
+        launches[name] += count
+    phase_switches(dev, card)
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",

@@ -6,8 +6,9 @@ determinant pairs, SE kernel matrix, fused SVGD transport, and the fused
 linear-Gaussian and MLP sample-and-score estimators) are hand-written CUDA
 under ``csrc/``, built with ``nvcc`` at first use. Every entry point runs on
 the card unless it is given ``device="cpu"``; a CUDA tensor goes to the
-kernel, a CPU tensor to the kernel's plain PyTorch twin. Imports ``torch``
-and never ``jax``.
+kernel, a CPU tensor to the kernel's plain PyTorch twin (and a CUDA tensor
+too where the kill switch :func:`dibs_tpu_torch.config.set_pallas_enabled`
+is off). Imports ``torch`` and never ``jax``.
 
     from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
     from dibs_tpu_torch.target import (make_linear_gaussian_model,

@@ -1,20 +1,23 @@
 """DiBS gradient estimators (PyTorch twin of
-``dibs_tpu/inference/estimators.py``): the REINFORCE ``score`` and
-``score_rb`` estimators of marginal inference, the reparameterization and
-Theta estimators of joint inference, the shared-noise and fused linear-
-Gaussian joint estimators, and the latent-prior score.
+``dibs_tpu/inference/estimators.py``): the REINFORCE ``score`` estimator
+of marginal and joint inference, ``score_rb`` of marginal inference, the
+reparameterization and Theta estimators of joint inference, the shared-
+noise and fused linear-Gaussian joint estimators, and the latent-prior
+score.
 
 Every estimator works on the whole particle batch at once. Graph samples
 come from the Gumbel sampler kernel (:mod:`dibs_tpu_torch.ops.soft_graphs`)
 with noise from the counter-based stream (``seed``, ``stream``) or an
 injected Logistic ``eps``. The REINFORCE estimators score all ``P * M``
 hard samples in one call of the model's batched per-node hook (BGe: the
-determinant-pair kernel). The reparameterization and Theta estimators are
-one autograd call each: with shared samples the self-normalized ratio is a
-softmax-weighted sum of per-sample gradients, so the softmax weights are
-the cotangents. ``Theta`` is a parameter tree (:mod:`dibs_tpu_torch.utils.
-tree`): a ``[P, d, d]`` tensor for ``LinearGaussian``, ``[(W1, b1), (W2,
-b2), ...]`` with leading particle dims for ``DenseNonlinearGaussian``. With
+determinant-pair kernel); joint ``score`` scores them with
+``log_joint_prob``, each particle's samples with its own parameters. The
+reparameterization and Theta estimators are one autograd call each: with
+shared samples the self-normalized ratio is a softmax-weighted sum of
+per-sample gradients, so the softmax weights are the cotangents.
+``Theta`` is a parameter tree (:mod:`dibs_tpu_torch.utils.tree`): a ``[P,
+d, d]`` tensor for ``LinearGaussian``, ``[(W1, b1), (W2, b2), ...]`` with
+leading particle dims for ``DenseNonlinearGaussian``. With
 the reparameterization estimator, ``fused_grad_both`` computes both
 likelihood gradients in the fused kernels of :mod:`dibs_tpu_torch.inference.
 fused_linear` (``LinearGaussian``) or :mod:`dibs_tpu_torch.inference.
@@ -164,11 +167,13 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         interv_mask: ``[N, d]`` intervention indicators
         batched_node_log_joint_prob: ``(gs [B, d, d], theta, x, interv_mask,
             rng) -> [B, d]`` per-node scores (row sums are the graphs'
-            marginal log-likelihoods); the ``score`` / ``score_rb`` hook
+            marginal log-likelihoods); the hook of marginal ``score`` and
+            of ``score_rb``
         log_joint_prob: ``(gs [..., d, d], thetas, x, interv_mask, rng) ->
             [...]`` joint log-probability, broadcasting the graphs' leading
             dims against the parameter tree's and autograd-differentiable;
-            the hook of the ``reparam`` and Theta estimators
+            the hook of the ``reparam`` and Theta estimators and of joint
+            ``score`` (each particle's hard samples with its parameters)
         fused_linear_model: a :class:`~dibs_tpu_torch.models.LinearGaussian`
             enables the fused kernels (reparam estimator only) wherever
             :func:`fused_linear_available` serves ``(d, N)``
@@ -218,12 +223,9 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     # --- REINFORCE with the signed linear-space EMA control variate ---
 
-    def eltwise_grad_z_score(zs, thetas, baselines, t, seed, stream,
-                             eps=None):
-        alpha = cfg.alpha(t)
-        g_all = _hard_samples(zs, t, seed, stream, eps)  # [P, M, d, d]
-        # float64 sum: exact for d float32 terms, so the same on any device
-        logprobs = _node_scores(g_all).double().sum(-1).float()  # [P, M]
+    def _score_from_logprobs(zs, baselines, g_all, logprobs, alpha):
+        """The REINFORCE ratio of ``[P, M]`` log-probabilities of the hard
+        samples ``g_all``, with the baseline update."""
         grad_z = grad_latent_log_prob_batch(g_all, zs, alpha)
         c = cfg.score_function_baseline
         if c > 0.0:
@@ -242,6 +244,21 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                 math.log(1 - c) + baselines)
             return grad_est, new_baselines
         return stable_ratio_grad(logprobs, logprobs, grad_z), baselines
+
+    def eltwise_grad_z_score(zs, thetas, baselines, t, seed, stream,
+                             eps=None):
+        """Marginal (``thetas`` None): the batched per-node hook scores all
+        ``P * M`` hard samples; joint: ``log_joint_prob`` scores each
+        particle's samples with its own parameters."""
+        g_all = _hard_samples(zs, t, seed, stream, eps)  # [P, M, d, d]
+        if thetas is None:
+            # float64 sum: exact for d float32 terms, so the same on any
+            # device
+            logprobs = _node_scores(g_all).double().sum(-1).float()
+        else:
+            logprobs = _log_joint(g_all, thetas)
+        return _score_from_logprobs(zs, baselines, g_all, logprobs,
+                                    cfg.alpha(t))
 
     # --- per-node Rao-Blackwellized REINFORCE ---
 
@@ -366,9 +383,16 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     grad_z = {"score": eltwise_grad_z_score,
               "score_rb": eltwise_grad_z_score_rb,
               "reparam": eltwise_grad_z_reparam}[cfg.grad_estimator_z]
+    if (cfg.grad_estimator_z == "score_rb"
+            and batched_node_log_joint_prob is None):
+        # the reference's error, raised where it builds the estimator
+        raise ValueError(
+            "grad_estimator_z='score_rb' needs a per-node likelihood "
+            "decomposition (e.g. BGe.interventional_node_log_marginal_"
+            "probs); this model does not provide one.")
     hook, hook_name = ((log_joint_prob, "log_joint_prob")
                        if cfg.grad_estimator_z == "reparam" else
-                       (batched_node_log_joint_prob,
+                       (batched_node_log_joint_prob or log_joint_prob,
                         "batched_node_log_joint_prob"))
     if hook is None:
         raise ValueError(f"grad_estimator_z={cfg.grad_estimator_z!r} needs "

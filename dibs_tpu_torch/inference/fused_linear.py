@@ -55,9 +55,10 @@ Noise: soft samples ``sigmoid(tau (eps + alpha s))`` draw their Logistic
 ``eps`` from the counter-based stream ``(seed, streams[0])``, hard samples
 ``1[eps + alpha s > 0]`` from ``(seed, streams[1])`` (equal streams give the
 hard sample as the threshold of the soft sample's noise), or the injected
-pair ``eps = (eps_soft, eps_hard)`` of ``[P, M, d, d]``. Dispatch: a CUDA
-tensor goes to the kernels, a CPU tensor to the plain versions in this
-module, which take the same noise.
+pair ``eps = (eps_soft, eps_hard)`` of ``[P, M, d, d]``. Dispatch
+(:func:`~dibs_tpu_torch.ops.gpu_kernels.use_kernel`): a CUDA tensor goes to
+the kernels, a CPU tensor (or any, with the kill switch off) to the plain
+versions in this module, which take the same noise.
 """
 from __future__ import annotations
 
@@ -74,6 +75,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _stream,
     build,
     philox_uniform,
+    use_kernel,
 )
 
 __all__ = [
@@ -610,7 +612,7 @@ def fused_linear_single(scores, thetas, x, w, *, seed, streams, alpha, tau,
     ``(d scores, d Theta)`` in one pass (online softmax)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
               n_samples=n_samples, model=model, eps=eps)
-    if scores.device.type == "cpu":
+    if not use_kernel(scores):
         return fused_linear_single_plain(scores, thetas, x, w, **kw)
     return _launch("fused_linear_single", scores, thetas, x, w, **kw)
 
@@ -626,7 +628,7 @@ def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
     summed in a fixed order)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
               n_samples=n_samples, model=model, eps=eps)
-    if scores.device.type == "cpu":
+    if not use_kernel(scores):
         return fused_linear_pass1_plain(scores, thetas, x, w, **kw)
     if _row_tier(scores, x):
         return _launch("fused_linear_pass1", scores, thetas, x, w, **kw)
@@ -640,7 +642,7 @@ def fused_linear_pass2(scores, thetas, x, w, weights, *, seed, streams,
     wide tier's pass 2, per column tile)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
               n_samples=n_samples, model=model, eps=eps)
-    if scores.device.type == "cpu":
+    if not use_kernel(scores):
         return fused_linear_pass2_plain(scores, thetas, x, w, weights, **kw)
     if _row_tier(scores, x):
         return _launch("fused_linear_pass2", scores, thetas, x, w,

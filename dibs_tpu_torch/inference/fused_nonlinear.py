@@ -28,8 +28,9 @@ The sample-independent prior terms ``-b1/sig_p^2``, ``-W2/sig_p^2`` and
 Noise: as :mod:`dibs_tpu_torch.inference.fused_linear` (``streams = (soft,
 hard)``, equal streams give the hard sample as the threshold of the soft
 sample's noise, or the injected ``eps = (eps_soft, eps_hard)`` of
-``[P, M, d, d]``). Dispatch: a CUDA tensor goes to the kernel, a CPU tensor
-to the plain version in this module.
+``[P, M, d, d]``). Dispatch (:func:`~dibs_tpu_torch.ops.gpu_kernels.
+use_kernel`): a CUDA tensor goes to the kernel, a CPU tensor (or any, with
+the kill switch off) to the plain version in this module.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _check_launch,
     _stream,
     build,
+    use_kernel,
 )
 
 __all__ = [
@@ -381,7 +383,7 @@ def fused_nonlinear(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha,
     """Kernel #8 in its layout (see :func:`fused_nonlinear_plain`)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
               n_samples=n_samples, model=model, eps=eps)
-    if scores.device.type == "cpu":
+    if not use_kernel(scores):
         return fused_nonlinear_plain(scores, w1t, l1, b1t, w2t, x, w, **kw)
     return _launch(scores, w1t, l1, b1t, w2t, x, w, **kw)
 

@@ -18,15 +18,14 @@ same structure, the layout of the reference's optax chain
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
 from dibs_tpu_torch.utils.tree import tree_map
 
-__all__ = ["ScaleByRmsState", "RMSProp", "GradientDescent", "get_optimizer"]
+__all__ = ["ScaleByRmsState", "RMSProp", "GradientDescent", "rmsprop",
+           "sgd", "get_optimizer"]
 
 
 class ScaleByRmsState(NamedTuple):
@@ -67,11 +66,21 @@ class GradientDescent:
         return tree_map(lambda g: -self.stepsize * g, grads), state
 
 
+def rmsprop(stepsize: float, gamma: float = 0.9, eps: float = 1e-8):
+    """Reference-parity RMSProp (the reference's constructor name)."""
+    return RMSProp(stepsize, gamma, eps)
+
+
+def sgd(stepsize: float):
+    """Plain SGD (the reference's constructor name)."""
+    return GradientDescent(stepsize)
+
+
 def get_optimizer(name: str, param: dict):
     """Resolves the reference's string/param optimizer spec
     (choices ``gd`` and ``rmsprop``)."""
     if name == "rmsprop":
-        return RMSProp(param.get("stepsize", 0.005))
+        return rmsprop(param.get("stepsize", 0.005))
     if name == "gd":
-        return GradientDescent(param.get("stepsize", 0.005))
+        return sgd(param.get("stepsize", 0.005))
     raise ValueError(f"Unknown optimizer `{name}`")

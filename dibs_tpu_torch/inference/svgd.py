@@ -9,12 +9,13 @@ draws its noise inside the kernels from counter-based streams of that seed:
 * ``MarginalDiBS``, step ``t``: hard MC graphs from stream ``2 t``, soft
   acyclicity samples from ``2 t + 1``; ``step(state, noise)`` can instead
   take the Logistic pair ``(eps_hard [P, M, d, d], eps_soft [P, K, d, d])``.
-* ``JointDiBS``, step ``t``: soft likelihood samples from stream ``3 t``,
-  hard Theta samples from ``3 t + 1`` (from ``3 t`` with
-  ``fused_sample_sharing='hard'``: the thresholds of the soft samples'
-  noise), acyclicity samples from ``3 t + 2``; ``step(state, noise)`` can
-  take ``(eps_soft [P, M, d, d], eps_hard [P, M, d, d], eps_acyc [P, K, d,
-  d])``.
+* ``JointDiBS``, step ``t``: the Z estimator's samples from stream
+  ``3 t`` (soft for ``reparam``, hard for ``score``), hard Theta samples
+  from ``3 t + 1`` (from ``3 t`` where ``fused_sample_sharing='hard'``
+  serves the reparameterization estimator: the thresholds of the soft
+  samples' noise), acyclicity samples from ``3 t + 2``; ``step(state,
+  noise)`` can take ``(eps_soft [P, M, d, d], eps_hard [P, M, d, d],
+  eps_acyc [P, K, d, d])``, ``eps_soft`` the Z estimator's noise.
 
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
 where CUDA is absent). ``theta`` is the likelihood's parameter tree
@@ -376,8 +377,15 @@ class JointDiBS(DiBS):
     ``h_latent=5, h_theta=500``, rmsprop(0.005), ``alpha_linear=0.05``, the
     Gumbel reparameterization estimator, ``fused_sample_sharing='hard'``
     (one noise batch per step serves both likelihood gradients; ``None``
-    keeps separate streams). For ``LinearGaussian`` both likelihood
-    gradients come from the fused kernels
+    keeps separate streams). ``grad_estimator_z='score'`` takes the
+    REINFORCE estimator (with the signed EMA baseline where
+    ``score_function_baseline > 0``): each particle's hard samples, drawn
+    by the sampler kernel, scored by ``log_joint_prob`` with its own
+    parameters; the Theta gradient then takes its own hard samples, and
+    the fused kernels and the shared noise serve ``reparam`` only, as in
+    the reference. ``'score_rb'`` raises ``ValueError``: the joint
+    likelihood has no per-node decomposition. For ``LinearGaussian`` both
+    likelihood gradients come from the fused kernels
     (:mod:`dibs_tpu_torch.inference.fused_linear`): the one-pass kernel, or
     with ``fused_single_pass=False`` the two-pass pair. For a
     one-hidden-layer ``DenseNonlinearGaussian`` they come from kernel #8
@@ -395,10 +403,6 @@ class JointDiBS(DiBS):
                  acyclicity="notears", acyclicity_constraint="sampled",
                  verbose=False, fused_sample_sharing="hard",
                  fused_single_pass=True, device=DEFAULT_DEVICE):
-        if grad_estimator_z != "reparam":
-            raise NotImplementedError(
-                "JointDiBS serves grad_estimator_z='reparam' (the joint "
-                "score estimators are not ported yet)")
         if kernel_param is None:
             kernel_param = {"h_latent": 5.0, "h_theta": 500.0}
         if optimizer_param is None:
@@ -459,19 +463,24 @@ class JointDiBS(DiBS):
                          sf_baseline=self._init_sf_baseline(n_particles))
 
     def _streams(self, t):
-        """``(soft, hard, acyclicity)`` noise streams of step ``t``."""
-        hard = 3 * t if self.fused_sample_sharing == "hard" else 3 * t + 1
-        return 3 * t, hard, 3 * t + 2
+        """``(soft, hard, acyclicity)`` noise streams of step ``t``; the
+        shared-noise estimators draw both likelihood batches from the
+        soft stream."""
+        shared = (self.fused_sample_sharing == "hard"
+                  and self.est.fused_grad_both is not None)
+        return 3 * t, 3 * t if shared else 3 * t + 1, 3 * t + 2
 
-    def _make_phi(self, latent_prior_std) -> Callable:
-        """``phi(state, noise=None) -> (phi_z, phi_theta)``: the transports
-        of one step, before the optimizer."""
+    def _make_transport(self, latent_prior_std) -> Callable:
+        """``transport(state, noise=None) -> (phi_z, phi_theta,
+        sf_baseline)``: the transports of one step, before the optimizer,
+        and the score estimator's updated baseline."""
         est, kernel = self.est, self.kernel
 
-        def phi(state: SVGDState, noise=None):
+        def transport(state: SVGDState, noise=None):
             eps_soft, eps_hard, eps_acyc = (None,) * 3 if noise is None \
                 else noise
             s_soft, s_hard, s_acyc = self._streams(state.t)
+            sf_baseline = state.sf_baseline
             if est.fused_grad_both is not None:
                 dz_lik, dtheta = est.fused_grad_both(
                     state.z, state.theta, state.t, state.seed,
@@ -481,25 +490,32 @@ class JointDiBS(DiBS):
                 dtheta = est.eltwise_grad_theta_likelihood(
                     state.z, state.theta, state.t, state.seed, s_hard,
                     eps=eps_hard)
-                dz_lik, _ = est.eltwise_grad_z_likelihood(
+                dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
                     state.z, state.theta, state.sf_baseline, state.t,
                     state.seed, s_soft, eps=eps_soft)
             dz_prior = est.eltwise_grad_latent_prior(
                 state.z, state.t, state.seed, s_acyc, latent_prior_std,
                 eps=eps_acyc)
-            return joint_transport(kernel, state.z, state.theta,
-                                   dz_prior + dz_lik, dtheta)
+            return (*joint_transport(kernel, state.z, state.theta,
+                                     dz_prior + dz_lik, dtheta),
+                    sf_baseline)
 
-        return phi
+        return transport
+
+    def _make_phi(self, latent_prior_std) -> Callable:
+        """``phi(state, noise=None) -> (phi_z, phi_theta)``: the transports
+        of one step, before the optimizer."""
+        transport = self._make_transport(latent_prior_std)
+        return lambda state, noise=None: transport(state, noise)[:2]
 
     def _make_step(self, latent_prior_std) -> Callable:
         """``step(state, noise=None) -> state``."""
-        phi_fn, opt = self._make_phi(latent_prior_std), self.opt
+        transport, opt = self._make_transport(latent_prior_std), self.opt
 
         def step(state: SVGDState, noise=None) -> SVGDState:
             _check_precision()
             with torch.no_grad():
-                phi_z, phi_theta = phi_fn(state, noise)
+                phi_z, phi_theta, sf_baseline = transport(state, noise)
                 up_z, opt_state_z = opt.update(phi_z, state.opt_state_z)
                 up_t, opt_state_t = opt.update(phi_theta,
                                                state.opt_state_theta)
@@ -508,7 +524,7 @@ class JointDiBS(DiBS):
                                  theta=tree_map(torch.add, state.theta, up_t),
                                  opt_state_z=opt_state_z,
                                  opt_state_theta=opt_state_t,
-                                 sf_baseline=state.sf_baseline)
+                                 sf_baseline=sf_baseline)
 
         return step
 

@@ -15,13 +15,16 @@ joint engine two, ``Z`` with ``(K_z, K_theta, c_z)`` and ``Theta`` with
 (``h="median"``) takes the two-matmul route ``K^T G + c (K^T V - colsum(K)
 V)``; kernels with only the reference ``eval`` signature go through the
 autodiff path. The transport is negated, so a minimizing optimizer ascends
-the target.
+the target. The two-matmul route and the plain version of #4 run their
+matmuls at :func:`~dibs_tpu_torch.config.transport_matmul_precision`;
+kernel #4 computes in float32 whatever it is set to.
 """
 from __future__ import annotations
 
 import torch
 from torch.func import grad, vmap
 
+from dibs_tpu_torch.config import matmul_precision, transport_matmul_precision
 from dibs_tpu_torch.ops.transport_kernel import (
     transport_phi,
     transport_phi_available,
@@ -40,9 +43,16 @@ def _flat(a: torch.Tensor) -> torch.Tensor:
     return a.reshape(a.shape[0], -1)
 
 
+def _precision():
+    """The transport family's matmul precision around its own cuBLAS calls
+    (:func:`~dibs_tpu_torch.config.set_transport_matmul_precision`)."""
+    return matmul_precision(transport_matmul_precision())
+
+
 def _weighted_scores(k_mat, grads):
     """``sum_m K[m, i] grads[m]`` for all ``i``."""
-    return (k_mat.T @ _flat(grads)).reshape(grads.shape)
+    with _precision():
+        return (k_mat.T @ _flat(grads)).reshape(grads.shape)
 
 
 def _se_repulsion(k_mat, factor, values):
@@ -50,7 +60,8 @@ def _se_repulsion(k_mat, factor, values):
     vf = _flat(values)
     vf = vf - vf.mean(dim=0, keepdim=True)
     colsum = k_mat.sum(dim=0)
-    rep = factor * (k_mat.T @ vf - colsum[:, None] * vf)
+    with _precision():
+        rep = factor * (k_mat.T @ vf - colsum[:, None] * vf)
     return rep.reshape(values.shape)
 
 
@@ -68,7 +79,8 @@ def _fused_phi_or_none(k_own, k_other, c, values, grads):
         return None
     gf = tree_rows(grads).contiguous()
     mu = vf.mean(dim=0, keepdim=True)
-    phi_flat = transport_phi(k_own, k_other, gf, vf, c=c, mu=mu)
+    with _precision():  # reaches the plain version's matmuls only
+        phi_flat = transport_phi(k_own, k_other, gf, vf, c=c, mu=mu)
     out, offset = [], 0
     for leaf in leaves:
         size = leaf[0].numel()

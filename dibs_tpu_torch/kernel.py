@@ -19,8 +19,11 @@ import math
 import torch
 
 from dibs_tpu_torch.ops.gpu_kernels import se_matrix
-from dibs_tpu_torch.utils.func import pytree_sq_norm_matrix
-from dibs_tpu_torch.utils.tree import tree_leaves, tree_rows
+from dibs_tpu_torch.utils.func import (
+    pytree_sq_norm_matrix,
+    squared_norm_pytree,
+)
+from dibs_tpu_torch.utils.tree import tree_rows
 
 __all__ = ["AdditiveFrobeniusSEKernel", "JointAdditiveFrobeniusSEKernel"]
 
@@ -43,12 +46,6 @@ def _se_rows(xs, ys, h, scale) -> torch.Tensor:
     x = _flatten_rows(xs)
     y = x if ys is xs else _flatten_rows(ys)
     return se_matrix(x, y, float(h), float(scale))
-
-
-def _sq_dist(x, y) -> torch.Tensor:
-    """``||x - y||^2`` summed over the leaves of two trees."""
-    return sum(torch.sum((a - b) ** 2.0)
-               for a, b in zip(tree_leaves(x), tree_leaves(y)))
 
 
 class AdditiveFrobeniusSEKernel:
@@ -118,7 +115,7 @@ class JointAdditiveFrobeniusSEKernel:
             raise TypeError("h='median' needs the particle batch; use "
                             "component_matrices_and_factors().")
         latent_sq = torch.sum((x_latent - y_latent) ** 2.0)
-        theta_sq = _sq_dist(x_theta, y_theta)
+        theta_sq = squared_norm_pytree(x_theta, y_theta)
         return (self.scale_latent * torch.exp(-latent_sq / self.h_latent)
                 + self.scale_theta * torch.exp(-theta_sq / self.h_theta))
 
@@ -131,3 +128,24 @@ class JointAdditiveFrobeniusSEKernel:
         k_t, c_t = _component(x_thetas, y_thetas, self.h_theta,
                               self.scale_theta)
         return k_z, k_t, c_z, c_t
+
+    def component_matrices(self, x_latents, x_thetas, y_latents, y_thetas):
+        """``(K_z, K_theta)``: the ``[A, B]`` component matrices."""
+        k_z, k_t, _, _ = self.component_matrices_and_factors(
+            x_latents, x_thetas, y_latents, y_thetas)
+        return k_z, k_t
+
+    def matrix(self, x_latents, x_thetas, y_latents, y_thetas):
+        """Full pairwise kernel matrix ``K_z + K_theta``."""
+        k_z, k_t = self.component_matrices(x_latents, x_thetas, y_latents,
+                                           y_thetas)
+        return k_z + k_t
+
+    def grad_factor_z(self):
+        """``c`` with ``grad_Z k = c K_z (Z - Z')`` (latent term only)."""
+        return -2.0 / self.h_latent
+
+    def grad_factor_theta(self):
+        """``c`` with ``grad_Theta k = c K_theta (Theta - Theta')`` (Theta
+        term only)."""
+        return -2.0 / self.h_theta

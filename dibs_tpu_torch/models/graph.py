@@ -2,8 +2,9 @@
 Erdos-Renyi, scale-free and the uniform rejection sampler.
 
 The inference engine needs one method, ``unnormalized_log_prob_soft(soft_g)``,
-differentiable through autograd. Here it reduces over the trailing ``[d, d]``
-block, so it also takes a particle batch ``[P, d, d]`` and returns ``[P]``.
+differentiable through autograd. It, ``unnormalized_log_prob(g)`` and
+``unnormalized_log_prob_single(g, j)`` reduce over the trailing ``[d, d]``
+block, so they also take a batch ``[P, d, d]`` and return ``[P]``.
 ``sample_G`` draws from the caller's CPU ``torch.Generator`` and moves the
 ``[d, d]`` int32 adjacency matrix to ``device``.
 """
@@ -53,6 +54,16 @@ class ErdosReniDAGDistribution:
         dag = torch.tril(mat, diagonal=-1)
         p_mat = _permutation_matrix(torch.randperm(d, generator=generator))
         return (p_mat.T @ dag @ p_mat).to(device)
+
+    def unnormalized_log_prob_single(self, *, g, j):
+        """Unnormalized ``log p(G_j)`` of node ``j``'s family."""
+        n_parents = g[..., :, j].sum(-1)
+        return n_parents * math.log(self.p) + (
+            self.n_vars - n_parents - 1) * math.log(1 - self.p)
+
+    def unnormalized_log_prob(self, *, g):
+        """Unnormalized ``log p(G)`` of hard adjacencies ``[..., d, d]``."""
+        return self.unnormalized_log_prob_soft(soft_g=g)
 
     def unnormalized_log_prob_soft(self, *, soft_g):
         """Relaxed ``log p(G)`` on an edge-probability matrix ``[..., d, d]``."""
@@ -107,6 +118,14 @@ class ScaleFreeDAGDistribution:
         perm = torch.randperm(self.n_vars, generator=generator).numpy()
         return torch.from_numpy(permute_vertices(mat, perm)).to(device)
 
+    def unnormalized_log_prob_single(self, *, g, j):
+        """Unnormalized ``log p(G_j)`` of node ``j``'s family."""
+        return -3.0 * torch.log(1 + g[..., :, j].sum(-1))
+
+    def unnormalized_log_prob(self, *, g):
+        """Unnormalized ``log p(G)`` of hard adjacencies ``[..., d, d]``."""
+        return self.unnormalized_log_prob_soft(soft_g=g)
+
     def unnormalized_log_prob_soft(self, *, soft_g):
         """Relaxed in-degree power-law prior on ``[..., d, d]`` edge
         probabilities."""
@@ -133,6 +152,12 @@ class UniformDAGDistributionRejection:
             # h(G) is exactly 0 for a 0/1 DAG and positive otherwise
             if float(acyclic_constr(mat, d)) == 0.0:
                 return mat.to(torch.int32).to(device)
+
+    def unnormalized_log_prob_single(self, *, g, j):
+        return torch.zeros(g.shape[:-2], dtype=torch.float32, device=g.device)
+
+    def unnormalized_log_prob(self, *, g):
+        return torch.zeros(g.shape[:-2], dtype=torch.float32, device=g.device)
 
     def unnormalized_log_prob_soft(self, *, soft_g):
         return torch.zeros(soft_g.shape[:-2], dtype=soft_g.dtype,

@@ -22,7 +22,12 @@ import math
 import torch
 from torch.special import gammaln
 
-from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from dibs_tpu_torch.config import (
+    DEFAULT_DEVICE,
+    likelihood_matmul_precision,
+    matmul_precision,
+    resolve_device,
+)
 from dibs_tpu_torch.ops.ancestral import interv_to_vectors, sample_sem_obs
 from dibs_tpu_torch.ops.bge_kernel import BGE_MAX_D, bge_logdet_pairs
 from dibs_tpu_torch.ops.logdet import masked_logdet_pd_pair
@@ -68,10 +73,22 @@ class BGe:
                 f"alpha_lambd must exceed n_vars + 1 = {n_vars + 1}, "
                 f"got {self.alpha_lambd}")
 
+    # --- not available for the marginal model, as in the reference ---
+
+    def get_theta_shape(self, *, n_vars):
+        """Not available for the BGe score: use :class:`LinearGaussian`."""
+        raise NotImplementedError(
+            "Not available for the BGe score; use the `LinearGaussian` model.")
+
+    def sample_parameters(self, *, generator, n_vars, n_particles=0,
+                          batch_size=0):
+        """Not available for the BGe score: use :class:`LinearGaussian`."""
+        raise NotImplementedError(
+            "Not available for the BGe score; use the `LinearGaussian` model.")
+
     def sample_obs(self, *, generator, n_samples, g, theta, toporder=None,
                    interv=None):
-        """Not available for the BGe score, as in the reference: use
-        :class:`LinearGaussian`."""
+        """Not available for the BGe score: use :class:`LinearGaussian`."""
         raise NotImplementedError(
             "Not available for the BGe score; use the `LinearGaussian` model.")
 
@@ -250,11 +267,13 @@ class LinearGaussian:
 
     def log_likelihood(self, *, x, theta, g, interv_targets):
         """``log p(D | G, Theta)`` with intervened entries masked out; one
-        ``[N, d] @ [..., d, d]`` matmul gives every node's means."""
+        ``[N, d] @ [..., d, d]`` matmul, at :func:`~dibs_tpu_torch.config.
+        likelihood_matmul_precision`, gives every node's means."""
         if tuple(x.shape) != tuple(interv_targets.shape):
             raise ValueError(f"x {tuple(x.shape)} and interv_targets "
                              f"{tuple(interv_targets.shape)} must match")
-        means = x @ (g * theta)
+        with matmul_precision(likelihood_matmul_precision()):
+            means = x @ (g * theta)
         logpdf = _normal_logpdf(x, means, math.sqrt(self.obs_noise))
         logpdf = torch.where(interv_targets.bool(), torch.zeros_like(logpdf),
                              logpdf)

@@ -26,7 +26,12 @@ import math
 
 import torch
 
-from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from dibs_tpu_torch.config import (
+    DEFAULT_DEVICE,
+    likelihood_matmul_precision,
+    matmul_precision,
+    resolve_device,
+)
 from dibs_tpu_torch.models.linear_gaussian import _normal_logpdf
 from dibs_tpu_torch.ops.ancestral import interv_to_vectors, sample_sem_obs
 
@@ -101,15 +106,18 @@ class DenseNonlinearGaussian:
         The parent mask is applied to the first-layer weights,
         ``(x * g[:, j]) @ W1_j == x @ (g[:, j, None] * W1_j)``, so the first
         layer is one ``[N, d] @ [..., d, d, h1]`` matmul for every node.
+        The matmuls run at :func:`~dibs_tpu_torch.config.
+        likelihood_matmul_precision`.
         """
         w1 = theta[0][0]  # [..., j, i, h1]
-        h = x @ (g.transpose(-1, -2)[..., None] * w1)  # [..., j, N, h1]
-        if self.bias:
-            h = h + theta[0][1][..., None, :]
-        for layer in theta[1:]:
-            h = self._act(h) @ layer[0]
+        with matmul_precision(likelihood_matmul_precision()):
+            h = x @ (g.transpose(-1, -2)[..., None] * w1)  # [..., j, N, h1]
             if self.bias:
-                h = h + layer[1][..., None, :]
+                h = h + theta[0][1][..., None, :]
+            for layer in theta[1:]:
+                h = self._act(h) @ layer[0]
+                if self.bias:
+                    h = h + layer[1][..., None, :]
         return h[..., 0].transpose(-1, -2)
 
     # --- generative sampling ---

@@ -21,12 +21,25 @@ from typing import Optional
 
 import torch
 
+from dibs_tpu_torch.config import matmul_precision
+
 __all__ = ["acyclic_constr", "acyclic_constr_spectral",
-           "elwise_acyclic_constr"]
+           "elwise_acyclic_constr", "matrix_power"]
 
 _SCALE_CAP_LOG2 = 56
 _RECON_SHIFT_CAP = 60
 _SCALED_MIN_D = 160
+
+
+def matrix_power(m: torch.Tensor, n: int,
+                 precision: str = "highest") -> torch.Tensor:
+    """``m ** n`` of ``[..., d, d]`` by binary exponentiation, its products
+    at the matmul ``precision`` (``'highest'``: IEEE float32; ``'high'``
+    and ``'default'``: TF32 on the card). ``n`` is an int >= 0."""
+    if n < 0:
+        raise ValueError("matrix_power requires n >= 0")
+    with matmul_precision(precision):
+        return _scaled_matrix_power(m, n, scaled=False)[0]
 
 
 def _rescale_pow2(mat, shift):
@@ -60,11 +73,12 @@ def _recon(shift, dtype):
 
 class _AcyclicConstr(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g):
+    def forward(ctx, g, precision):
         d = g.shape[-1]
         scaled = d >= _SCALED_MIN_D
         m = torch.eye(d, dtype=g.dtype, device=g.device) + (1.0 / d) * g
-        p, shift = _scaled_matrix_power(m, d - 1, scaled)
+        with matmul_precision(precision):
+            p, shift = _scaled_matrix_power(m, d - 1, scaled)
         tr = (m * p.transpose(-1, -2)).sum(dim=(-2, -1))
         if scaled:
             h = tr * _recon(shift, tr.dtype) - d
@@ -80,17 +94,21 @@ class _AcyclicConstr(torch.autograd.Function):
         grad = p.transpose(-1, -2)
         if ctx.scaled:
             grad = grad * _recon(shift, grad.dtype)[..., None, None]
-        return h_bar[..., None, None] * grad
+        return h_bar[..., None, None] * grad, None
 
 
-def acyclic_constr(g: torch.Tensor,
-                   n_vars: Optional[int] = None) -> torch.Tensor:
+def acyclic_constr(g: torch.Tensor, n_vars: Optional[int] = None,
+                   precision: str = "highest") -> torch.Tensor:
     """``h(G)`` for ``[..., d, d]`` (soft) adjacencies -> ``[...]``, with the
     closed-form backward; ``n_vars``, where given (the reference's
-    ``acyclic_constr(g, n_vars)``), must be ``d``."""
+    ``acyclic_constr(g, n_vars)``), must be ``d``. ``precision`` is the
+    power chain's matmul precision, as the reference's: ``'highest'``
+    (IEEE float32, what the exact ``h == 0`` DAG checks need) or ``'high'``
+    / ``'default'`` (TF32 on the card, about 2^-11 relative); the engine
+    passes nothing."""
     if n_vars is not None and g.shape[-1] != n_vars:
         raise ValueError(f"expected d = {n_vars}, got {g.shape[-1]}")
-    return _AcyclicConstr.apply(g)
+    return _AcyclicConstr.apply(g, precision)
 
 
 def elwise_acyclic_constr(gs: torch.Tensor, n_vars: int) -> torch.Tensor:
@@ -133,8 +151,9 @@ def _power_iteration(g, n_iter):
 
 class _SpectralConstr(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g, n_iter):
-        lam, u, v = _power_iteration(g, n_iter)
+    def forward(ctx, g, n_iter, precision):
+        with matmul_precision(precision):
+            lam, u, v = _power_iteration(g, n_iter)
         ctx.save_for_backward(u, v)
         return lam
 
@@ -143,13 +162,14 @@ class _SpectralConstr(torch.autograd.Function):
         u, v = ctx.saved_tensors
         denom = (u * v).sum(-1) + _SPECTRAL_EPS
         grad = u[..., :, None] * v[..., None, :]
-        return (h_bar / denom)[..., None, None] * grad, None
+        return (h_bar / denom)[..., None, None] * grad, None, None
 
 
-def acyclic_constr_spectral(g: torch.Tensor,
-                            n_iter: int = _SPECTRAL_ITERS) -> torch.Tensor:
+def acyclic_constr_spectral(g: torch.Tensor, n_iter: int = _SPECTRAL_ITERS,
+                            precision: str = "highest") -> torch.Tensor:
     """Spectral acyclicity penalty ``h(G) ~= rho(G)`` for ``[..., d, d]``
     entrywise-nonnegative adjacencies -> ``[...]``, by ``n_iter`` power
-    iterations; zero iff acyclic. The backward is the Perron outer product
-    ``h_bar u v^T / (u.v + eps)`` with the iterates held constant."""
-    return _SpectralConstr.apply(g, n_iter)
+    iterations (matmuls at ``precision``, as :func:`acyclic_constr`); zero
+    iff acyclic. The backward is the Perron outer product ``h_bar u v^T /
+    (u.v + eps)`` with the iterates held constant."""
+    return _SpectralConstr.apply(g, n_iter, precision)

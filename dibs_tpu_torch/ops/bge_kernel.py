@@ -23,6 +23,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _stream,
     bge_route_plans,
     build,
+    use_kernel,
 )
 
 __all__ = ["BGE_MAX_D", "bge_logdet_pairs", "bge_logdet_pairs_plain"]
@@ -78,7 +79,7 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
     if tuple(r_mats.shape) != (d, d, d):
         raise ValueError(f"r_mats must be {(d, d, d)}, got "
                          f"{tuple(r_mats.shape)}")
-    if gs.device.type == "cpu":
+    if not use_kernel(gs):
         return bge_logdet_pairs_plain(r_mats, gs)
     _check_cuda("bge_pairs", r_mats, gs)
     lib = build()

@@ -12,9 +12,12 @@ imported.
 Dispatch rule, for every kernel here, in :mod:`dibs_tpu_torch.ops.
 bge_kernel`, :mod:`dibs_tpu_torch.ops.transport_kernel`,
 :mod:`dibs_tpu_torch.inference.fused_linear` and
-:mod:`dibs_tpu_torch.inference.fused_nonlinear`: a CPU
-tensor goes to the plain twin; a CUDA tensor goes to the kernel, and a
-build or launch failure raises. ``LAUNCHES`` counts the wrapper calls
+:mod:`dibs_tpu_torch.inference.fused_nonlinear`, decided by the one
+predicate :func:`use_kernel`: a CPU tensor goes to the plain twin; a CUDA
+tensor goes to the kernel, and a build or launch failure raises, unless
+the kill switch (:func:`dibs_tpu_torch.config.set_pallas_enabled`,
+``DIBS_DISABLE_PALLAS``) was turned off on request, which sends it to the
+plain twin on the card. ``LAUNCHES`` counts the wrapper calls
 that launched each kernel (twins never count; a call that launches more
 than one kernel, as a split ``se_matrix`` call with its reduction, counts
 once), so a run can show that its main path went through the kernels.
@@ -31,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from dibs_tpu_torch.config import pallas_override
 from dibs_tpu_torch.utils.func import zero_diagonal
 
 __all__ = [
@@ -57,6 +61,7 @@ __all__ = [
     "se_tile_of",
     "se_tile_size",
     "se_tiles",
+    "use_kernel",
 ]
 
 # Kernel launches on the card by kernel: each wrapper adds one where it
@@ -207,6 +212,13 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def use_kernel(t: torch.Tensor) -> bool:
+    """The dispatch rule of every kernel: ``t`` lies on a CUDA device and
+    the kill switch is not off (:func:`dibs_tpu_torch.config.
+    pallas_override`)."""
+    return t.device.type == "cuda" and pallas_override() is not False
+
+
 def _check_launch(lib, rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(
@@ -335,7 +347,7 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
     samples at ``tau == 1`` with in-kernel noise take the kernel's fast
     form, within a few float32 ulps of the twin's log form.
     """
-    if scores.device.type == "cpu":
+    if not use_kernel(scores):
         return gumbel_graphs_plain(scores, seed, stream, alpha, tau,
                                    n_samples, hard, eps)
     b, d, d2 = scores.shape
@@ -540,7 +552,7 @@ def se_matrix(x: torch.Tensor, y: torch.Tensor, h: float,
     diagonal exactly ``scale``. Where the tiles fill less than two waves
     the features are split (:func:`se_split`) and summed by a second
     launch, in a fixed order."""
-    if x.device.type == "cpu":
+    if not use_kernel(x):
         return se_matrix_plain(x, y, h, scale)
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"se_matrix: bad shapes {tuple(x.shape)}, "
@@ -667,7 +679,7 @@ def acyclic_grad(scores: torch.Tensor, seed: int, alpha: float,
     names, whose outputs are bitwise those of the strided first design.
     """
     _check_acyclic_args(scores, n_samples, eps)
-    if scores.device.type == "cpu":
+    if not use_kernel(scores):
         return acyclic_grad_plain(scores, seed, alpha, n_samples, eps)
     _check_cuda("acyclic_grad", scores)
     if eps is not None:

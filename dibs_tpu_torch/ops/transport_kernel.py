@@ -25,8 +25,9 @@ aligned (config 5's ``[1000, 32768]`` and ``[1000, 16384]``); the scalar-load
 one otherwise (``P = 30`` at d=20, the ragged ``[7, 130]``).
 :func:`transport_phi_aligned` decides from the shapes and ``data_ptr()``.
 
-Dispatch: a CPU tensor goes to :func:`transport_phi_plain`; a CUDA tensor to
-the kernel, and a build or launch failure raises.
+Dispatch (:func:`~dibs_tpu_torch.ops.gpu_kernels.use_kernel`): a CPU tensor,
+or any with the kill switch off, goes to :func:`transport_phi_plain`; a CUDA
+tensor to the kernel, and a build or launch failure raises.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _check_launch,
     _stream,
     build,
+    use_kernel,
 )
 
 __all__ = ["transport_phi", "transport_phi_aligned", "transport_phi_plain",
@@ -88,7 +90,7 @@ def transport_phi(k_own: torch.Tensor, k_other: Optional[torch.Tensor],
     Returns:
         ``[P, n]`` transport, already negated and ``/P``-scaled.
     """
-    if g.device.type == "cpu":
+    if not use_kernel(g):
         return transport_phi_plain(k_own, k_other, g, v, c=c, mu=mu)
     p, n = g.shape
     mats = (k_own,) if k_other is None else (k_own, k_other)

@@ -11,8 +11,9 @@ import torch
 
 from dibs_tpu_torch.utils.tree import tree_leaves
 
-__all__ = ["expand_by", "zero_diagonal", "pytree_sq_norm_matrix",
-           "signed_logsumexp"]
+__all__ = ["expand_by", "zero_diagonal", "squared_norm_pytree",
+           "pytree_sq_norm_matrix", "masked_logdet_pd", "masked_slogdet",
+           "standardize", "signed_logsumexp"]
 
 
 def expand_by(arr: torch.Tensor, n: int) -> torch.Tensor:
@@ -28,6 +29,12 @@ def zero_diagonal(g: torch.Tensor) -> torch.Tensor:
     d = g.shape[-1]
     mask = 1 - torch.eye(d, dtype=g.dtype, device=g.device)
     return g * mask
+
+
+def squared_norm_pytree(x, y) -> torch.Tensor:
+    """``||x - y||^2`` summed over the leaves of two trees."""
+    return sum(torch.sum(torch.square(a - b))
+               for a, b in zip(tree_leaves(x), tree_leaves(y)))
 
 
 def pytree_sq_norm_matrix(xs, ys) -> torch.Tensor:
@@ -52,6 +59,41 @@ def pytree_sq_norm_matrix(xs, ys) -> torch.Tensor:
         total = total * (1.0 - torch.eye(total.shape[0], dtype=total.dtype,
                                          device=total.device))
     return total
+
+
+def _masked_submatrix(m, mask):
+    """``s s^T * M + (I - s s^T * I)``: the masked submatrix padded by the
+    identity, positive definite for PD ``M`` and ``s`` in ``[0, 1]``."""
+    d = mask.shape[-1]
+    outer = mask[..., :, None] * mask[..., None, :]
+    eye = torch.eye(d, dtype=m.dtype, device=m.device)
+    return outer * m + (1.0 - outer) * eye
+
+
+def masked_logdet_pd(m: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Log-determinant of the (possibly soft-)masked submatrix of a
+    positive-definite ``m`` by Cholesky (the reference implementation;
+    :func:`dibs_tpu_torch.ops.logdet.masked_logdet_pd` carries the closed-
+    form backward). Batched over leading dims."""
+    chol = torch.linalg.cholesky(_masked_submatrix(m, mask))
+    return 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+
+
+def masked_slogdet(m: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``log |det|`` of the submatrix of ``m [..., d, d]`` selected by the
+    (possibly soft) ``mask [..., d]``, the rest replaced by the identity, so
+    that it stays differentiable for soft masks."""
+    return torch.linalg.slogdet(_masked_submatrix(m, mask))[1]
+
+
+def standardize(x: torch.Tensor, *, return_stats: bool = False, eps=1e-8):
+    """Column-standardized observations ``(x - mean) / std`` (population
+    std, bounded below by ``eps``), and ``(mean, std)`` with
+    ``return_stats=True``: apply the same stats to held-out data."""
+    mu = x.mean(dim=0)
+    sd = torch.clamp(x.std(dim=0, correction=0), min=eps)
+    x_std = (x - mu) / sd
+    return (x_std, (mu, sd)) if return_stats else x_std
 
 
 def signed_logsumexp(a: torch.Tensor, b: torch.Tensor, dim: int):

@@ -13,7 +13,8 @@ from typing import Callable, List
 import torch
 
 __all__ = ["tree_leaves", "tree_map", "tree_unflatten", "tree_rows",
-           "tree_select", "tree_mul"]
+           "tree_index", "tree_select", "tree_mul", "tree_shapes",
+           "tree_expand_leading_by", "tree_key_split", "tree_zeros_like"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -49,11 +50,41 @@ def tree_rows(tree) -> torch.Tensor:
     return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 
-def tree_select(tree, mask: torch.Tensor):
-    """Every leaf indexed along its leading dim by the boolean ``mask``."""
-    return tree_map(lambda leaf: leaf[mask], tree)
+def tree_index(pytree, idx):
+    """Every leaf indexed along its leading dim with ``idx``."""
+    return tree_map(lambda leaf: leaf[idx], pytree)
 
 
-def tree_mul(tree, c):
+def tree_select(pytree, bool_mask: torch.Tensor):
+    """Every leaf indexed along its leading dim by the boolean mask."""
+    return tree_map(lambda leaf: leaf[bool_mask], pytree)
+
+
+def tree_mul(pytree, c):
     """Every leaf multiplied by the scalar ``c``."""
-    return tree_map(lambda leaf: leaf * c, tree)
+    return tree_map(lambda leaf: leaf * c, pytree)
+
+
+def tree_shapes(pytree):
+    """Every leaf replaced by a tensor of its shape."""
+    return tree_map(lambda leaf: torch.tensor(tuple(leaf.shape)), pytree)
+
+
+def tree_expand_leading_by(pytree, n: int):
+    """Every leaf with ``n`` singleton dims prepended."""
+    return tree_map(lambda leaf: leaf.reshape((1,) * n + tuple(leaf.shape)),
+                    pytree)
+
+
+def tree_key_split(generator: torch.Generator, pytree):
+    """One fresh ``torch.Generator`` per leaf, in the tree's structure,
+    each seeded from ``generator`` (the reference splits a JAX key)."""
+    seeds = torch.randint(0, 2 ** 62, (len(tree_leaves(pytree)),),
+                          generator=generator).tolist()
+    return tree_unflatten(pytree, [torch.Generator().manual_seed(s)
+                                   for s in seeds])
+
+
+def tree_zeros_like(pytree):
+    """Every leaf replaced by zeros of its shape, dtype and device."""
+    return tree_map(torch.zeros_like, pytree)
