@@ -156,6 +156,13 @@ WARM11, STEPS11 = 10, 200
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 # steps/s of phase 5 by estimator, for phase 12(d)'s StepTimer check
 RATES = {}
+# phase 13, the fleet at the headline marginal config: datasets a fleet,
+# warm-up and timed steps, teacher-forced steps (at the first fleet size)
+FLEET_B, WARM13, STEPS13, TF13 = (8, 32), 10, 100, 5
+# the batched kernels' cases: datasets (1, not a power of two, the fleet
+# sizes), and #2 at d on both sides of 32 with every route's k edges
+FLEET_KERNEL_B = (1, 3, 8, 32)
+FLEET_BGE_D = (20, 32, 33, 64, 128)
 
 
 def log(msg):
@@ -2460,6 +2467,376 @@ def phase_switches(dev, card):
     log(f"[12e trace] {len(events)} events; kernel events by name {seen}")
 
 
+def fleet_kernels(dev):
+    """13(a): kernels #1-#4 with the dataset axis at the fleet's shapes
+    (``FLEET_KERNEL_B`` datasets of the headline config), each against its
+    plain twin with the axis (#1 hard exact off ties, soft within 1e-5;
+    #2 bitwise at every d of ``FLEET_BGE_D``; #3 atol 1e-5; #4 within 1e-4
+    max(1, max|ref|)) and against its unbatched launch on each dataset
+    (#1-#3 bitwise, #4 within its bar); at the fleet sizes the batched
+    launch timed beside B unbatched launches, the twin, the bound and, for
+    #3 and #4, a batched library call. Returns the printed lines."""
+    from dibs_tpu_torch.fleet import fleet_seeds
+    from dibs_tpu_torch.models.linear_gaussian import BGe
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.ops import transport_kernel as tk
+    from dibs_tpu_torch.ops.bge_kernel import (
+        bge_logdet_pairs,
+        bge_logdet_pairs_plain,
+    )
+
+    rng = np.random.default_rng(13)
+    lines, worst4 = [], 0.0
+    n_z = D * K_LAT * 2
+    for nb in FLEET_KERNEL_B:
+        keys = fleet_seeds(nb, nb).to(dev)
+        seeds = keys.tolist()
+        scores = torch.from_numpy((2.0 * rng.normal(size=(nb * P, D, D)))
+                                  .astype(np.float32)).to(dev)
+        # --- #1 ---
+        for hard, m in ((True, M), (False, K_ACYC)):
+            out = gk.gumbel_graphs(scores, keys, 7, 1.0, 1.0, m, hard)
+            ref = gk.gumbel_graphs_plain(scores, keys, 7, 1.0, 1.0, m, hard)
+            if hard:
+                u = gk.philox_uniform((nb * P, m, D, D), keys, 7, dev)
+                logit = torch.log(u) - torch.log1p(-u) + scores[:, None]
+                bad = int((((out - ref).abs() > 0)
+                           & (logit.abs() >= 1e-5)).sum())
+                check(bad == 0, f"fleet #1 hard B={nb}: {bad} mismatches "
+                                "with the twin off ties")
+            else:
+                err = float((out - ref).abs().max())
+                check(err <= 1e-5, f"fleet #1 soft B={nb}: {err} > 1e-5")
+            for i, seed in enumerate(seeds):
+                one = gk.gumbel_graphs(scores[i * P:(i + 1) * P], seed, 7,
+                                       1.0, 1.0, m, hard)
+                check(torch.equal(one, out[i * P:(i + 1) * P]),
+                      f"fleet #1 hard={hard} B={nb}: dataset {i} differs "
+                      "from its unbatched launch")
+        # --- #2 ---
+        for d in FLEET_BGE_D:
+            n_g = 256 if d <= 32 else 16 if d <= 64 else 4
+            x = torch.from_numpy(rng.normal(size=(nb, N_OBS, d))
+                                 .astype(np.float32)).to(dev)
+            r_mats, _ = BGe(n_vars=d, device=dev)._posterior_r_mats(
+                x, torch.zeros_like(x, dtype=torch.int32))
+            r_mats = r_mats.contiguous()
+            gs = (rng.uniform(size=(nb * n_g, d, d)) < 0.3).astype(
+                np.float32)
+            gs[:, np.arange(d), np.arange(d)] = 0.0
+            for i in range(nb):
+                gs[i * n_g] = k_edge_graph(rng, d)
+                gs[i * n_g + 1] = 1.0 - np.eye(d)
+            gs_t = torch.from_numpy(gs).to(dev)
+            pa, full = bge_logdet_pairs(r_mats, gs_t)
+            pa_p, full_p = bge_logdet_pairs_plain(r_mats, gs_t)
+            check(torch.equal(pa, pa_p) and torch.equal(full, full_p),
+                  f"fleet #2 B={nb} d={d}: not bitwise the twin")
+            for i in range(nb):
+                sl = slice(i * n_g, (i + 1) * n_g)
+                one = bge_logdet_pairs(r_mats[i], gs_t[sl])
+                check(torch.equal(one[0], pa[sl])
+                      and torch.equal(one[1], full[sl]),
+                      f"fleet #2 B={nb} d={d}: dataset {i} differs from its "
+                      "unbatched launch")
+        # --- #3 and #4 ---
+        z = torch.from_numpy((rng.normal(size=(nb, P, n_z))
+                              / math.sqrt(K_LAT)).astype(np.float32)).to(dev)
+        k_mat = gk.se_matrix(z, z, 5.0, 1.0)
+        err3 = float((k_mat - gk.se_matrix_plain(z, z, 5.0, 1.0)).abs().max())
+        check(err3 <= 1e-5, f"fleet #3 B={nb}: {err3} > 1e-5")
+        g = torch.from_numpy(rng.normal(size=(nb, P, n_z)).astype(
+            np.float32)).to(dev)
+        mu = z.mean(dim=1, keepdim=True)
+        phi = tk.transport_phi(k_mat, None, g, z, c=-0.4, mu=mu)
+        want = tk.transport_phi_plain(k_mat, None, g, z, c=-0.4, mu=mu)
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        err4 = float((phi - want).abs().max())
+        check(err4 <= tol, f"fleet #4 B={nb}: {err4} > {tol}")
+        worst4 = max(worst4, err4 / tol)
+        same4 = True
+        for i in range(nb):
+            zi = z[i].contiguous()
+            one = gk.se_matrix(zi, zi, 5.0, 1.0)
+            check(torch.equal(one, k_mat[i]),
+                  f"fleet #3 B={nb}: dataset {i} differs from its unbatched "
+                  "launch")
+            one4 = tk.transport_phi(k_mat[i].contiguous(), None,
+                                    g[i].contiguous(), zi, c=-0.4,
+                                    mu=mu[i].contiguous())
+            e = float((one4 - phi[i]).abs().max())
+            check(e <= tol, f"fleet #4 B={nb}: dataset {i}: {e} > {tol} "
+                            "from its unbatched launch")
+            same4 = same4 and e == 0.0
+        line = (f"B={nb}: #1 hard/soft and #2 (d in {FLEET_BGE_D}) bitwise "
+                f"their unbatched launches, #2 bitwise its twin; #3 err "
+                f"{err3:.3g}, bitwise its unbatched launches; #4 err "
+                f"{err4:.3g}, {'bitwise' if same4 else 'within the bar of'} "
+                f"its unbatched launches")
+        if nb in FLEET_B:
+            line += "; " + fleet_kernel_times(dev, nb, keys, scores, z, g,
+                                              k_mat, mu, rng)
+        lines.append(line)
+    return lines, worst4
+
+
+def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
+    """Median ms of #1 (hard, M), #2 (P M graphs a dataset, d=20), #3 and
+    #4 at a fleet of ``nb`` datasets: the batched launch, ``nb`` unbatched
+    launches, the twin, the bound and the batched library call."""
+    from dibs_tpu_torch.models.linear_gaussian import BGe
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.ops import transport_kernel as tk
+    from dibs_tpu_torch.ops.bge_kernel import (
+        bge_logdet_pairs,
+        bge_logdet_pairs_plain,
+    )
+
+    seeds = keys.tolist()
+    bp, n = nb * P, z.shape[-1]
+    out = []
+
+    def row(name, batched, serial, plain, flops, n_bytes, library=None):
+        t_b = cuda_median_ms(batched, reps=20)
+        t_s = cuda_median_ms(serial, reps=10)
+        t_p = cuda_median_ms(plain, reps=3)
+        t_l = (cuda_median_ms(library, reps=20) if library is not None
+               else None)
+        b_ms, b_by = bound_ms(flops, n_bytes)
+        out.append(f"{name} batched {t_b:.4f} ms, {nb} unbatched "
+                   f"{t_s:.4f} ms, twin {t_p:.4f} ms, bound {b_ms:.5f} "
+                   f"({b_by})"
+                   + ("" if t_l is None else f", library {t_l:.4f} ms"))
+
+    row("#1 hard", lambda: gk.gumbel_graphs(scores, keys, 7, 1.0, 1.0, M,
+                                            True),
+        lambda: [gk.gumbel_graphs(scores[i * P:(i + 1) * P], s, 7, 1.0, 1.0,
+                                  M, True) for i, s in enumerate(seeds)],
+        lambda: gk.gumbel_graphs_plain(scores, keys, 7, 1.0, 1.0, M, True),
+        3 * bp * M * D * D, 4 * (bp * D * D + bp * M * D * D))
+    x = torch.from_numpy(rng.normal(size=(nb, N_OBS, D)).astype(
+        np.float32)).to(dev)
+    r_mats, _ = BGe(n_vars=D, device=dev)._posterior_r_mats(
+        x, torch.zeros_like(x, dtype=torch.int32))
+    r_mats = r_mats.contiguous()
+    gs = gk.gumbel_graphs(scores, keys, 3, 1.0, 1.0, M, True).reshape(
+        -1, D, D)
+    per = P * M
+    flops_b, _ = bge_flops_bytes(gs)
+    row("#2", lambda: bge_logdet_pairs(r_mats, gs),
+        lambda: [bge_logdet_pairs(r_mats[i], gs[i * per:(i + 1) * per])
+                 for i in range(nb)],
+        lambda: bge_logdet_pairs_plain(r_mats, gs),
+        flops_b, 4 * (nb * D ** 3 + gs.shape[0] * (D * D + 2 * D)))
+    row("#3", lambda: gk.se_matrix(z, z, 5.0, 1.0),
+        lambda: [gk.se_matrix(z[i], z[i], 5.0, 1.0) for i in range(nb)],
+        lambda: gk.se_matrix_plain(z, z, 5.0, 1.0),
+        3 * nb * P * P * n, 4 * nb * (P * n + P * P),
+        lambda: torch.cdist(z, z))
+    row("#4", lambda: tk.transport_phi(k_mat, None, g, z, c=-0.4, mu=mu),
+        lambda: [tk.transport_phi(k_mat[i], None, g[i], z[i], c=-0.4,
+                                  mu=mu[i]) for i in range(nb)],
+        lambda: tk.transport_phi_plain(k_mat, None, g, z, c=-0.4, mu=mu),
+        2 * nb * P * P * n, 4 * nb * (3 * P * n + P * P + n + P),
+        lambda: -(k_mat.transpose(-1, -2) @ g - 0.4 * (
+            k_mat.transpose(-1, -2) @ (z - mu)
+            - k_mat.sum(dim=1)[..., None] * (z - mu))) / P)
+    return "; ".join(out)
+
+
+def fleet_problem(dev, nb, estimator):
+    """``nb`` headline datasets (``make_linear_gaussian_equivalent_model``,
+    ER d=20, N=100, generators seeded 0..nb-1), the fleet's engine on the
+    first and one engine a dataset."""
+    from dibs_tpu_torch.inference import MarginalDiBS
+    from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
+
+    xs, gm, lm = [], None, None
+    for b in range(nb):
+        data, gm, lm = make_linear_gaussian_equivalent_model(
+            generator=torch.Generator().manual_seed(b), n_vars=D,
+            graph_prior_str="er", n_observations=N_OBS, device=dev)
+        xs.append(data.x)
+
+    def make(x):
+        return MarginalDiBS(x=x, graph_model=gm, likelihood_model=lm,
+                            grad_estimator_z=estimator, n_grad_mc_samples=M,
+                            n_acyclicity_mc_samples=K_ACYC, device=dev)
+
+    xs = torch.stack(xs)
+    return xs, make(xs[0]), [make(x) for x in xs]
+
+
+def phase_fleet(dev, card):
+    """13: ``dibs_tpu_torch.fleet`` on the card at the headline marginal
+    config (``bench.py``: ER d=20, N=100, P=30, k=20, M=128, K=32, BGe),
+    ``score`` and ``score_rb``, with ``FLEET_B`` datasets. (a) the batched
+    kernels (:func:`fleet_kernels`); (b) for each estimator and fleet
+    size: launches per fleet step equal to one dataset's step; dataset-
+    steps/s over ``STEPS13`` timed steps after ``WARM13``, the fleet and
+    ``B`` serial single runs on the same datasets in turns (fleet, serial,
+    serial, fleet); peak device memory of the fleet; ``torch.profiler``
+    over 50 fleet steps; at the first size, the initial particles and the
+    step-0 and step-``TF13`` Philox hard graphs bitwise those of single
+    engines seeded ``fleet_seeds``, and ``TF13`` teacher-forced steps of
+    each dataset's ``phi`` against its single engine at ``1e-4 max|phi|``.
+    Returns the launches of the fleet's own steps."""
+    from dibs_tpu_torch.fleet import fleet_init_state, fleet_seeds
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    lines, worst4 = fleet_kernels(dev)
+    for ln in lines:
+        log(f"[13a fleet kernels] {ln}")
+    log(f"[13a fleet kernels] #4 worst {worst4:.3f} of its bar")
+
+    total = dict.fromkeys(gk.LAUNCHES, 0)
+
+    def counted(fn):
+        for name in gk.LAUNCHES:
+            gk.LAUNCHES[name] = 0
+        out = fn()
+        for name in total:
+            total[name] += gk.LAUNCHES[name]
+        return out
+
+    for estimator in ("score", "score_rb"):
+        for nb in FLEET_B:
+            xs, dibs, singles = fleet_problem(dev, nb, estimator)
+            std = dibs._resolve_latent_std(K_LAT)
+            seeds = fleet_seeds(nb, nb)
+            fleet_step = dibs._make_step(std, phi_fn=dibs._make_fleet_phi(
+                xs, torch.zeros_like(xs, dtype=torch.int32), std))
+            steps = [e._make_step(std) for e in singles]
+
+            def fleet_init():
+                return fleet_init_state(dibs, seeds, P)
+
+            def single_init(i):
+                return singles[i].init_state(seed=int(seeds[i]),
+                                             n_particles=P)
+
+            # launches: one fleet step against one dataset's step
+            state = fleet_init()
+            counted(lambda: fleet_step(state))
+            one_fleet = dict(gk.LAUNCHES)
+            for name in gk.LAUNCHES:
+                gk.LAUNCHES[name] = 0
+            steps[0](single_init(0))
+            one_single = dict(gk.LAUNCHES)
+            check(one_fleet == one_single and one_fleet["bge_pairs"] == 1,
+                  f"fleet {estimator} B={nb}: a fleet step launched "
+                  f"{one_fleet}, a single step {one_single}")
+
+            if nb == FLEET_B[0]:
+                fleet_parity(dev, dibs, singles, seeds, fleet_step, steps,
+                             std, estimator, counted)
+
+            def fleet_turn():
+                st = fleet_init()
+                for _ in range(WARM13):
+                    st = fleet_step(st)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(STEPS13):
+                    st = fleet_step(st)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                check(bool(torch.isfinite(st.z).all()),
+                      f"fleet {estimator} B={nb}: z not finite")
+                return nb * STEPS13 / secs
+
+            def serial_turn():
+                secs = 0.0
+                for i in range(nb):
+                    st = single_init(i)
+                    for _ in range(WARM13):
+                        st = steps[i](st)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(STEPS13):
+                        st = steps[i](st)
+                    torch.cuda.synchronize()
+                    secs += time.perf_counter() - t0
+                return nb * STEPS13 / secs
+
+            torch.cuda.reset_peak_memory_stats()
+            f1 = counted(fleet_turn)
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            s1, s2 = serial_turn(), serial_turn()
+            f2 = counted(fleet_turn)
+            prof = counted(lambda: profile_steps(fleet_step, fleet_init()))
+            top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
+            log(f"[13b fleet {estimator} B={nb}] on '{card}': "
+                f"dataset-steps/s fleet {(f1 + f2) / 2:.2f} (turns {f1:.2f}"
+                f", {f2:.2f}), {nb} serial single runs {(s1 + s2) / 2:.2f} "
+                f"(turns {s1:.2f}, {s2:.2f}), ratio "
+                f"{(f1 + f2) / (s1 + s2):.3f}; launches a step {one_fleet} "
+                f"(equal to one dataset's step); peak device memory "
+                f"{peak_gb:.4f} GB; profiled 50 steps: wall "
+                f"{prof['wall_ms']:.3f} ms/step, device "
+                f"{prof['device_ms']:.3f} ms/step, busy {prof['busy']:.3f}, "
+                f"launches/step {prof['launches']:.1f}; top: {top}")
+    return total
+
+
+def fleet_parity(dev, dibs, singles, seeds, fleet_step, steps, std,
+                 estimator, counted):
+    """13(b) at the first fleet size: the fleet's initial particles bitwise
+    single engines' from ``seeds``; its Philox hard graphs at step 0 and
+    step ``TF13`` bitwise theirs; ``TF13`` teacher-forced steps of each
+    dataset's ``phi`` (Philox noise, the fleet's state) against its single
+    engine at ``1e-4 max|phi|``."""
+    from dibs_tpu_torch.fleet import fleet_init_state
+    from dibs_tpu_torch.ops.edges import edge_scores
+    from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs
+
+    nb = len(singles)
+    keys = seeds.to(dev)
+    state = fleet_init_state(dibs, seeds, P)
+    for i, single in enumerate(singles):
+        check(torch.equal(single.init_state(seed=int(seeds[i]),
+                                            n_particles=P).z, state.z[i]),
+              f"fleet {estimator}: dataset {i}'s initial z differs")
+    phi_fleet = dibs._make_fleet_phi(
+        torch.stack([e.x for e in singles]),
+        torch.stack([e.interv_mask for e in singles]), std)
+    phis = [e._make_phi(std) for e in singles]
+    worst, graphs = 0.0, 0
+    for t in range(TF13 + 1):
+        if t in (0, TF13):  # the hard graphs as the estimator draws them
+            alpha = dibs.alpha(state.t)
+            z = state.z.reshape(nb * P, *state.z.shape[2:])
+            hard = sample_hard_graphs(edge_scores(z), keys, 2 * state.t,
+                                      alpha, M)
+            for i in range(nb):
+                one = sample_hard_graphs(edge_scores(state.z[i]),
+                                         int(seeds[i]), 2 * state.t, alpha, M)
+                check(torch.equal(one, hard[i * P:(i + 1) * P]),
+                      f"fleet {estimator} t={state.t}: dataset {i}'s hard "
+                      "graphs differ from its single engine's")
+            graphs += hard.shape[0] * hard.shape[1]
+        if t == TF13:
+            break
+        with torch.no_grad():
+            got, _ = counted(lambda: phi_fleet(state))
+        for i in range(nb):
+            one = state._replace(seed=int(seeds[i]), z=state.z[i],
+                                 sf_baseline=state.sf_baseline[i],
+                                 opt_state_z=None)
+            with torch.no_grad():
+                want, _ = phis[i](one)
+            err = float((got[i] - want).abs().max())
+            tol = 1e-4 * float(want.abs().max())
+            worst = max(worst, err / max(tol, 1e-30))
+            check(err <= tol, f"fleet {estimator} t={state.t} dataset {i}: "
+                              f"phi err {err} > {tol}")
+        state = counted(lambda: fleet_step(state))
+    log(f"[13b fleet {estimator} B={nb}] initial z bitwise the single "
+        f"engines'; Philox hard graphs at t=0 and t={TF13} bitwise ({graphs} "
+        f"graphs); teacher-forced phi t=0..{TF13 - 1} against single engines "
+        f"seeded fleet_seeds: worst {worst:.3f} of the 1e-4 max|phi| bar")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2505,6 +2882,8 @@ def main():
     for name, count in phase_joint_score(dev, card).items():
         launches[name] += count
     phase_switches(dev, card)
+    for name, count in phase_fleet(dev, card).items():
+        launches[name] += count
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",

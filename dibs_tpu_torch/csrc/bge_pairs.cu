@@ -36,6 +36,12 @@
 // of the twin, whatever the schedule, so any layout of the work keeps the
 // bits.
 //
+// Fleets (dibs_tpu_torch/fleet.py): r_mats holds one [d, d, d] set a
+// dataset, [n_graphs / gpd, d, d, d], and graph b reads the set of its
+// dataset b / gpd (gpd = graphs a dataset). Every route resolves R_j
+// through node_r; a single dataset is gpd = n_graphs, so its pointers and
+// bits are those of the unbatched launch.
+//
 // Shapes of the work:
 //   * d <= 32 (bge_pairs_warp_kernel): one block (4 warps) per graph, its
 //     d x d mask staged in shared memory, one warp per (graph, node): the
@@ -108,6 +114,13 @@ constexpr int kFrame96MaxK = 95;    // 8 x 8 threads of 12 x 12, W = 96
 constexpr int kFrame128MaxK = 127;  // 16 x 16 threads of 8 x 8, W = 128
 // the kernels: d <= 32, the warp route, the five frames
 constexpr int kRoutes = 7;
+
+// R_j of graph b: the set of b's dataset (gpd graphs a dataset).
+__device__ __forceinline__ const float* node_r(const float* r_mats,
+                                               int64_t b, int gpd, int j,
+                                               int d) {
+  return r_mats + ((b / gpd) * d + j) * static_cast<int64_t>(d) * d;
+}
 
 // ---- the warp routine: one warp per (graph, node), parents only ----------
 
@@ -184,7 +197,7 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
     bge_pairs_warp_kernel(const float* __restrict__ r_mats,
                           const float* __restrict__ gs,
                           float* __restrict__ out_pa,
-                          float* __restrict__ out_full, int d) {
+                          float* __restrict__ out_full, int gpd, int d) {
   __shared__ float masks[kSmallMaxD * (kSmallMaxD + 1)];  // [row][ld]
   __shared__ int lists[kWarps][32];
   const int ld = d | 1;  // odd row stride: a column read hits 32 banks
@@ -205,7 +218,7 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
     const int k = __popc(bits);
     if (m != 0.0f) plist[__popc(bits & ((1u << lane) - 1u))] = lane;
     __syncwarp();
-    const float* __restrict__ r = r_mats + static_cast<int64_t>(j) * d * d;
+    const float* __restrict__ r = node_r(r_mats, b, gpd, j, d);
     float* pa = out_pa + b * d + j;
     float* full = out_full + b * d + j;
     if (k == 0) {
@@ -314,7 +327,7 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
                                 float* __restrict__ out_pa,
                                 float* __restrict__ out_full,
                                 int* __restrict__ next_chunk, int n_graphs,
-                                int d) {
+                                int gpd, int d) {
   __shared__ WarpRouteSmem sm;
   constexpr int kChunk = kWarps * 32;
   const int lane = threadIdx.x & 31;
@@ -357,7 +370,7 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
         }
       }
       __syncwarp();
-      const float* __restrict__ r = r_mats + static_cast<int64_t>(j) * d * d;
+      const float* __restrict__ r = node_r(r_mats, b, gpd, j, d);
       float* pa = out_pa + b * d + j;
       float* full = out_full + b * d + j;
       if (k == 0) {
@@ -502,8 +515,8 @@ __global__ void __launch_bounds__(TR * TC, frame_min_blocks(TR * TC, AR, AC))
                            const int* __restrict__ soft,
                            float* __restrict__ out_pa,
                            float* __restrict__ out_full,
-                           int* __restrict__ next_chunk, int n_graphs, int d,
-                           int k_lo, int k_hi) {
+                           int* __restrict__ next_chunk, int n_graphs,
+                           int gpd, int d, int k_lo, int k_hi) {
   constexpr int NT = TR * TC;
   constexpr int W = TR * AR;
   __shared__ BlockSmem<TR, TC, AR, AC> sm;
@@ -553,7 +566,7 @@ __global__ void __launch_bounds__(TR * TC, frame_min_blocks(TR * TC, AR, AC))
         }
       }
       __syncthreads();
-      const float* __restrict__ r = r_mats + static_cast<int64_t>(j) * d * d;
+      const float* __restrict__ r = node_r(r_mats, b, gpd, j, d);
       const int o = W - (k + 1);  // frame index of parent 0
       // the tile: C[ri][ci] = A[Pa[ri], Pa[ci]], column k the border
       int qc[AC];
@@ -709,11 +722,15 @@ DIBS_API int dibs_bge_pairs_smem_bytes(int d, int k) {
 // planned, in the order of kPlan; any other plan is refused. Past d = 32,
 // `words` ([d][n_graphs] x 16 bytes), `soft` ([n_graphs]) and `counters`
 // ([kRoutes] ints, zeroed by the bits pass) are the wrapper's scratch.
+// `gpd`: graphs a dataset (r_mats is [n_graphs / gpd, d, d, d]); n_graphs
+// for one dataset.
 DIBS_API int dibs_bge_pairs(const float* r_mats, const float* gs,
                             float* out_pa, float* out_full, void* words,
-                            int* soft, int* counters, int n_graphs, int d,
-                            const int* plan, cudaStream_t stream) {
-  if (d < 2 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+                            int* soft, int* counters, int n_graphs, int gpd,
+                            int d, const int* plan, cudaStream_t stream) {
+  if (d < 2 || d > kMaxD || gpd < 1 || n_graphs % gpd != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   for (int i = 0; i < kRoutes; ++i) {
     if (plan[2 * i] != kPlan[i][0] || plan[2 * i + 1] != kPlan[i][1]) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -722,7 +739,7 @@ DIBS_API int dibs_bge_pairs(const float* r_mats, const float* gs,
   if (n_graphs == 0) return 0;
   if (d <= kSmallMaxD) {
     bge_pairs_warp_kernel<<<n_graphs, kWarps * 32, 0, stream>>>(
-        r_mats, gs, out_pa, out_full, d);
+        r_mats, gs, out_pa, out_full, gpd, d);
     return static_cast<int>(cudaGetLastError());
   }
   uint4* w = static_cast<uint4*>(words);
@@ -733,34 +750,35 @@ DIBS_API int dibs_bge_pairs(const float* r_mats, const float* gs,
   if (rc == 0) {
     rc = launch_route(bge_pairs_warp_route_kernel, kWarps * 32, items, stream,
                       r_mats, gs, w, soft, out_pa, out_full, counters,
-                      n_graphs, d);
+                      n_graphs, gpd, d);
   }
   // the frames, by k: [k_lo, k_hi] each
   if (rc == 0) {
     rc = launch_route(bge_pairs_block_kernel<4, 8, 8, 4>, 32, items, stream,
                       r_mats, gs, w, soft, out_pa, out_full, counters + 1,
-                      n_graphs, d, kWarpRouteMaxK + 1, kFrame32MaxK);
+                      n_graphs, gpd, d, kWarpRouteMaxK + 1, kFrame32MaxK);
   }
   if (rc == 0) {
     rc = launch_route(bge_pairs_block_kernel<4, 8, 12, 6>, 32, items, stream,
                       r_mats, gs, w, soft, out_pa, out_full, counters + 2,
-                      n_graphs, d, kFrame32MaxK + 1, kFrame48MaxK);
+                      n_graphs, gpd, d, kFrame32MaxK + 1, kFrame48MaxK);
   }
   if (rc == 0) {
     rc = launch_route(bge_pairs_block_kernel<8, 8, 8, 8>, 64, items, stream,
                       r_mats, gs, w, soft, out_pa, out_full, counters + 3,
-                      n_graphs, d, kFrame48MaxK + 1, kFrame64MaxK);
+                      n_graphs, gpd, d, kFrame48MaxK + 1, kFrame64MaxK);
   }
   if (rc == 0) {
     rc = launch_route(bge_pairs_block_kernel<8, 8, 12, 12>, 64, items,
                       stream, r_mats, gs, w, soft, out_pa, out_full,
-                      counters + 4, n_graphs, d, kFrame64MaxK + 1,
+                      counters + 4, n_graphs, gpd, d, kFrame64MaxK + 1,
                       kFrame96MaxK);
   }
   if (rc == 0) {
     rc = launch_route(bge_pairs_block_kernel<16, 16, 8, 8>, 256, items,
                       stream, r_mats, gs, w, soft, out_pa, out_full,
-                      counters + 5, n_graphs, d, kFrame96MaxK + 1, kMaxD);
+                      counters + 5, n_graphs, gpd, d, kFrame96MaxK + 1,
+                      kMaxD);
   }
   return rc;
 }

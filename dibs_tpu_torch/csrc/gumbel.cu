@@ -46,6 +46,13 @@
 // With `eps` non-null the kernel reads the injected noise [B, M, d, d]
 // instead (the debug_noise convention of fused_linear.py) in the log form,
 // which makes exact comparison with the reference possible.
+//
+// Fleets (dibs_tpu_torch/fleet.py): the batch is B_ds datasets of `per`
+// particles each, and `keys` ([B_ds] int64 on the device) holds one key a
+// dataset. Particle b then draws with the key of its dataset b / per and
+// the particle counter b % per, its index within the dataset, so dataset i
+// of a fleet gets the noise of a single run keyed keys[i]. With `keys` null
+// the key is `seed` and the counter b, as before.
 #include <climits>
 
 #include "common.h"
@@ -86,15 +93,22 @@ __device__ __forceinline__ void store(float* __restrict__ p,
 template <int kVec, int kMode>
 __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
     const float* __restrict__ scores, const float* __restrict__ eps,
-    float* __restrict__ out, int units, int upp, int d, int n_samples,
-    int group, uint32_t b0, uint32_t k0, uint32_t k1, uint32_t stream,
-    float alpha, float tau) {
+    float* __restrict__ out, const int64_t* __restrict__ keys, int per,
+    int units, int upp, int d, int n_samples, int group, uint32_t b0,
+    uint32_t k0, uint32_t k1, uint32_t stream, float alpha, float tau) {
   const int unit = blockIdx.x * blockDim.x + threadIdx.x;
   if (unit >= units) return;
   const int bl = unit / upp;
   const int e0 = (unit - bl * upp) * kVec;
   const int dd = d * d;
-  const uint32_t b = b0 + static_cast<uint32_t>(bl);
+  uint32_t b = b0 + static_cast<uint32_t>(bl);
+  if (keys != nullptr) {  // a fleet: the dataset's key, the index within it
+    const uint32_t ds = b / static_cast<uint32_t>(per);
+    const uint64_t key = static_cast<uint64_t>(__ldg(keys + ds));
+    b -= ds * static_cast<uint32_t>(per);
+    k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
+    k1 = static_cast<uint32_t>(key >> 32);
+  }
 
   float as[kVec];  // alpha * s
   float en[kVec];  // exp(-alpha s), the fast form's factor
@@ -156,14 +170,14 @@ __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
 template <int kVec>
 cudaError_t launch(int mode, dim3 grid, int threads, cudaStream_t stream,
                    const float* scores, const float* eps, float* out,
-                   int units, int upp, int d, int n_samples, int group,
-                   uint32_t b0, uint32_t k0, uint32_t k1, uint32_t rng_stream,
-                   float alpha, float tau) {
+                   const int64_t* keys, int per, int units, int upp, int d,
+                   int n_samples, int group, uint32_t b0, uint32_t k0,
+                   uint32_t k1, uint32_t rng_stream, float alpha, float tau) {
   auto kernel = mode == kHard       ? gumbel_graphs_kernel<kVec, kHard>
                 : mode == kSoftFast ? gumbel_graphs_kernel<kVec, kSoftFast>
                                     : gumbel_graphs_kernel<kVec, kSoftLog>;
-  kernel<<<grid, threads, 0, stream>>>(scores, eps, out, units, upp, d,
-                                       n_samples, group, b0, k0, k1,
+  kernel<<<grid, threads, 0, stream>>>(scores, eps, out, keys, per, units,
+                                       upp, d, n_samples, group, b0, k0, k1,
                                        rng_stream, alpha, tau);
   return cudaGetLastError();
 }
@@ -172,10 +186,12 @@ cudaError_t launch(int mode, dim3 grid, int threads, cudaStream_t stream,
 
 // `vec`, `threads` and `group` (samples a thread) come from the wrapper's
 // plan (gpu_kernels.gumbel_plan); vec = 4 needs d * d % 4 == 0 and 16-byte
-// aligned scores and eps.
+// aligned scores and eps. `keys` ([batch / per] int64, device) keys each
+// dataset of `per` particles of a fleet; null: `seed` keys the batch.
 DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
                                 float* out, int64_t batch, int n_samples,
-                                int d, uint64_t seed, uint32_t stream,
+                                int d, uint64_t seed, const int64_t* keys,
+                                int per, uint32_t stream,
                                 float alpha, float tau, int hard, int vec,
                                 int threads, int group,
                                 cudaStream_t cuda_stream) {
@@ -183,7 +199,8 @@ DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
   const int groups = group > 0 ? (n_samples + group - 1) / group : 0;
   if (d < 0 || d > 46340 || batch > (int64_t{1} << 32) || n_samples < 0 ||
       (vec != 1 && vec != 4) || (d * d) % vec != 0 || threads < 32 ||
-      threads > 256 || groups < 1 || groups > 65535) {
+      threads > 256 || groups < 1 || groups > 65535 ||
+      (keys != nullptr && (per < 1 || batch % per != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int dd = d * d;
@@ -203,13 +220,15 @@ DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
     const float* e = eps == nullptr ? nullptr : eps + off;
     const cudaError_t err =
         vec == 4 ? launch<4>(mode, grid, threads, cuda_stream,
-                             scores + b0 * dd, e, out + off, units, upp, d,
-                             n_samples, group, static_cast<uint32_t>(b0), k0,
-                             k1, stream, alpha, tau)
+                             scores + b0 * dd, e, out + off, keys, per, units,
+                             upp, d, n_samples, group,
+                             static_cast<uint32_t>(b0), k0, k1, stream, alpha,
+                             tau)
                  : launch<1>(mode, grid, threads, cuda_stream,
-                             scores + b0 * dd, e, out + off, units, upp, d,
-                             n_samples, group, static_cast<uint32_t>(b0), k0,
-                             k1, stream, alpha, tau);
+                             scores + b0 * dd, e, out + off, keys, per, units,
+                             upp, d, n_samples, group,
+                             static_cast<uint32_t>(b0), k0, k1, stream, alpha,
+                             tau);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -43,6 +43,12 @@
 //   scale * exp(-acc / h), mirrors, and writes the diagonal as `scale`.
 //   With S = 1 that epilogue is fused into the first launch. The wrapper
 //   (gpu_kernels.se_matrix) chooses the tile, S and the instantiation.
+// - Fleets (dibs_tpu_torch/fleet.py): `batch` independent matrices, x
+//   [batch, A, n], y [batch, B, n], out [batch, A, B] (scratch [batch, S,
+//   A, B]), one a gridDim.y slice. Each dataset's blocks do exactly the
+//   work of an unbatched launch on its operands, with the tile and S the
+//   wrapper chose for one dataset's shape, so each matrix has the bits of
+//   that launch.
 #include "common.h"
 
 namespace {
@@ -129,6 +135,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ __align__(16) float xs[2][kBk][kLd];
   __shared__ __align__(16) float ys[2][kBk][kLd];
 
+  {  // this block's dataset
+    const int64_t ds = blockIdx.y;
+    x += ds * a * n;
+    y += ds * b * n;
+    if (part != nullptr) part += ds * (gridDim.x / tiles) * a * b;
+    if (out != nullptr) out += ds * a * b;
+  }
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -242,6 +255,8 @@ __global__ void __launch_bounds__(kRed * 8)
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int64_t plane = static_cast<int64_t>(a) * b;
+  part += static_cast<int64_t>(blockIdx.y) * splits * plane;  // the dataset
+  out += static_cast<int64_t>(blockIdx.y) * plane;
 #pragma unroll
   for (int rr = 0; rr < kRed / 8; ++rr) {
     const int r = ty + 8 * rr;
@@ -277,8 +292,8 @@ int tile_count(int a, int b, int tile, int sym) {
 
 template <int kTm, int kBk>
 cudaError_t launch_tiles(const float* x, const float* y, float* out,
-                         float* part, int a, int b, int n, int splits,
-                         int sym, int vec, float h, float scale,
+                         float* part, int batch, int a, int b, int n,
+                         int splits, int sym, int vec, float h, float scale,
                          cudaStream_t stream) {
   constexpr int kTile = 16 * kTm;
   const int tiles = tile_count(a, b, kTile, sym);
@@ -289,45 +304,43 @@ cudaError_t launch_tiles(const float* x, const float* y, float* out,
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   float* o = splits > 1 ? nullptr : out;
   float* p = splits > 1 ? part : nullptr;
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
   if (vec) {
-    se_matrix_kernel<kTm, kBk, true><<<static_cast<int>(blocks), kThreads, 0,
-                                        stream>>>(x, y, o, p, a, b, n, slice,
-                                                  tiles, tiles_b, sym, h,
-                                                  scale);
+    se_matrix_kernel<kTm, kBk, true><<<grid, kThreads, 0, stream>>>(
+        x, y, o, p, a, b, n, slice, tiles, tiles_b, sym, h, scale);
   } else {
-    se_matrix_kernel<kTm, kBk, false><<<static_cast<int>(blocks), kThreads,
-                                         0, stream>>>(x, y, o, p, a, b, n,
-                                                      slice, tiles, tiles_b,
-                                                      sym, h, scale);
+    se_matrix_kernel<kTm, kBk, false><<<grid, kThreads, 0, stream>>>(
+        x, y, o, p, a, b, n, slice, tiles, tiles_b, sym, h, scale);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K [A, B] from x [A, n] and y [B, n]. tile: 128 or 32 (output rows and
-// columns per block). splits: feature slices S; S > 1 needs the scratch
-// part [S, A, B] and adds the reduction launch. sym: x and y are the same
-// matrix (A == B); only the upper tiles are computed. vec: n % 4 == 0 and
-// x, y 16-byte aligned (16-byte loads); otherwise scalar loads.
+// K [batch, A, B] from x [batch, A, n] and y [batch, B, n] (batch = 1: one
+// matrix). tile: 128 or 32 (output rows and columns per block). splits:
+// feature slices S; S > 1 needs the scratch part [batch, S, A, B] and adds
+// the reduction launch. sym: x and y are the same matrices (A == B); only
+// the upper tiles are computed. vec: n % 4 == 0 and x, y 16-byte aligned
+// (16-byte loads); otherwise scalar loads.
 DIBS_API int dibs_se_matrix(const float* x, const float* y, float* out,
-                            float* part, int a, int b, int n, int tile,
-                            int splits, int sym, int vec, float h,
+                            float* part, int batch, int a, int b, int n,
+                            int tile, int splits, int sym, int vec, float h,
                             float scale, cudaStream_t stream) {
-  if (a < 0 || b < 0 || n < 0 || splits < 1 || (tile != 128 && tile != 32) ||
-      (splits > 1 && part == nullptr) || (sym && (a != b || x != y)) ||
-      (vec && n % 4 != 0)) {
+  if (batch < 0 || batch > 65535 || a < 0 || b < 0 || n < 0 || splits < 1 ||
+      (tile != 128 && tile != 32) || (splits > 1 && part == nullptr) ||
+      (sym && (a != b || x != y)) || (vec && n % 4 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (a == 0 || b == 0) return 0;
+  if (batch == 0 || a == 0 || b == 0) return 0;
   cudaError_t err =
-      tile == 128 ? launch_tiles<8, 8>(x, y, out, part, a, b, n, splits, sym,
-                                       vec, h, scale, stream)
-                  : launch_tiles<2, 32>(x, y, out, part, a, b, n, splits, sym,
-                                        vec, h, scale, stream);
+      tile == 128 ? launch_tiles<8, 8>(x, y, out, part, batch, a, b, n,
+                                       splits, sym, vec, h, scale, stream)
+                  : launch_tiles<2, 32>(x, y, out, part, batch, a, b, n,
+                                        splits, sym, vec, h, scale, stream);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const int tiles = tile_count(a, b, kRed, sym);
-  se_reduce_kernel<<<tiles, dim3(kRed, 8), 0, stream>>>(
+  se_reduce_kernel<<<dim3(tiles, batch), dim3(kRed, 8), 0, stream>>>(
       part, out, a, b, splits, (b + kRed - 1) / kRed, sym, h, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,6 +47,10 @@
 //   global loads and stores and needs P % 4 == 0, n % 4 == 0 and 16-byte
 //   aligned pointers; the other loads and stores scalars. The wrapper
 //   (ops/transport_kernel.py) chooses.
+// - Fleets (dibs_tpu_torch/fleet.py): `batch` independent families, each
+//   operand with a leading dataset axis, one a gridDim.y slice; each
+//   dataset's blocks do exactly the work of an unbatched launch on its
+//   operands, so each family has that launch's bits.
 // float32 with fused multiply-adds throughout; the -1/P scale and the
 // rank-1 term are applied in registers before the single store.
 #include "common.h"
@@ -95,6 +99,18 @@ __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
                          float c, float c_over_p, float neg_inv_p) {
   __shared__ __align__(16) float as[2][kBk][kBm];
   __shared__ __align__(16) float bs[2][kBk][kBn];
+  {  // this block's dataset
+    const int64_t ds = blockIdx.y;
+    const int64_t pp = static_cast<int64_t>(p) * p;
+    const int64_t pn = static_cast<int64_t>(p) * n;
+    k_own += ds * pp;
+    if (k_other != nullptr) k_other += ds * pp;
+    g += ds * pn;
+    v += ds * pn;
+    out += ds * pn;
+    if (mu != nullptr) mu += ds * n;
+    colsum += ds * p;
+  }
 
   // Eight warps as 2 (rows) x 4 (columns), each warp a 64 x 32 tile, its
   // lanes 8 x 4; a thread owns rows r0 + {0..3, 32..35} and columns
@@ -218,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
 }
 
 template <bool kJoint>
-void launch(int vec, int blocks, int row_tiles, const float* k_own,
+void launch(int vec, dim3 blocks, int row_tiles, const float* k_own,
             const float* k_other, const float* g, const float* v,
             const float* mu, const float* colsum, float* out, int p, int n,
             float c, float c_over_p, float neg_inv_p, cudaStream_t stream) {
@@ -237,31 +253,33 @@ void launch(int vec, int blocks, int row_tiles, const float* k_own,
 
 // phi [P, n] from K_own, K_other [P, P] (K_other may be null: the marginal
 // family), g, v [P, n], mu [n] (may be null) and colsum(K_own) [P]; all
-// row-major float32 on the device; c_over_p is float32(c / P). vec:
-// P % 4 == 0, n % 4 == 0 and every pointer 16-byte aligned (16-byte loads
-// and stores); otherwise scalar ones.
+// row-major float32 on the device; c_over_p is float32(c / P). `batch`
+// families of a fleet: every operand and phi with a leading [batch] axis
+// (1: one family). vec: P % 4 == 0, n % 4 == 0 and every pointer 16-byte
+// aligned (16-byte loads and stores); otherwise scalar ones.
 DIBS_API int dibs_transport_phi(const float* k_own, const float* k_other,
                                 const float* g, const float* v,
                                 const float* mu, const float* colsum,
-                                float* out, int p, int n, float c,
+                                float* out, int batch, int p, int n, float c,
                                 float c_over_p, int vec,
                                 cudaStream_t stream) {
-  if (p < 0 || n < 0 || (vec && (p % 4 != 0 || n % 4 != 0))) {
+  if (batch < 0 || batch > 65535 || p < 0 || n < 0 ||
+      (vec && (p % 4 != 0 || n % 4 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (p == 0 || n == 0) return 0;
+  if (batch == 0 || p == 0 || n == 0) return 0;
   const int row_tiles = (p + kBm - 1) / kBm;
   const int64_t blocks =
       static_cast<int64_t>(row_tiles) * ((n + kBn - 1) / kBn);
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), batch);
   const float neg_inv_p = -1.0f / static_cast<float>(p);
   if (k_other != nullptr) {
-    launch<true>(vec, static_cast<int>(blocks), row_tiles, k_own, k_other, g,
-                 v, mu, colsum, out, p, n, c, c_over_p, neg_inv_p, stream);
+    launch<true>(vec, grid, row_tiles, k_own, k_other, g, v, mu, colsum,
+                 out, p, n, c, c_over_p, neg_inv_p, stream);
   } else {
-    launch<false>(vec, static_cast<int>(blocks), row_tiles, k_own, nullptr,
-                  g, v, mu, colsum, out, p, n, c, c_over_p, neg_inv_p,
-                  stream);
+    launch<false>(vec, grid, row_tiles, k_own, nullptr, g, v, mu, colsum,
+                  out, p, n, c, c_over_p, neg_inv_p, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

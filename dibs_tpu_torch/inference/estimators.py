@@ -23,6 +23,15 @@ likelihood gradients in the fused kernels of :mod:`dibs_tpu_torch.inference.
 fused_linear` (``LinearGaussian``) or :mod:`dibs_tpu_torch.inference.
 fused_nonlinear` (one-hidden-layer ``DenseNonlinearGaussian``).
 
+A fleet (:mod:`dibs_tpu_torch.fleet`) builds the marginal estimators on
+``B_ds`` datasets at once: ``x`` and ``interv_mask`` carry a leading
+dataset axis, the particle batch is the ``B_ds * P`` particles in dataset
+order, and ``seed`` is the ``[B_ds]`` int64 keys, so each dataset's samples
+are those of a single run keyed by its key. Only the data-dependent hook
+sees the dataset axis (each dataset's ``P * M`` hard samples scored on its
+own data, every dataset in one call); the REINFORCE ratio, its baseline,
+the latent prior and the graph prior work per particle as they are.
+
 Estimator maths (as the reference): the self-normalized ratio
 
     grad log E_{p(G|Z)}[p(D | G)] = E[p(D|G) grad log p(G|Z)] / E[p(D|G)]
@@ -163,8 +172,10 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         cfg: static estimator hyperparameters
         log_graph_prior: ``soft_g [..., d, d] -> [...]`` graph-prior
             log-density on edge probabilities (autograd-differentiable)
-        x: ``[N, d]`` observations
-        interv_mask: ``[N, d]`` intervention indicators
+        x: ``[N, d]`` observations (a fleet's ``[B_ds, N, d]``: marginal
+            estimators only)
+        interv_mask: ``[N, d]`` intervention indicators (a fleet's
+            ``[B_ds, N, d]``)
         batched_node_log_joint_prob: ``(gs [B, d, d], theta, x, interv_mask,
             rng) -> [B, d]`` per-node scores (row sums are the graphs'
             marginal log-likelihoods); the hook of marginal ``score`` and
@@ -209,16 +220,24 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     if fused_sample_sharing not in (None, "hard"):
         raise ValueError(f"fused_sample_sharing must be None or 'hard'; got "
                          f"{fused_sample_sharing!r}")
+    if x.dim() == 3 and log_joint_prob is not None:
+        raise ValueError("a fleet's estimators serve marginal inference "
+                         "only (joint fleets: ROADMAP.md queue 1, slice 5b "
+                         "step B)")
     n_mc = cfg.n_grad_mc_samples
 
     def _hard_samples(zs, t, seed, stream, eps):
         return sample_hard_graphs(edge_scores(zs), seed, stream, cfg.alpha(t),
                                   n_mc, eps=eps)
 
+    # a fleet's hook takes each dataset's graphs on its own axis
+    graphs_lead = (x.shape[0],) if x.dim() == 3 else ()
+
     def _node_scores(g_all):
         p_n, m_n, d_n = g_all.shape[:3]
         return batched_node_log_joint_prob(
-            g_all.reshape(p_n * m_n, d_n, d_n), None, x, interv_mask, None,
+            g_all.reshape(*graphs_lead, -1, d_n, d_n), None, x, interv_mask,
+            None,
         ).reshape(p_n, m_n, d_n)
 
     # --- REINFORCE with the signed linear-space EMA control variate ---

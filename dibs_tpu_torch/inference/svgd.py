@@ -17,6 +17,13 @@ draws its noise inside the kernels from counter-based streams of that seed:
   noise)`` can take ``(eps_soft [P, M, d, d], eps_hard [P, M, d, d],
   eps_acyc [P, K, d, d])``, ``eps_soft`` the Z estimator's noise.
 
+A fleet (:mod:`dibs_tpu_torch.fleet`) steps ``B_ds`` datasets of one
+``MarginalDiBS`` at once: ``MarginalDiBS._make_fleet_phi`` and
+``_make_step(..., phi_fn=)`` take a state whose tensors lead with ``[B_ds,
+...]`` and whose ``seed`` is the ``[B_ds]`` int64 keys, with the same
+streams a step; the noise pair is ``(eps_hard [B_ds, P, M, d, d], eps_soft
+[B_ds, P, K, d, d])``.
+
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
 where CUDA is absent). ``theta`` is the likelihood's parameter tree
 (:mod:`dibs_tpu_torch.utils.tree`): ``[P, d, d]`` for ``LinearGaussian``,
@@ -33,6 +40,7 @@ from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from dibs_tpu_torch.inference.estimators import EstimatorConfig, make_estimators
 from dibs_tpu_torch.inference.optimizers import get_optimizer
 from dibs_tpu_torch.inference.transport import (
+    fleet_marginal_transport,
     joint_transport,
     marginal_transport,
 )
@@ -54,7 +62,7 @@ class SVGDState(NamedTuple):
     ``None`` for marginal inference)."""
 
     t: int  # step counter
-    seed: int  # key of the counter-based noise streams
+    seed: Any  # key of the noise streams: an int (a fleet: [B_ds] int64)
     z: torch.Tensor  # [n_particles, d, k, 2]
     theta: Any
     opt_state_z: Any
@@ -316,9 +324,43 @@ class MarginalDiBS(DiBS):
 
         return phi
 
-    def _make_step(self, latent_prior_std) -> Callable:
-        """``step(state, noise=None) -> state``."""
-        phi_fn, opt = self._make_phi(latent_prior_std), self.opt
+    def _make_fleet_phi(self, xs, interv_masks, latent_prior_std) -> Callable:
+        """``phi(state, noise=None) -> (phi_z, sf_baseline)`` of a fleet on
+        the datasets ``xs [B_ds, N, d]`` (masks alike): one batched step,
+        each kernel launched as often as in one dataset's step. ``state.z``
+        is ``[B_ds, P, d, k, 2]``, ``state.sf_baseline`` ``[B_ds, P]`` and
+        ``state.seed`` the ``[B_ds]`` int64 keys on the device; dataset
+        ``i``'s ``phi`` is that of a single run on ``xs[i]`` keyed
+        ``seed[i]``."""
+        est = make_estimators(
+            cfg=self.cfg, log_graph_prior=self.log_graph_prior, x=xs,
+            interv_mask=interv_masks,
+            batched_node_log_joint_prob=self.batched_node_log_joint_prob)
+        kernel = self.kernel
+
+        def phi(state: SVGDState, noise=None):
+            n_ds, p = state.z.shape[:2]
+            z = state.z.reshape(n_ds * p, *state.z.shape[2:])
+            eps_hard, eps_soft = (None, None) if noise is None else (
+                e.reshape(n_ds * p, *e.shape[2:]) for e in noise)
+            stream = 2 * state.t
+            dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
+                z, None, state.sf_baseline.reshape(n_ds * p), state.t,
+                state.seed, stream, eps=eps_hard)
+            dz_prior = est.eltwise_grad_latent_prior(
+                z, state.t, state.seed, stream + 1, latent_prior_std,
+                eps=eps_soft)
+            dz = (dz_prior + dz_lik).reshape(state.z.shape)
+            return (fleet_marginal_transport(kernel, state.z, dz),
+                    sf_baseline.reshape(n_ds, p))
+
+        return phi
+
+    def _make_step(self, latent_prior_std, phi_fn=None) -> Callable:
+        """``step(state, noise=None) -> state`` (a fleet's with its
+        ``phi_fn`` from :meth:`_make_fleet_phi`)."""
+        phi_fn = phi_fn or self._make_phi(latent_prior_std)
+        opt = self.opt
 
         def step(state: SVGDState, noise=None) -> SVGDState:
             _check_precision()

@@ -18,13 +18,22 @@ autodiff path. The transport is negated, so a minimizing optimizer ascends
 the target. The two-matmul route and the plain version of #4 run their
 matmuls at :func:`~dibs_tpu_torch.config.transport_matmul_precision`;
 kernel #4 computes in float32 whatever it is set to.
+
+:func:`fleet_marginal_transport` is the marginal transport of a fleet
+(:mod:`dibs_tpu_torch.fleet`): ``B_ds`` independent families with a leading
+dataset axis, each dataset's SE matrix (#3) and family (#4) from one launch
+each, or, for ``h="median"``, the two-matmul route batched over the
+datasets with each dataset's own bandwidth.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.func import grad, vmap
 
 from dibs_tpu_torch.config import matmul_precision, transport_matmul_precision
+from dibs_tpu_torch.ops.gpu_kernels import se_matrix
 from dibs_tpu_torch.ops.transport_kernel import (
     transport_phi,
     transport_phi_available,
@@ -36,7 +45,8 @@ from dibs_tpu_torch.utils.tree import (
     tree_unflatten,
 )
 
-__all__ = ["marginal_transport", "joint_transport"]
+__all__ = ["marginal_transport", "joint_transport",
+           "fleet_marginal_transport"]
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
@@ -100,6 +110,46 @@ def marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
         phi = _weighted_scores(k_mat, dz) + _se_repulsion(k_mat, factor, z)
         return -phi / n_particles
     return _marginal_transport_autodiff(kernel, z, dz)
+
+
+def fleet_marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
+    """Transports ``phi_z [B_ds, P, d, k, 2]`` of ``B_ds`` independent
+    datasets: each dataset's is :func:`marginal_transport` of its own
+    particles. Serves :class:`~dibs_tpu_torch.kernel.
+    AdditiveFrobeniusSEKernel` (a float bandwidth through kernels #3 and #4,
+    ``"median"`` through batched matmuls); raises ``ValueError`` for other
+    kernels."""
+    h = getattr(kernel, "h", None)
+    if not (hasattr(kernel, "matrix_and_grad_factor")
+            and (isinstance(h, (int, float)) or h == "median")):
+        raise ValueError("a fleet's transport serves AdditiveFrobeniusSE"
+                         f"Kernel with a float bandwidth or 'median', not "
+                         f"{type(kernel).__name__}")
+    n_ds, p = z.shape[:2]
+    vf = z.reshape(n_ds, p, -1).contiguous()
+    gf = dz.reshape(n_ds, p, -1).contiguous()
+    if h != "median":
+        k_mat = se_matrix(vf, vf, float(h), float(kernel.scale))
+        mu = vf.mean(dim=1, keepdim=True)
+        with _precision():  # reaches the plain version's matmuls only
+            return transport_phi(k_mat, None, gf, vf, c=-2.0 / float(h),
+                                 mu=mu).reshape(z.shape)
+    # the median heuristic, per dataset (as pytree_sq_norm_matrix and
+    # kernel._median_bandwidth compute it for one)
+    sq_norm = (vf * vf).sum(-1)
+    with _precision():
+        sq = sq_norm[:, :, None] + sq_norm[:, None, :] - 2.0 * (
+            vf @ vf.transpose(-1, -2))
+    sq = torch.clamp(sq, min=0.0)
+    sq = sq * (1.0 - torch.eye(p, dtype=sq.dtype, device=sq.device))
+    med = torch.quantile(sq.reshape(n_ds, -1), 0.5, dim=1)
+    h_eff = torch.clamp(med / math.log(p + 1.0), min=1e-5)[:, None, None]
+    k_mat = kernel.scale * torch.exp(-sq / h_eff)
+    vc = vf - vf.mean(dim=1, keepdim=True)
+    with _precision():
+        phi = k_mat.transpose(-1, -2) @ gf + (-2.0 / h_eff) * (
+            k_mat.transpose(-1, -2) @ vc - k_mat.sum(dim=1)[..., None] * vc)
+    return (-phi / p).reshape(z.shape)
 
 
 def _marginal_transport_autodiff(kernel, z, dz):

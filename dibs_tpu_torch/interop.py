@@ -15,7 +15,8 @@ from dibs_tpu_torch.inference.svgd import SVGDState
 from dibs_tpu_torch.models.linear_gaussian import BGe, LinearGaussian
 from dibs_tpu_torch.models.nonlinear_gaussian import DenseNonlinearGaussian
 
-__all__ = ["state_from_reference", "bge_from_reference",
+__all__ = ["state_from_reference", "fleet_state_from_reference",
+           "bge_from_reference",
            "linear_gaussian_from_reference",
            "nonlinear_gaussian_from_reference", "params_from_reference",
            "target_from_reference"]
@@ -54,6 +55,31 @@ def state_from_reference(*, z, nu, sf_baseline, t, seed: int, theta=None,
             nu=params_from_reference(nu_theta, device)),)
                          if joint else None),
         sf_baseline=_tensor(sf_baseline, device))
+
+
+def fleet_state_from_reference(state, *, seeds,
+                               device=DEFAULT_DEVICE) -> SVGDState:
+    """The port's fleet state from the reference's stacked marginal
+    :class:`SVGDState` (``dibs_tpu.fleet.fleet_sample(...,
+    return_states=True)``, its arrays as numpy with a leading dataset
+    axis): ``z``, rmsprop ``nu``, ``sf_baseline`` and the common ``t``. The
+    reference's per-dataset PRNG keys have no counterpart; ``seeds`` (``[B]``
+    ints) key the port's noise streams."""
+    device = resolve_device(device)
+    steps = np.unique(np.asarray(state.t))
+    if steps.size != 1:
+        raise ValueError(f"a fleet's datasets share one step counter, got "
+                         f"{steps.tolist()}")
+    if state.theta is not None:
+        raise ValueError("fleet_state_from_reference serves marginal states "
+                         "(the joint fleet is not ported yet)")
+    return SVGDState(
+        t=int(steps[0]),
+        seed=torch.as_tensor(np.asarray(seeds, dtype=np.int64)).to(device),
+        z=_tensor(state.z, device), theta=None,
+        opt_state_z=(ScaleByRmsState(nu=_tensor(state.opt_state_z[0].nu,
+                                                device)),),
+        opt_state_theta=None, sf_baseline=_tensor(state.sf_baseline, device))
 
 
 def bge_from_reference(*, n_vars, mean_obs, alpha_mu, alpha_lambd,

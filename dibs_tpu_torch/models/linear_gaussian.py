@@ -97,7 +97,9 @@ class BGe:
         return (self.alpha_mu * (self.alpha_lambd - d - 1)) / (self.alpha_mu + 1)
 
     def _posterior_r_mats(self, x, interv_targets):
-        """Per-node posterior matrices ``R_j [d, d, d]`` and row counts ``[d]``.
+        """Per-node posterior matrices ``R_j [d, d, d]`` and row counts ``[d]``
+        (a fleet's ``[B_ds, N, d]`` data: ``[B_ds, d, d, d]`` and ``[B_ds,
+        d]``, one set a dataset).
 
         ``R_j = T + S_N + (N alpha_mu / (N + alpha_mu)) (xbar - mu)(xbar - mu)^T``
         over the rows where node ``j`` was not intervened. Accumulated in
@@ -107,19 +109,20 @@ class BGe:
         d = self.n_vars
         x = x.to(torch.float64)
         t_mat = self._small_t() * torch.eye(d, dtype=x.dtype, device=x.device)
-        keep = 1.0 - interv_targets.to(x.dtype)  # [N, d]
-        n_obs = keep.sum(0)
+        keep = 1.0 - interv_targets.to(x.dtype)  # [..., N, d]
+        n_obs = keep.sum(-2)
         zero = _isclose0(n_obs)
-        sums = torch.einsum("nj,nd->jd", keep, x)
+        sums = torch.einsum("...nj,...nd->...jd", keep, x)
         safe_n = torch.where(zero, torch.ones_like(n_obs), n_obs)
-        x_bar = torch.where(zero[:, None], torch.zeros_like(sums),
-                            sums / safe_n[:, None])
-        x_center = (x[None, :, :] - x_bar[:, None, :]) * keep.T[:, :, None]
-        s_n = torch.einsum("jnd,jne->jde", x_center, x_center)
-        mean_diff = x_bar - self.mean_obs.to(x.dtype)[None, :]
+        x_bar = torch.where(zero[..., None], torch.zeros_like(sums),
+                            sums / safe_n[..., None])
+        x_center = ((x[..., None, :, :] - x_bar[..., :, None, :])
+                    * keep.transpose(-1, -2)[..., :, :, None])
+        s_n = torch.einsum("...jnd,...jne->...jde", x_center, x_center)
+        mean_diff = x_bar - self.mean_obs.to(x.dtype)
         scale = (n_obs * self.alpha_mu) / (n_obs + self.alpha_mu)
-        outer = torch.einsum("jd,je->jde", mean_diff, mean_diff)
-        r_mats = t_mat[None] + s_n + scale[:, None, None] * outer
+        outer = torch.einsum("...jd,...je->...jde", mean_diff, mean_diff)
+        r_mats = t_mat + s_n + scale[..., None, None] * outer
         return r_mats.float(), n_obs.float()
 
     def _score(self, n_obs, n_parents, logdet_pa, logdet_paj):
@@ -171,23 +174,39 @@ class BGe:
         determinant pairs of the whole batch come from one
         :func:`bge_logdet_pairs` call; elsewhere from
         :func:`masked_logdet_pd_pair` over every (graph, node), past d = 64
-        in graph chunks of at most ``_BGE_CHUNK_ELEMS`` masked floats."""
+        in graph chunks of at most ``_BGE_CHUNK_ELEMS`` masked floats.
+
+        A fleet passes ``x`` and ``interv_targets`` with a leading dataset
+        axis, ``[B_ds, N, d]``, and ``gs`` as ``[B_ds, G, d, d]``; it gets
+        ``[B_ds, G, d]``, each dataset's graphs scored on its own data, the
+        kernel's pairs of every dataset from one launch."""
         r_mats, n_obs = self._posterior_r_mats(x, interv_targets)
-        gs = gs.to(torch.float32).contiguous()
         d = self.n_vars
+        fleet = x.dim() == 3
+        gs = gs.to(torch.float32).contiguous()
+        if fleet and (gs.dim() != 4 or gs.shape[0] != x.shape[0]):
+            raise ValueError(f"a fleet's graphs must be [{x.shape[0]}, G, "
+                             f"{d}, {d}], got {tuple(gs.shape)}")
         if 2 <= d <= BGE_MAX_D:
-            logdet_pa, logdet_paj = bge_logdet_pairs(r_mats.contiguous(), gs)
+            logdet_pa, logdet_paj = bge_logdet_pairs(r_mats.contiguous(),
+                                                     gs.reshape(-1, d, d))
+            logdet_pa = logdet_pa.reshape(gs.shape[:-1])
+            logdet_paj = logdet_paj.reshape(gs.shape[:-1])
         else:
             # node j's parents are column j: row j of the transposed graphs
             eye = torch.eye(d, dtype=r_mats.dtype, device=r_mats.device)
-            per_chunk = (max(1, _BGE_CHUNK_ELEMS // d ** 3) if d > 64
-                         else max(1, gs.shape[0]))
-            pairs = [masked_logdet_pd_pair(r_mats, chunk.transpose(-1, -2),
+            sets = r_mats[:, None] if fleet else r_mats
+            n_sets = x.shape[0] if fleet else 1
+            axis = gs.dim() - 3  # the graphs' axis
+            per_chunk = (max(1, _BGE_CHUNK_ELEMS // (n_sets * d ** 3))
+                         if d > 64 else max(1, gs.shape[axis]))
+            pairs = [masked_logdet_pd_pair(sets, chunk.transpose(-1, -2),
                                            eye)
-                     for chunk in gs.split(per_chunk)]
-            logdet_pa = torch.cat([pa for pa, _ in pairs])
-            logdet_paj = torch.cat([paj for _, paj in pairs])
-        return self._score(n_obs[None, :], gs.sum(-2), logdet_pa, logdet_paj)
+                     for chunk in gs.split(per_chunk, dim=axis)]
+            logdet_pa = torch.cat([pa for pa, _ in pairs], dim=axis)
+            logdet_paj = torch.cat([paj for _, paj in pairs], dim=axis)
+        return self._score(n_obs[..., None, :], gs.sum(-2), logdet_pa,
+                           logdet_paj)
 
     def log_marginal_likelihood(self, *, g, x, interv_targets):
         """Closed-form BGe marginal likelihood ``log p(D | G)``."""

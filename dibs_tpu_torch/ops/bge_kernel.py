@@ -9,7 +9,10 @@ matrix ``R_j``, it returns ``logdet R_j[Pa, Pa]`` and
 :func:`dibs_tpu_torch.ops.gpu_kernels.bge_pairs_plan` names for its parent
 count). Forward only: the REINFORCE estimators treat graph samples as
 constants. Serves ``2 <= d <= 128``; an all-zero mask gives
-``logdet_pa == 0``.
+``logdet_pa == 0``. A fleet (:mod:`dibs_tpu_torch.fleet`) passes one set of
+posterior matrices a dataset, ``[B_ds, d, d, d]``, with its graphs in
+dataset order: graph ``g`` reads the set of dataset ``g // (B / B_ds)``, in
+one launch.
 """
 from __future__ import annotations
 
@@ -32,20 +35,40 @@ __all__ = ["BGE_MAX_D", "bge_logdet_pairs", "bge_logdet_pairs_plain"]
 BGE_MAX_D = 128
 
 
+def _dataset_sets(r_mats: torch.Tensor, b: int, d: int):
+    """``r_mats`` as ``[B_ds, d, d, d]`` and the graphs a dataset; raises
+    ``ValueError`` for any other shape or a batch that does not split."""
+    if r_mats.dim() not in (3, 4) or tuple(r_mats.shape[-3:]) != (d, d, d):
+        raise ValueError(f"r_mats must be {(d, d, d)} or [B_ds, {d}, {d}, "
+                         f"{d}], got {tuple(r_mats.shape)}")
+    sets = r_mats.reshape(-1, d, d, d)
+    if b % sets.shape[0]:
+        raise ValueError(f"{b} graphs do not split into {sets.shape[0]} "
+                         "datasets")
+    return sets, b // sets.shape[0]
+
+
 def bge_logdet_pairs_plain(r_mats: torch.Tensor, gs: torch.Tensor):
     """Plain twin: the kernel's bordered-Schur sweep on ``[B, d, d, d]``
     masked matrices, one pivot per step over the whole batch, with the
     kernel's float32 operations in the kernel's order and the log-pivots
-    summed in float64."""
+    summed in float64. ``r_mats`` is ``[d, d, d]`` or a fleet's ``[B_ds, d,
+    d, d]`` (graph ``g`` of dataset ``g // (B / B_ds)``); every operation is
+    elementwise per graph, so each dataset's pairs are bitwise those of a
+    call on its graphs alone."""
     b, d, _ = gs.shape
+    sets, gpd = _dataset_sets(r_mats, b, d)
+    n_ds = sets.shape[0]
     m = gs.transpose(1, 2)  # [B, j, r]: parent mask of node j
     mm = m[..., :, None] * m[..., None, :]  # [B, j, r, c]
     eye = torch.eye(d, dtype=r_mats.dtype, device=r_mats.device)
-    a = r_mats[None] * mm + eye * (1.0 - mm)
-    jj = torch.arange(d, device=r_mats.device)
-    r_col = r_mats[jj, :, jj]  # [j, r] = R_j[r, j]
-    v = r_col[None] * m  # [B, j, r]
-    s = r_mats[jj, jj, jj].expand(b, d)
+    a = (sets[:, None] * mm.view(n_ds, gpd, d, d, d)
+         + eye * (1.0 - mm.view(n_ds, gpd, d, d, d))).reshape(b, d, d, d)
+    # [B_ds, j, r] = R_j[r, j] of each dataset
+    r_col = sets.diagonal(dim1=1, dim2=3).transpose(-1, -2)
+    v = (r_col[:, None] * m.reshape(n_ds, gpd, d, d)).reshape(b, d, d)
+    s = sets.diagonal(dim1=1, dim2=2).diagonal(dim1=1, dim2=2)  # R_j[j, j]
+    s = s[:, None].expand(n_ds, gpd, d).reshape(b, d)
     acc = torch.zeros((b, d), dtype=torch.float64, device=r_mats.device)
     for i in range(d):
         pivot = a[..., i, i]
@@ -65,9 +88,11 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
     """Batched BGe determinant pairs.
 
     Args:
-        r_mats: ``[d, d, d]`` per-node posterior matrices ``R_j`` (PD)
+        r_mats: ``[d, d, d]`` per-node posterior matrices ``R_j`` (PD), or
+            a fleet's ``[B_ds, d, d, d]``, one set a dataset
         gs: ``[B, d, d]`` adjacency samples; node ``j``'s parents are the
-            column ``gs[:, :, j]``
+            column ``gs[:, :, j]``; with ``B_ds`` sets, ``B / B_ds`` graphs
+            a dataset, in dataset order
 
     Returns:
         ``(logdet_pa, logdet_full)``, each ``[B, d]``.
@@ -76,9 +101,7 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
     if not 2 <= d <= BGE_MAX_D:
         raise ValueError(f"bge_logdet_pairs serves 2 <= d <= {BGE_MAX_D}, "
                          f"got d={d}")
-    if tuple(r_mats.shape) != (d, d, d):
-        raise ValueError(f"r_mats must be {(d, d, d)}, got "
-                         f"{tuple(r_mats.shape)}")
+    _, gpd = _dataset_sets(r_mats, b, d)
     if not use_kernel(gs):
         return bge_logdet_pairs_plain(r_mats, gs)
     _check_cuda("bge_pairs", r_mats, gs)
@@ -102,6 +125,7 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
             out_full.data_ptr(),
             *(None if t is None else t.data_ptr()
               for t in (words, soft, counters)),
-            b, d, (ctypes.c_int * len(plan))(*plan), _stream(gs.device))
+            b, max(1, gpd), d, (ctypes.c_int * len(plan))(*plan),
+            _stream(gs.device))
     _check_launch(lib, rc, "bge_pairs")
     return out_pa, out_full

@@ -53,6 +53,7 @@ __all__ = [
     "gumbel_graphs",
     "gumbel_graphs_plain",
     "gumbel_plan",
+    "fleet_particles",
     "philox_uniform",
     "se_matrix",
     "se_matrix_plain",
@@ -149,15 +150,16 @@ def build() -> ctypes.CDLL:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
     lib.dibs_gumbel_graphs.argtypes = [vp, vp, vp, i64, i32, i32,
-                                       ctypes.c_uint64, ctypes.c_uint32, f32,
-                                       f32, i32, i32, i32, i32, vp]
+                                       ctypes.c_uint64, vp, i32,
+                                       ctypes.c_uint32, f32, f32, i32, i32,
+                                       i32, i32, vp]
     lib.dibs_gumbel_graphs.restype = i32
-    lib.dibs_bge_pairs.argtypes = [vp] * 7 + [i32, i32,
+    lib.dibs_bge_pairs.argtypes = [vp] * 7 + [i32, i32, i32,
                                               ctypes.POINTER(i32), vp]
     lib.dibs_bge_pairs.restype = i32
     lib.dibs_bge_pairs_smem_bytes.argtypes = [i32, i32]
     lib.dibs_bge_pairs_smem_bytes.restype = i32
-    lib.dibs_se_matrix.argtypes = [vp] * 4 + [i32] * 7 + [f32, f32, vp]
+    lib.dibs_se_matrix.argtypes = [vp] * 4 + [i32] * 8 + [f32, f32, vp]
     lib.dibs_se_matrix.restype = i32
     lib.dibs_se_matrix_slots.argtypes = [i32, ctypes.POINTER(i32)]
     lib.dibs_se_matrix_slots.restype = i32
@@ -184,8 +186,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear_wide_pass1_group.restype = i32
     lib.dibs_fused_linear_wide_pass2_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_wide_pass2_smem_bytes.restype = ctypes.c_size_t
-    lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, f32, f32, i32,
-                                               vp]
+    lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, i32, f32, f32,
+                                               i32, vp]
     lib.dibs_transport_phi.restype = i32
     lib.dibs_fused_nonlinear.argtypes = ([vp] * 14 + [i32] * 10
                                          + [ctypes.c_uint64, u32, u32, f32,
@@ -258,9 +260,10 @@ def _mulhilo(a: int, b: torch.Tensor):
     return (p_hi >> 16) + (low >> 32), low & _MASK32
 
 
-def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+def philox4x32(c0, c1, c2, c3, k0, k1):
     """Philox4x32-10 on int64 tensors holding 32-bit counter words; the key
-    is bumped before every round but the first (Random123's schedule)."""
+    words (ints, or int64 tensors that broadcast against the counters) are
+    bumped before every round but the first (Random123's schedule)."""
     for r in range(10):
         if r:
             k0 = (k0 + _PHILOX_W[0]) & _MASK32
@@ -271,27 +274,57 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_uniform(shape, seed: int, stream: int, device) -> torch.Tensor:
+def _key_words(seed, b: int, device):
+    """Philox key words ``(k0, k1)`` of a batch of ``b`` particles: ints
+    for an int ``seed``; for a fleet's ``[B_ds]`` int64 keys (``b`` a
+    multiple of ``B_ds``), ``[b, 1, 1, 1]`` tensors holding each particle's
+    dataset key. Also returns the particle counters (the index within the
+    dataset)."""
+    kw = dict(dtype=torch.int64, device=device)
+    particle = torch.arange(b, **kw)
+    if not isinstance(seed, torch.Tensor):
+        return seed & _MASK32, (seed >> 32) & _MASK32, particle
+    keys = seed.to(**kw).reshape(-1)
+    per = fleet_particles(b, keys.numel())
+    ds = particle // per
+    key = keys[ds].view(b, 1, 1, 1)
+    return key & _MASK32, (key >> 32) & _MASK32, particle - ds * per
+
+
+def fleet_particles(batch: int, n_keys: int) -> int:
+    """Particles a dataset of a fleet's ``batch`` under ``n_keys`` keys;
+    raises ``ValueError`` unless ``n_keys`` divides ``batch``."""
+    if n_keys < 1 or batch % n_keys:
+        raise ValueError(f"a fleet's batch of {batch} particles does not "
+                         f"split into {n_keys} datasets")
+    return batch // n_keys
+
+
+def philox_uniform(shape, seed, stream: int, device) -> torch.Tensor:
     """The sampler kernel's uniforms for a ``[B, M, d, d]`` output, in
     PyTorch: Philox4x32-10 with counter (element, sample, particle, stream)
-    and key = ``seed``; top 24 bits, half-ulp offset, clamp at 1 - 2^-23."""
+    and key = ``seed``; top 24 bits, half-ulp offset, clamp at 1 - 2^-23.
+    ``seed`` may be a fleet's ``[B_ds]`` int64 keys: particle ``b`` then
+    takes key ``seed[b // per]`` and counter ``b % per`` (``per = B /
+    B_ds``), as the kernel does."""
     b, m, d, _ = shape
+    k0, k1, particle = _key_words(seed, b, device)
     kw = dict(dtype=torch.int64, device=device)
     c0 = torch.arange(d * d, **kw).view(1, 1, d, d).expand(b, m, d, d)
     c1 = torch.arange(m, **kw).view(1, m, 1, 1).expand(b, m, d, d)
-    c2 = torch.arange(b, **kw).view(b, 1, 1, 1).expand(b, m, d, d)
+    c2 = particle.view(b, 1, 1, 1).expand(b, m, d, d)
     c3 = torch.full((b, m, d, d), stream & _MASK32, **kw)
-    word0 = philox4x32(c0, c1, c2, c3, seed & _MASK32,
-                       (seed >> 32) & _MASK32)[0]
+    word0 = philox4x32(c0, c1, c2, c3, k0, k1)[0]
     top = (word0 >> 8).to(torch.float32)
     u = top * (1.0 / (1 << 24)) + 0.5 / (1 << 24)
     return torch.clamp(u, max=1.0 - 2.0 ** -23)
 
 
-def gumbel_graphs_plain(scores: torch.Tensor, seed: int, stream: int,
+def gumbel_graphs_plain(scores: torch.Tensor, seed, stream: int,
                         alpha: float, tau: float, n_samples: int, hard: bool,
                         eps: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch twin of the sampler kernel (same noise, same maths)."""
+    """Plain PyTorch twin of the sampler kernel (same noise, same maths;
+    ``seed`` an int or a fleet's ``[B_ds]`` keys)."""
     b, d, _ = scores.shape
     if eps is None:
         u = philox_uniform((b, n_samples, d, d), seed, stream, scores.device)
@@ -335,7 +368,7 @@ def gumbel_plan(batch: int, n_samples: int, d: int, aligned: bool,
                       (-(-units // _GUMBEL_THREADS), -(-n_samples // group)))
 
 
-def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
+def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
                   tau: float, n_samples: int, hard: bool,
                   eps: torch.Tensor | None = None) -> torch.Tensor:
     """``[B, d, d]`` scores -> ``[B, n_samples, d, d]`` Gumbel graph samples.
@@ -345,7 +378,10 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
     noise is Logistic(0, 1) drawn in the kernel from (``seed``, ``stream``),
     or the injected ``eps [B, n_samples, d, d]``. Any ``d >= 1``. Soft
     samples at ``tau == 1`` with in-kernel noise take the kernel's fast
-    form, within a few float32 ulps of the twin's log form.
+    form, within a few float32 ulps of the twin's log form. ``seed`` is an
+    int, or a fleet's ``[B_ds]`` int64 keys (on the scores' device for the
+    kernel) over ``B_ds`` datasets of ``B / B_ds`` particles: each dataset
+    then draws what a single batch keyed by its key draws.
     """
     if not use_kernel(scores):
         return gumbel_graphs_plain(scores, seed, stream, alpha, tau,
@@ -359,6 +395,15 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
         if tuple(eps.shape) != (b, n_samples, d, d):
             raise ValueError(f"eps must be {(b, n_samples, d, d)}, got "
                              f"{tuple(eps.shape)}")
+    keys, per = None, 0
+    if isinstance(seed, torch.Tensor):
+        keys = seed.reshape(-1)
+        per = fleet_particles(b, keys.numel())
+        if (keys.device != scores.device or keys.dtype != torch.int64
+                or not keys.is_contiguous()):
+            raise ValueError("gumbel_graphs: a fleet's keys must be a "
+                             "contiguous int64 tensor on the scores' device")
+        seed = 0
     lib = build()
     out = torch.empty((b, n_samples, d, d), dtype=torch.float32,
                       device=scores.device)
@@ -370,7 +415,8 @@ def gumbel_graphs(scores: torch.Tensor, seed: int, stream: int, alpha: float,
         rc = lib.dibs_gumbel_graphs(
             scores.data_ptr(), None if eps is None else eps.data_ptr(),
             out.data_ptr(), b, n_samples, d, seed & 0xFFFFFFFFFFFFFFFF,
-            stream & _MASK32, float(alpha), float(tau), int(bool(hard)),
+            None if keys is None else keys.data_ptr(), per, stream & _MASK32,
+            float(alpha), float(tau), int(bool(hard)),
             plan.vec, plan.threads, plan.group, _stream(scores.device))
     _check_launch(lib, rc, "gumbel_graphs")
     return out
@@ -461,7 +507,12 @@ def se_matrix_plain(x: torch.Tensor, y: torch.Tensor, h: float,
                     scale: float) -> torch.Tensor:
     """Plain twin: ``scale * exp(-||x_i - y_j||^2 / h)`` in difference form,
     over row chunks that keep the ``[rows, B, n]`` difference near 2^26
-    floats (config 5's ``[1000, 1000]`` over 32,768 would be 122 GiB)."""
+    floats (config 5's ``[1000, 1000]`` over 32,768 would be 122 GiB). A
+    fleet's ``[B_ds, A, n]`` and ``[B_ds, B, n]`` give ``[B_ds, A, B]``,
+    each dataset's matrix from this twin on its operands alone."""
+    if x.dim() == 3:
+        return torch.stack([se_matrix_plain(xi, yi, h, scale)
+                            for xi, yi in zip(x, y)])
     rows = max(1, _PLAIN_SE_FLOATS // max(1, y.shape[0] * x.shape[1]))
     sq = torch.cat([torch.square(x[i:i + rows, None, :] - y[None]).sum(-1)
                     for i in range(0, x.shape[0], rows)]
@@ -551,30 +602,38 @@ def se_matrix(x: torch.Tensor, y: torch.Tensor, h: float,
     only and mirrors them, so the result is exactly symmetric with the
     diagonal exactly ``scale``. Where the tiles fill less than two waves
     the features are split (:func:`se_split`) and summed by a second
-    launch, in a fixed order."""
-    if not use_kernel(x):
-        return se_matrix_plain(x, y, h, scale)
-    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+    launch, in a fixed order. A fleet's ``[B_ds, A, n]`` and ``[B_ds, B,
+    n]`` give ``[B_ds, A, B]`` in one launch (a grid axis over the
+    datasets); the tile and the split are chosen from one dataset's shape,
+    so each matrix has the bits of the unbatched call on its operands."""
+    if (x.dim() not in (2, 3) or y.dim() != x.dim()
+            or x.shape[-1] != y.shape[-1]
+            or (x.dim() == 3 and x.shape[0] != y.shape[0])):
         raise ValueError(f"se_matrix: bad shapes {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
+    if not use_kernel(x):
+        return se_matrix_plain(x, y, h, scale)
     _check_cuda("se_matrix", x, y)
     lib = build()
     sym = y is x
-    (a, n), b = x.shape, y.shape[0]
+    lead = tuple(x.shape[:-2])
+    batch = x.shape[0] if lead else 1
+    (a, n), b = x.shape[-2:], y.shape[-2]
     tile = se_tile_size(a, b)
     splits = 1
     if a and b:
         splits = se_split(se_tile_count(a, b, sym, tile), n,
                           _slots(lib, x.device, tile))
     vec = n % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    out = torch.empty((a, b), dtype=torch.float32, device=x.device)
-    part = (torch.empty((splits, a, b), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    out = torch.empty((*lead, a, b), dtype=torch.float32, device=x.device)
+    part = (torch.empty((batch, splits, a, b), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
     with torch.cuda.device(x.device):
         rc = lib.dibs_se_matrix(
             x.data_ptr(), y.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(), a, b, n, tile, splits,
-            int(sym), int(vec), float(h), float(scale), _stream(x.device))
+            None if part is None else part.data_ptr(), batch, a, b, n, tile,
+            splits, int(sym), int(vec), float(h), float(scale),
+            _stream(x.device))
     _check_launch(lib, rc, "se_matrix")
     return out
 
