@@ -94,6 +94,21 @@ Phases, one line each; any failure exits non-zero:
    the j-last masked matrices (one chunk, scaled up); then a 10-step
    profile.
 
+13. the fleet (``dibs_tpu_torch.fleet``): (a) kernels #1-#8 with a
+   dataset axis at B = 1, 3, 8 and 32 datasets of the headline and joint
+   shapes, against their plain twins with the axis (#1 exact off ties,
+   #2 bitwise at d = 20, 32, 33, 64, 128) and their unbatched launches on
+   each dataset (#1-#3 bitwise), timed at the fleet sizes beside B
+   unbatched launches, the twin, the bound and a batched library call;
+   (b) ``MarginalDiBS`` at the headline config (``score``, ``score_rb``)
+   with B = 8 and 32 datasets and ``JointDiBS`` at configs 2 and 3 with
+   B = 8: launches a fleet step equal to one dataset's step (required),
+   dataset-steps/s over 100 steps after 10 beside B serial single runs in
+   turns, peak device memory, a 50-step profile, and at B = 8 the initial
+   state and #1's step-0 and step-5 samples bitwise single engines' seeded
+   ``fleet_seeds``, with 5 teacher-forced steps of each dataset's ``phi``
+   against them.
+
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -156,8 +171,9 @@ WARM11, STEPS11 = 10, 200
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 # steps/s of phase 5 by estimator, for phase 12(d)'s StepTimer check
 RATES = {}
-# phase 13, the fleet at the headline marginal config: datasets a fleet,
-# warm-up and timed steps, teacher-forced steps (at the first fleet size)
+# phase 13, the fleet at the headline marginal config and joint configs 2
+# and 3: datasets a fleet (joint: the first), warm-up and timed steps,
+# teacher-forced steps (at the first fleet size)
 FLEET_B, WARM13, STEPS13, TF13 = (8, 32), 10, 100, 5
 # the batched kernels' cases: datasets (1, not a power of two, the fleet
 # sizes), and #2 at d on both sides of 32 with every route's k edges
@@ -2644,50 +2660,72 @@ def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
     return "; ".join(out)
 
 
-def fleet_problem(dev, nb, estimator):
-    """``nb`` headline datasets (``make_linear_gaussian_equivalent_model``,
-    ER d=20, N=100, generators seeded 0..nb-1), the fleet's engine on the
-    first and one engine a dataset."""
-    from dibs_tpu_torch.inference import MarginalDiBS
-    from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
+def fleet_problem(dev, nb, cell):
+    """``nb`` datasets of a phase-13 cell (generators seeded 0..nb-1), the
+    fleet's engine on the first and one engine a dataset: the headline
+    marginal (``make_linear_gaussian_equivalent_model``, ER d=20, N=100;
+    ``score`` or ``score_rb``), joint config 2 (``make_linear_gaussian_
+    model``, sf d=20, N=100) or config 3 (``make_nonlinear_gaussian_model``,
+    ``hidden_layers=(5,)``)."""
+    from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+    from dibs_tpu_torch.target import (
+        make_linear_gaussian_equivalent_model,
+        make_linear_gaussian_model,
+        make_nonlinear_gaussian_model,
+    )
 
+    factory = {"config 2": make_linear_gaussian_model,
+               "config 3": make_nonlinear_gaussian_model}.get(
+                   cell, make_linear_gaussian_equivalent_model)
+    kw = {} if cell in ("config 2", "config 3") else dict(
+        graph_prior_str="er")
     xs, gm, lm = [], None, None
     for b in range(nb):
-        data, gm, lm = make_linear_gaussian_equivalent_model(
-            generator=torch.Generator().manual_seed(b), n_vars=D,
-            graph_prior_str="er", n_observations=N_OBS, device=dev)
+        data, gm, lm = factory(generator=torch.Generator().manual_seed(b),
+                               n_vars=D, n_observations=N_OBS, device=dev,
+                               **kw)
         xs.append(data.x)
 
     def make(x):
+        if cell in ("config 2", "config 3"):
+            return JointDiBS(x=x, graph_model=gm, likelihood_model=lm,
+                             n_grad_mc_samples=M,
+                             n_acyclicity_mc_samples=K_ACYC, device=dev)
         return MarginalDiBS(x=x, graph_model=gm, likelihood_model=lm,
-                            grad_estimator_z=estimator, n_grad_mc_samples=M,
+                            grad_estimator_z=cell, n_grad_mc_samples=M,
                             n_acyclicity_mc_samples=K_ACYC, device=dev)
 
     xs = torch.stack(xs)
     return xs, make(xs[0]), [make(x) for x in xs]
 
 
+def fleet_step_of(dibs, xs, std):
+    """The fleet's step of ``dibs`` on ``xs`` (no interventions)."""
+    from dibs_tpu_torch.inference import JointDiBS
+
+    masks = torch.zeros_like(xs, dtype=torch.int32)
+    if isinstance(dibs, JointDiBS):
+        return dibs._make_step(std, transport_fn=dibs._make_fleet_transport(
+            xs, masks, std))
+    return dibs._make_step(std, phi_fn=dibs._make_fleet_phi(xs, masks, std))
+
+
 def phase_fleet(dev, card):
-    """13: ``dibs_tpu_torch.fleet`` on the card at the headline marginal
-    config (``bench.py``: ER d=20, N=100, P=30, k=20, M=128, K=32, BGe),
-    ``score`` and ``score_rb``, with ``FLEET_B`` datasets. (a) the batched
-    kernels (:func:`fleet_kernels`); (b) for each estimator and fleet
-    size: launches per fleet step equal to one dataset's step; dataset-
-    steps/s over ``STEPS13`` timed steps after ``WARM13``, the fleet and
-    ``B`` serial single runs on the same datasets in turns (fleet, serial,
-    serial, fleet); peak device memory of the fleet; ``torch.profiler``
-    over 50 fleet steps; at the first size, the initial particles and the
-    step-0 and step-``TF13`` Philox hard graphs bitwise those of single
-    engines seeded ``fleet_seeds``, and ``TF13`` teacher-forced steps of
-    each dataset's ``phi`` against its single engine at ``1e-4 max|phi|``.
-    Returns the launches of the fleet's own steps."""
-    from dibs_tpu_torch.fleet import fleet_init_state, fleet_seeds
+    """13: ``dibs_tpu_torch.fleet`` on the card. (a) the batched kernels
+    #1-#4 (:func:`fleet_kernels`) and #5-#8 (:func:`fleet_fused_kernels`);
+    (b) the headline marginal config (``bench.py``: ER d=20, N=100, P=30,
+    k=20, M=128, K=32, BGe), ``score`` and ``score_rb``, with ``FLEET_B``
+    datasets, and joint configs 2 and 3 (``benchmarks/run_benchmarks.py:
+    99-134``) with the first fleet size, each a cell of
+    :func:`fleet_cell`. Returns the launches of the fleets' own steps."""
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
     lines, worst4 = fleet_kernels(dev)
     for ln in lines:
         log(f"[13a fleet kernels] {ln}")
     log(f"[13a fleet kernels] #4 worst {worst4:.3f} of its bar")
+    for ln in fleet_fused_kernels(dev):
+        log(f"[13a fleet fused kernels] {ln}")
 
     total = dict.fromkeys(gk.LAUNCHES, 0)
 
@@ -2699,143 +2737,294 @@ def phase_fleet(dev, card):
             total[name] += gk.LAUNCHES[name]
         return out
 
-    for estimator in ("score", "score_rb"):
-        for nb in FLEET_B:
-            xs, dibs, singles = fleet_problem(dev, nb, estimator)
-            std = dibs._resolve_latent_std(K_LAT)
-            seeds = fleet_seeds(nb, nb)
-            fleet_step = dibs._make_step(std, phi_fn=dibs._make_fleet_phi(
-                xs, torch.zeros_like(xs, dtype=torch.int32), std))
-            steps = [e._make_step(std) for e in singles]
-
-            def fleet_init():
-                return fleet_init_state(dibs, seeds, P)
-
-            def single_init(i):
-                return singles[i].init_state(seed=int(seeds[i]),
-                                             n_particles=P)
-
-            # launches: one fleet step against one dataset's step
-            state = fleet_init()
-            counted(lambda: fleet_step(state))
-            one_fleet = dict(gk.LAUNCHES)
-            for name in gk.LAUNCHES:
-                gk.LAUNCHES[name] = 0
-            steps[0](single_init(0))
-            one_single = dict(gk.LAUNCHES)
-            check(one_fleet == one_single and one_fleet["bge_pairs"] == 1,
-                  f"fleet {estimator} B={nb}: a fleet step launched "
-                  f"{one_fleet}, a single step {one_single}")
-
-            if nb == FLEET_B[0]:
-                fleet_parity(dev, dibs, singles, seeds, fleet_step, steps,
-                             std, estimator, counted)
-
-            def fleet_turn():
-                st = fleet_init()
-                for _ in range(WARM13):
-                    st = fleet_step(st)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(STEPS13):
-                    st = fleet_step(st)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                check(bool(torch.isfinite(st.z).all()),
-                      f"fleet {estimator} B={nb}: z not finite")
-                return nb * STEPS13 / secs
-
-            def serial_turn():
-                secs = 0.0
-                for i in range(nb):
-                    st = single_init(i)
-                    for _ in range(WARM13):
-                        st = steps[i](st)
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for _ in range(STEPS13):
-                        st = steps[i](st)
-                    torch.cuda.synchronize()
-                    secs += time.perf_counter() - t0
-                return nb * STEPS13 / secs
-
-            torch.cuda.reset_peak_memory_stats()
-            f1 = counted(fleet_turn)
-            peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            s1, s2 = serial_turn(), serial_turn()
-            f2 = counted(fleet_turn)
-            prof = counted(lambda: profile_steps(fleet_step, fleet_init()))
-            top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
-            log(f"[13b fleet {estimator} B={nb}] on '{card}': "
-                f"dataset-steps/s fleet {(f1 + f2) / 2:.2f} (turns {f1:.2f}"
-                f", {f2:.2f}), {nb} serial single runs {(s1 + s2) / 2:.2f} "
-                f"(turns {s1:.2f}, {s2:.2f}), ratio "
-                f"{(f1 + f2) / (s1 + s2):.3f}; launches a step {one_fleet} "
-                f"(equal to one dataset's step); peak device memory "
-                f"{peak_gb:.4f} GB; profiled 50 steps: wall "
-                f"{prof['wall_ms']:.3f} ms/step, device "
-                f"{prof['device_ms']:.3f} ms/step, busy {prof['busy']:.3f}, "
-                f"launches/step {prof['launches']:.1f}; top: {top}")
+    cells = [(c, nb) for c in ("score", "score_rb") for nb in FLEET_B]
+    cells += [("config 2", FLEET_B[0]), ("config 3", FLEET_B[0])]
+    for cell, nb in cells:
+        fleet_cell(dev, card, cell, nb, counted)
     return total
 
 
-def fleet_parity(dev, dibs, singles, seeds, fleet_step, steps, std,
-                 estimator, counted):
-    """13(b) at the first fleet size: the fleet's initial particles bitwise
-    single engines' from ``seeds``; its Philox hard graphs at step 0 and
-    step ``TF13`` bitwise theirs; ``TF13`` teacher-forced steps of each
-    dataset's ``phi`` (Philox noise, the fleet's state) against its single
-    engine at ``1e-4 max|phi|``."""
+def fleet_cell(dev, card, cell, nb, counted):
+    """One cell of 13(b): launches per fleet step equal to one dataset's
+    step; at the first fleet size the parity checks of
+    :func:`fleet_parity`; dataset-steps/s over ``STEPS13`` timed steps
+    after ``WARM13``, the fleet and ``nb`` serial single runs on the same
+    datasets in turns (fleet, serial, serial, fleet); the fleet's peak
+    device memory; ``torch.profiler`` over 50 fleet steps."""
+    from dibs_tpu_torch.fleet import fleet_init_state, fleet_seeds
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    xs, dibs, singles = fleet_problem(dev, nb, cell)
+    std = dibs._resolve_latent_std(K_LAT)
+    seeds = fleet_seeds(nb, nb)
+    fleet_step = fleet_step_of(dibs, xs, std)
+    steps = [e._make_step(std) for e in singles]
+
+    def fleet_init():
+        return fleet_init_state(dibs, seeds, P)
+
+    def single_init(i):
+        return singles[i].init_state(seed=int(seeds[i]), n_particles=P)
+
+    state = fleet_init()
+    counted(lambda: fleet_step(state))
+    one_fleet = dict(gk.LAUNCHES)
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    steps[0](single_init(0))
+    one_single = dict(gk.LAUNCHES)
+    check(one_fleet == one_single and sum(one_fleet.values()) > 0,
+          f"fleet {cell} B={nb}: a fleet step launched {one_fleet}, a "
+          f"single step {one_single}")
+    if nb == FLEET_B[0]:
+        fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell,
+                     counted)
+
+    def fleet_turn():
+        st = fleet_init()
+        for _ in range(WARM13):
+            st = fleet_step(st)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS13):
+            st = fleet_step(st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(bool(torch.isfinite(st.z).all()),
+              f"fleet {cell} B={nb}: z not finite")
+        return nb * STEPS13 / secs
+
+    def serial_turn():
+        secs = 0.0
+        for i in range(nb):
+            st = single_init(i)
+            for _ in range(WARM13):
+                st = steps[i](st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEPS13):
+                st = steps[i](st)
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+        return nb * STEPS13 / secs
+
+    torch.cuda.reset_peak_memory_stats()
+    f1 = counted(fleet_turn)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    s1, s2 = serial_turn(), serial_turn()
+    f2 = counted(fleet_turn)
+    prof = counted(lambda: profile_steps(fleet_step, fleet_init()))
+    top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
+    launched = {k: v for k, v in one_fleet.items() if v}
+    log(f"[13b fleet {cell} B={nb}] on '{card}': dataset-steps/s fleet "
+        f"{(f1 + f2) / 2:.2f} (turns {f1:.2f}, {f2:.2f}), {nb} serial single "
+        f"runs {(s1 + s2) / 2:.2f} (turns {s1:.2f}, {s2:.2f}), ratio "
+        f"{(f1 + f2) / (s1 + s2):.3f}; launches a step {launched} (equal to "
+        f"one dataset's step); peak device memory {peak_gb:.4f} GB; "
+        f"profiled 50 steps: wall {prof['wall_ms']:.3f} ms/step, device "
+        f"{prof['device_ms']:.3f} ms/step, busy {prof['busy']:.3f}, "
+        f"launches/step {prof['launches']:.1f}; top: {top}")
+
+
+def fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell, counted):
+    """13(b) at the first fleet size: the fleet's initial particles (and
+    parameters) bitwise single engines' from ``seeds``; the samples #1
+    draws at step 0 and step ``TF13`` (marginal: the hard graphs, stream
+    2t; joint: the acyclicity soft graphs, stream 3t + 2) bitwise theirs;
+    ``TF13`` teacher-forced steps of each dataset's ``phi`` (Philox noise,
+    the fleet's state; joint: ``phi_z`` and every ``phi_theta`` leaf)
+    against its single engine at ``1e-4 max|phi|``."""
     from dibs_tpu_torch.fleet import fleet_init_state
+    from dibs_tpu_torch.inference import JointDiBS
     from dibs_tpu_torch.ops.edges import edge_scores
-    from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs
+    from dibs_tpu_torch.ops.soft_graphs import (
+        sample_hard_graphs,
+        sample_soft_graphs,
+    )
+    from dibs_tpu_torch.utils.tree import tree_leaves, tree_map
 
     nb = len(singles)
+    joint = isinstance(dibs, JointDiBS)
     keys = seeds.to(dev)
     state = fleet_init_state(dibs, seeds, P)
     for i, single in enumerate(singles):
-        check(torch.equal(single.init_state(seed=int(seeds[i]),
-                                            n_particles=P).z, state.z[i]),
-              f"fleet {estimator}: dataset {i}'s initial z differs")
-    phi_fleet = dibs._make_fleet_phi(
-        torch.stack([e.x for e in singles]),
-        torch.stack([e.interv_mask for e in singles]), std)
+        one = single.init_state(seed=int(seeds[i]), n_particles=P)
+        check(torch.equal(one.z, state.z[i]) and all(
+            torch.equal(a, b[i]) for a, b in zip(
+                tree_leaves(one.theta if joint else []),
+                tree_leaves(state.theta if joint else []))),
+              f"fleet {cell}: dataset {i}'s initial state differs")
+    masks = torch.zeros_like(torch.stack([e.x for e in singles]),
+                             dtype=torch.int32)
+    xs = torch.stack([e.x for e in singles])
+    if joint:
+        transport = dibs._make_fleet_transport(xs, masks, std)
+        phi_fleet = lambda st: transport(st)[:2]  # noqa: E731
+    else:
+        phi_fleet = dibs._make_fleet_phi(xs, masks, std)
     phis = [e._make_phi(std) for e in singles]
     worst, graphs = 0.0, 0
+
+    def draw(z, key, t):
+        if joint:
+            return sample_soft_graphs(edge_scores(z), key, 3 * t + 2,
+                                      dibs.alpha(t), dibs.cfg.tau, K_ACYC)
+        return sample_hard_graphs(edge_scores(z), key, 2 * t, dibs.alpha(t),
+                                  M)
+
     for t in range(TF13 + 1):
-        if t in (0, TF13):  # the hard graphs as the estimator draws them
-            alpha = dibs.alpha(state.t)
+        if t in (0, TF13):
             z = state.z.reshape(nb * P, *state.z.shape[2:])
-            hard = sample_hard_graphs(edge_scores(z), keys, 2 * state.t,
-                                      alpha, M)
-            for i in range(nb):
-                one = sample_hard_graphs(edge_scores(state.z[i]),
-                                         int(seeds[i]), 2 * state.t, alpha, M)
-                check(torch.equal(one, hard[i * P:(i + 1) * P]),
-                      f"fleet {estimator} t={state.t}: dataset {i}'s hard "
-                      "graphs differ from its single engine's")
-            graphs += hard.shape[0] * hard.shape[1]
+            with torch.no_grad():
+                drawn = draw(z, keys, state.t)
+                for i in range(nb):
+                    check(torch.equal(draw(state.z[i], int(seeds[i]),
+                                           state.t),
+                                      drawn[i * P:(i + 1) * P]),
+                          f"fleet {cell} t={state.t}: dataset {i}'s samples "
+                          "differ from its single engine's")
+            graphs += drawn.shape[0] * drawn.shape[1]
         if t == TF13:
             break
         with torch.no_grad():
-            got, _ = counted(lambda: phi_fleet(state))
+            got = counted(lambda: phi_fleet(state))
         for i in range(nb):
-            one = state._replace(seed=int(seeds[i]), z=state.z[i],
-                                 sf_baseline=state.sf_baseline[i],
-                                 opt_state_z=None)
+            one = state._replace(
+                seed=int(seeds[i]), z=state.z[i],
+                theta=tree_map(lambda a: a[i], state.theta) if joint
+                else None, sf_baseline=state.sf_baseline[i],
+                opt_state_z=None, opt_state_theta=None)
             with torch.no_grad():
-                want, _ = phis[i](one)
-            err = float((got[i] - want).abs().max())
-            tol = 1e-4 * float(want.abs().max())
-            worst = max(worst, err / max(tol, 1e-30))
-            check(err <= tol, f"fleet {estimator} t={state.t} dataset {i}: "
-                              f"phi err {err} > {tol}")
+                want = phis[i](one)
+            pairs = ([(got[0][i], want[0])]
+                     + ([(a[i], b) for a, b in zip(tree_leaves(got[1]),
+                                                   tree_leaves(want[1]))]
+                        if joint else []))
+            for a, b in pairs:
+                err = float((a - b).abs().max())
+                tol = 1e-4 * float(b.abs().max())
+                worst = max(worst, err / max(tol, 1e-30))
+                check(err <= tol, f"fleet {cell} t={state.t} dataset {i}: "
+                                  f"phi err {err} > {tol}")
         state = counted(lambda: fleet_step(state))
-    log(f"[13b fleet {estimator} B={nb}] initial z bitwise the single "
-        f"engines'; Philox hard graphs at t=0 and t={TF13} bitwise ({graphs} "
+    what = ("acyclicity soft samples" if joint else "hard graphs")
+    log(f"[13b fleet {cell} B={nb}] initial state bitwise the single "
+        f"engines'; Philox {what} at t=0 and t={TF13} bitwise ({graphs} "
         f"graphs); teacher-forced phi t=0..{TF13 - 1} against single engines "
         f"seeded fleet_seeds: worst {worst:.3f} of the 1e-4 max|phi| bar")
 
+
+def fleet_fused_kernels(dev):
+    """13(a), the fused joint kernels with the dataset axis at config 2's
+    (#5-#7: P=30, d=20, N=100, M=128) and config 3's (#8, h1=5) shapes for
+    ``FLEET_KERNEL_B`` datasets (each its own data and observation weights,
+    Philox noise from its key): against the plain versions with the axis
+    and against the unbatched launch on each dataset, within 1e-4 max(1,
+    max|ref|); at the first fleet size the batched launch timed beside
+    ``B`` unbatched launches, the plain version and the bound."""
+    from dibs_tpu_torch.fleet import fleet_seeds
+    from dibs_tpu_torch.inference import fused_linear as fl
+    from dibs_tpu_torch.inference import fused_nonlinear as fnl
+    from dibs_tpu_torch.models import DenseNonlinearGaussian, LinearGaussian
+
+    rng = np.random.default_rng(31)
+    lines = []
+    h1 = 5
+    for nb in FLEET_KERNEL_B:
+        keys = fleet_seeds(nb + 40, nb).to(dev)
+        seeds = keys.tolist()
+        bp = nb * P
+        scores = torch.from_numpy(rng.normal(size=(bp, D, D)).astype(
+            np.float32)).to(dev)
+        thetas = torch.from_numpy(rng.normal(size=(bp, D, D)).astype(
+            np.float32)).to(dev)
+        x = torch.from_numpy(rng.normal(size=(nb, N_OBS, D)).astype(
+            np.float32)).to(dev)
+        w = torch.ones_like(x)
+        w[:, 50:, :2] = 0.0  # some intervened entries
+        nl_model = DenseNonlinearGaussian(n_vars=D, hidden_layers=(h1,))
+        nl_theta = fnl.kernel_layout(nl_model.sample_parameters(
+            generator=torch.Generator().manual_seed(nb), n_vars=D,
+            n_particles=bp, device=dev), nl_model)
+        lls = fl.fused_linear_pass1_plain(
+            scores, thetas, x, w, seed=keys, streams=(4, 5), alpha=2.0,
+            tau=1.0, n_samples=M, model=LinearGaussian(n_vars=D))
+        weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
+        calls = {
+            "fused_linear_single": (fl.fused_linear_single,
+                                    fl.fused_linear_single_plain,
+                                    (scores, thetas), (), LinearGaussian(
+                                        n_vars=D)),
+            "fused_linear_pass1": (fl.fused_linear_pass1,
+                                   fl.fused_linear_pass1_plain,
+                                   (scores, thetas), (), LinearGaussian(
+                                       n_vars=D)),
+            "fused_linear_pass2": (fl.fused_linear_pass2,
+                                   fl.fused_linear_pass2_plain,
+                                   (scores, thetas), (weights,),
+                                   LinearGaussian(n_vars=D)),
+            "fused_nonlinear": (fnl.fused_nonlinear, fnl.fused_nonlinear_plain,
+                                (scores, *nl_theta), (), nl_model),
+        }
+        worst = {}
+        for name, (kern, plain, lead, extra, model) in calls.items():
+            kw = dict(seed=keys, streams=(4, 5), alpha=2.0, tau=1.0,
+                      n_samples=M, model=model)
+            got = kern(*lead, x, w, *extra, **kw)
+            want = plain(*lead, x, w, *extra, **kw)
+            ratio = 0.0
+            for a, b in zip(got, want):
+                tol = 1e-4 * max(1.0, float(b.abs().max()))
+                e = float((a - b).abs().max())
+                check(e <= tol, f"fleet {name} B={nb}: {e} > {tol} from its "
+                                "plain version")
+                ratio = max(ratio, e / tol)
+            for i, seed in enumerate(seeds):
+                sl = slice(i * P, (i + 1) * P)
+                one = kern(*(t[sl] for t in lead), x[i], w[i],
+                           *(tuple(t[sl] for t in e) for e in extra),
+                           **dict(kw, seed=seed))
+                for a, b in zip(got, one):
+                    tol = 1e-4 * max(1.0, float(b.abs().max()))
+                    e = float((a[sl] - b).abs().max())
+                    check(e <= tol, f"fleet {name} B={nb}: dataset {i}: {e}"
+                                    f" > {tol} from its unbatched launch")
+            worst[name] = ratio
+            if nb != FLEET_B[0]:
+                continue
+
+            def serial(kern=kern, lead=lead, extra=extra, kw=kw):
+                return [kern(*(t[i * P:(i + 1) * P] for t in lead), x[i],
+                             w[i], *(tuple(t[i * P:(i + 1) * P] for t in e)
+                                     for e in extra), **dict(kw, seed=s))
+                        for i, s in enumerate(seeds)]
+
+            t_b = cuda_median_ms(lambda: kern(*lead, x, w, *extra, **kw),
+                                 reps=20)
+            t_s = cuda_median_ms(serial, reps=10)
+            t_p = cuda_median_ms(lambda: plain(*lead, x, w, *extra, **kw),
+                                 reps=2)
+            kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
+            flops = {"fused_linear_single": fused_linear_flops(
+                "single", bp, M, N_OBS, D),
+                "fused_linear_pass1": fused_linear_flops(
+                    "pass1", bp, M, N_OBS, D),
+                "fused_linear_pass2": 2 * kept * (4 * N_OBS * D * D
+                                                  + 2 * N_OBS * D)
+                + 2 * bp * N_OBS * D * D,
+                "fused_nonlinear": fused_nonlinear_flops(
+                    bp, M, N_OBS, D, h1)}[name]
+            n_bytes = 4 * (sum(t.numel() for t in lead) + 2 * x.numel()
+                           + sum(o.numel() for o in got))
+            b_ms, b_by = bound_ms(flops, n_bytes)
+            lines.append(f"{name} B={nb}: batched {t_b:.4f} ms, {nb} "
+                         f"unbatched {t_s:.4f} ms, plain {t_p:.4f} ms, bound "
+                         f"{b_ms:.5f} ({b_by})")
+        lines.append(f"B={nb}: #5-#8 within 1e-4 max(1, max|ref|) of their "
+                     f"plain versions (worst " + ", ".join(
+                         f"{k} {v:.3f}" for k, v in worst.items())
+                     + ") and of their unbatched launches on each dataset")
+    return lines
 
 def main():
     if not torch.cuda.is_available():

@@ -97,8 +97,10 @@ enum Mode : int { kSingle = 0, kPass1 = 1, kPass2 = 2 };
 struct Args {
   const float* scores;    // [P, d, d] edge scores
   const float* theta;     // [P, d, d]
-  const float* x;         // [N, d]
-  const float* w;         // [N, d] observation weights (1 - interv. mask)
+  const float* x;         // [B_ds, N, d] (one dataset: [N, d])
+  const float* w;         // [B_ds, N, d] observation weights (1 - mask)
+  const int64_t* keys;    // [B_ds] a fleet's keys, or nullptr (k0, k1)
+  int per;                // particles a dataset (P for one dataset)
   const float* eps_soft;  // [P, M, d, d] injected noise or nullptr
   const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
   const float* wts_soft;  // [P, M] softmax weights (pass 2)
@@ -186,6 +188,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* ghv = gsv + kg * dd;     // the group's hard samples
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
+  // a fleet: particle p of dataset p / per reads that dataset's data and
+  // draws with its key, at the particle counter p % per
+  const int ds = p / a.per;
+  const int64_t data0 = static_cast<int64_t>(ds) * a.n_obs * d;
+  const float* __restrict__ xd = a.x + data0;
+  const float* __restrict__ wd = a.w + data0;
+  uint32_t pk = p, k0 = a.k0, k1 = a.k1;
+  if (a.keys != nullptr) {
+    const uint64_t key = static_cast<uint64_t>(a.keys[ds]);
+    pk = p - ds * a.per;
+    k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
+    k1 = static_cast<uint32_t>(key >> 32);
+  }
   const int warp = tid / 32, lane = tid % 32;
   const int wpc = kWarps / nc;          // warps of a combo's team
   const int combo = warp / wpc;         // (sample g = combo / 2, branch)
@@ -243,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int n = idx / dp, j = idx - n * dp;
       float r = 0.0f;
       if (n < n_obs && j < d) {
-        const float* xg = a.x + static_cast<int64_t>(n) * d;
+        const float* xg = xd + static_cast<int64_t>(n) * d;
         float mean = 0.0f;
         for (int i = 0; i < d; ++i) mean = fmaf(xg[i], aw[i * dp + j], mean);
         r = xg[j] - mean;
@@ -259,8 +274,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       float xv = 0.0f, wv = 0.0f, rv = 0.0f;
       if (n < tn && j < d) {
         const int64_t g = static_cast<int64_t>(t0 + n) * d + j;
-        xv = a.x[g];
-        wv = a.w[g];
+        xv = xd[g];
+        wv = wd[g];
         if (rr != nullptr) rv = rr[static_cast<int64_t>(t0 + n) * dp + j];
       }
       xr[idx] = xv;
@@ -327,14 +342,14 @@ __global__ void __launch_bounds__(kThreads, 2)
             const float es =
                 a.eps_soft != nullptr
                     ? a.eps_soft[nbase + e]
-                    : dibs::philox_logistic(e, m, p, a.stream_soft, a.k0, a.k1);
+                    : dibs::philox_logistic(e, m, pk, a.stream_soft, k0, k1);
             float eh;
             if (a.eps_hard != nullptr) {
               eh = a.eps_hard[nbase + e];
             } else if (a.stream_hard == a.stream_soft) {
               eh = es;
             } else {
-              eh = dibs::philox_logistic(e, m, p, a.stream_hard, a.k0, a.k1);
+              eh = dibs::philox_logistic(e, m, pk, a.stream_hard, k0, k1);
             }
             g_soft =
                 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
@@ -1431,10 +1446,14 @@ DIBS_API int dibs_fused_linear_row_items(int d, int group) {
 // `chunk` (samples a block); the scratch holds [P, S, N, dp] floats of
 // resid_ref where tile_rows < N (else `resid_ref` may be null) and [P, S,
 // 4 + 2 d^2] floats of partial states, S = ceil(M / chunk), dp = d rounded
-// up to 4.
+// up to 4. A fleet (dibs_tpu_torch/fleet.py) passes B_ds = P / `per`
+// datasets' x and w [B_ds, N, d] and their keys [B_ds] (device int64):
+// particle p reads dataset p / per and draws with its key at the particle
+// counter p % per; one dataset: per = P, keys null (the key is `seed`).
 DIBS_API int dibs_fused_linear(
     int mode, const float* scores, const float* theta, const float* x,
-    const float* w, const float* eps_soft, const float* eps_hard,
+    const float* w, const int64_t* keys, int per, const float* eps_soft,
+    const float* eps_hard,
     const float* wts_soft, const float* wts_hard, float* resid_ref,
     float* part, float* out_a, float* out_b, int n_particles, int n_samples,
     int d, int n_obs, int tile_rows, int chunk, int group, int sub_rows,
@@ -1445,7 +1464,8 @@ DIBS_API int dibs_fused_linear(
       tile_rows > n_obs || chunk < 1 ||
       (group != 1 && group != 2 && group != kMaxGroup) || sub_rows < 4 ||
       sub_rows % 4 != 0 || sub_rows > row_ldn(tile_rows) ||
-      (tile_rows < n_obs && resid_ref == nullptr)) {
+      (tile_rows < n_obs && resid_ref == nullptr) || per < 1 ||
+      n_particles % per != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -1454,6 +1474,8 @@ DIBS_API int dibs_fused_linear(
   a.theta = theta;
   a.x = x;
   a.w = w;
+  a.keys = keys;
+  a.per = per;
   a.eps_soft = eps_soft;
   a.eps_hard = eps_hard;
   a.wts_soft = wts_soft;

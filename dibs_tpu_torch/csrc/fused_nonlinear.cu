@@ -85,6 +85,19 @@
 // ---------------------------------------------------------------------------
 #include <cmath>
 
+// Fleets (dibs_tpu_torch/fleet.py): csrc/fused_nonlinear_fleet.cu compiles
+// this file again with DIBS_NL_FLEET 1, which instantiates the main kernel
+// with kFleet = true and exports dibs_fused_nonlinear_fleet. A fleet's
+// particle p of dataset p / per reads that dataset's x and w and draws
+// with its key at the particle counter p % per. Kept out of the
+// single-dataset kernels' code (a run-time branch there added registers to
+// the kH = 16 kernels, whose spills grew and which then failed on the card
+// with an illegal instruction), and in its own translation unit so that
+// both sets build in parallel.
+#ifndef DIBS_NL_FLEET
+#define DIBS_NL_FLEET 0
+#endif
+
 #include "common.h"
 
 namespace {
@@ -103,8 +116,10 @@ struct Args {
   const float* w1;        // [P, h1, d, d]: W1[p, j, i, h] at [p, h, i, j]
   const float* l1;        // [P, d, d] masked-prior logpdf sums
   const float* w2;        // [P, h1 + 1, d]: W2 rows, row h1 = b2
-  const float* x;         // [N, d]
-  const float* w;         // [N, d] observation weights
+  const float* x;         // [B_ds, N, d] (one dataset: [N, d])
+  const float* w;         // [B_ds, N, d] observation weights
+  const int64_t* keys;    // [B_ds] a fleet's keys, or nullptr (k0, k1)
+  int per;                // particles a dataset (P for one dataset)
   const float* eps_soft;  // [P, M, d, d] injected noise or nullptr
   const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
   const float* ref;       // [P, h1 + 1, N, d]: pre_ref (h < h1), resid_ref
@@ -200,9 +215,10 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ b1,
                        const float* __restrict__ w2,
                        const float* __restrict__ x, float* __restrict__ ref,
-                       int d, int h1, int n_obs, float alpha) {
+                       int d, int h1, int n_obs, int per, float alpha) {
   extern __shared__ float smem_f[];
   const int p = blockIdx.x, tid = threadIdx.x, dd = d * d;
+  x += static_cast<int64_t>(p / per) * n_obs * d;  // the particle's dataset
   float* sw = smem_f;           // [h1, d, d] E[G] * W1_h
   float* bb = sw + h1 * dd;     // [h1, d]
   float* ww = bb + h1 * d;      // [h1 + 1, d]
@@ -237,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
 // (2) One pass over a chunk of samples, in groups, with an online softmax
 // per stream. kH: the register arrays' hidden width; kPad: h1 < kH possible
 // (units past h1 read as zero), else h1 = kH.
-template <int kH, bool kPad, int kAct>
+template <int kH, bool kPad, int kAct, bool kFleet>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_nl_kernel(const Args a) {
   extern __shared__ __align__(16) double smem_d[];
@@ -273,6 +289,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* sll = rs + (2 * h1 + 1) * (kThreads / 2);  // [kSlotsMax] dll
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
+  // data, key and particle counter: a fleet's dataset p / per (see the
+  // note at the top), else the launch's own
+  const float* xd = a.x;
+  const float* wd = a.w;
+  uint32_t pk = p, k0 = a.k0, k1 = a.k1;
+  if constexpr (kFleet) {
+    const int ds = p / a.per;
+    const int64_t data0 = static_cast<int64_t>(ds) * a.n_obs * a.d;
+    xd += data0;
+    wd += data0;
+    const uint64_t key = static_cast<uint64_t>(a.keys[ds]);
+    pk = p - ds * a.per;
+    k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
+    k1 = static_cast<uint32_t>(key >> 32);
+  }
   const int warp = tid / 32, lane = tid % 32;
   const int n_smp = a.n_samples;
   const int m_begin = split * a.chunk;
@@ -314,14 +345,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* xo = xr + xb * T * ldx;
     for (int idx = tid; idx < ldt * d; idx += kThreads) {
       const int n = idx / d, i = idx - n * d;
-      xT[i * ldt + n] = n < tn ? a.x[base + idx] : 0.0f;
+      xT[i * ldt + n] = n < tn ? xd[base + idx] : 0.0f;
     }
     for (int idx = tid; idx < T * ldx; idx += kThreads) {
       const int n = idx / ldx, i = idx - n * ldx;
-      xo[idx] = n < tn && i < d ? a.x[base + n * d + i] : 0.0f;
+      xo[idx] = n < tn && i < d ? xd[base + n * d + i] : 0.0f;
     }
     for (int idx = tid; idx < tn * d; idx += kThreads) {
-      wt[idx] = a.w[base + idx];
+      wt[idx] = wd[base + idx];
       rt[idx] = refp[h1 * nd + base + idx];
     }
     for (int k = tid; k < h1 * tn * d; k += kThreads) {
@@ -351,14 +382,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float es =
             a.eps_soft != nullptr
                 ? a.eps_soft[nbase + e]
-                : dibs::philox_logistic(e, m, p, a.stream_soft, a.k0, a.k1);
+                : dibs::philox_logistic(e, m, pk, a.stream_soft, k0, k1);
         float eh;
         if (a.eps_hard != nullptr) {
           eh = a.eps_hard[nbase + e];
         } else if (a.stream_hard == a.stream_soft) {
           eh = es;
         } else {
-          eh = dibs::philox_logistic(e, m, p, a.stream_hard, a.k0, a.k1);
+          eh = dibs::philox_logistic(e, m, pk, a.stream_hard, k0, k1);
         }
         g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
         g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
@@ -693,15 +724,16 @@ __global__ void __launch_bounds__(kThreads)
 using MainKernel = void (*)(Args);
 using RefKernel = void (*)(const float*, const float*, const float*,
                            const float*, const float*, float*, int, int, int,
-                           float);
+                           int, float);
 
 // kH = 5 exactly for config 3's width, else h1 rounded up to 4, 8 or 16
 template <int kAct>
 MainKernel main_kernel_for(int h1) {
-  if (h1 == 5) return fused_nl_kernel<5, false, kAct>;
-  if (h1 <= 4) return fused_nl_kernel<4, true, kAct>;
-  if (h1 <= 8) return fused_nl_kernel<8, true, kAct>;
-  return fused_nl_kernel<kMaxH, true, kAct>;
+  constexpr bool kFleet = DIBS_NL_FLEET != 0;
+  if (h1 == 5) return fused_nl_kernel<5, false, kAct, kFleet>;
+  if (h1 <= 4) return fused_nl_kernel<4, true, kAct, kFleet>;
+  if (h1 <= 8) return fused_nl_kernel<8, true, kAct, kFleet>;
+  return fused_nl_kernel<kMaxH, true, kAct, kFleet>;
 }
 
 MainKernel main_kernel(int h1, int act) {
@@ -742,21 +774,31 @@ bool plan_ok(int d, int h1, int n_obs, int group, int sub_rows,
 
 }  // namespace
 
+#if !DIBS_NL_FLEET
 DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int group,
                                                 int sub_rows, int tile_rows,
                                                 int n_obs) {
   return smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs);
 }
+#endif
 
 // -> dscores [P, d, d], dW1 [P, h1, d, d] (layout of w1), small [P, 2 h1 + 1,
 // d] (db1, dW2, db2 rows), before the wrapper's prior terms. `chunk`
 // samples per block in groups of `group`; data tiles of `tile_rows` rows
 // (all n_obs: resident), u_h staged `sub_rows` rows at a time; the scratch
 // holds [P, h1 + 1, N, d] (ref) and [P, S, 4 + (1 + h1) d^2 + (2 h1 + 1) d]
-// (part) floats, S = ceil(M / chunk).
+// (part) floats, S = ceil(M / chunk). dibs_fused_nonlinear_fleet (the
+// DIBS_NL_FLEET build) takes B_ds = P / `per` datasets' x and w [B_ds, N,
+// d] and their keys [B_ds] (device int64); dibs_fused_nonlinear one
+// dataset: per = P, keys null.
+#if DIBS_NL_FLEET
+DIBS_API int dibs_fused_nonlinear_fleet(
+#else
 DIBS_API int dibs_fused_nonlinear(
+#endif
     const float* scores, const float* w1, const float* l1, const float* b1,
-    const float* w2, const float* x, const float* w, const float* eps_soft,
+    const float* w2, const float* x, const float* w, const int64_t* keys,
+    int per, const float* eps_soft,
     const float* eps_hard, float* ref, float* part, float* out_ds,
     float* out_dw1, float* out_small, int n_particles, int n_samples, int d,
     int h1, int n_obs, int tile_rows, int sub_rows, int group, int chunk,
@@ -764,7 +806,8 @@ DIBS_API int dibs_fused_nonlinear(
     float alpha, float tau, double inv_var, float inv_varp,
     cudaStream_t stream) {
   if (!plan_ok(d, h1, n_obs, group, sub_rows, tile_rows) || n_samples < 1 ||
-      chunk < 1 || act < kRelu || act > kLeaky) {
+      chunk < 1 || act < kRelu || act > kLeaky || per < 1 ||
+      n_particles % per != 0 || (keys != nullptr) != (DIBS_NL_FLEET != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -777,7 +820,7 @@ DIBS_API int dibs_fused_nonlinear(
       static_cast<int>(smem_ref));
   if (err != cudaSuccess) return static_cast<int>(err);
   reference<<<n_particles, kThreads, smem_ref, stream>>>(
-      scores, w1, b1, w2, x, ref, d, h1, n_obs, alpha);
+      scores, w1, b1, w2, x, ref, d, h1, n_obs, per, alpha);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -788,6 +831,8 @@ DIBS_API int dibs_fused_nonlinear(
   a.w2 = w2;
   a.x = x;
   a.w = w;
+  a.keys = keys;
+  a.per = per;
   a.eps_soft = eps_soft;
   a.eps_hard = eps_hard;
   a.ref = ref;

@@ -4,24 +4,28 @@
 ``fleet_sample`` runs one engine's SVGD on ``B`` independent datasets of the
 same shape as one batched step: every tensor of the state leads with the
 dataset axis, and every kernel of the step takes that axis in one launch
-(the sampler #1 reads each dataset's key, the BGe pairs #2 each dataset's
-posterior matrices, the SE matrix #3 and the transport #4 one grid slice a
-dataset). A fleet step therefore launches each kernel as many times as one
-dataset's step, whatever ``B`` is: on a card where the d <= 30 steps are
-bound by the host's launches, the host cost of ``B`` datasets is about
-that of one.
+(the sampler #1 and the fused joint kernels #5-#8 read each dataset's key,
+the BGe pairs #2 each dataset's posterior matrices, #5-#8 each dataset's
+data, the SE matrix #3 and the transport #4 one grid slice a dataset). A
+fleet step therefore launches each kernel as many times as one dataset's
+step, whatever ``B`` is: on a card where the d <= 30 steps are bound by
+the host's launches, the host cost of ``B`` datasets is about that of
+one.
 
 Datasets are independent: dataset ``b`` of a fleet equals a single engine
 run on ``xs[b]`` with ``sample(seed=fleet_seeds(seed, B)[b])`` (the same
 initial particles, the same noise streams, the same key).
 
-Serves ``MarginalDiBS`` (BGe, ``score`` and ``score_rb``); raises
-``ValueError`` for ``JointDiBS`` and for a ``mesh`` (``ROADMAP.md`` queue
-1). Typical use::
+Serves ``MarginalDiBS`` (BGe, ``score`` and ``score_rb``) and ``JointDiBS``
+on its fused reparameterization route (``LinearGaussian`` up to d = 70, one
+or two passes; the one-hidden-layer ``DenseNonlinearGaussian`` of kernel
+#8). Raises ``ValueError`` for joint ``score``, the generic
+reparameterization route, the wide fused tier past d = 70 and a ``mesh``
+(``ROADMAP.md`` queue 1). Typical use::
 
-    dibs = MarginalDiBS(x=xs[0], graph_model=gm, likelihood_model=BGe(...))
-    gs = fleet_sample(dibs, xs=xs, seed=0, n_particles=30, steps=1000)
-    # gs: [B, P, d, d]
+    dibs = JointDiBS(x=xs[0], graph_model=gm, likelihood_model=lm)
+    gs, thetas = fleet_sample(dibs, xs=xs, seed=0, n_particles=30,
+                              steps=1000)   # gs: [B, P, d, d]
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from dibs_tpu_torch.inference.optimizers import ScaleByRmsState
 from dibs_tpu_torch.inference.svgd import JointDiBS, MarginalDiBS, SVGDState
 from dibs_tpu_torch.ops.edges import particle_to_g_lim
+from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["fleet_sample", "fleet_seeds", "fleet_init_state"]
 
@@ -44,20 +49,28 @@ def fleet_seeds(seed: int, n_datasets: int) -> torch.Tensor:
                          dtype=torch.int64)
 
 
-def fleet_init_state(dibs: MarginalDiBS, seeds: torch.Tensor,
+def _stack(*trees):
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def fleet_init_state(dibs, seeds: torch.Tensor,
                      n_particles: int) -> SVGDState:
     """The stacked initial state of a fleet: each dataset's
-    ``dibs.init_state(seed=seeds[b])``, its tensors stacked on a leading
-    dataset axis, and ``seed`` the ``[B]`` int64 keys on ``dibs``'s
-    device."""
+    ``dibs.init_state(seed=seeds[b])``, its tensors (and parameter leaves)
+    stacked on a leading dataset axis, and ``seed`` the ``[B]`` int64 keys
+    on ``dibs``'s device."""
     states = [dibs.init_state(seed=int(s), n_particles=n_particles)
               for s in seeds.tolist()]
+    joint = states[0].theta is not None
     return SVGDState(
         t=0, seed=seeds.to(dibs.device),
-        z=torch.stack([st.z for st in states]), theta=None,
+        z=torch.stack([st.z for st in states]),
+        theta=_stack(*[st.theta for st in states]) if joint else None,
         opt_state_z=(ScaleByRmsState(nu=torch.stack(
             [st.opt_state_z[0].nu for st in states])),),
-        opt_state_theta=None,
+        opt_state_theta=((ScaleByRmsState(nu=_stack(
+            *[st.opt_state_theta[0].nu for st in states])),)
+                         if joint else None),
         sf_baseline=torch.stack([st.sf_baseline for st in states]))
 
 
@@ -66,12 +79,7 @@ def _check(dibs, xs, interv_masks, mesh):
         raise ValueError(
             "fleet_sample: the 'datasets' mesh axis across cards comes with "
             "multi-GPU (ROADMAP.md queue 1, slice 6); pass mesh=None")
-    if isinstance(dibs, JointDiBS):
-        raise ValueError(
-            "fleet_sample serves MarginalDiBS only: the joint fleet (the "
-            "fused kernels #5-#8 with a dataset axis) is ROADMAP.md queue 1, "
-            "slice 5b step B")
-    if not isinstance(dibs, MarginalDiBS):
+    if not isinstance(dibs, (MarginalDiBS, JointDiBS)):
         raise ValueError(f"fleet_sample: not a DiBS engine: "
                          f"{type(dibs).__name__}")
     xs = torch.as_tensor(xs, dtype=torch.float32).to(dibs.device)
@@ -94,9 +102,9 @@ def fleet_sample(dibs, *, xs, seed: int, n_particles: int, steps: int,
     step.
 
     Args:
-        dibs: a constructed :class:`MarginalDiBS`; its models and
-            hyperparameters serve every dataset, its own ``x`` only defines
-            the common ``[N, d]`` shape.
+        dibs: a constructed :class:`MarginalDiBS` or :class:`JointDiBS`;
+            its models and hyperparameters serve every dataset, its own
+            ``x`` only defines the common ``[N, d]`` shape.
         xs: ``[B, N, d]`` observation batches (the shape of ``dibs.x``).
         seed: int; :func:`fleet_seeds` turns it into one seed a dataset.
         interv_masks: optional ``[B, N, d]`` hard-intervention masks
@@ -107,18 +115,24 @@ def fleet_sample(dibs, *, xs, seed: int, n_particles: int, steps: int,
         return_states: also return the stacked final :class:`SVGDState`.
 
     Returns:
-        ``gs [B, P, d, d]`` (int32), and the state with
-        ``return_states=True``.
+        ``gs [B, P, d, d]`` (int32) for marginal engines; ``(gs, thetas)``
+        (parameter leaves with leading ``[B, P]``) for joint ones; the
+        stacked state last with ``return_states=True``.
     """
     xs, interv_masks = _check(dibs, xs, interv_masks, mesh)
+    std = dibs._resolve_latent_std(dibs.n_vars)
+    if isinstance(dibs, JointDiBS):
+        step = dibs._make_step(std, transport_fn=dibs._make_fleet_transport(
+            xs, interv_masks, std))
+    else:
+        step = dibs._make_step(
+            std, phi_fn=dibs._make_fleet_phi(xs, interv_masks, std))
     state = fleet_init_state(dibs, fleet_seeds(seed, xs.shape[0]),
                              n_particles)
-    std = dibs._resolve_latent_std(state.z.shape[3])
-    step = dibs._make_step(
-        std, phi_fn=dibs._make_fleet_phi(xs, interv_masks, std))
     for _ in range(steps):
         state = step(state)
     gs = particle_to_g_lim(state.z)
+    out = (gs,) if state.theta is None else (gs, state.theta)
     if return_states:
-        return gs, state
-    return gs
+        out = (*out, state)
+    return out[0] if len(out) == 1 else out

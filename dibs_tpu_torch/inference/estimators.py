@@ -23,14 +23,18 @@ likelihood gradients in the fused kernels of :mod:`dibs_tpu_torch.inference.
 fused_linear` (``LinearGaussian``) or :mod:`dibs_tpu_torch.inference.
 fused_nonlinear` (one-hidden-layer ``DenseNonlinearGaussian``).
 
-A fleet (:mod:`dibs_tpu_torch.fleet`) builds the marginal estimators on
-``B_ds`` datasets at once: ``x`` and ``interv_mask`` carry a leading
-dataset axis, the particle batch is the ``B_ds * P`` particles in dataset
-order, and ``seed`` is the ``[B_ds]`` int64 keys, so each dataset's samples
-are those of a single run keyed by its key. Only the data-dependent hook
-sees the dataset axis (each dataset's ``P * M`` hard samples scored on its
-own data, every dataset in one call); the REINFORCE ratio, its baseline,
-the latent prior and the graph prior work per particle as they are.
+A fleet (:mod:`dibs_tpu_torch.fleet`) builds the estimators on ``B_ds``
+datasets at once: ``x`` and ``interv_mask`` carry a leading dataset axis,
+the particle batch is the ``B_ds * P`` particles in dataset order, and
+``seed`` is the ``[B_ds]`` int64 keys, so each dataset's samples are those
+of a single run keyed by its key. Only the data-dependent parts see the
+dataset axis: the marginal hook (each dataset's ``P * M`` hard samples
+scored on its own data, every dataset in one call) and the fused joint
+kernels (each particle's dataset and key, in one launch); the REINFORCE
+ratio, its baseline, the latent prior and the graph prior work per
+particle as they are. A joint fleet serves the fused reparameterization
+route only (up to d = 70 for the linear model): joint ``score``, the
+generic reparameterization route and the wide tier raise ``ValueError``.
 
 Estimator maths (as the reference): the self-normalized ratio
 
@@ -50,6 +54,7 @@ import torch
 from dibs_tpu_torch.inference.fused_linear import (
     fused_linear_available,
     fused_linear_estimators,
+    fused_linear_tile_rows,
 )
 from dibs_tpu_torch.inference.fused_nonlinear import (
     fused_nonlinear_decline_reason,
@@ -146,7 +151,7 @@ def _warn_on_data_scale(x, obs_noise):
     about the model: ``N(0, sig_param^2)`` weight priors recover structure
     on data this large only if the process really lives at that scale
     (rescaled, unstandardized data is the usual cause). Changes no path."""
-    est = float(x.shape[0] * torch.square(x).mean(0).sum()
+    est = float((x.shape[-2] * torch.square(x).mean(-2).sum(-1)).max()
                 / (2.0 * float(obs_noise)))
     if est > 1.0e6:
         warnings.warn(
@@ -156,6 +161,28 @@ def _warn_on_data_scale(x, obs_noise):
             "sig_param^2) weight priors make structure recovery unreliable "
             "regardless of estimator; standardizing x is the usual "
             "practice.", stacklevel=4)
+
+
+def _check_joint_fleet(cfg, fused, fused_linear_model, x):
+    """Raises ``ValueError`` naming what a joint fleet does not serve yet
+    (``ROADMAP.md`` queue 1): it runs the fused kernels #5-#8 with the
+    dataset axis, and nothing else of the joint estimators."""
+    if cfg.grad_estimator_z != "reparam":
+        raise ValueError(
+            f"a joint fleet serves grad_estimator_z='reparam' through the "
+            f"fused kernels; joint {cfg.grad_estimator_z!r} is not ported to "
+            "the fleet yet (ROADMAP.md queue 1)")
+    if not fused:
+        raise ValueError(
+            "a joint fleet serves the fused reparameterization kernels only; "
+            "this model takes the generic reparameterization route, which "
+            "is not ported to the fleet yet (ROADMAP.md queue 1)")
+    if fused_linear_model is not None and \
+            fused_linear_tile_rows(x.shape[-1], x.shape[-2]) is None:
+        raise ValueError(
+            f"a joint fleet serves the fused linear row tier (d <= 70); the "
+            f"wide tier at d={x.shape[-1]} is not ported to the fleet yet "
+            "(ROADMAP.md queue 1)")
 
 
 def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
@@ -220,10 +247,6 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     if fused_sample_sharing not in (None, "hard"):
         raise ValueError(f"fused_sample_sharing must be None or 'hard'; got "
                          f"{fused_sample_sharing!r}")
-    if x.dim() == 3 and log_joint_prob is not None:
-        raise ValueError("a fleet's estimators serve marginal inference "
-                         "only (joint fleets: ROADMAP.md queue 1, slice 5b "
-                         "step B)")
     n_mc = cfg.n_grad_mc_samples
 
     def _hard_samples(zs, t, seed, stream, eps):
@@ -419,7 +442,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     fused_grad_both = None
     if cfg.grad_estimator_z == "reparam":
-        d, n_obs = x.shape[-1], x.shape[0]
+        d, n_obs = x.shape[-1], x.shape[-2]
         reason = (None if fused_nonlinear_model is None else
                   fused_nonlinear_decline_reason(fused_nonlinear_model,
                                                  n_obs))
@@ -443,6 +466,10 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                     stacklevel=3)
             if fused_sample_sharing == "hard":
                 fused_grad_both = fused_shared
+    if x.dim() == 3 and log_joint_prob is not None:
+        _check_joint_fleet(cfg, fused_grad_both in (fused_linear,
+                                                    fused_nonlinear),
+                           fused_linear_model, x)
     return Estimators(
         eltwise_grad_z_likelihood=grad_z,
         eltwise_grad_latent_prior=eltwise_grad_latent_prior,

@@ -59,6 +59,13 @@ pair ``eps = (eps_soft, eps_hard)`` of ``[P, M, d, d]``. Dispatch
 (:func:`~dibs_tpu_torch.ops.gpu_kernels.use_kernel`): a CUDA tensor goes to
 the kernels, a CPU tensor (or any, with the kill switch off) to the plain
 versions in this module, which take the same noise.
+
+A fleet (:mod:`dibs_tpu_torch.fleet`) passes ``B_ds`` datasets at once: ``x``
+and ``w`` ``[B_ds, N, d]``, the particles in dataset order and ``seed`` the
+``[B_ds]`` int64 keys. The row tier's kernels then read each particle's
+dataset and key in the same launch (particle counter: the index within the
+dataset); the plain versions run on each dataset's slice in turn. The wide
+tier serves one dataset only.
 """
 from __future__ import annotations
 
@@ -74,6 +81,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _check_launch,
     _stream,
     build,
+    fleet_particles,
     philox_uniform,
     use_kernel,
 )
@@ -422,9 +430,38 @@ def _chunks(n_samples):
             for m0 in range(0, n_samples, _PLAIN_CHUNK)]
 
 
+def per_dataset(plain, n_particle_args, *args, seed, eps=None, **kw):
+    """A fleet's call of a plain version: ``plain`` on each dataset's slice
+    in turn (its particles' first ``n_particle_args`` arguments, ``x[i]``
+    and ``w[i]``, each further argument a tuple of per-particle tensors,
+    its key and noise), the outputs concatenated over the particles."""
+    lead, (x, w), rest = (args[:n_particle_args],
+                          args[n_particle_args:n_particle_args + 2],
+                          args[n_particle_args + 2:])
+    keys = seed.reshape(-1).tolist()
+    per = fleet_particles(lead[0].shape[0], len(keys))
+    outs = []
+    for i, key in enumerate(keys):
+        sl = slice(i * per, (i + 1) * per)
+        outs.append(plain(
+            *(t[sl] for t in lead), x[i], w[i],
+            *(tuple(t[sl] for t in r) for r in rest), seed=key,
+            eps=None if eps is None else tuple(e[sl] for e in eps), **kw))
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def _fleet(x) -> bool:
+    return x.dim() == 3
+
+
 def fused_linear_pass1_plain(scores, thetas, x, w, *, seed, streams, alpha,
                              tau, n_samples, model, eps=None):
-    """Plain version of kernel #6: ``(dll_soft, dll_hard)``, each ``[P, M]``."""
+    """Plain version of kernel #6: ``(dll_soft, dll_hard)``, each ``[P, M]``
+    (a fleet's ``x, w [B_ds, N, d]``: each dataset in turn)."""
+    if _fleet(x):
+        return per_dataset(fused_linear_pass1_plain, 2, scores, thetas, x, w,
+                           seed=seed, streams=streams, alpha=alpha, tau=tau,
+                           n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
                           scores.device)
@@ -440,7 +477,12 @@ def fused_linear_pass1_plain(scores, thetas, x, w, *, seed, streams, alpha,
 def fused_linear_pass2_plain(scores, thetas, x, w, weights, *, seed, streams,
                              alpha, tau, n_samples, model, eps=None):
     """Plain version of kernel #7: replays the samples with the softmax
-    ``weights = (w_soft, w_hard)`` ``[P, M]``; returns ``(d scores, d Theta)``."""
+    ``weights = (w_soft, w_hard)`` ``[P, M]``; returns ``(d scores, d Theta)``
+    (a fleet: each dataset in turn)."""
+    if _fleet(x):
+        return per_dataset(fused_linear_pass2_plain, 2, scores, thetas, x, w,
+                           weights, seed=seed, streams=streams, alpha=alpha,
+                           tau=tau, n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
                           scores.device)
@@ -459,7 +501,12 @@ def fused_linear_pass2_plain(scores, thetas, x, w, weights, *, seed, streams,
 def fused_linear_single_plain(scores, thetas, x, w, *, seed, streams, alpha,
                               tau, n_samples, model, eps=None):
     """Plain version of kernel #5: one pass over the samples in chunks with
-    the kernel's online softmax; returns ``(d scores, d Theta)``."""
+    the kernel's online softmax; returns ``(d scores, d Theta)`` (a fleet:
+    each dataset in turn)."""
+    if _fleet(x):
+        return per_dataset(fused_linear_single_plain, 2, scores, thetas, x, w,
+                           seed=seed, streams=streams, alpha=alpha, tau=tau,
+                           n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
                           scores.device)
@@ -494,9 +541,11 @@ def _checked_ptrs(name, scores, thetas, x, w, n_samples, eps, weights):
     """Checks the inputs of a launch; returns the noise and weight
     pointers (``None`` where absent)."""
     p, d, d2 = scores.shape
-    n_obs = x.shape[0]
-    if d != d2 or tuple(thetas.shape) != (p, d, d) or \
-            tuple(x.shape) != (n_obs, d) or tuple(w.shape) != (n_obs, d):
+    lead = tuple(x.shape[:-2])  # a fleet's [B_ds]
+    n_obs = x.shape[-2]
+    if d != d2 or tuple(thetas.shape) != (p, d, d) or len(lead) > 1 or \
+            tuple(x.shape) != (*lead, n_obs, d) or \
+            tuple(w.shape) != (*lead, n_obs, d):
         raise ValueError(f"{name}: bad shapes scores {tuple(scores.shape)}, "
                          f"thetas {tuple(thetas.shape)}, x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}")
@@ -521,6 +570,25 @@ def _checked_ptrs(name, scores, thetas, x, w, n_samples, eps, weights):
     return eps_ptrs, wts_ptrs
 
 
+def _fleet_keys(name, seed, x, p, device):
+    """``(keys, per)`` of a launch: a fleet's ``[B_ds]`` int64 keys on the
+    device and its particles a dataset, or ``(None, P)`` for one dataset
+    keyed by an int ``seed``."""
+    if not isinstance(seed, torch.Tensor):
+        if _fleet(x):
+            raise ValueError(f"{name}: a fleet's data needs its [B_ds] keys")
+        return None, max(1, p)
+    keys = seed.reshape(-1)
+    if not _fleet(x) or x.shape[0] != keys.numel():
+        raise ValueError(f"{name}: {keys.numel()} keys for data "
+                         f"{tuple(x.shape)}")
+    if keys.device != device or keys.dtype != torch.int64 or \
+            not keys.is_contiguous():
+        raise ValueError(f"{name}: a fleet's keys must be a contiguous int64 "
+                         "tensor on the scores' device")
+    return keys, fleet_particles(p, keys.numel())
+
+
 def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
             n_samples, model, eps, weights=None, plan=None):
     """Launches the row-tier kernel; ``plan`` (a :class:`RowPlan`) replaces
@@ -528,7 +596,8 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
                                        eps, weights)
     p, d, _ = scores.shape
-    n_obs = x.shape[0]
+    n_obs = x.shape[-2]
+    keys, per = _fleet_keys(name, seed, x, p, scores.device)
     if fused_linear_tile_rows(d, n_obs) is None:
         raise ValueError(f"{name}: d={d} exceeds the kernel's shared-memory "
                          "limit (fused_linear_available)")
@@ -548,11 +617,13 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     with torch.cuda.device(scores.device):
         rc = lib.dibs_fused_linear(
             _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
-            w.data_ptr(), *eps_ptrs, *wts_ptrs,
+            w.data_ptr(), None if keys is None else keys.data_ptr(), per,
+            *eps_ptrs, *wts_ptrs,
             None if resid_ref is None else resid_ref.data_ptr(),
             part.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), p,
             n_samples, d, n_obs, plan.tile_rows, plan.chunk, plan.group,
-            plan.sub_rows, seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
+            plan.sub_rows, 0 if keys is not None else
+            seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
             streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
             1.0 / model.obs_noise, float(model.mean_edge),
             float(model.sig_edge), _stream(scores.device))
@@ -564,6 +635,9 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
                  n_samples, model, eps, weights=None):
     eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
                                        eps, weights)
+    if _fleet(x) or isinstance(seed, torch.Tensor):
+        raise ValueError(f"{name}: the wide tier (d > 70) serves one dataset, "
+                         "not a fleet (ROADMAP.md queue 1)")
     p, d, _ = scores.shape
     n_obs = x.shape[0]
     tile_rows = fused_linear_wide_tile_rows(d, n_obs)
@@ -618,7 +692,7 @@ def fused_linear_single(scores, thetas, x, w, *, seed, streams, alpha, tau,
 
 
 def _row_tier(scores, x) -> bool:
-    return fused_linear_tile_rows(scores.shape[-1], x.shape[0]) is not None
+    return fused_linear_tile_rows(scores.shape[-1], x.shape[-2]) is not None
 
 
 def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
@@ -659,7 +733,8 @@ def _estimators(single, pass1, pass2, *, zs, thetas, x, interv_mask, seed,
                 streams, alpha, tau, n_samples, model, eps, single_pass):
     scores = edge_scores(zs).contiguous()
     w = (1.0 - interv_mask.to(torch.float32)).contiguous()
-    kw = dict(seed=int(seed), streams=tuple(int(s) for s in streams),
+    kw = dict(seed=seed if isinstance(seed, torch.Tensor) else int(seed),
+              streams=tuple(int(s) for s in streams),
               alpha=float(alpha), tau=float(tau), n_samples=n_samples,
               model=model, eps=eps)
     thetas, x = thetas.contiguous(), x.contiguous()
@@ -680,7 +755,10 @@ def fused_linear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
     ``dV = dS^T U``. ``streams = (soft, hard)``; ``eps`` the injected
     ``(eps_soft, eps_hard)``. ``single_pass=False`` runs kernels #6 and #7
     with the softmax in between instead of kernel #5. Past ``d = 70`` both
-    settings run the wide tier's two passes.
+    settings run the wide tier's two passes. A fleet passes ``x`` and
+    ``interv_mask`` ``[B_ds, N, d]``, ``zs`` and ``thetas`` with the
+    particles in dataset order and ``seed`` its ``[B_ds]`` keys (row tier
+    only).
     """
     return _estimators(fused_linear_single, fused_linear_pass1,
                        fused_linear_pass2, zs=zs, thetas=thetas, x=x,

@@ -40,7 +40,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dibs_tpu_torch.inference.fused_linear import _chunks, _noise
+from dibs_tpu_torch.inference.fused_linear import (
+    _chunks,
+    _fleet_keys,
+    _noise,
+    per_dataset,
+)
 from dibs_tpu_torch.models.nonlinear_gaussian import ACTIVATIONS
 from dibs_tpu_torch.ops.edges import edge_scores
 from dibs_tpu_torch.ops.gpu_kernels import (
@@ -232,7 +237,13 @@ def fused_nonlinear_plain(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams,
     """Plain version of kernel #8, in its layout: returns ``(d scores [P, d,
     d], dW1 [P, h1, d, d], small [P, 2 h1 + 1, d])`` (``small`` holds the
     ``db1``, ``dW2`` and ``db2`` rows), before the outside prior terms.
-    One pass over the samples in chunks with the kernel's online softmax."""
+    One pass over the samples in chunks with the kernel's online softmax.
+    A fleet's ``x, w [B_ds, N, d]`` with its ``[B_ds]`` keys: each dataset
+    in turn."""
+    if x.dim() == 3:
+        return per_dataset(fused_nonlinear_plain, 5, scores, w1t, l1, b1t,
+                           w2t, x, w, seed=seed, streams=streams, alpha=alpha,
+                           tau=tau, n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     h1 = w1t.shape[1]
     act, dact = ACTIVATIONS[model.activation], _DACTS[model.activation]
@@ -324,10 +335,12 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
     name = "fused_nonlinear"
     p, d, d2 = scores.shape
     h1 = w1t.shape[1]
-    n_obs = x.shape[0]
+    lead = tuple(x.shape[:-2])  # a fleet's [B_ds]
+    n_obs = x.shape[-2]
+    keys, per = _fleet_keys(name, seed, x, p, scores.device)
     shapes = {"w1t": (w1t, (p, h1, d, d)), "l1": (l1, (p, d, d)),
               "b1t": (b1t, (p, h1, d)), "w2t": (w2t, (p, h1 + 1, d)),
-              "x": (x, (n_obs, d)), "w": (w, (n_obs, d))}
+              "x": (x, (*lead, n_obs, d)), "w": (w, (*lead, n_obs, d))}
     bad = [f"{k} {tuple(t.shape)} != {s}" for k, (t, s) in shapes.items()
            if tuple(t.shape) != s]
     if d != d2 or bad:
@@ -362,14 +375,17 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
     ref = torch.empty((p, h1 + 1, n_obs, d), **empty)
     part = torch.empty((p, n_split, 4 + (1 + h1) * d * d + (2 * h1 + 1) * d),
                        **empty)
+    launch = (lib.dibs_fused_nonlinear if keys is None
+              else lib.dibs_fused_nonlinear_fleet)
     with torch.cuda.device(scores.device):
-        rc = lib.dibs_fused_nonlinear(
+        rc = launch(
             scores.data_ptr(), w1t.data_ptr(), l1.data_ptr(), b1t.data_ptr(),
-            w2t.data_ptr(), x.data_ptr(), w.data_ptr(), *eps_ptrs,
+            w2t.data_ptr(), x.data_ptr(), w.data_ptr(),
+            None if keys is None else keys.data_ptr(), per, *eps_ptrs,
             ref.data_ptr(), part.data_ptr(), ds.data_ptr(), dw1.data_ptr(),
             small.data_ptr(), p, n_samples, d, h1, n_obs, plan.tile_rows,
             plan.sub_rows, plan.group, chunk, _ACT_CODES[model.activation],
-            seed & 0xFFFFFFFFFFFFFFFF,
+            0 if keys is not None else seed & 0xFFFFFFFFFFFFFFFF,
             streams[0] & 0xFFFFFFFF, streams[1] & 0xFFFFFFFF, float(alpha),
             float(tau), 1.0 / model.obs_noise,
             1.0 / (model.sig_param * model.sig_param),
@@ -423,12 +439,15 @@ def fused_nonlinear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
     """``(d scores [P, d, d], d Theta tree)``: the fused reparam
     Z-likelihood and Theta-likelihood estimates for a one-hidden-layer
     :class:`~dibs_tpu_torch.models.DenseNonlinearGaussian`. The caller
-    chains ``d scores`` to ``Z`` with ``dU = dS V``, ``dV = dS^T U``."""
+    chains ``d scores`` to ``Z`` with ``dU = dS V``, ``dV = dS^T U``. A
+    fleet passes ``x`` and ``interv_mask`` ``[B_ds, N, d]``, the particles
+    in dataset order and ``seed`` its ``[B_ds]`` keys."""
     scores = edge_scores(zs).contiguous()
     w = (1.0 - interv_mask.to(torch.float32)).contiguous()
     ds, dw1, small = fused_nonlinear(
         scores, *kernel_layout(thetas, model), x.contiguous(), w,
-        seed=int(seed), streams=tuple(int(s) for s in streams),
+        seed=seed if isinstance(seed, torch.Tensor) else int(seed),
+        streams=tuple(int(s) for s in streams),
         alpha=float(alpha), tau=float(tau), n_samples=n_samples, model=model,
         eps=eps)
     return ds, _model_layout(thetas, model, dw1, small)

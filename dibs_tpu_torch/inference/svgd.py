@@ -18,11 +18,11 @@ draws its noise inside the kernels from counter-based streams of that seed:
   eps_acyc [P, K, d, d])``, ``eps_soft`` the Z estimator's noise.
 
 A fleet (:mod:`dibs_tpu_torch.fleet`) steps ``B_ds`` datasets of one
-``MarginalDiBS`` at once: ``MarginalDiBS._make_fleet_phi`` and
-``_make_step(..., phi_fn=)`` take a state whose tensors lead with ``[B_ds,
-...]`` and whose ``seed`` is the ``[B_ds]`` int64 keys, with the same
-streams a step; the noise pair is ``(eps_hard [B_ds, P, M, d, d], eps_soft
-[B_ds, P, K, d, d])``.
+engine at once: ``MarginalDiBS._make_fleet_phi`` with ``_make_step(...,
+phi_fn=)``, ``JointDiBS._make_fleet_transport`` with ``_make_step(...,
+transport_fn=)``, take a state whose tensors (and parameter leaves) lead
+with ``[B_ds, P]`` and whose ``seed`` is the ``[B_ds]`` int64 keys, with
+the same streams a step and the noise above with a leading ``[B_ds]``.
 
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
 where CUDA is absent). ``theta`` is the likelihood's parameter tree
@@ -40,6 +40,7 @@ from dibs_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from dibs_tpu_torch.inference.estimators import EstimatorConfig, make_estimators
 from dibs_tpu_torch.inference.optimizers import get_optimizer
 from dibs_tpu_torch.inference.transport import (
+    fleet_joint_transport,
     fleet_marginal_transport,
     joint_transport,
     marginal_transport,
@@ -109,15 +110,19 @@ class DiBS:
             acyclicity_constraint=acyclicity_constraint)
         self.latent_prior_std = latent_prior_std
         self.verbose = verbose
-        self.est = make_estimators(
-            cfg=self.cfg, log_graph_prior=log_graph_prior, x=self.x,
-            interv_mask=self.interv_mask,
+        # the models and options the estimators are built from (again, on
+        # a fleet's datasets, by _make_fleet_estimators)
+        self._est_kwargs = dict(
+            log_graph_prior=log_graph_prior,
             batched_node_log_joint_prob=batched_node_log_joint_prob,
             log_joint_prob=log_joint_prob,
             fused_linear_model=fused_linear_model,
             fused_nonlinear_model=fused_nonlinear_model,
             fused_sample_sharing=fused_sample_sharing,
             fused_single_pass=fused_single_pass)
+        self.est = make_estimators(cfg=self.cfg, x=self.x,
+                                   interv_mask=self.interv_mask,
+                                   **self._est_kwargs)
 
     def alpha(self, t):
         return self.cfg.alpha(t)
@@ -192,6 +197,13 @@ class DiBS:
                   f"beta {float(self.beta(t)):6.1f} | #cyclic {n_cyclic:3d}")
 
         return callback
+
+    def _make_fleet_estimators(self, xs, interv_masks):
+        """The estimators on a fleet's datasets ``xs [B_ds, N, d]`` (masks
+        alike): the dataset axis through the data-dependent parts (raises
+        ``ValueError`` for what a joint fleet does not serve)."""
+        return make_estimators(cfg=self.cfg, x=xs, interv_mask=interv_masks,
+                               **self._est_kwargs)
 
     def _resolve_latent_std(self, n_dim):
         return self.latent_prior_std or (1.0 / math.sqrt(n_dim))
@@ -332,10 +344,7 @@ class MarginalDiBS(DiBS):
         ``state.seed`` the ``[B_ds]`` int64 keys on the device; dataset
         ``i``'s ``phi`` is that of a single run on ``xs[i]`` keyed
         ``seed[i]``."""
-        est = make_estimators(
-            cfg=self.cfg, log_graph_prior=self.log_graph_prior, x=xs,
-            interv_mask=interv_masks,
-            batched_node_log_joint_prob=self.batched_node_log_joint_prob)
+        est = self._make_fleet_estimators(xs, interv_masks)
         kernel = self.kernel
 
         def phi(state: SVGDState, noise=None):
@@ -544,15 +553,58 @@ class JointDiBS(DiBS):
 
         return transport
 
+    def _make_fleet_transport(self, xs, interv_masks,
+                              latent_prior_std) -> Callable:
+        """``transport(state, noise=None) -> (phi_z, phi_theta,
+        sf_baseline)`` of a fleet on the datasets ``xs [B_ds, N, d]``
+        (masks alike): one batched step through the fused kernels, each
+        launched as often as in one dataset's step. The state's tensors and
+        parameter leaves lead with ``[B_ds, P]``, its ``seed`` is the
+        ``[B_ds]`` int64 keys on the device; ``noise`` is ``(eps_soft,
+        eps_hard, eps_acyc)`` with a leading ``[B_ds]``. Raises
+        ``ValueError`` where the joint fleet does not serve the engine (the
+        fused route only)."""
+        est = self._make_fleet_estimators(xs, interv_masks)
+        kernel = self.kernel
+
+        def transport(state: SVGDState, noise=None):
+            n_ds, p = state.z.shape[:2]
+
+            def flat(a):
+                return a.reshape(n_ds * p, *a.shape[2:])
+
+            def unflat(a):
+                return a.reshape(n_ds, p, *a.shape[1:])
+
+            eps_soft, eps_hard, eps_acyc = (None,) * 3 if noise is None \
+                else tuple(flat(e) for e in noise)
+            s_soft, s_hard, s_acyc = self._streams(state.t)
+            z = flat(state.z)
+            dz_lik, dtheta = est.fused_grad_both(
+                z, tree_map(flat, state.theta), state.t, state.seed,
+                (s_soft, s_hard),
+                eps=None if noise is None else (eps_soft, eps_hard))
+            dz_prior = est.eltwise_grad_latent_prior(
+                z, state.t, state.seed, s_acyc, latent_prior_std,
+                eps=eps_acyc)
+            return (*fleet_joint_transport(kernel, state.z, state.theta,
+                                           unflat(dz_prior + dz_lik),
+                                           tree_map(unflat, dtheta)),
+                    state.sf_baseline)
+
+        return transport
+
     def _make_phi(self, latent_prior_std) -> Callable:
         """``phi(state, noise=None) -> (phi_z, phi_theta)``: the transports
         of one step, before the optimizer."""
         transport = self._make_transport(latent_prior_std)
         return lambda state, noise=None: transport(state, noise)[:2]
 
-    def _make_step(self, latent_prior_std) -> Callable:
-        """``step(state, noise=None) -> state``."""
-        transport, opt = self._make_transport(latent_prior_std), self.opt
+    def _make_step(self, latent_prior_std, transport_fn=None) -> Callable:
+        """``step(state, noise=None) -> state`` (a fleet's with its
+        ``transport_fn`` from :meth:`_make_fleet_transport`)."""
+        transport = transport_fn or self._make_transport(latent_prior_std)
+        opt = self.opt
 
         def step(state: SVGDState, noise=None) -> SVGDState:
             _check_precision()

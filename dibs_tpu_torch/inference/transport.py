@@ -23,7 +23,9 @@ kernel #4 computes in float32 whatever it is set to.
 (:mod:`dibs_tpu_torch.fleet`): ``B_ds`` independent families with a leading
 dataset axis, each dataset's SE matrix (#3) and family (#4) from one launch
 each, or, for ``h="median"``, the two-matmul route batched over the
-datasets with each dataset's own bandwidth.
+datasets with each dataset's own bandwidth. :func:`fleet_joint_transport`
+is the joint one: both component matrices and both families, one launch
+each for all the datasets.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ from dibs_tpu_torch.utils.tree import (
 )
 
 __all__ = ["marginal_transport", "joint_transport",
-           "fleet_marginal_transport"]
+           "fleet_marginal_transport", "fleet_joint_transport"]
 
 
 def _flat(a: torch.Tensor) -> torch.Tensor:
@@ -150,6 +152,48 @@ def fleet_marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
         phi = k_mat.transpose(-1, -2) @ gf + (-2.0 / h_eff) * (
             k_mat.transpose(-1, -2) @ vc - k_mat.sum(dim=1)[..., None] * vc)
     return (-phi / p).reshape(z.shape)
+
+
+def _fleet_rows(tree, n_ds, p):
+    """``[B_ds, P, n]``: each leaf flattened per particle, concatenated over
+    the leaves in order (``tree_rows`` with the dataset axis)."""
+    rows = [leaf.reshape(n_ds, p, -1) for leaf in tree_leaves(tree)]
+    return (rows[0] if len(rows) == 1 else torch.cat(rows, dim=-1)) \
+        .contiguous()
+
+
+def fleet_joint_transport(kernel, z: torch.Tensor, theta, dz: torch.Tensor,
+                          dtheta):
+    """Transports ``(phi_z, phi_theta)`` of ``B_ds`` independent datasets:
+    each dataset's is :func:`joint_transport` of its own particles
+    (``z [B_ds, P, d, k, 2]``, parameter leaves ``[B_ds, P, ...]``), with
+    ``K_z`` and ``K_Theta`` from one #3 launch each and both families from
+    one #4 launch each. Serves :class:`~dibs_tpu_torch.kernel.
+    JointAdditiveFrobeniusSEKernel` with float bandwidths; raises
+    ``ValueError`` for other kernels."""
+    h_z, h_t = (getattr(kernel, "h_latent", None),
+                getattr(kernel, "h_theta", None))
+    if not (hasattr(kernel, "component_matrices_and_factors")
+            and all(isinstance(h, (int, float)) for h in (h_z, h_t))):
+        raise ValueError("a joint fleet's transport serves JointAdditive"
+                         "FrobeniusSEKernel with float bandwidths, not "
+                         f"{type(kernel).__name__} with h={h_z!r}, {h_t!r}")
+    n_ds, p = z.shape[:2]
+    vz, gz = _fleet_rows(z, n_ds, p), _fleet_rows(dz, n_ds, p)
+    vt, gt = _fleet_rows(theta, n_ds, p), _fleet_rows(dtheta, n_ds, p)
+    k_z = se_matrix(vz, vz, float(h_z), float(kernel.scale_latent))
+    k_t = se_matrix(vt, vt, float(h_t), float(kernel.scale_theta))
+    with _precision():  # reaches the plain version's matmuls only
+        phi_z = transport_phi(k_z, k_t, gz, vz, c=-2.0 / float(h_z),
+                              mu=vz.mean(dim=1, keepdim=True))
+        phi_t = transport_phi(k_t, k_z, gt, vt, c=-2.0 / float(h_t),
+                              mu=vt.mean(dim=1, keepdim=True))
+    leaves, offset = [], 0
+    for leaf in tree_leaves(theta):
+        size = leaf[0, 0].numel()
+        leaves.append(phi_t[..., offset:offset + size].reshape(leaf.shape))
+        offset += size
+    return phi_z.reshape(z.shape), tree_unflatten(theta, leaves)
 
 
 def _marginal_transport_autodiff(kernel, z, dz):

@@ -59,27 +59,30 @@ def state_from_reference(*, z, nu, sf_baseline, t, seed: int, theta=None,
 
 def fleet_state_from_reference(state, *, seeds,
                                device=DEFAULT_DEVICE) -> SVGDState:
-    """The port's fleet state from the reference's stacked marginal
+    """The port's fleet state from the reference's stacked
     :class:`SVGDState` (``dibs_tpu.fleet.fleet_sample(...,
     return_states=True)``, its arrays as numpy with a leading dataset
-    axis): ``z``, rmsprop ``nu``, ``sf_baseline`` and the common ``t``. The
-    reference's per-dataset PRNG keys have no counterpart; ``seeds`` (``[B]``
-    ints) key the port's noise streams."""
+    axis): ``z``, rmsprop ``nu``, ``sf_baseline``, the common ``t`` and, for
+    a joint state, ``theta`` and its rmsprop ``nu`` (parameter pytrees as
+    :func:`params_from_reference` takes them). The reference's per-dataset
+    PRNG keys have no counterpart; ``seeds`` (``[B]`` ints) key the port's
+    noise streams."""
     device = resolve_device(device)
     steps = np.unique(np.asarray(state.t))
     if steps.size != 1:
         raise ValueError(f"a fleet's datasets share one step counter, got "
                          f"{steps.tolist()}")
-    if state.theta is not None:
-        raise ValueError("fleet_state_from_reference serves marginal states "
-                         "(the joint fleet is not ported yet)")
+    joint = state.theta is not None
     return SVGDState(
         t=int(steps[0]),
         seed=torch.as_tensor(np.asarray(seeds, dtype=np.int64)).to(device),
-        z=_tensor(state.z, device), theta=None,
+        z=_tensor(state.z, device),
+        theta=params_from_reference(state.theta, device) if joint else None,
         opt_state_z=(ScaleByRmsState(nu=_tensor(state.opt_state_z[0].nu,
                                                 device)),),
-        opt_state_theta=None, sf_baseline=_tensor(state.sf_baseline, device))
+        opt_state_theta=((ScaleByRmsState(nu=params_from_reference(
+            state.opt_state_theta[0].nu, device)),) if joint else None),
+        sf_baseline=_tensor(state.sf_baseline, device))
 
 
 def bge_from_reference(*, n_vars, mean_obs, alpha_mu, alpha_lambd,

@@ -164,7 +164,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_se_matrix_slots.argtypes = [i32, ctypes.POINTER(i32)]
     lib.dibs_se_matrix_slots.restype = i32
     u32, f64 = ctypes.c_uint32, ctypes.c_double
-    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 12 + [i32] * 8
+    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 5 + [i32] + [vp] * 8
+                                      + [i32] * 8
                                       + [ctypes.c_uint64, u32, u32, f32, f32,
                                          f64, f32, f32, vp])
     lib.dibs_fused_linear.restype = i32
@@ -189,10 +190,13 @@ def build() -> ctypes.CDLL:
     lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, i32, f32, f32,
                                                i32, vp]
     lib.dibs_transport_phi.restype = i32
-    lib.dibs_fused_nonlinear.argtypes = ([vp] * 14 + [i32] * 10
+    lib.dibs_fused_nonlinear.argtypes = ([vp] * 8 + [i32] + [vp] * 7
+                                         + [i32] * 10
                                          + [ctypes.c_uint64, u32, u32, f32,
                                             f32, f64, f32, vp])
     lib.dibs_fused_nonlinear.restype = i32
+    lib.dibs_fused_nonlinear_fleet.argtypes = lib.dibs_fused_nonlinear.argtypes
+    lib.dibs_fused_nonlinear_fleet.restype = i32
     lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32] * 6
     lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, vp, i32, i32, i32,

@@ -10,8 +10,11 @@ the axis (#1 hard exact off ties and soft within 1e-5, #2 bitwise, #3 atol
 1e-5, #4 within 1e-4 max(1, max|ref|)) and against their unbatched launches
 on each dataset (#1-#3 bitwise, #4 within its bar), at ``B = 1``, ``B`` not
 a power of two and the fleet sizes, #2 on both sides of d = 32 and of every
-block frame; the fleet step's launches against one dataset's step, its
-``phi`` against single engines and against the plain versions on the CPU.
+block frame; the fused joint kernels #5-#8 with the axis against their
+plain versions and their unbatched launches (within 1e-4 max(1,
+max|ref|)); the fleet step's launches against one dataset's step, its
+``phi`` against single engines and against the plain versions on the CPU,
+marginal and joint.
 """
 import os
 import sys
@@ -27,14 +30,22 @@ from dibs_tpu_torch.fleet import (  # noqa: E402
     fleet_sample,
     fleet_seeds,
 )
-from dibs_tpu_torch.inference import MarginalDiBS  # noqa: E402
-from dibs_tpu_torch.models import BGe, ErdosReniDAGDistribution  # noqa: E402
+from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS  # noqa: E402
+from dibs_tpu_torch.inference import fused_linear as fl  # noqa: E402
+from dibs_tpu_torch.inference import fused_nonlinear as fnl  # noqa: E402
+from dibs_tpu_torch.models import (  # noqa: E402
+    BGe,
+    DenseNonlinearGaussian,
+    ErdosReniDAGDistribution,
+    LinearGaussian,
+)
 from dibs_tpu_torch.ops import gpu_kernels as gk  # noqa: E402
 from dibs_tpu_torch.ops import transport_kernel as tk  # noqa: E402
 from dibs_tpu_torch.ops.bge_kernel import (  # noqa: E402
     bge_logdet_pairs,
     bge_logdet_pairs_plain,
 )
+from dibs_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -237,3 +248,105 @@ def test_fleet_on_card_matches_plain_versions_on_cpu(cuda):
         state = step(state, tuple(e.to(cuda) for e in noise))
     gs = fleet_sample(card, xs=xs, seed=2, n_particles=p, steps=3)
     assert gs.shape == (n_ds, p, d, d) and gs.device.type == "cuda"
+
+
+def _close(got, want):
+    for a, b in zip(got, want):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("n_ds", [1, 3, 8])
+@pytest.mark.parametrize("name", ["single", "pass1", "pass2", "mlp"])
+@pytest.mark.parametrize("d,n_obs", [(20, 100), (7, 130)])
+def test_fused_kernels_read_each_datasets_data_and_key(cuda, n_ds, name, d,
+                                                       n_obs):
+    rng = np.random.default_rng(n_ds + d)
+    p, m = 5, 12
+    scores = _rand(rng, (n_ds * p, d, d), cuda)
+    x = _rand(rng, (n_ds, n_obs, d), cuda)
+    w = torch.from_numpy((rng.uniform(size=(n_ds, n_obs, d)) > 0.2)
+                         .astype(np.float32)).to(cuda)
+    keys = fleet_seeds(d, n_ds).to(cuda)
+    if name == "mlp":
+        model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(5,))
+        lead = (scores, *fnl.kernel_layout(model.sample_parameters(
+            generator=torch.Generator().manual_seed(n_ds), n_vars=d,
+            n_particles=n_ds * p, device=cuda), model))
+        kern, plain = fnl.fused_nonlinear, fnl.fused_nonlinear_plain
+    else:
+        model = LinearGaussian(n_vars=d)
+        lead = (scores, _rand(rng, (n_ds * p, d, d), cuda))
+        kern, plain = {"single": (fl.fused_linear_single,
+                                  fl.fused_linear_single_plain),
+                       "pass1": (fl.fused_linear_pass1,
+                                 fl.fused_linear_pass1_plain),
+                       "pass2": (fl.fused_linear_pass2,
+                                 fl.fused_linear_pass2_plain)}[name]
+    extra = ()
+    if name == "pass2":
+        extra = (tuple(torch.softmax(_rand(rng, (n_ds * p, m), cuda), 1)
+                       for _ in range(2)),)
+    kw = dict(seed=keys, streams=(3, 4), alpha=1.5, tau=1.0, n_samples=m,
+              model=model)
+    got = kern(*lead, x, w, *extra, **kw)
+    _close(got, plain(*lead, x, w, *extra, **kw))
+    for i, seed in enumerate(keys.tolist()):
+        sl = slice(i * p, (i + 1) * p)
+        one = kern(*(t[sl] for t in lead), x[i], w[i],
+                   *(tuple(t[sl] for t in e) for e in extra),
+                   **dict(kw, seed=seed))
+        _close([a[sl] for a in got], one)
+
+
+@pytest.mark.parametrize("model", ["linear", "linear two-pass", "mlp"])
+def test_joint_fleet_step_launches_and_matches_single_engines(cuda, model):
+    n_ds, p, d = 3, 4, 8
+    rng = np.random.default_rng(6)
+    xs = torch.from_numpy(rng.normal(size=(n_ds, 20, d)).astype(np.float32))
+
+    def make(x):
+        lik = (DenseNonlinearGaussian(n_vars=d, hidden_layers=(5,))
+               if model == "mlp" else LinearGaussian(n_vars=d))
+        return JointDiBS(
+            x=x, graph_model=ErdosReniDAGDistribution(d, n_edges_per_node=1),
+            likelihood_model=lik, n_grad_mc_samples=16,
+            n_acyclicity_mc_samples=8, device=cuda,
+            fused_single_pass=model != "linear two-pass")
+
+    fleet = make(xs[0])
+    std = fleet._resolve_latent_std(d)
+    masks = torch.zeros(xs.shape, dtype=torch.int32, device=cuda)
+    transport = fleet._make_fleet_transport(xs.to(cuda), masks, std)
+    step = fleet._make_step(std, transport_fn=transport)
+    seeds = fleet_seeds(5, n_ds)
+    singles = [make(x) for x in xs]
+    state = fleet_init_state(fleet, seeds, p)
+    for t in range(3):
+        for name in gk.LAUNCHES:
+            gk.LAUNCHES[name] = 0
+        with torch.no_grad():
+            phi_z, phi_t, _ = transport(state)
+        fleet_launches = dict(gk.LAUNCHES)
+        for i, single in enumerate(singles):
+            for name in gk.LAUNCHES:
+                gk.LAUNCHES[name] = 0
+            one = state._replace(seed=int(seeds[i]), z=state.z[i],
+                                 theta=tree_map(lambda a: a[i], state.theta),
+                                 sf_baseline=state.sf_baseline[i])
+            with torch.no_grad():
+                want_z, want_t = single._make_phi(std)(one)
+            assert dict(gk.LAUNCHES) == fleet_launches
+            for a, b in [(phi_z[i], want_z)] + [
+                    (a[i], b) for a, b in zip(tree_leaves(phi_t),
+                                              tree_leaves(want_t))]:
+                tol = 1e-4 * float(b.abs().max())
+                assert float((a - b).abs().max()) <= tol, (t, i)
+        state = step(state)
+    fused = "fused_nonlinear" if model == "mlp" else (
+        "fused_linear_pass2" if model == "linear two-pass"
+        else "fused_linear_single")
+    assert fleet_launches[fused] == 1
+    gs, thetas = fleet_sample(fleet, xs=xs, seed=5, n_particles=p, steps=2)
+    assert gs.shape == (n_ds, p, d, d)
+    assert all(leaf.shape[:2] == (n_ds, p) for leaf in tree_leaves(thetas))

@@ -28,9 +28,9 @@ from dibs_tpu_torch.fleet import (
     fleet_sample,
     fleet_seeds,
 )
-from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+from dibs_tpu_torch.inference import MarginalDiBS
 from dibs_tpu_torch.interop import bge_from_reference, fleet_state_from_reference
-from dibs_tpu_torch.models import BGe, ErdosReniDAGDistribution, LinearGaussian
+from dibs_tpu_torch.models import BGe, ErdosReniDAGDistribution
 from dibs_tpu_torch.ops import gpu_kernels as gk
 from dibs_tpu_torch.ops import transport_kernel as tk
 from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs_plain
@@ -215,12 +215,8 @@ def test_fleet_rejects_what_the_reference_rejects(datasets):
     with pytest.raises(ValueError, match="slice 6"):
         fleet_sample(port, xs=datasets, seed=0, n_particles=2, steps=1,
                      mesh=object())
-    joint = JointDiBS(x=torch.from_numpy(datasets[0]),
-                      graph_model=ErdosReniDAGDistribution(D),
-                      likelihood_model=LinearGaussian(n_vars=D),
-                      device="cpu")
-    with pytest.raises(ValueError, match="step B"):
-        fleet_sample(joint, xs=datasets, seed=0, n_particles=2, steps=1)
+    with pytest.raises(ValueError, match="not a DiBS engine"):
+        fleet_sample(object(), xs=datasets, seed=0, n_particles=2, steps=1)
 
 
 def test_sampler_twin_keys_each_dataset():
@@ -310,3 +306,38 @@ def test_fleet_state_from_reference_takes_the_stacked_state(datasets):
     with pytest.raises(ValueError, match="step counter"):
         fleet_state_from_reference(st._replace(t=np.array([1, 2, 2])),
                                    seeds=[0] * B, device="cpu")
+
+
+def test_fleet_transport_kernels():
+    """The marginal fleet's median bandwidth is each dataset's own
+    (``marginal_transport`` on its particles); a kernel with only the
+    ``eval`` signature, and a joint fleet's median bandwidth, raise."""
+    from dibs_tpu_torch.inference.transport import (
+        fleet_joint_transport,
+        fleet_marginal_transport,
+        marginal_transport,
+    )
+    from dibs_tpu_torch.kernel import (
+        AdditiveFrobeniusSEKernel,
+        JointAdditiveFrobeniusSEKernel,
+    )
+
+    rng = np.random.default_rng(4)
+    z = torch.from_numpy(rng.normal(size=(B, P, D, 3, 2)).astype(np.float32))
+    dz = torch.from_numpy(rng.normal(size=z.shape).astype(np.float32))
+    kernel = AdditiveFrobeniusSEKernel(h="median")
+    phi = fleet_marginal_transport(kernel, z, dz)
+    for b in range(B):
+        torch.testing.assert_close(phi[b], marginal_transport(
+            kernel, z[b], dz[b]), rtol=1e-5, atol=1e-6)
+
+    class EvalOnly:
+        def eval(self, *, x, y):
+            return torch.exp(-torch.sum((x - y) ** 2))
+
+    with pytest.raises(ValueError, match="EvalOnly"):
+        fleet_marginal_transport(EvalOnly(), z, dz)
+    theta = torch.zeros((B, P, D, D))
+    with pytest.raises(ValueError, match="median"):
+        fleet_joint_transport(JointAdditiveFrobeniusSEKernel(
+            h_latent="median"), z, theta, dz, theta)
