@@ -2596,6 +2596,21 @@ def fleet_kernels(dev):
     return lines, worst4
 
 
+def fleet_times(nb, name, batched, serial, plain, flops, n_bytes,
+                library=None):
+    """One timing line of 13(a): median ms of the batched launch, of ``nb``
+    unbatched launches, of the plain version and of a library call, beside
+    the bound."""
+    t_b = cuda_median_ms(batched, reps=20)
+    t_s = cuda_median_ms(serial, reps=10)
+    t_p = cuda_median_ms(plain, reps=2)
+    t_l = cuda_median_ms(library, reps=20) if library is not None else None
+    b_ms, b_by = bound_ms(flops, n_bytes)
+    return (f"{name} B={nb}: batched {t_b:.4f} ms, {nb} unbatched {t_s:.4f}"
+            f" ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ({b_by})"
+            + ("" if t_l is None else f", library {t_l:.4f} ms"))
+
+
 def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
     """Median ms of #1 (hard, M), #2 (P M graphs a dataset, d=20), #3 and
     #4 at a fleet of ``nb`` datasets: the batched launch, ``nb`` unbatched
@@ -2612,17 +2627,8 @@ def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
     bp, n = nb * P, z.shape[-1]
     out = []
 
-    def row(name, batched, serial, plain, flops, n_bytes, library=None):
-        t_b = cuda_median_ms(batched, reps=20)
-        t_s = cuda_median_ms(serial, reps=10)
-        t_p = cuda_median_ms(plain, reps=3)
-        t_l = (cuda_median_ms(library, reps=20) if library is not None
-               else None)
-        b_ms, b_by = bound_ms(flops, n_bytes)
-        out.append(f"{name} batched {t_b:.4f} ms, {nb} unbatched "
-                   f"{t_s:.4f} ms, twin {t_p:.4f} ms, bound {b_ms:.5f} "
-                   f"({b_by})"
-                   + ("" if t_l is None else f", library {t_l:.4f} ms"))
+    def row(*args, **kw):
+        out.append(fleet_times(nb, *args, **kw))
 
     row("#1 hard", lambda: gk.gumbel_graphs(scores, keys, 7, 1.0, 1.0, M,
                                             True),
@@ -2699,17 +2705,6 @@ def fleet_problem(dev, nb, cell):
     return xs, make(xs[0]), [make(x) for x in xs]
 
 
-def fleet_step_of(dibs, xs, std):
-    """The fleet's step of ``dibs`` on ``xs`` (no interventions)."""
-    from dibs_tpu_torch.inference import JointDiBS
-
-    masks = torch.zeros_like(xs, dtype=torch.int32)
-    if isinstance(dibs, JointDiBS):
-        return dibs._make_step(std, transport_fn=dibs._make_fleet_transport(
-            xs, masks, std))
-    return dibs._make_step(std, phi_fn=dibs._make_fleet_phi(xs, masks, std))
-
-
 def phase_fleet(dev, card):
     """13: ``dibs_tpu_torch.fleet`` on the card. (a) the batched kernels
     #1-#4 (:func:`fleet_kernels`) and #5-#8 (:func:`fleet_fused_kernels`);
@@ -2752,12 +2747,13 @@ def fleet_cell(dev, card, cell, nb, counted):
     datasets in turns (fleet, serial, serial, fleet); the fleet's peak
     device memory; ``torch.profiler`` over 50 fleet steps."""
     from dibs_tpu_torch.fleet import fleet_init_state, fleet_seeds
+    from dibs_tpu_torch.fleet import fleet_step as make_fleet_step
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
     xs, dibs, singles = fleet_problem(dev, nb, cell)
     std = dibs._resolve_latent_std(K_LAT)
     seeds = fleet_seeds(nb, nb)
-    fleet_step = fleet_step_of(dibs, xs, std)
+    fleet_step = make_fleet_step(dibs, xs)
     steps = [e._make_step(std) for e in singles]
 
     def fleet_init():
@@ -2999,11 +2995,6 @@ def fleet_fused_kernels(dev):
                                      for e in extra), **dict(kw, seed=s))
                         for i, s in enumerate(seeds)]
 
-            t_b = cuda_median_ms(lambda: kern(*lead, x, w, *extra, **kw),
-                                 reps=20)
-            t_s = cuda_median_ms(serial, reps=10)
-            t_p = cuda_median_ms(lambda: plain(*lead, x, w, *extra, **kw),
-                                 reps=2)
             kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
             flops = {"fused_linear_single": fused_linear_flops(
                 "single", bp, M, N_OBS, D),
@@ -3016,10 +3007,9 @@ def fleet_fused_kernels(dev):
                     bp, M, N_OBS, D, h1)}[name]
             n_bytes = 4 * (sum(t.numel() for t in lead) + 2 * x.numel()
                            + sum(o.numel() for o in got))
-            b_ms, b_by = bound_ms(flops, n_bytes)
-            lines.append(f"{name} B={nb}: batched {t_b:.4f} ms, {nb} "
-                         f"unbatched {t_s:.4f} ms, plain {t_p:.4f} ms, bound "
-                         f"{b_ms:.5f} ({b_by})")
+            lines.append(fleet_times(
+                nb, name, lambda: kern(*lead, x, w, *extra, **kw), serial,
+                lambda: plain(*lead, x, w, *extra, **kw), flops, n_bytes))
         lines.append(f"B={nb}: #5-#8 within 1e-4 max(1, max|ref|) of their "
                      f"plain versions (worst " + ", ".join(
                          f"{k} {v:.3f}" for k, v in worst.items())

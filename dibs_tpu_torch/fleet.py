@@ -36,7 +36,7 @@ from dibs_tpu_torch.inference.svgd import JointDiBS, MarginalDiBS, SVGDState
 from dibs_tpu_torch.ops.edges import particle_to_g_lim
 from dibs_tpu_torch.utils.tree import tree_map
 
-__all__ = ["fleet_sample", "fleet_seeds", "fleet_init_state"]
+__all__ = ["fleet_sample", "fleet_seeds", "fleet_init_state", "fleet_step"]
 
 
 def fleet_seeds(seed: int, n_datasets: int) -> torch.Tensor:
@@ -74,11 +74,7 @@ def fleet_init_state(dibs, seeds: torch.Tensor,
         sf_baseline=torch.stack([st.sf_baseline for st in states]))
 
 
-def _check(dibs, xs, interv_masks, mesh):
-    if mesh is not None:
-        raise ValueError(
-            "fleet_sample: the 'datasets' mesh axis across cards comes with "
-            "multi-GPU (ROADMAP.md queue 1, slice 6); pass mesh=None")
+def _check(dibs, xs, interv_masks):
     if not isinstance(dibs, (MarginalDiBS, JointDiBS)):
         raise ValueError(f"fleet_sample: not a DiBS engine: "
                          f"{type(dibs).__name__}")
@@ -93,6 +89,20 @@ def _check(dibs, xs, interv_masks, mesh):
     if tuple(interv_masks.shape) != tuple(xs.shape):
         raise ValueError("interv_masks must match xs's shape")
     return xs, interv_masks
+
+
+def fleet_step(dibs, xs, interv_masks=None):
+    """``step(state, noise=None) -> state``: one batched SVGD step of
+    ``dibs`` on the datasets ``xs [B, N, d]`` (``interv_masks`` alike, all
+    observational by default), for states from :func:`fleet_init_state`.
+    Raises ``ValueError`` for what the fleet does not serve."""
+    xs, interv_masks = _check(dibs, xs, interv_masks)
+    std = dibs._resolve_latent_std(dibs.n_vars)
+    if isinstance(dibs, JointDiBS):
+        return dibs._make_step(std, transport_fn=dibs._make_fleet_transport(
+            xs, interv_masks, std))
+    return dibs._make_step(
+        std, phi_fn=dibs._make_fleet_phi(xs, interv_masks, std))
 
 
 def fleet_sample(dibs, *, xs, seed: int, n_particles: int, steps: int,
@@ -119,16 +129,12 @@ def fleet_sample(dibs, *, xs, seed: int, n_particles: int, steps: int,
         (parameter leaves with leading ``[B, P]``) for joint ones; the
         stacked state last with ``return_states=True``.
     """
-    xs, interv_masks = _check(dibs, xs, interv_masks, mesh)
-    std = dibs._resolve_latent_std(dibs.n_vars)
-    if isinstance(dibs, JointDiBS):
-        step = dibs._make_step(std, transport_fn=dibs._make_fleet_transport(
-            xs, interv_masks, std))
-    else:
-        step = dibs._make_step(
-            std, phi_fn=dibs._make_fleet_phi(xs, interv_masks, std))
-    state = fleet_init_state(dibs, fleet_seeds(seed, xs.shape[0]),
-                             n_particles)
+    if mesh is not None:
+        raise ValueError(
+            "fleet_sample: the 'datasets' mesh axis across cards comes with "
+            "multi-GPU (ROADMAP.md queue 1, slice 6); pass mesh=None")
+    step = fleet_step(dibs, xs, interv_masks)
+    state = fleet_init_state(dibs, fleet_seeds(seed, len(xs)), n_particles)
     for _ in range(steps):
         state = step(state)
     gs = particle_to_g_lim(state.z)

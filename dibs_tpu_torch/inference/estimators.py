@@ -199,8 +199,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         cfg: static estimator hyperparameters
         log_graph_prior: ``soft_g [..., d, d] -> [...]`` graph-prior
             log-density on edge probabilities (autograd-differentiable)
-        x: ``[N, d]`` observations (a fleet's ``[B_ds, N, d]``: marginal
-            estimators only)
+        x: ``[N, d]`` observations (a fleet's ``[B_ds, N, d]``)
         interv_mask: ``[N, d]`` intervention indicators (a fleet's
             ``[B_ds, N, d]``)
         batched_node_log_joint_prob: ``(gs [B, d, d], theta, x, interv_mask,

@@ -81,6 +81,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _check_launch,
     _stream,
     build,
+    fleet_keys,
     fleet_particles,
     philox_uniform,
     use_kernel,
@@ -571,22 +572,16 @@ def _checked_ptrs(name, scores, thetas, x, w, n_samples, eps, weights):
 
 
 def _fleet_keys(name, seed, x, p, device):
-    """``(keys, per)`` of a launch: a fleet's ``[B_ds]`` int64 keys on the
-    device and its particles a dataset, or ``(None, P)`` for one dataset
-    keyed by an int ``seed``."""
-    if not isinstance(seed, torch.Tensor):
-        if _fleet(x):
-            raise ValueError(f"{name}: a fleet's data needs its [B_ds] keys")
-        return None, max(1, p)
-    keys = seed.reshape(-1)
-    if not _fleet(x) or x.shape[0] != keys.numel():
-        raise ValueError(f"{name}: {keys.numel()} keys for data "
-                         f"{tuple(x.shape)}")
-    if keys.device != device or keys.dtype != torch.int64 or \
-            not keys.is_contiguous():
-        raise ValueError(f"{name}: a fleet's keys must be a contiguous int64 "
-                         "tensor on the scores' device")
-    return keys, fleet_particles(p, keys.numel())
+    """``(keys, per)`` of a launch (:func:`~dibs_tpu_torch.ops.gpu_kernels.
+    fleet_keys`); a fleet's data ``[B_ds, N, d]`` goes with its ``[B_ds]``
+    keys, one dataset's ``[N, d]`` with an int seed."""
+    keys, per = fleet_keys(name, seed, p, device)
+    if (keys is None) == _fleet(x) or (
+            keys is not None and x.shape[0] != keys.numel()):
+        raise ValueError(f"{name}: data {tuple(x.shape)} and "
+                         f"{'no keys' if keys is None else keys.numel()} "
+                         "keys do not match")
+    return keys, per
 
 
 def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,

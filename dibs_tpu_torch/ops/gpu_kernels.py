@@ -53,6 +53,7 @@ __all__ = [
     "gumbel_graphs",
     "gumbel_graphs_plain",
     "gumbel_plan",
+    "fleet_keys",
     "fleet_particles",
     "philox_uniform",
     "se_matrix",
@@ -304,6 +305,22 @@ def fleet_particles(batch: int, n_keys: int) -> int:
     return batch // n_keys
 
 
+def fleet_keys(name: str, seed, batch: int, device):
+    """``(keys, per)`` of a kernel launch over ``batch`` particles: a
+    fleet's ``[B_ds]`` keys (``seed`` a contiguous int64 tensor on
+    ``device``) and its particles a dataset, or ``(None, batch)`` for one
+    dataset keyed by an int ``seed``."""
+    if not isinstance(seed, torch.Tensor):
+        return None, max(1, batch)
+    keys = seed.reshape(-1)
+    per = fleet_particles(batch, keys.numel())
+    if (keys.device != device or keys.dtype != torch.int64
+            or not keys.is_contiguous()):
+        raise ValueError(f"{name}: a fleet's keys must be a contiguous int64 "
+                         "tensor on the kernel's device")
+    return keys, per
+
+
 def philox_uniform(shape, seed, stream: int, device) -> torch.Tensor:
     """The sampler kernel's uniforms for a ``[B, M, d, d]`` output, in
     PyTorch: Philox4x32-10 with counter (element, sample, particle, stream)
@@ -399,15 +416,7 @@ def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
         if tuple(eps.shape) != (b, n_samples, d, d):
             raise ValueError(f"eps must be {(b, n_samples, d, d)}, got "
                              f"{tuple(eps.shape)}")
-    keys, per = None, 0
-    if isinstance(seed, torch.Tensor):
-        keys = seed.reshape(-1)
-        per = fleet_particles(b, keys.numel())
-        if (keys.device != scores.device or keys.dtype != torch.int64
-                or not keys.is_contiguous()):
-            raise ValueError("gumbel_graphs: a fleet's keys must be a "
-                             "contiguous int64 tensor on the scores' device")
-        seed = 0
+    keys, per = fleet_keys("gumbel_graphs", seed, b, scores.device)
     lib = build()
     out = torch.empty((b, n_samples, d, d), dtype=torch.float32,
                       device=scores.device)
@@ -418,7 +427,8 @@ def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
     with torch.cuda.device(scores.device):
         rc = lib.dibs_gumbel_graphs(
             scores.data_ptr(), None if eps is None else eps.data_ptr(),
-            out.data_ptr(), b, n_samples, d, seed & 0xFFFFFFFFFFFFFFFF,
+            out.data_ptr(), b, n_samples, d,
+            0 if keys is not None else seed & 0xFFFFFFFFFFFFFFFF,
             None if keys is None else keys.data_ptr(), per, stream & _MASK32,
             float(alpha), float(tau), int(bool(hard)),
             plan.vec, plan.threads, plan.group, _stream(scores.device))

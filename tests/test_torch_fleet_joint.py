@@ -143,7 +143,7 @@ def _fleet_step(port, xs):
 def _port_nearer_float64(ref, port, xs, st, state, noise, b):
     """Where the MLP fleet's ``phi`` misses the bar against the reference
     at dataset ``b``: the reference's uncentred float32 scoring at a
-    near-tie (``ROADMAP.md`` queue 3, PR 3) must be what moved it, i.e. the
+    near-tie (``ROADMAP.md`` queue 3) must be what moved it, i.e. the
     port's fused ``d Theta`` lies nearer a float64 evaluation of the same
     estimator (the port's generic one, same noise) than the reference's,
     and ``phi`` stays within 2x the bar."""
