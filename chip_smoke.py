@@ -100,6 +100,8 @@ Phases, one line each; any failure exits non-zero:
    #2 bitwise at d = 20, 32, 33, 64, 128) and their unbatched launches on
    each dataset (#1-#3 bitwise), timed at the fleet sizes beside B
    unbatched launches, the twin, the bound and a batched library call;
+   #8's fleet build also at every gate edge of ``SHAPES_NL_EDGES`` with
+   B = 1 and 3 and in each of its 16 instantiations (``FLEET_NL_CASES``);
    (b) ``MarginalDiBS`` at the headline config (``score``, ``score_rb``)
    with B = 8 and 32 datasets and ``JointDiBS`` at configs 2 and 3 with
    B = 8: launches a fleet step equal to one dataset's step (required),
@@ -749,6 +751,12 @@ SHAPES_NL_EDGES = [(3, 40, 100, 5, 0, 9, "relu"),
                    (2, 23, 1, 16, 0, 5, "tanh"),
                    (3, 67, 37, 1, 0, 5, "leakyrelu"),
                    (4, 13, 130, 7, 1, 6, "sigmoid")]
+# #8's fleet build (kFleet), as (B, P, d, N, h1, blocks, M, act): the gate
+# edges at B = 1 and 3, and each of its 16 instantiations (hidden widths 5,
+# 16, 4 and 8, the four activations) at a small shape with B = 3
+FLEET_NL_CASES = ([(nb, *c) for c in SHAPES_NL_EDGES for nb in (1, 3)]
+                  + [(3, 2, 12, 40, h1, 0, 5, act) for h1 in (5, 16, 1, 7)
+                     for act in ("relu", "tanh", "sigmoid", "leakyrelu")])
 
 
 def check_fused_nonlinear(fnl, args, kw, label):
@@ -2707,7 +2715,8 @@ def fleet_problem(dev, nb, cell):
 
 def phase_fleet(dev, card):
     """13: ``dibs_tpu_torch.fleet`` on the card. (a) the batched kernels
-    #1-#4 (:func:`fleet_kernels`) and #5-#8 (:func:`fleet_fused_kernels`);
+    #1-#4 (:func:`fleet_kernels`) and #5-#8 (:func:`fleet_fused_kernels`,
+    :func:`fleet_nonlinear_edges`);
     (b) the headline marginal config (``bench.py``: ER d=20, N=100, P=30,
     k=20, M=128, K=32, BGe), ``score`` and ``score_rb``, with ``FLEET_B``
     datasets, and joint configs 2 and 3 (``benchmarks/run_benchmarks.py:
@@ -2721,6 +2730,7 @@ def phase_fleet(dev, card):
     log(f"[13a fleet kernels] #4 worst {worst4:.3f} of its bar")
     for ln in fleet_fused_kernels(dev):
         log(f"[13a fleet fused kernels] {ln}")
+    log(f"[13a fleet fused kernels] {fleet_nonlinear_edges(dev)}")
 
     total = dict.fromkeys(gk.LAUNCHES, 0)
 
@@ -3015,6 +3025,59 @@ def fleet_fused_kernels(dev):
                          f"{k} {v:.3f}" for k, v in worst.items())
                      + ") and of their unbatched launches on each dataset")
     return lines
+
+
+def check_fleet_nonlinear(dev, rng, nb, p, d, n, h1, blocks, m, activation):
+    """#8's fleet build (``kFleet``, ``csrc/fused_nonlinear_fleet.cu``) on
+    ``nb`` datasets of ``p`` particles at one case of ``SHAPES_NL_EDGES``,
+    each dataset its own :func:`nonlinear_problem` and key: against the
+    plain version with the dataset axis (two calls bitwise equal) and
+    against the unbatched launch on each dataset, within 1e-4 max(1,
+    max|ref|). Returns the worst error as a share of the bar."""
+    from dibs_tpu_torch.fleet import fleet_seeds
+    from dibs_tpu_torch.inference import fused_nonlinear as fnl
+    from dibs_tpu_torch.models import DenseNonlinearGaussian
+
+    probs = [nonlinear_problem(rng, dev, p, d, n, h1, blocks)
+             for _ in range(nb)]
+    lead = tuple(torch.cat([pr[i] for pr in probs]) for i in range(5))
+    x, w = (torch.stack([pr[i] for pr in probs]) for i in (5, 6))
+    keys = fleet_seeds(d + nb, nb).to(dev)
+    model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
+                                   activation=activation)
+    kw = dict(seed=keys, streams=(4, 5), alpha=1.3, tau=0.9, n_samples=m,
+              model=model)
+    label = f"fleet B={nb} d={d} N={n} h1={h1} {activation}"
+    worst, _ = check_fused_nonlinear(fnl, (*lead, x, w), kw, label)
+    got = fnl.fused_nonlinear(*lead, x, w, **kw)
+    for i, seed in enumerate(keys.tolist()):
+        sl = slice(i * p, (i + 1) * p)
+        one = fnl.fused_nonlinear(*(t[sl] for t in lead), x[i], w[i],
+                                  **dict(kw, seed=seed))
+        for a, b in zip(got, one):
+            tol = 1e-4 * max(1.0, float(b.abs().max()))
+            e = float((a[sl] - b).abs().max())
+            check(e <= tol, f"{label}: dataset {i}: {e} > {tol} from its "
+                            "unbatched launch")
+            worst = max(worst, e / tol)
+    return worst
+
+
+def fleet_nonlinear_edges(dev):
+    """13(a), #8's fleet build at every case of ``FLEET_NL_CASES`` (the
+    gate edges; all 16 instantiations) (:func:`check_fleet_nonlinear`)."""
+    rng = np.random.default_rng(37)
+    worst = 0.0
+    for case in FLEET_NL_CASES:
+        worst = max(worst, check_fleet_nonlinear(dev, rng, *case))
+    return (f"#8's fleet build at the gate edges (P,d,N,h1,blocks,M,act) "
+            f"{SHAPES_NL_EDGES} with B = 1 and 3, and each of its 16 "
+            f"instantiations (h1 = 5, 16, 1, 7 x relu, tanh, sigmoid, leaky "
+            f"relu; P=2, d=12, N=40, M=5, B = 3): within 1e-4 max(1, "
+            f"max|ref|) of the plain version and of the unbatched launch on "
+            f"each dataset, worst {worst:.3f} of the bar; two calls bitwise "
+            f"equal")
+
 
 def main():
     if not torch.cuda.is_available():

@@ -40,7 +40,9 @@
 // dataset, [n_graphs / gpd, d, d, d], and graph b reads the set of its
 // dataset b / gpd (gpd = graphs a dataset). Every route resolves R_j
 // through node_r; a single dataset is gpd = n_graphs, so its pointers and
-// bits are those of the unbatched launch.
+// bits are those of the unbatched launch. The dataset lookup is a
+// compile-time variant (kFleet) of every route, so that the single-dataset
+// kernels compile as they did without it.
 //
 // Shapes of the work:
 //   * d <= 32 (bge_pairs_warp_kernel): one block (4 warps) per graph, its
@@ -115,11 +117,17 @@ constexpr int kFrame128MaxK = 127;  // 16 x 16 threads of 8 x 8, W = 128
 // the kernels: d <= 32, the warp route, the five frames
 constexpr int kRoutes = 7;
 
-// R_j of graph b: the set of b's dataset (gpd graphs a dataset).
+// R_j of graph b: a fleet's set of b's dataset (gpd graphs a dataset), or
+// the one set.
+template <bool kFleet>
 __device__ __forceinline__ const float* node_r(const float* r_mats,
                                                int64_t b, int gpd, int j,
                                                int d) {
-  return r_mats + ((b / gpd) * d + j) * static_cast<int64_t>(d) * d;
+  if constexpr (kFleet) {
+    return r_mats + ((b / gpd) * d + j) * static_cast<int64_t>(d) * d;
+  } else {
+    return r_mats + static_cast<int64_t>(j) * d * d;
+  }
 }
 
 // ---- the warp routine: one warp per (graph, node), parents only ----------
@@ -193,6 +201,7 @@ __device__ __forceinline__ void parents_pair(const float* __restrict__ r,
 
 // ---- d <= 32: one block per graph, the mask staged as floats -------------
 
+template <bool kFleet>
 __global__ void __launch_bounds__(kWarps * 32, 8)
     bge_pairs_warp_kernel(const float* __restrict__ r_mats,
                           const float* __restrict__ gs,
@@ -218,7 +227,7 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
     const int k = __popc(bits);
     if (m != 0.0f) plist[__popc(bits & ((1u << lane) - 1u))] = lane;
     __syncwarp();
-    const float* __restrict__ r = node_r(r_mats, b, gpd, j, d);
+    const float* __restrict__ r = node_r<kFleet>(r_mats, b, gpd, j, d);
     float* pa = out_pa + b * d + j;
     float* full = out_full + b * d + j;
     if (k == 0) {
@@ -319,6 +328,7 @@ struct WarpRouteSmem {
 // k <= 15 past d = 32: a block takes the next chunk of 128 consecutive
 // pairs from a counter, lists those with k <= 15 and its 4 warps eliminate
 // them in turn.
+template <bool kFleet>
 __global__ void __launch_bounds__(kWarps * 32, 8)
     bge_pairs_warp_route_kernel(const float* __restrict__ r_mats,
                                 const float* __restrict__ gs,
@@ -370,7 +380,7 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
         }
       }
       __syncwarp();
-      const float* __restrict__ r = node_r(r_mats, b, gpd, j, d);
+      const float* __restrict__ r = node_r<kFleet>(r_mats, b, gpd, j, d);
       float* pa = out_pa + b * d + j;
       float* full = out_full + b * d + j;
       if (k == 0) {
@@ -507,7 +517,7 @@ __device__ __forceinline__ void block_phases(BlockSmem<TR, TC, AR, AC>& sm,
   }
 }
 
-template <int TR, int TC, int AR, int AC>
+template <int TR, int TC, int AR, int AC, bool kFleet>
 __global__ void __launch_bounds__(TR * TC, frame_min_blocks(TR * TC, AR, AC))
     bge_pairs_block_kernel(const float* __restrict__ r_mats,
                            const float* __restrict__ gs,
@@ -566,7 +576,7 @@ __global__ void __launch_bounds__(TR * TC, frame_min_blocks(TR * TC, AR, AC))
         }
       }
       __syncthreads();
-      const float* __restrict__ r = node_r(r_mats, b, gpd, j, d);
+      const float* __restrict__ r = node_r<kFleet>(r_mats, b, gpd, j, d);
       const int o = W - (k + 1);  // frame index of parent 0
       // the tile: C[ri][ci] = A[Pa[ri], Pa[ci]], column k the border
       int qc[AC];
@@ -702,6 +712,60 @@ int launch_route(Kernel kernel, int threads, int64_t items,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Every route of one launch; kFleet: graphs read their dataset's R_j.
+template <bool kFleet>
+int launch_routes(const float* r_mats, const float* gs, float* out_pa,
+                  float* out_full, void* words, int* soft, int* counters,
+                  int n_graphs, int gpd, int d, cudaStream_t stream) {
+  if (d <= kSmallMaxD) {
+    bge_pairs_warp_kernel<kFleet><<<n_graphs, kWarps * 32, 0, stream>>>(
+        r_mats, gs, out_pa, out_full, gpd, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  uint4* w = static_cast<uint4*>(words);
+  bge_pairs_bits_kernel<<<n_graphs, 256, 0, stream>>>(gs, w, soft, counters,
+                                                      n_graphs, d);
+  int rc = static_cast<int>(cudaGetLastError());
+  const int64_t items = static_cast<int64_t>(n_graphs) * d;
+  if (rc == 0) {
+    rc = launch_route(bge_pairs_warp_route_kernel<kFleet>, kWarps * 32,
+                      items, stream, r_mats, gs, w, soft, out_pa, out_full,
+                      counters, n_graphs, gpd, d);
+  }
+  // the frames, by k: [k_lo, k_hi] each
+  if (rc == 0) {
+    rc = launch_route(bge_pairs_block_kernel<4, 8, 8, 4, kFleet>, 32, items,
+                      stream, r_mats, gs, w, soft, out_pa, out_full,
+                      counters + 1, n_graphs, gpd, d, kWarpRouteMaxK + 1,
+                      kFrame32MaxK);
+  }
+  if (rc == 0) {
+    rc = launch_route(bge_pairs_block_kernel<4, 8, 12, 6, kFleet>, 32, items,
+                      stream, r_mats, gs, w, soft, out_pa, out_full,
+                      counters + 2, n_graphs, gpd, d, kFrame32MaxK + 1,
+                      kFrame48MaxK);
+  }
+  if (rc == 0) {
+    rc = launch_route(bge_pairs_block_kernel<8, 8, 8, 8, kFleet>, 64, items,
+                      stream, r_mats, gs, w, soft, out_pa, out_full,
+                      counters + 3, n_graphs, gpd, d, kFrame48MaxK + 1,
+                      kFrame64MaxK);
+  }
+  if (rc == 0) {
+    rc = launch_route(bge_pairs_block_kernel<8, 8, 12, 12, kFleet>, 64,
+                      items, stream, r_mats, gs, w, soft, out_pa, out_full,
+                      counters + 4, n_graphs, gpd, d, kFrame64MaxK + 1,
+                      kFrame96MaxK);
+  }
+  if (rc == 0) {
+    rc = launch_route(bge_pairs_block_kernel<16, 16, 8, 8, kFleet>, 256,
+                      items, stream, r_mats, gs, w, soft, out_pa, out_full,
+                      counters + 5, n_graphs, gpd, d, kFrame96MaxK + 1,
+                      kMaxD);
+  }
+  return rc;
+}
+
 }  // namespace
 
 // Shared bytes a block of the route serving (d, k) uses (-1 where no route
@@ -737,48 +801,9 @@ DIBS_API int dibs_bge_pairs(const float* r_mats, const float* gs,
     }
   }
   if (n_graphs == 0) return 0;
-  if (d <= kSmallMaxD) {
-    bge_pairs_warp_kernel<<<n_graphs, kWarps * 32, 0, stream>>>(
-        r_mats, gs, out_pa, out_full, gpd, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  uint4* w = static_cast<uint4*>(words);
-  bge_pairs_bits_kernel<<<n_graphs, 256, 0, stream>>>(gs, w, soft, counters,
-                                                      n_graphs, d);
-  int rc = static_cast<int>(cudaGetLastError());
-  const int64_t items = static_cast<int64_t>(n_graphs) * d;
-  if (rc == 0) {
-    rc = launch_route(bge_pairs_warp_route_kernel, kWarps * 32, items, stream,
-                      r_mats, gs, w, soft, out_pa, out_full, counters,
-                      n_graphs, gpd, d);
-  }
-  // the frames, by k: [k_lo, k_hi] each
-  if (rc == 0) {
-    rc = launch_route(bge_pairs_block_kernel<4, 8, 8, 4>, 32, items, stream,
-                      r_mats, gs, w, soft, out_pa, out_full, counters + 1,
-                      n_graphs, gpd, d, kWarpRouteMaxK + 1, kFrame32MaxK);
-  }
-  if (rc == 0) {
-    rc = launch_route(bge_pairs_block_kernel<4, 8, 12, 6>, 32, items, stream,
-                      r_mats, gs, w, soft, out_pa, out_full, counters + 2,
-                      n_graphs, gpd, d, kFrame32MaxK + 1, kFrame48MaxK);
-  }
-  if (rc == 0) {
-    rc = launch_route(bge_pairs_block_kernel<8, 8, 8, 8>, 64, items, stream,
-                      r_mats, gs, w, soft, out_pa, out_full, counters + 3,
-                      n_graphs, gpd, d, kFrame48MaxK + 1, kFrame64MaxK);
-  }
-  if (rc == 0) {
-    rc = launch_route(bge_pairs_block_kernel<8, 8, 12, 12>, 64, items,
-                      stream, r_mats, gs, w, soft, out_pa, out_full,
-                      counters + 4, n_graphs, gpd, d, kFrame64MaxK + 1,
-                      kFrame96MaxK);
-  }
-  if (rc == 0) {
-    rc = launch_route(bge_pairs_block_kernel<16, 16, 8, 8>, 256, items,
-                      stream, r_mats, gs, w, soft, out_pa, out_full,
-                      counters + 5, n_graphs, gpd, d, kFrame96MaxK + 1,
-                      kMaxD);
-  }
-  return rc;
+  return gpd < n_graphs
+             ? launch_routes<true>(r_mats, gs, out_pa, out_full, words, soft,
+                                   counters, n_graphs, gpd, d, stream)
+             : launch_routes<false>(r_mats, gs, out_pa, out_full, words,
+                                    soft, counters, n_graphs, gpd, d, stream);
 }

@@ -4,8 +4,11 @@
 //   mode 0, single pass: _fused_single (online softmax over the samples),
 //   mode 1, pass 1:      _fused_pass1 (the [P, M] soft and hard log-lik.),
 //   mode 2, pass 2:      _fused_pass2 (replays the samples with weights).
-// One template (fused_linear_kernel<kMode, kItems>) serves all three for
-// d <= 70, the row tier. Past d = 70, where the [d, d] matrices no longer fit
+// One template (fused_linear_kernel<kMode, kItems, kFleet>) serves all
+// three for d <= 70, the row tier; kFleet is a fleet's variant (each
+// particle its dataset's data and key), kept out of the single-dataset
+// kernels, where its indexing cost mode 1 14 registers a thread and mode 2
+// 28 bytes of spills. Past d = 70, where the [d, d] matrices no longer fit
 // one block's shared memory, the wide tier (modes 3 and 4, below) computes
 // the same estimand as passes 1 and 2 over column tiles; the JAX package's
 // own gate for these kernels is d <= 384.
@@ -160,7 +163,7 @@ __host__ __device__ inline int row_items(int d, int group) {
   return (dq * dq + team - 1) / team;
 }
 
-template <int kMode, int kItems>
+template <int kMode, int kItems, bool kFleet>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_linear_kernel(const Args a) {
   extern __shared__ __align__(16) double smem_d[];
@@ -188,14 +191,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* ghv = gsv + kg * dd;     // the group's hard samples
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
-  // a fleet: particle p of dataset p / per reads that dataset's data and
-  // draws with its key, at the particle counter p % per
-  const int ds = p / a.per;
-  const int64_t data0 = static_cast<int64_t>(ds) * a.n_obs * d;
-  const float* __restrict__ xd = a.x + data0;
-  const float* __restrict__ wd = a.w + data0;
+  // a fleet (kFleet): particle p of dataset p / per reads that dataset's
+  // data and draws with its key, at the particle counter p % per
+  const float* xd = a.x;
+  const float* wd = a.w;
   uint32_t pk = p, k0 = a.k0, k1 = a.k1;
-  if (a.keys != nullptr) {
+  if constexpr (kFleet) {
+    const int ds = p / a.per;
+    const int64_t data0 = static_cast<int64_t>(ds) * a.n_obs * d;
+    xd += data0;
+    wd += data0;
     const uint64_t key = static_cast<uint64_t>(a.keys[ds]);
     pk = p - ds * a.per;
     k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
@@ -1390,7 +1395,9 @@ int launch_wide(const WideArgs& a, int mode, int n_particles,
 template <int kMode, int kItems>
 int launch_row(const Args& a, int n_particles, size_t smem,
                cudaStream_t stream) {
-  const auto kernel = fused_linear_kernel<kMode, kItems>;
+  const auto kernel = a.keys != nullptr
+                          ? fused_linear_kernel<kMode, kItems, true>
+                          : fused_linear_kernel<kMode, kItems, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -218,7 +218,9 @@ __global__ void __launch_bounds__(kThreads)
                        int d, int h1, int n_obs, int per, float alpha) {
   extern __shared__ float smem_f[];
   const int p = blockIdx.x, tid = threadIdx.x, dd = d * d;
-  x += static_cast<int64_t>(p / per) * n_obs * d;  // the particle's dataset
+  if constexpr (DIBS_NL_FLEET != 0) {  // the particle's dataset
+    x += static_cast<int64_t>(p / per) * n_obs * d;
+  }
   float* sw = smem_f;           // [h1, d, d] E[G] * W1_h
   float* bb = sw + h1 * dd;     // [h1, d]
   float* ww = bb + h1 * d;      // [h1 + 1, d]

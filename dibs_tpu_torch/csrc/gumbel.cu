@@ -52,7 +52,9 @@
 // dataset. Particle b then draws with the key of its dataset b / per and
 // the particle counter b % per, its index within the dataset, so dataset i
 // of a fleet gets the noise of a single run keyed keys[i]. With `keys` null
-// the key is `seed` and the counter b, as before.
+// the key is `seed` and the counter b, as before. The fleet's indexing is a
+// compile-time variant (kFleet), so that the single-run kernels keep their
+// registers: a run-time branch there cost 8-19 registers a thread.
 #include <climits>
 
 #include "common.h"
@@ -90,7 +92,7 @@ __device__ __forceinline__ void store(float* __restrict__ p,
 // One thread: elements e0 .. e0 + kVec - 1 of particle b0 + unit / upp, for
 // samples blockIdx.y * group .. + group - 1. `units` = particles of this
 // launch x upp (< 2^31, the launcher slices the batch).
-template <int kVec, int kMode>
+template <int kVec, int kMode, bool kFleet>
 __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
     const float* __restrict__ scores, const float* __restrict__ eps,
     float* __restrict__ out, const int64_t* __restrict__ keys, int per,
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
   const int e0 = (unit - bl * upp) * kVec;
   const int dd = d * d;
   uint32_t b = b0 + static_cast<uint32_t>(bl);
-  if (keys != nullptr) {  // a fleet: the dataset's key, the index within it
+  if constexpr (kFleet) {  // the dataset's key, the index within it
     const uint32_t ds = b / static_cast<uint32_t>(per);
     const uint64_t key = static_cast<uint64_t>(__ldg(keys + ds));
     b -= ds * static_cast<uint32_t>(per);
@@ -173,9 +175,15 @@ cudaError_t launch(int mode, dim3 grid, int threads, cudaStream_t stream,
                    const int64_t* keys, int per, int units, int upp, int d,
                    int n_samples, int group, uint32_t b0, uint32_t k0,
                    uint32_t k1, uint32_t rng_stream, float alpha, float tau) {
-  auto kernel = mode == kHard       ? gumbel_graphs_kernel<kVec, kHard>
-                : mode == kSoftFast ? gumbel_graphs_kernel<kVec, kSoftFast>
-                                    : gumbel_graphs_kernel<kVec, kSoftLog>;
+  constexpr bool F = false, T = true;
+  auto kernel =
+      keys != nullptr
+          ? (mode == kHard       ? gumbel_graphs_kernel<kVec, kHard, T>
+             : mode == kSoftFast ? gumbel_graphs_kernel<kVec, kSoftFast, T>
+                                 : gumbel_graphs_kernel<kVec, kSoftLog, T>)
+          : (mode == kHard       ? gumbel_graphs_kernel<kVec, kHard, F>
+             : mode == kSoftFast ? gumbel_graphs_kernel<kVec, kSoftFast, F>
+                                 : gumbel_graphs_kernel<kVec, kSoftLog, F>);
   kernel<<<grid, threads, 0, stream>>>(scores, eps, out, keys, per, units,
                                        upp, d, n_samples, group, b0, k0, k1,
                                        rng_stream, alpha, tau);

@@ -50,7 +50,9 @@
 // - Fleets (dibs_tpu_torch/fleet.py): `batch` independent families, each
 //   operand with a leading dataset axis, one a gridDim.y slice; each
 //   dataset's blocks do exactly the work of an unbatched launch on its
-//   operands, so each family has that launch's bits.
+//   operands, so each family has that launch's bits. The dataset offsets
+//   are a compile-time variant (kBatched): in the single-family kernels
+//   they cost 8-10 registers a thread.
 // float32 with fused multiply-adds throughout; the -1/P scale and the
 // rank-1 term are applied in registers before the single store.
 #include "common.h"
@@ -87,7 +89,7 @@ __device__ __forceinline__ void store4(float* dst, float4 q) {
 
 // Two resident blocks an SM (128 registers) for the aligned instantiation;
 // the scalar one serves small or ragged shapes and may take more registers.
-template <bool kJoint, bool kVec>
+template <bool kJoint, bool kVec, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
     transport_phi_kernel(const float* __restrict__ k_own,
                          const float* __restrict__ k_other,
@@ -99,7 +101,7 @@ __global__ void __launch_bounds__(kThreads, kVec ? 2 : 1)
                          float c, float c_over_p, float neg_inv_p) {
   __shared__ __align__(16) float as[2][kBk][kBm];
   __shared__ __align__(16) float bs[2][kBk][kBn];
-  {  // this block's dataset
+  if constexpr (kBatched) {  // this block's dataset
     const int64_t ds = blockIdx.y;
     const int64_t pp = static_cast<int64_t>(p) * p;
     const int64_t pn = static_cast<int64_t>(p) * n;
@@ -238,15 +240,15 @@ void launch(int vec, dim3 blocks, int row_tiles, const float* k_own,
             const float* k_other, const float* g, const float* v,
             const float* mu, const float* colsum, float* out, int p, int n,
             float c, float c_over_p, float neg_inv_p, cudaStream_t stream) {
-  if (vec) {
-    transport_phi_kernel<kJoint, true><<<blocks, kThreads, 0, stream>>>(
-        k_own, k_other, g, v, mu, colsum, out, p, n, row_tiles, c, c_over_p,
-        neg_inv_p);
-  } else {
-    transport_phi_kernel<kJoint, false><<<blocks, kThreads, 0, stream>>>(
-        k_own, k_other, g, v, mu, colsum, out, p, n, row_tiles, c, c_over_p,
-        neg_inv_p);
-  }
+  const bool batched = blocks.y > 1;
+  auto kernel =
+      vec ? (batched ? transport_phi_kernel<kJoint, true, true>
+                     : transport_phi_kernel<kJoint, true, false>)
+          : (batched ? transport_phi_kernel<kJoint, false, true>
+                     : transport_phi_kernel<kJoint, false, false>);
+  kernel<<<blocks, kThreads, 0, stream>>>(k_own, k_other, g, v, mu, colsum,
+                                          out, p, n, row_tiles, c, c_over_p,
+                                          neg_inv_p);
 }
 
 }  // namespace

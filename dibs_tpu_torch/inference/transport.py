@@ -29,12 +29,11 @@ each for all the datasets.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 from torch.func import grad, vmap
 
 from dibs_tpu_torch.config import matmul_precision, transport_matmul_precision
+from dibs_tpu_torch.kernel import median_se
 from dibs_tpu_torch.ops.gpu_kernels import se_matrix
 from dibs_tpu_torch.ops.transport_kernel import (
     transport_phi,
@@ -51,8 +50,8 @@ __all__ = ["marginal_transport", "joint_transport",
            "fleet_marginal_transport", "fleet_joint_transport"]
 
 
-def _flat(a: torch.Tensor) -> torch.Tensor:
-    return a.reshape(a.shape[0], -1)
+def _flat(a: torch.Tensor, lead: int) -> torch.Tensor:
+    return a.reshape(*a.shape[:lead], -1)
 
 
 def _precision():
@@ -61,19 +60,23 @@ def _precision():
     return matmul_precision(transport_matmul_precision())
 
 
-def _weighted_scores(k_mat, grads):
-    """``sum_m K[m, i] grads[m]`` for all ``i``."""
+def _weighted_scores(k_mat, grads, lead: int = 1):
+    """``sum_m K[m, i] grads[m]`` for all ``i``; ``lead`` leading axes of
+    ``grads`` are the particles' and a fleet's datasets' (``k_mat [..., P,
+    P]``)."""
     with _precision():
-        return (k_mat.T @ _flat(grads)).reshape(grads.shape)
+        return (k_mat.transpose(-1, -2) @ _flat(grads, lead)).reshape(
+            grads.shape)
 
 
-def _se_repulsion(k_mat, factor, values):
-    """``sum_m grad_{v_m} k(v_m, v_i) = factor (K^T V - colsum(K) V)``."""
-    vf = _flat(values)
-    vf = vf - vf.mean(dim=0, keepdim=True)
-    colsum = k_mat.sum(dim=0)
+def _se_repulsion(k_mat, factor, values, lead: int = 1):
+    """``sum_m grad_{v_m} k(v_m, v_i) = factor (K^T V - colsum(K) V)``,
+    ``lead`` as :func:`_weighted_scores`."""
+    vf = _flat(values, lead)
+    vf = vf - vf.mean(dim=-2, keepdim=True)
+    colsum = k_mat.sum(dim=-2)
     with _precision():
-        rep = factor * (k_mat.T @ vf - colsum[:, None] * vf)
+        rep = factor * (k_mat.transpose(-1, -2) @ vf - colsum[..., None] * vf)
     return rep.reshape(values.shape)
 
 
@@ -128,30 +131,16 @@ def fleet_marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
                          f"Kernel with a float bandwidth or 'median', not "
                          f"{type(kernel).__name__}")
     n_ds, p = z.shape[:2]
+    if h == "median":  # each dataset its own bandwidth
+        k_mat, factor = median_se(z, z, kernel.scale, batch_dims=1)
+        return -(_weighted_scores(k_mat, dz, 2)
+                 + _se_repulsion(k_mat, factor, z, 2)) / p
     vf = z.reshape(n_ds, p, -1).contiguous()
     gf = dz.reshape(n_ds, p, -1).contiguous()
-    if h != "median":
-        k_mat = se_matrix(vf, vf, float(h), float(kernel.scale))
-        mu = vf.mean(dim=1, keepdim=True)
-        with _precision():  # reaches the plain version's matmuls only
-            return transport_phi(k_mat, None, gf, vf, c=-2.0 / float(h),
-                                 mu=mu).reshape(z.shape)
-    # the median heuristic, per dataset (as pytree_sq_norm_matrix and
-    # kernel._median_bandwidth compute it for one)
-    sq_norm = (vf * vf).sum(-1)
-    with _precision():
-        sq = sq_norm[:, :, None] + sq_norm[:, None, :] - 2.0 * (
-            vf @ vf.transpose(-1, -2))
-    sq = torch.clamp(sq, min=0.0)
-    sq = sq * (1.0 - torch.eye(p, dtype=sq.dtype, device=sq.device))
-    med = torch.quantile(sq.reshape(n_ds, -1), 0.5, dim=1)
-    h_eff = torch.clamp(med / math.log(p + 1.0), min=1e-5)[:, None, None]
-    k_mat = kernel.scale * torch.exp(-sq / h_eff)
-    vc = vf - vf.mean(dim=1, keepdim=True)
-    with _precision():
-        phi = k_mat.transpose(-1, -2) @ gf + (-2.0 / h_eff) * (
-            k_mat.transpose(-1, -2) @ vc - k_mat.sum(dim=1)[..., None] * vc)
-    return (-phi / p).reshape(z.shape)
+    k_mat = se_matrix(vf, vf, float(h), float(kernel.scale))
+    with _precision():  # reaches the plain version's matmuls only
+        return transport_phi(k_mat, None, gf, vf, c=-2.0 / float(h),
+                             mu=vf.mean(dim=1, keepdim=True)).reshape(z.shape)
 
 
 def _fleet_rows(tree, n_ds, p):

@@ -20,7 +20,7 @@ import torch
 
 from dibs_tpu_torch.ops.gpu_kernels import se_matrix
 from dibs_tpu_torch.utils.func import (
-    pytree_sq_norm_matrix,
+    batched_sq_norm_matrix,
     squared_norm_pytree,
 )
 from dibs_tpu_torch.utils.tree import tree_rows
@@ -29,10 +29,23 @@ __all__ = ["AdditiveFrobeniusSEKernel", "JointAdditiveFrobeniusSEKernel"]
 
 
 def _median_bandwidth(sq: torch.Tensor) -> torch.Tensor:
-    """Median heuristic ``med(sq) / log(P + 1)``, clamped away from 0."""
-    p = sq.shape[0]
-    med = torch.quantile(sq.reshape(-1), 0.5)
-    return torch.clamp(med / math.log(p + 1.0), min=1e-5)
+    """Median heuristic ``med(sq) / log(P + 1)`` over the last two axes of
+    ``sq [..., P, P']``, clamped away from 0: a scalar for one matrix,
+    ``[..., 1, 1]`` for a batch of them (it divides ``sq``)."""
+    p = sq.shape[-2]
+    med = torch.quantile(sq.flatten(-2), 0.5, dim=-1)
+    h = torch.clamp(med / math.log(p + 1.0), min=1e-5)
+    return h[..., None, None] if h.dim() else h
+
+
+def median_se(xs, ys, scale, batch_dims: int = 0):
+    """``(K, c)`` of an SE term under the median heuristic, with
+    ``grad_x k(x, y) = c k(x, y) (x - y)``; with ``batch_dims`` leading
+    axes before the particles (a fleet's datasets), one matrix and one
+    bandwidth per index of those axes."""
+    sq = batched_sq_norm_matrix(xs, ys, batch_dims)
+    h_eff = _median_bandwidth(sq)
+    return scale * torch.exp(-sq / h_eff), -2.0 / h_eff
 
 
 def _flatten_rows(x) -> torch.Tensor:
@@ -66,16 +79,13 @@ class AdditiveFrobeniusSEKernel:
     def matrix(self, xs, ys):
         """Pairwise kernel matrix ``[A, B]``."""
         if self.h == "median":
-            sq = pytree_sq_norm_matrix(xs, ys)
-            return self.scale * torch.exp(-sq / _median_bandwidth(sq))
+            return median_se(xs, ys, self.scale)[0]
         return _se_rows(xs, ys, self.h, self.scale)
 
     def matrix_and_grad_factor(self, xs, ys):
         """``(K, c)`` with ``grad_x k(x, y) = c * k(x, y) * (x - y)``."""
         if self.h == "median":
-            sq = pytree_sq_norm_matrix(xs, ys)
-            h_eff = _median_bandwidth(sq)
-            return self.scale * torch.exp(-sq / h_eff), -2.0 / h_eff
+            return median_se(xs, ys, self.scale)
         return self.matrix(xs, ys), -2.0 / self.h
 
     def grad_factor_z(self):
@@ -87,9 +97,7 @@ def _component(xs, ys, h, scale):
     """``(K, c)`` of one SE term: the kernel matrix for a float bandwidth,
     the plain median heuristic for ``h="median"``."""
     if h == "median":
-        sq = pytree_sq_norm_matrix(xs, ys)
-        h_eff = _median_bandwidth(sq)
-        return scale * torch.exp(-sq / h_eff), -2.0 / h_eff
+        return median_se(xs, ys, scale)
     return _se_rows(xs, ys, h, scale), -2.0 / h
 
 

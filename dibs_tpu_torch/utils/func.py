@@ -47,16 +47,24 @@ def pytree_sq_norm_matrix(xs, ys) -> torch.Tensor:
     is square the self-distances are pinned to exactly 0, as in the
     reference.
     """
+    return batched_sq_norm_matrix(xs, ys, 0)
+
+
+def batched_sq_norm_matrix(xs, ys, batch_dims: int) -> torch.Tensor:
+    """:func:`pytree_sq_norm_matrix` with ``batch_dims`` leading axes before
+    the particles (a fleet's datasets): one ``[A, B]`` matrix per index of
+    those axes."""
     total = 0.0
     for xl, yl in zip(tree_leaves(xs), tree_leaves(ys)):
-        a = xl.reshape(xl.shape[0], -1)
-        b = yl.reshape(yl.shape[0], -1)
+        a = xl.reshape(*xl.shape[:batch_dims + 1], -1)
+        b = yl.reshape(*yl.shape[:batch_dims + 1], -1)
         a_sq = (a * a).sum(-1)
         b_sq = (b * b).sum(-1)
-        total = total + (a_sq[:, None] + b_sq[None, :] - 2.0 * (a @ b.T))
+        total = total + (a_sq[..., :, None] + b_sq[..., None, :]
+                         - 2.0 * (a @ b.transpose(-1, -2)))
     total = torch.clamp(total, min=0.0)
-    if xs is ys and total.shape[0] == total.shape[1]:
-        total = total * (1.0 - torch.eye(total.shape[0], dtype=total.dtype,
+    if xs is ys and total.shape[-2] == total.shape[-1]:
+        total = total * (1.0 - torch.eye(total.shape[-1], dtype=total.dtype,
                                          device=total.device))
     return total
 

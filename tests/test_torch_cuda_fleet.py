@@ -12,7 +12,9 @@ on each dataset (#1-#3 bitwise, #4 within its bar), at ``B = 1``, ``B`` not
 a power of two and the fleet sizes, #2 on both sides of d = 32 and of every
 block frame; the fused joint kernels #5-#8 with the axis against their
 plain versions and their unbatched launches (within 1e-4 max(1,
-max|ref|)); the fleet step's launches against one dataset's step, its
+max|ref|)), #8 also at every gate edge with ``B = 1`` and ``3`` and in
+each of its 16 instantiations (``chip_smoke.FLEET_NL_CASES``); the fleet
+step's launches against one dataset's step, its
 ``phi`` against single engines and against the plain versions on the CPU,
 marginal and joint.
 """
@@ -25,6 +27,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke  # noqa: E402
 from dibs_tpu_torch.fleet import (  # noqa: E402
     fleet_init_state,
     fleet_sample,
@@ -297,6 +300,21 @@ def test_fused_kernels_read_each_datasets_data_and_key(cuda, n_ds, name, d,
                    *(tuple(t[sl] for t in e) for e in extra),
                    **dict(kw, seed=seed))
         _close([a[sl] for a in got], one)
+
+
+@pytest.mark.parametrize("n_ds,p,d,n,h1,blocks,m,activation",
+                         chip_smoke.FLEET_NL_CASES)
+def test_fused_nonlinear_fleet_gate_edges(cuda, n_ds, p, d, n, h1, blocks, m,
+                                          activation):
+    """#8's fleet build at the gate's edges with B = 1 and 3 and in each of
+    its 16 instantiations (hidden widths 5, 16, 4 and 8 x the four
+    activations) against its plain version and its unbatched launch on
+    each dataset, within 1e-4 max(1, max|ref|). A kernel fault poisons the
+    process's CUDA context, so on a new build run each case in a process
+    of its own (its node id)."""
+    rng = np.random.default_rng(100 * n_ds + d)
+    chip_smoke.check_fleet_nonlinear(cuda, rng, n_ds, p, d, n, h1, blocks, m,
+                                     activation)
 
 
 @pytest.mark.parametrize("model", ["linear", "linear two-pass", "mlp"])
