@@ -2306,9 +2306,11 @@ def phase_joint_score(dev, card):
     drawn = []
     sampler = estimators.sample_hard_graphs
 
-    def capture(scores, seed, stream, alpha, n_samples, eps=None):
+    def capture(scores, seed, stream, alpha, n_samples, eps=None,
+                particle_offset=0):
         drawn.append((scores, seed, stream, alpha, eps))
-        return sampler(scores, seed, stream, alpha, n_samples, eps=eps)
+        return sampler(scores, seed, stream, alpha, n_samples, eps=eps,
+                       particle_offset=particle_offset)
 
     noise_dev = joint_noise(rng, dev)
     estimators.sample_hard_graphs = capture
@@ -2619,10 +2621,30 @@ def fleet_times(nb, name, batched, serial, plain, flops, n_bytes,
             + ("" if t_l is None else f", library {t_l:.4f} ms"))
 
 
+def bge_masked_stack(r_mats, gs, nb):
+    """The input of #2's library yardstick (phase 3's, with a dataset
+    axis): for every graph of ``gs [nb per, d, d]`` and node j, the masked
+    ``[Pa, Pa]`` and ``[Pa u j, Pa u j]`` matrices of its dataset's
+    ``r_mats[b, j]`` (identity outside the mask), stacked for one
+    ``slogdet`` call; filled a dataset at a time."""
+    g, d = gs.shape[0], gs.shape[-1]
+    per = g // nb
+    eye = torch.eye(d, device=gs.device)
+    out = torch.empty((2, g, d, d, d), device=gs.device)
+    for b in range(nb):
+        par = gs[b * per:(b + 1) * per].transpose(1, 2)  # [per, j, r]
+        for half, masks in enumerate((par, torch.clamp(par + eye, max=1.0))):
+            outer = masks[..., :, None] * masks[..., None, :]
+            out[half, b * per:(b + 1) * per] = (outer * r_mats[b]
+                                                + (1 - outer) * eye)
+    return out.reshape(-1, d, d)
+
+
 def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
     """Median ms of #1 (hard, M), #2 (P M graphs a dataset, d=20), #3 and
     #4 at a fleet of ``nb`` datasets: the batched launch, ``nb`` unbatched
-    launches, the twin, the bound and the batched library call."""
+    launches, the twin, the bound and the batched library call (#2:
+    ``slogdet`` of the stacked masked matrices, as phase 3's)."""
     from dibs_tpu_torch.models.linear_gaussian import BGe
     from dibs_tpu_torch.ops import gpu_kernels as gk
     from dibs_tpu_torch.ops import transport_kernel as tk
@@ -2653,11 +2675,14 @@ def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
         -1, D, D)
     per = P * M
     flops_b, _ = bge_flops_bytes(gs)
+    stacked = bge_masked_stack(r_mats, gs, nb)
     row("#2", lambda: bge_logdet_pairs(r_mats, gs),
         lambda: [bge_logdet_pairs(r_mats[i], gs[i * per:(i + 1) * per])
                  for i in range(nb)],
         lambda: bge_logdet_pairs_plain(r_mats, gs),
-        flops_b, 4 * (nb * D ** 3 + gs.shape[0] * (D * D + 2 * D)))
+        flops_b, 4 * (nb * D ** 3 + gs.shape[0] * (D * D + 2 * D)),
+        lambda: torch.linalg.slogdet(stacked))
+    del stacked
     row("#3", lambda: gk.se_matrix(z, z, 5.0, 1.0),
         lambda: [gk.se_matrix(z[i], z[i], 5.0, 1.0) for i in range(nb)],
         lambda: gk.se_matrix_plain(z, z, 5.0, 1.0),
@@ -3079,6 +3104,506 @@ def fleet_nonlinear_edges(dev):
             f"equal")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: particle sharding (dibs_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+# teacher-forced and free steps of the sharded runs (config 5: teacher-
+# forced only), the fleet over a datasets mesh (datasets, steps), and the
+# longest the two-rank world may take
+TF14, FREE14, TF14_C5, FLEET14_B, FLEET14_STEPS = 20, 50, 3, 8, 20
+WORLD14_TIMEOUT = 600
+# the sizes the two ranks take from the parent (a rehearsal may shrink them)
+SIZES14 = ("P", "D", "K_LAT", "M", "K_ACYC", "N_OBS", "P5", "D5", "K5", "M5",
+           "K_ACYC5", "N5", "TF14", "FREE14", "TF14_C5", "FLEET14_B",
+           "FLEET14_STEPS")
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def shards_bitwise(label, launch, p, splits):
+    """``launch(rows, offset)`` (a tuple of outputs) on ``k`` equal shards
+    of ``p`` particles, each at its first particle's offset, concatenated,
+    against one launch over all of them: bitwise, for each ``k`` in
+    ``splits``. Returns the one launch's outputs."""
+    whole = launch(slice(0, p), 0)
+    for k in splits:
+        per = p // k
+        parts = [launch(slice(r * per, (r + 1) * per), r * per)
+                 for r in range(k)]
+        for i, (got, want) in enumerate(zip(zip(*parts), whole)):
+            check(torch.equal(torch.cat(got), want),
+                  f"[14] {label}: {k} shards differ from one launch "
+                  f"(output {i})")
+    return whole
+
+
+def last_shard(p, splits):
+    """The rows and offset of the last shard of the finest split."""
+    per = p // splits[-1]
+    return slice(p - per, p), p - per
+
+
+def shard_sampler(dev):
+    """14a's kernel: #1 per shard, hard at the marginal path's ``[30, 128,
+    20, 20]`` (2 and 3 shards) and soft at config 5's ``[1000, 8, 128,
+    128]`` (2 and 4), bitwise one launch; the last shard against the twin
+    at its offset (hard exact off ties, soft within 1e-5)."""
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    rng = np.random.default_rng(14)
+    for label, p, m, d, hard, splits in (("hard", P, M, D, True, (2, 3)),
+                                         ("soft", P5, 8, D5, False, (2, 4))):
+        scores = torch.from_numpy((2.0 * rng.normal(size=(p, d, d)))
+                                  .astype(np.float32)).to(dev)
+
+        def launch(rows, off):
+            return (gk.gumbel_graphs(scores[rows], 5, 9, 1.3, 1.0, m, hard,
+                                     particle_offset=off),)
+
+        (whole,) = shards_bitwise(f"#1 {label}", launch, p, splits)
+        rows, off = last_shard(p, splits)
+        ref = gk.gumbel_graphs_plain(scores[rows], 5, 9, 1.3, 1.0, m, hard,
+                                     particle_offset=off)
+        diff = (whole[rows] - ref).abs()
+        if hard:
+            u = gk.philox_uniform(tuple(ref.shape), 5, 9, dev, off)
+            logit = (torch.log(u) - torch.log1p(-u)
+                     + 1.3 * scores[rows][:, None])
+            bad = int(((diff > 0) & (logit.abs() >= 1e-5)).sum())
+            check(bad == 0, f"[14a] #1 hard shard at {off}: {bad} "
+                            "mismatches with the twin off ties")
+            err = 0.0
+        else:
+            err = float(diff.max())
+            check(err <= 1e-5, f"[14a] #1 soft shard at {off}: max err "
+                               f"{err} against the twin")
+        log(f"[14a kernels] #1 {label} {[p, m, d, d]}: {splits} shards "
+            f"bitwise one launch; the shard at particle {off} against the "
+            f"twin at its offset: max err {err:.3g}")
+        del whole, ref, diff
+
+
+def _bar_err(label, got, refs):
+    """Max error of ``got`` against ``refs`` over ``1e-4 max(1,
+    max|ref|)``; fails past 1."""
+    worst = 0.0
+    for a, b in zip(got, refs):
+        tol = 1e-4 * max(1.0, float(b.abs().max()))
+        worst = max(worst, float((a - b).abs().max()) / tol)
+    check(worst <= 1.0, f"[14b] {label}: {worst:.3f} x the bar")
+    return worst
+
+
+# #8's shard build (csrc/fused_nonlinear_shard.cu), as (P, d, N, h1,
+# blocks, M, act): the gate edges and each of its 16 instantiations
+# (hidden widths 5, 16, 4 and 8, the four activations) at a small shape
+SHARD_NL_CASES = ([(12, *c[1:]) for c in SHAPES_NL_EDGES]
+                  + [(12, 12, 40, h1, 0, 5, act) for h1 in (5, 16, 1, 7)
+                     for act in ("relu", "tanh", "sigmoid", "leakyrelu")])
+SHARD_SPLITS = (2, 3, 4)
+
+
+def shard_nonlinear(dev, case, label):
+    """#8 on 2, 3 and 4 shards of ``case`` (a ``SHARD_NL_CASES`` entry),
+    bitwise one launch; the last shard against the plain version at its
+    offset. Returns its error as a share of the bar."""
+    from dibs_tpu_torch.inference import fused_nonlinear as fnl
+    from dibs_tpu_torch.models import DenseNonlinearGaussian
+
+    p, d, n, h1, blocks, m, act = case
+    rng = np.random.default_rng(d * 100 + h1)
+    args = nonlinear_problem(rng, dev, p, d, n, h1, blocks)
+    kw = dict(seed=9, streams=(2, 3), alpha=0.6, tau=1.0, n_samples=m,
+              model=DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
+                                           activation=act))
+
+    def launch(rows, off, fn=fnl.fused_nonlinear):
+        return fn(*(a[rows] for a in args[:5]), *args[5:],
+                  particle_offset=off, **kw)
+
+    whole = shards_bitwise(f"#8 {label}", launch, p, SHARD_SPLITS)
+    rows, off = last_shard(p, SHARD_SPLITS)
+    return _bar_err(f"#8 {label} shard at {off}", [t[rows] for t in whole],
+                    launch(rows, off, fnl.fused_nonlinear_plain))
+
+
+def shard_fused(dev):
+    """14b's kernels: #5, #6 + #7 on the row tier at config 2 (2 and 3
+    shards), wide passes 1 and 2 at config 5 (2 and 4), #8 at config 3 (2
+    and 3), bitwise one launch; the last shard against the plain versions
+    at its offset, within ``1e-4 max(1, max|ref|)``."""
+    from dibs_tpu_torch.inference import fused_linear as fl
+    from dibs_tpu_torch.inference import fused_nonlinear as fnl
+    from dibs_tpu_torch.models import DenseNonlinearGaussian, LinearGaussian
+
+    rng = np.random.default_rng(15)
+    for label, p, d, n, m, splits in (("row, config 2", P, D, N_OBS, M,
+                                       (2, 3)),
+                                      ("wide, config 5", P5, D5, N5, M5,
+                                       (2, 4))):
+        scores, thetas, x, w = fused_problem(rng, dev, p, d, n, 0)
+        kw = dict(seed=31, streams=(12, 12), alpha=0.9, tau=1.0,
+                  n_samples=m, model=LinearGaussian(n_vars=d))
+        lls = fl.fused_linear_pass1(scores, thetas, x, w, **kw)
+        wts = tuple(torch.softmax(ll, dim=1) for ll in lls)
+        calls = {"pass1": lambda r, o: fl.fused_linear_pass1(
+                     scores[r], thetas[r], x, w, particle_offset=o, **kw),
+                 "pass2": lambda r, o: fl.fused_linear_pass2(
+                     scores[r], thetas[r], x, w, tuple(t[r] for t in wts),
+                     particle_offset=o, **kw)}
+        plain = {"pass1": lambda r, o: fl.fused_linear_pass1_plain(
+                     scores[r], thetas[r], x, w, particle_offset=o, **kw),
+                 "pass2": lambda r, o: fl.fused_linear_pass2_plain(
+                     scores[r], thetas[r], x, w, tuple(t[r] for t in wts),
+                     particle_offset=o, **kw)}
+        if d <= 70:
+            calls["single"] = lambda r, o: fl.fused_linear_single(
+                scores[r], thetas[r], x, w, particle_offset=o, **kw)
+            plain["single"] = lambda r, o: fl.fused_linear_single_plain(
+                scores[r], thetas[r], x, w, particle_offset=o, **kw)
+        rows, off = last_shard(p, splits)
+        worst = 0.0
+        for name, launch in calls.items():
+            whole = shards_bitwise(f"{name} {label}", launch, p, splits)
+            worst = max(worst, _bar_err(
+                f"{name} {label} shard at {off}",
+                [t[rows] for t in whole], plain[name](rows, off)))
+        log(f"[14b kernels] #5-#7 {label} ({', '.join(calls)}): {splits} "
+            f"shards bitwise one launch; the shard at particle {off} "
+            f"against the plain versions: {worst:.3f} x the bar")
+    h1, splits = 5, (2, 3)
+    args = nonlinear_problem(rng, dev, P, D, N_OBS, h1, 0)
+    kw = dict(seed=41, streams=(3, 3), alpha=0.7, tau=1.0, n_samples=M,
+              model=DenseNonlinearGaussian(n_vars=D, hidden_layers=(h1,)))
+
+    def launch(rows, off, fn=fnl.fused_nonlinear):
+        return fn(*(a[rows] for a in args[:5]), *args[5:],
+                  particle_offset=off, **kw)
+
+    whole = shards_bitwise("#8 config 3", launch, P, splits)
+    rows, off = last_shard(P, splits)
+    worst = _bar_err(f"#8 config 3 shard at {off}", [t[rows] for t in whole],
+                     launch(rows, off, fnl.fused_nonlinear_plain))
+    edges = max(shard_nonlinear(dev, case, str(case))
+                for case in SHARD_NL_CASES)
+    log(f"[14b kernels] #8 config 3: {splits} shards bitwise one launch; "
+        f"the shard at particle {off} against the plain version: "
+        f"{worst:.3f} x the bar; the shard build at {len(SHARD_NL_CASES)} "
+        f"gate edges and instantiations: {SHARD_SPLITS} shards bitwise, "
+        f"{edges:.3f} x the bar")
+
+
+@contextlib.contextmanager
+def counted(counts):
+    """Adds the kernel launches made inside the block to ``counts``."""
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    before = dict(gk.LAUNCHES)
+    yield
+    for name in counts:
+        counts[name] += gk.LAUNCHES[name] - before[name]
+
+
+def sharded_vs_whole(make, sharding, counts, *, seed, p, k, tf, free):
+    """A sharded engine (``make(sharding)``) against the unsharded one
+    (``make(None)``): ``tf`` teacher-forced transports from the unsharded
+    run's states (gathered, against ``1e-4 max|phi|``), then ``free``
+    free steps of each from one seed (graphs, ``z``). Only the sharded
+    engine's launches are counted."""
+    from dibs_tpu_torch.parallel import shard_state
+    from dibs_tpu_torch.parallel.shard_ops import gather_rows
+    from dibs_tpu_torch.utils.tree import tree_leaves
+
+    whole, shard = make(None), make(sharding)
+    std = whole._resolve_latent_std(k)
+    phi_w, phi_s = whole._make_phi(std), shard._make_phi(std)
+    step = whole._make_step(std)
+    n_out = 1 if whole.__class__.__name__ == "MarginalDiBS" else 2
+    state = whole.init_state(seed=seed, n_particles=p, n_dim_particles=k)
+    worst = 0.0
+    for _ in range(tf):
+        with torch.no_grad():
+            want = tree_leaves(list(phi_w(state)[:n_out]))
+            with counted(counts):
+                got = phi_s(shard_state(state, sharding))[:n_out]
+            got = [gather_rows(a, sharding) for a in tree_leaves(list(got))]
+        for a, b in zip(got, want):
+            worst = max(worst, float((a - b).abs().max())
+                        / (1e-4 * float(b.abs().max())))
+        state = step(state)
+    out = dict(tf_worst=worst)
+    if free:
+        sync(whole.device)
+        t0 = time.perf_counter()
+        with counted(counts):
+            run_s = shard.sample(seed=seed + 1, n_particles=p, steps=free,
+                                 n_dim_particles=k, return_state=True)
+        sync(whole.device)
+        secs = time.perf_counter() - t0
+        run_w = whole.sample(seed=seed + 1, n_particles=p, steps=free,
+                             n_dim_particles=k, return_state=True)
+        out.update(graphs_equal=bool(torch.equal(run_s[0], run_w[0])),
+                   particles_differ=int((run_s[0] != run_w[0]).flatten(1)
+                                        .any(1).sum()),
+                   z_err=float((run_s[-1].z - run_w[-1].z).abs().max()),
+                   steps_per_s=free / secs)
+    return out
+
+
+def case14(name, dev, sharding, counts):
+    """One two-rank case of phase 14 on this rank (see ``phase_sharding``)."""
+    from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+    from dibs_tpu_torch.target import (
+        make_linear_gaussian_equivalent_model,
+        make_linear_gaussian_model,
+        make_nonlinear_gaussian_model,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    if name == "marginal score":
+        data, gm, lm = make_linear_gaussian_equivalent_model(
+            generator=gen, n_vars=D, graph_prior_str="er",
+            n_observations=N_OBS, device=dev)
+        return sharded_vs_whole(
+            lambda s: MarginalDiBS(
+                x=data.x, graph_model=gm, likelihood_model=lm,
+                grad_estimator_z="score", n_grad_mc_samples=M,
+                n_acyclicity_mc_samples=K_ACYC, sharding=s, device=dev),
+            sharding, counts, seed=2, p=P, k=K_LAT, tf=TF14, free=FREE14)
+    if name == "fleet":
+        return fleet14(dev, sharding, counts)
+    if name == "config 5":
+        data, gm, lm = make_linear_gaussian_model(
+            generator=torch.Generator().manual_seed(123), n_vars=D5,
+            n_observations=N5, device=dev)
+        return sharded_vs_whole(
+            lambda s: JointDiBS(x=data.x, graph_model=gm,
+                                likelihood_model=lm, n_grad_mc_samples=M5,
+                                n_acyclicity_mc_samples=K_ACYC5,
+                                sharding=s, device=dev),
+            sharding, counts, seed=1, p=P5, k=K5, tf=TF14_C5, free=0)
+    factory = (make_nonlinear_gaussian_model if name == "config 3"
+               else make_linear_gaussian_model)
+    data, gm, lm = factory(generator=gen, n_vars=D, n_observations=N_OBS,
+                           device=dev)
+    kernel_param = ({"h_latent": 5.0, "h_theta": "median"}
+                    if name == "config 2, median h_theta" else None)
+    steps = (5, 10) if kernel_param else (TF14, TF14)
+    return sharded_vs_whole(
+        lambda s: JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                            kernel_param=kernel_param, n_grad_mc_samples=M,
+                            n_acyclicity_mc_samples=K_ACYC, sharding=s,
+                            device=dev),
+        sharding, counts, seed=2, p=P, k=K_LAT, tf=steps[0], free=steps[1])
+
+
+def fleet14(dev, sharding, counts):
+    """``fleet_sample(mesh=)`` with ``FLEET14_B`` datasets over the ranks'
+    ``datasets`` axis, against the meshless fleet on each rank."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from dibs_tpu_torch.fleet import fleet_sample
+
+    xs, dibs, _ = fleet_problem(dev, FLEET14_B, "score")
+    mesh = DeviceMesh("cpu", list(range(sharding.world)),
+                      mesh_dim_names=("datasets",))
+    kw = dict(xs=xs, seed=4, n_particles=P, steps=FLEET14_STEPS,
+              return_states=True)
+    sync(dev)
+    t0 = time.perf_counter()
+    with counted(counts):
+        gs, state = fleet_sample(dibs, mesh=mesh, **kw)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    gs_w, state_w = fleet_sample(dibs, **kw)
+    return dict(graphs_equal=bool(torch.equal(gs, gs_w)),
+                bitwise=bool(torch.equal(state.z, state_w.z)),
+                z_err=float((state.z - state_w.z).abs().max()),
+                dataset_steps_per_s=FLEET14_B * FLEET14_STEPS / secs)
+
+
+CASES14 = {"14a": ("marginal score",),
+           "14b": ("config 2", "config 3", "config 2, median h_theta",
+                   "config 5", "fleet")}
+
+
+def rank14(rank, world, store, out_dir, names, dev_name, sizes):
+    """A rank of phase 14's ``gloo`` world on the one card (``dev_name``)
+    at the parent's ``sizes``: each case of ``names``; writes its results
+    and its sharded launches."""
+    import datetime
+    import os
+
+    import torch.distributed as dist
+
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.parallel import make_particle_mesh, particle_sharding
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    globals().update(sizes)
+    try:
+        dev = torch.device(dev_name)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.set_float32_matmul_precision("highest")
+        if dev.type == "cuda":
+            gk.build()
+        sharding = particle_sharding(make_particle_mesh())
+        counts = dict.fromkeys(gk.LAUNCHES, 0)
+        out = {name: case14(name, dev, sharding, counts) for name in names}
+        out["launches"] = counts
+        torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def two_ranks(names, dev):
+    """Runs ``rank14`` on two ``gloo`` ranks sharing the card ``dev`` (a
+    file store in a fresh temporary directory); returns each rank's
+    results."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sizes = {name: globals()[name] for name in SIZES14}
+        ctx = mp.spawn(rank14, args=(2, os.path.join(tmp, "store"), tmp,
+                                     names, str(dev), sizes),
+                       nprocs=2, join=False)
+        deadline = time.perf_counter() + WORLD14_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                fail(f"[14] the two-rank world took more than "
+                     f"{WORLD14_TIMEOUT} s")
+        return [torch.load(os.path.join(tmp, f"{r}.pt"), weights_only=False)
+                for r in range(2)]
+
+
+def nccl_one_rank(dev, counts):
+    """14a: a one-rank NCCL world. Sharded ``MarginalDiBS`` ``score`` at
+    the headline config is bitwise the unsharded run for ``TF14`` steps (a
+    one-rank mesh shards nothing); the ring transport and #3's row block
+    through NCCL's collectives against the unsharded transport and #3."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from dibs_tpu_torch.inference import MarginalDiBS
+    from dibs_tpu_torch.inference.transport import marginal_transport
+    from dibs_tpu_torch.kernel import AdditiveFrobeniusSEKernel
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.parallel import make_particle_mesh, particle_sharding
+    from dibs_tpu_torch.parallel.ring import ring_marginal_transport
+    from dibs_tpu_torch.parallel.shard_ops import sharded_se_matrix
+    from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        sharding = particle_sharding(make_particle_mesh())
+        data, gm, lm = make_linear_gaussian_equivalent_model(
+            generator=torch.Generator().manual_seed(0), n_vars=D,
+            graph_prior_str="er", n_observations=N_OBS, device=dev)
+        runs = []
+        for s in (None, sharding):
+            dibs = MarginalDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                                grad_estimator_z="score",
+                                n_grad_mc_samples=M,
+                                n_acyclicity_mc_samples=K_ACYC, sharding=s,
+                                device=dev)
+            with contextlib.ExitStack() as stack:
+                if s is not None:
+                    stack.enter_context(counted(counts))
+                runs.append(dibs.sample(seed=3, n_particles=P, steps=TF14,
+                                        n_dim_particles=K_LAT,
+                                        return_state=True))
+        check(torch.equal(runs[0][0], runs[1][0])
+              and torch.equal(runs[0][1].z, runs[1][1].z),
+              "[14a] the one-rank NCCL run is not bitwise the unsharded run")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        z = torch.randn((P, D, K_LAT, 2), generator=gen, device=dev) * 0.3
+        dz = torch.randn((P, D, K_LAT, 2), generator=gen, device=dev)
+        kernel = AdditiveFrobeniusSEKernel(h=5.0)
+        ring = ring_marginal_transport(kernel, z, dz, sharding)
+        want = marginal_transport(kernel, z, dz)
+        err_r = float((ring - want).abs().max()) / (
+            1e-4 * float(want.abs().max()))
+        check(err_r <= 1.0, f"[14a] NCCL ring: {err_r} x the bar")
+        flat = z.reshape(P, -1).contiguous()
+        rows = sharded_se_matrix(flat, flat, 5.0, 1.0, sharding=sharding)
+        err_se = float((rows - gk.se_matrix(flat, flat, 5.0, 1.0)).abs()
+                       .max())
+        check(err_se <= 1e-5, f"[14a] NCCL #3 row block: max err {err_se}")
+    finally:
+        dist.destroy_process_group()
+    log(f"[14a nccl] one rank: sharded MarginalDiBS score {TF14} steps "
+        f"bitwise the unsharded run; the ring through NCCL {err_r:.3f} x "
+        f"the bar of the unsharded transport; #3's row block max err "
+        f"{err_se:.3g}")
+
+
+def phase_sharding(dev, card):
+    """Phase 14, the particle-sharded port: (a) #1 per shard bitwise one
+    launch, a one-rank NCCL world, then two ``gloo`` ranks on the one card
+    running sharded ``MarginalDiBS`` ``score``; (b) #5-#8 per shard
+    bitwise one launch, two ranks running sharded ``JointDiBS`` at configs
+    2 and 3 (and config 2 with a median ``h_theta``, the all-gather route),
+    config 5 teacher-forced, and ``fleet_sample(mesh=)``. Returns the
+    sharded runs' kernel launches (both ranks)."""
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    t0 = time.perf_counter()
+    counts = dict.fromkeys(gk.LAUNCHES, 0)
+    shard_sampler(dev)
+    nccl_one_rank(dev, counts)
+    shard_fused(dev)
+    ranks = two_ranks(CASES14["14a"] + CASES14["14b"], dev)
+    for step, names in CASES14.items():
+        for name in names:
+            res = ranks[0][name]
+            for other in ranks[1:]:
+                check(other[name].get("graphs_equal", True)
+                      == res.get("graphs_equal", True),
+                      f"[{step}] {name}: the ranks disagree")
+            if "tf_worst" in res:
+                check(res["tf_worst"] <= 1.0,
+                      f"[{step}] {name}: teacher-forced phi "
+                      f"{res['tf_worst']:.3f} x the bar")
+            if "graphs_equal" in res:
+                check(res["graphs_equal"],
+                      f"[{step}] {name}: graphs differ from the unsharded "
+                      f"run ({res.get('particles_differ')} particles)")
+            shown = {k: (round(v, 6) if isinstance(v, float) else v)
+                     for k, v in res.items()}
+            log(f"[{step} two gloo ranks, one card] {name}: {shown} on "
+                f"'{card}' (ranks sharing one card, not a multi-GPU rate)")
+    for r in ranks:
+        for name in counts:
+            counts[name] += r["launches"][name]
+    for name in ("gumbel_graphs", "bge_pairs", "fused_linear_single",
+                 "fused_nonlinear", "fused_linear_wide_pass1",
+                 "fused_linear_wide_pass2", "se_matrix"):
+        check(counts[name] > 0, f"[14] {name} never launched sharded")
+    log(f"[14 launches] sharded runs, both ranks: {counts}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3125,6 +3650,8 @@ def main():
         launches[name] += count
     phase_switches(dev, card)
     for name, count in phase_fleet(dev, card).items():
+        launches[name] += count
+    for name, count in phase_sharding(dev, card).items():
         launches[name] += count
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {

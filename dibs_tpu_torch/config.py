@@ -22,6 +22,10 @@ globally. The hand-written kernels compute in float32 and read neither knob.
 Both defaults are ``'highest'``: for the transport that departs from the
 reference's ``'high'``, validated for bf16x3 and not for TF32.
 
+**Ring payload.** :func:`set_ring_payload_dtype` picks the wire dtype of
+the ring transport's rotating blocks (:mod:`dibs_tpu_torch.parallel.ring`):
+float32 by default, bfloat16 on request.
+
 **Kernel kill switch.** :func:`set_pallas_enabled` and the environment
 variable ``DIBS_DISABLE_PALLAS`` keep the reference's names and meaning:
 ``set_pallas_enabled(False)`` (or ``DIBS_DISABLE_PALLAS=1``) sends CUDA
@@ -40,6 +44,7 @@ import torch
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "matmul_precision",
            "set_likelihood_matmul_precision", "likelihood_matmul_precision",
            "set_transport_matmul_precision", "transport_matmul_precision",
+           "set_ring_payload_dtype", "ring_payload_dtype",
            "set_pallas_enabled", "pallas_override"]
 
 DEFAULT_DEVICE = "cuda"
@@ -117,6 +122,36 @@ def set_transport_matmul_precision(p) -> None:
 
 def transport_matmul_precision() -> str:
     return _transport_matmul_precision
+
+
+# --- ring payload ---------------------------------------------------------
+
+_ring_payload_dtype = torch.float32
+
+
+def set_ring_payload_dtype(dtype) -> None:
+    """Sets the wire dtype of the ring transport's rotating ``(v, grad)``
+    blocks: ``'float32'`` (default) or ``'bfloat16'`` (or the torch
+    dtypes). With bfloat16 the payload halves; only the rotating copies
+    are quantized (cast once, before the first send, then forwarded as
+    received), so each rank's own tile and every accumulator stay float32
+    and the error does not compound around the ring. It perturbs the
+    kernel tiles by about 2^-9 relative. Takes effect at the next step."""
+    global _ring_payload_dtype
+    if isinstance(dtype, str):
+        names = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+        if dtype not in names:
+            raise ValueError(f"ring payload dtype must be float32 or "
+                             f"bfloat16; got {dtype!r}")
+        dtype = names[dtype]
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ring payload dtype must be float32 or bfloat16; "
+                         f"got {dtype}")
+    _ring_payload_dtype = dtype
+
+
+def ring_payload_dtype() -> torch.dtype:
+    return _ring_payload_dtype
 
 
 # --- kernel kill switch -----------------------------------------------------

@@ -72,4 +72,20 @@ __device__ __forceinline__ float philox_logistic(uint32_t e, uint32_t m,
   return logf(u) - log1pf(-u);
 }
 
+// The particle counter of a draw in a particle shard's build of a kernel
+// (kShard): p0 + p, added where the draw uses it. asm volatile keeps the
+// sum from being hoisted into a register held across the kernel: hoisted,
+// it grew #8's kH = 16 sigmoid kernel's spills (316 / 1136 to 400 / 1396
+// B) and its launches died with an illegal instruction. Without kShard it
+// is p, and the kernel compiles as without it.
+template <bool kShard>
+__device__ __forceinline__ uint32_t draw_counter(uint32_t p, uint32_t p0) {
+  if constexpr (kShard) {
+    uint32_t c;
+    asm volatile("add.u32 %0, %1, %2;" : "=r"(c) : "r"(p), "r"(p0));
+    return c;
+  }
+  return p;
+}
+
 }  // namespace dibs

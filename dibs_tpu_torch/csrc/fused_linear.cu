@@ -4,14 +4,19 @@
 //   mode 0, single pass: _fused_single (online softmax over the samples),
 //   mode 1, pass 1:      _fused_pass1 (the [P, M] soft and hard log-lik.),
 //   mode 2, pass 2:      _fused_pass2 (replays the samples with weights).
-// One template (fused_linear_kernel<kMode, kItems, kFleet>) serves all
-// three for d <= 70, the row tier; kFleet is a fleet's variant (each
+// One template (fused_linear_kernel<kMode, kItems, kFleet, kShard>) serves
+// all three for d <= 70, the row tier; kFleet is a fleet's variant (each
 // particle its dataset's data and key), kept out of the single-dataset
 // kernels, where its indexing cost mode 1 14 registers a thread and mode 2
-// 28 bytes of spills. Past d = 70, where the [d, d] matrices no longer fit
-// one block's shared memory, the wide tier (modes 3 and 4, below) computes
-// the same estimand as passes 1 and 2 over column tiles; the JAX package's
-// own gate for these kernels is d <= 384.
+// 28 bytes of spills; kShard is a particle shard's (the particle counter
+// starts at p0), built by csrc/fused_linear_shard.cu (DIBS_FL_SHARD 1, the
+// launchers dibs_fused_linear_shard and dibs_fused_linear_wide_shard), so
+// that the other kernels are compiled as without it (a run-time p0 cost
+// pass 1 3 registers; dibs::draw_counter adds p0 at the draws). Past d =
+// 70, where the [d, d] matrices no longer fit one block's shared memory,
+// the wide tier (modes 3 and 4, below) computes the same estimand as
+// passes 1 and 2 over column tiles; the JAX package's own gate for these
+// kernels is d <= 384.
 //
 // For particle p with edge scores s, weights Theta, data x [N, d] and
 // observation weights w = 1 - intervention mask, each of the M samples is
@@ -32,8 +37,9 @@
 // touches device memory: no sample, weight matrix or noise tensor is stored.
 //
 // Noise: eps is Logistic(0, 1) from dibs::philox_logistic with counter
-// (element, sample, particle, stream) and key = the 64-bit seed, exactly the
-// uniforms of gpu_kernels.philox_uniform((P, M, d, d), seed, stream); the
+// (element, sample, p0 + particle, stream) and key = the 64-bit seed,
+// exactly the uniforms of gpu_kernels.philox_uniform((P, M, d, d), seed,
+// stream, particle_offset=p0) (p0 = 0 unless a particle shard); the
 // soft branch draws from stream_soft, the hard branch from stream_hard (the
 // same stream when they are equal: the hard sample is then the threshold of
 // the soft sample's noise). With eps_soft / eps_hard non-null the kernel
@@ -88,6 +94,10 @@
 
 #include "common.h"
 
+#ifndef DIBS_FL_SHARD
+#define DIBS_FL_SHARD 0
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -116,6 +126,7 @@ struct Args {
   uint32_t k0, k1, stream_soft, stream_hard;
   float alpha, tau, mean_edge, sig_edge;
   double inv_var;
+  uint32_t p0;  // particle counter of particle 0 (kShard: a shard's first)
 };
 
 // The row tier's gate (fused_linear_tile_rows in Python): the footprint of
@@ -163,7 +174,7 @@ __host__ __device__ inline int row_items(int d, int group) {
   return (dq * dq + team - 1) / team;
 }
 
-template <int kMode, int kItems, bool kFleet>
+template <int kMode, int kItems, bool kFleet, bool kShard>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_linear_kernel(const Args a) {
   extern __shared__ __align__(16) double smem_d[];
@@ -192,7 +203,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   // a fleet (kFleet): particle p of dataset p / per reads that dataset's
-  // data and draws with its key, at the particle counter p % per
+  // data and draws with its key, at the particle counter p % per; a shard
+  // (kShard) draws at the counter p0 + p (dibs::draw_counter)
   const float* xd = a.x;
   const float* wd = a.w;
   uint32_t pk = p, k0 = a.k0, k1 = a.k1;
@@ -347,14 +359,18 @@ __global__ void __launch_bounds__(kThreads, 2)
             const float es =
                 a.eps_soft != nullptr
                     ? a.eps_soft[nbase + e]
-                    : dibs::philox_logistic(e, m, pk, a.stream_soft, k0, k1);
+                    : dibs::philox_logistic(
+                          e, m, dibs::draw_counter<kShard>(pk, a.p0),
+                          a.stream_soft, k0, k1);
             float eh;
             if (a.eps_hard != nullptr) {
               eh = a.eps_hard[nbase + e];
             } else if (a.stream_hard == a.stream_soft) {
               eh = es;
             } else {
-              eh = dibs::philox_logistic(e, m, pk, a.stream_hard, k0, k1);
+              eh = dibs::philox_logistic(
+                  e, m, dibs::draw_counter<kShard>(pk, a.p0), a.stream_hard,
+                  k0, k1);
             }
             g_soft =
                 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
@@ -674,27 +690,32 @@ struct WideArgs {
   uint32_t k0, k1, stream_soft, stream_hard;
   float alpha, tau, mean_edge, sig_edge;
   double inv_var;
+  uint32_t p0;  // particle counter of particle 0 (kShard: a shard's first)
 };
 
 // The soft and hard sample of element (i, j) (global index eg = i d + j) of
 // sample m: Logistic noise from the injected tensors or the Philox streams
-// (the hard sample thresholds the soft sample's noise on a shared stream).
+// (the hard sample thresholds the soft sample's noise on a shared stream);
+// a shard (kShard) draws at the particle counter p0 + p.
+template <bool kShard>
 __device__ __forceinline__ void wide_sample_pair(const WideArgs& a,
                                                  int64_t nbase, uint32_t eg,
                                                  int m, int p, float as,
                                                  float* g_soft,
                                                  float* g_hard) {
+  const uint32_t pk =
+      dibs::draw_counter<kShard>(static_cast<uint32_t>(p), a.p0);
   const float es =
       a.eps_soft != nullptr
           ? a.eps_soft[nbase + eg]
-          : dibs::philox_logistic(eg, m, p, a.stream_soft, a.k0, a.k1);
+          : dibs::philox_logistic(eg, m, pk, a.stream_soft, a.k0, a.k1);
   float eh;
   if (a.eps_hard != nullptr) {
     eh = a.eps_hard[nbase + eg];
   } else if (a.stream_hard == a.stream_soft) {
     eh = es;
   } else {
-    eh = dibs::philox_logistic(eg, m, p, a.stream_hard, a.k0, a.k1);
+    eh = dibs::philox_logistic(eg, m, pk, a.stream_hard, a.k0, a.k1);
   }
   *g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as))));
   *g_hard = __fadd_rn(eh, as) > 0.0f ? 1.0f : 0.0f;
@@ -831,7 +852,7 @@ int wide1_group(int d, int tile_rows) {
   return 1;
 }
 
-template <int kG>
+template <int kG, bool kShard>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_linear_wide_pass1_kernel(const WideArgs a) {
   constexpr int kSlots = 2 * kG;                 // (sample, branch) pairs
@@ -917,8 +938,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
         float g_soft = 0.0f, g_hard = 0.0f;
         if (jj < cw && i != j) {
-          wide_sample_pair(a, nbase, static_cast<uint32_t>(i * d + j), m, p,
-                           as_[e], &g_soft, &g_hard);
+          wide_sample_pair<kShard>(a, nbase,
+                                   static_cast<uint32_t>(i * d + j), m, p,
+                                   as_[e], &g_soft, &g_hard);
         }
         const float ds = g_soft - sig[e], dh = g_hard - sig[e];
         float* row = aa + i * kAStride + g * 2 * kCols + jj;
@@ -1128,6 +1150,7 @@ __device__ __forceinline__ void wide_tile_product(const float* xt, int ldn,
   }
 }
 
+template <bool kShard>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_linear_wide_kernel(const WideArgs a) {
   extern __shared__ __align__(16) float smem_w[];
@@ -1238,8 +1261,9 @@ __global__ void __launch_bounds__(kThreads, 2)
         float g_soft = 0.0f, g_hard = 0.0f, ref = 0.0f;
         if (jj < cw && i != j) {
           const float s = as_[e];
-          wide_sample_pair(a, nbase, static_cast<uint32_t>(i * d + j), m, p,
-                           s, &g_soft, &g_hard);
+          wide_sample_pair<kShard>(a, nbase,
+                                   static_cast<uint32_t>(i * d + j), m, p,
+                                   s, &g_soft, &g_hard);
           ref = 1.0f / (1.0f + expf(-s));  // E[G]
         }
         const float th_e = th[e];
@@ -1348,7 +1372,8 @@ size_t wide_smem_bytes(int d, int tile_rows) {
 template <int kG>
 int launch_wide1(const WideArgs& a, int n_particles, size_t smem,
                  cudaStream_t stream) {
-  const auto kernel = fused_linear_wide_pass1_kernel<kG>;
+  const auto kernel =
+      fused_linear_wide_pass1_kernel<kG, DIBS_FL_SHARD != 0>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1379,25 +1404,29 @@ int launch_wide(const WideArgs& a, int mode, int n_particles,
   if (mode != kWide2) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wide2_smem_bytes(a.d, a.tile_rows);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = fused_linear_wide_kernel<DIBS_FL_SHARD != 0>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_linear_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(fused_linear_wide_kernel,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_linear_wide_kernel<<<dim3(n_particles, a.n_ct), kThreads, smem,
-                             stream>>>(a);
+  kernel<<<dim3(n_particles, a.n_ct), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kMode, int kItems>
 int launch_row(const Args& a, int n_particles, size_t smem,
                cudaStream_t stream) {
-  const auto kernel = a.keys != nullptr
-                          ? fused_linear_kernel<kMode, kItems, true>
-                          : fused_linear_kernel<kMode, kItems, false>;
+  // one dataset, a fleet (keys), or, in the DIBS_FL_SHARD build, a shard
+  constexpr bool kShard = DIBS_FL_SHARD != 0;
+  auto kernel = fused_linear_kernel<kMode, kItems, false, kShard>;
+  if constexpr (!kShard) {
+    if (a.keys != nullptr) kernel = fused_linear_kernel<kMode, kItems, true,
+                                                        false>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1430,6 +1459,7 @@ int launch(const Args& a, int n_particles, cudaStream_t stream) {
 
 }  // namespace
 
+#if !DIBS_FL_SHARD
 DIBS_API size_t dibs_fused_linear_smem_bytes(int d, int tile_rows) {
   return smem_bytes(d, tile_rows);
 }
@@ -1445,6 +1475,7 @@ DIBS_API size_t dibs_fused_linear_row_smem_bytes(int d, int tile_rows,
 DIBS_API int dibs_fused_linear_row_items(int d, int group) {
   return row_items(d, group);
 }
+#endif
 
 // mode 0: single pass -> (dscores, dtheta); mode 1: pass 1 -> (dll_soft,
 // dll_hard) [P, M]; mode 2: pass 2 with weights -> (dscores, dtheta). The
@@ -1457,9 +1488,17 @@ DIBS_API int dibs_fused_linear_row_items(int d, int group) {
 // datasets' x and w [B_ds, N, d] and their keys [B_ds] (device int64):
 // particle p reads dataset p / per and draws with its key at the particle
 // counter p % per; one dataset: per = P, keys null (the key is `seed`).
+// dibs_fused_linear_shard (the DIBS_FL_SHARD build) launches a particle
+// shard: one dataset whose particle counters start at `p0`, its first
+// global particle; dibs_fused_linear takes p0 = 0.
+#if DIBS_FL_SHARD
+DIBS_API int dibs_fused_linear_shard(
+#else
 DIBS_API int dibs_fused_linear(
+#endif
     int mode, const float* scores, const float* theta, const float* x,
-    const float* w, const int64_t* keys, int per, const float* eps_soft,
+    const float* w, const int64_t* keys, int per, uint32_t p0,
+    const float* eps_soft,
     const float* eps_hard,
     const float* wts_soft, const float* wts_hard, float* resid_ref,
     float* part, float* out_a, float* out_b, int n_particles, int n_samples,
@@ -1472,7 +1511,8 @@ DIBS_API int dibs_fused_linear(
       (group != 1 && group != 2 && group != kMaxGroup) || sub_rows < 4 ||
       sub_rows % 4 != 0 || sub_rows > row_ldn(tile_rows) ||
       (tile_rows < n_obs && resid_ref == nullptr) || per < 1 ||
-      n_particles % per != 0) {
+      n_particles % per != 0 ||
+      (DIBS_FL_SHARD != 0 ? keys != nullptr : p0 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -1503,6 +1543,7 @@ DIBS_API int dibs_fused_linear(
   a.k1 = static_cast<uint32_t>(seed >> 32);
   a.stream_soft = stream_soft;
   a.stream_hard = stream_hard;
+  a.p0 = p0;
   a.alpha = alpha;
   a.tau = tau;
   a.mean_edge = mean_edge;
@@ -1520,6 +1561,7 @@ DIBS_API int dibs_fused_linear(
   }
 }
 
+#if !DIBS_FL_SHARD
 DIBS_API size_t dibs_fused_linear_wide_smem_bytes(int d, int tile_rows) {
   return wide_smem_bytes(d, tile_rows);
 }
@@ -1540,23 +1582,31 @@ DIBS_API int dibs_fused_linear_wide_pass1_group(int d, int tile_rows) {
 DIBS_API size_t dibs_fused_linear_wide_pass2_smem_bytes(int d, int tile_rows) {
   return wide2_smem_bytes(d, tile_rows);
 }
+#endif
 
 // The wide tier. mode 3: pass 1 -> float64 partial dll [P, M, n_ct] per
 // column tile (n_ct = ceil(d / 8)); mode 4: pass 2 with weights ->
 // (dscores, dtheta). `resid_ref` is [P, n_ct, N, 8] floats of scratch when
-// the rows are tiled (tile_rows < N), else nullptr.
+// the rows are tiled (tile_rows < N), else nullptr. `p0`: the particle
+// counter of particle 0, a shard's first global particle in
+// dibs_fused_linear_wide_shard (the DIBS_FL_SHARD build), else 0.
+#if DIBS_FL_SHARD
+DIBS_API int dibs_fused_linear_wide_shard(
+#else
 DIBS_API int dibs_fused_linear_wide(
+#endif
     int mode, const float* scores, const float* theta, const float* x,
     const float* w, const float* eps_soft, const float* eps_hard,
     const float* wts_soft, const float* wts_hard, float* resid_ref,
     double* dll_soft, double* dll_hard, float* out_a, float* out_b,
     int n_particles, int n_samples, int d, int n_obs, int tile_rows,
-    uint64_t seed, uint32_t stream_soft, uint32_t stream_hard, float alpha,
-    float tau, double inv_var, float mean_edge, float sig_edge,
+    uint64_t seed, uint32_t p0, uint32_t stream_soft, uint32_t stream_hard,
+    float alpha, float tau, double inv_var, float mean_edge, float sig_edge,
     cudaStream_t stream) {
   if (d < 1 || n_obs < 1 || n_samples < 1 || tile_rows < 1 ||
       tile_rows > n_obs || tile_rows > kThreads / 2 ||
-      (tile_rows < n_obs && resid_ref == nullptr)) {
+      (tile_rows < n_obs && resid_ref == nullptr) ||
+      (DIBS_FL_SHARD == 0 && p0 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -1583,6 +1633,7 @@ DIBS_API int dibs_fused_linear_wide(
   a.k1 = static_cast<uint32_t>(seed >> 32);
   a.stream_soft = stream_soft;
   a.stream_hard = stream_hard;
+  a.p0 = p0;
   a.alpha = alpha;
   a.tau = tau;
   a.mean_edge = mean_edge;

@@ -93,9 +93,18 @@
 // single-dataset kernels' code (a run-time branch there added registers to
 // the kH = 16 kernels, whose spills grew and which then failed on the card
 // with an illegal instruction), and in its own translation unit so that
-// both sets build in parallel.
+// both sets build in parallel. Particle shards likewise:
+// csrc/fused_nonlinear_shard.cu builds it with DIBS_NL_SHARD 1 (kShard:
+// the particle counter starts at the launch's p0; launcher
+// dibs_fused_nonlinear_shard; the counter added at the draws,
+// dibs::draw_counter). A run-time p0 in the single-dataset kernels grew
+// the kH = 16 sigmoid kernel's spills (316 / 1136 to 400 / 1396 B) and its
+// launches died with an illegal instruction.
 #ifndef DIBS_NL_FLEET
 #define DIBS_NL_FLEET 0
+#endif
+#ifndef DIBS_NL_SHARD
+#define DIBS_NL_SHARD 0
 #endif
 
 #include "common.h"
@@ -128,6 +137,7 @@ struct Args {
   uint32_t k0, k1, stream_soft, stream_hard;
   float alpha, tau, inv_varp;
   double inv_var;
+  uint32_t p0;  // particle counter of particle 0 (kShard: a shard's first)
 };
 
 __host__ __device__ inline int round_up(int v, int k) {
@@ -255,7 +265,7 @@ __global__ void __launch_bounds__(kThreads)
 // (2) One pass over a chunk of samples, in groups, with an online softmax
 // per stream. kH: the register arrays' hidden width; kPad: h1 < kH possible
 // (units past h1 read as zero), else h1 = kH.
-template <int kH, bool kPad, int kAct, bool kFleet>
+template <int kH, bool kPad, int kAct, bool kFleet, bool kShard>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_nl_kernel(const Args a) {
   extern __shared__ __align__(16) double smem_d[];
@@ -292,7 +302,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int p = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   // data, key and particle counter: a fleet's dataset p / per (see the
-  // note at the top), else the launch's own
+  // note at the top), else the launch's own; a shard (kShard) counts from
+  // p0 (dibs::draw_counter)
   const float* xd = a.x;
   const float* wd = a.w;
   uint32_t pk = p, k0 = a.k0, k1 = a.k1;
@@ -384,14 +395,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         const float es =
             a.eps_soft != nullptr
                 ? a.eps_soft[nbase + e]
-                : dibs::philox_logistic(e, m, pk, a.stream_soft, k0, k1);
+                : dibs::philox_logistic(
+                      e, m, dibs::draw_counter<kShard>(pk, a.p0),
+                      a.stream_soft, k0, k1);
         float eh;
         if (a.eps_hard != nullptr) {
           eh = a.eps_hard[nbase + e];
         } else if (a.stream_hard == a.stream_soft) {
           eh = es;
         } else {
-          eh = dibs::philox_logistic(e, m, pk, a.stream_hard, k0, k1);
+          eh = dibs::philox_logistic(
+              e, m, dibs::draw_counter<kShard>(pk, a.p0), a.stream_hard,
+              k0, k1);
         }
         g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
         g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
@@ -731,11 +746,11 @@ using RefKernel = void (*)(const float*, const float*, const float*,
 // kH = 5 exactly for config 3's width, else h1 rounded up to 4, 8 or 16
 template <int kAct>
 MainKernel main_kernel_for(int h1) {
-  constexpr bool kFleet = DIBS_NL_FLEET != 0;
-  if (h1 == 5) return fused_nl_kernel<5, false, kAct, kFleet>;
-  if (h1 <= 4) return fused_nl_kernel<4, true, kAct, kFleet>;
-  if (h1 <= 8) return fused_nl_kernel<8, true, kAct, kFleet>;
-  return fused_nl_kernel<kMaxH, true, kAct, kFleet>;
+  constexpr bool kFleet = DIBS_NL_FLEET != 0, kShard = DIBS_NL_SHARD != 0;
+  if (h1 == 5) return fused_nl_kernel<5, false, kAct, kFleet, kShard>;
+  if (h1 <= 4) return fused_nl_kernel<4, true, kAct, kFleet, kShard>;
+  if (h1 <= 8) return fused_nl_kernel<8, true, kAct, kFleet, kShard>;
+  return fused_nl_kernel<kMaxH, true, kAct, kFleet, kShard>;
 }
 
 MainKernel main_kernel(int h1, int act) {
@@ -776,7 +791,7 @@ bool plan_ok(int d, int h1, int n_obs, int group, int sub_rows,
 
 }  // namespace
 
-#if !DIBS_NL_FLEET
+#if !DIBS_NL_FLEET && !DIBS_NL_SHARD
 DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int group,
                                                 int sub_rows, int tile_rows,
                                                 int n_obs) {
@@ -792,15 +807,19 @@ DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int group,
 // (part) floats, S = ceil(M / chunk). dibs_fused_nonlinear_fleet (the
 // DIBS_NL_FLEET build) takes B_ds = P / `per` datasets' x and w [B_ds, N,
 // d] and their keys [B_ds] (device int64); dibs_fused_nonlinear one
-// dataset: per = P, keys null.
+// dataset: per = P, keys null, p0 = 0; dibs_fused_nonlinear_shard (the
+// DIBS_NL_SHARD build) a particle shard of one dataset, `p0` the particle
+// counter of its first particle (its global index).
 #if DIBS_NL_FLEET
 DIBS_API int dibs_fused_nonlinear_fleet(
+#elif DIBS_NL_SHARD
+DIBS_API int dibs_fused_nonlinear_shard(
 #else
 DIBS_API int dibs_fused_nonlinear(
 #endif
     const float* scores, const float* w1, const float* l1, const float* b1,
     const float* w2, const float* x, const float* w, const int64_t* keys,
-    int per, const float* eps_soft,
+    int per, uint32_t p0, const float* eps_soft,
     const float* eps_hard, float* ref, float* part, float* out_ds,
     float* out_dw1, float* out_small, int n_particles, int n_samples, int d,
     int h1, int n_obs, int tile_rows, int sub_rows, int group, int chunk,
@@ -809,7 +828,8 @@ DIBS_API int dibs_fused_nonlinear(
     cudaStream_t stream) {
   if (!plan_ok(d, h1, n_obs, group, sub_rows, tile_rows) || n_samples < 1 ||
       chunk < 1 || act < kRelu || act > kLeaky || per < 1 ||
-      n_particles % per != 0 || (keys != nullptr) != (DIBS_NL_FLEET != 0)) {
+      n_particles % per != 0 || (keys != nullptr) != (DIBS_NL_FLEET != 0) ||
+      (DIBS_NL_SHARD == 0 && p0 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -852,6 +872,7 @@ DIBS_API int dibs_fused_nonlinear(
   a.k1 = static_cast<uint32_t>(seed >> 32);
   a.stream_soft = stream_soft;
   a.stream_hard = stream_hard;
+  a.p0 = p0;
   a.alpha = alpha;
   a.tau = tau;
   a.inv_varp = inv_varp;

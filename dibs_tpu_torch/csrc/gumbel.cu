@@ -196,10 +196,13 @@ cudaError_t launch(int mode, dim3 grid, int threads, cudaStream_t stream,
 // plan (gpu_kernels.gumbel_plan); vec = 4 needs d * d % 4 == 0 and 16-byte
 // aligned scores and eps. `keys` ([batch / per] int64, device) keys each
 // dataset of `per` particles of a fleet; null: `seed` keys the batch.
+// `p0` is the particle counter of the batch's first particle: a shard of
+// a particle-sharded run holding particles p0 .. p0 + batch - 1 draws what
+// those particles draw in one launch over all of them (0 for a fleet).
 DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
                                 float* out, int64_t batch, int n_samples,
                                 int d, uint64_t seed, const int64_t* keys,
-                                int per, uint32_t stream,
+                                int per, uint32_t p0, uint32_t stream,
                                 float alpha, float tau, int hard, int vec,
                                 int threads, int group,
                                 cudaStream_t cuda_stream) {
@@ -208,7 +211,7 @@ DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
   if (d < 0 || d > 46340 || batch > (int64_t{1} << 32) || n_samples < 0 ||
       (vec != 1 && vec != 4) || (d * d) % vec != 0 || threads < 32 ||
       threads > 256 || groups < 1 || groups > 65535 ||
-      (keys != nullptr && (per < 1 || batch % per != 0))) {
+      (keys != nullptr && (per < 1 || batch % per != 0 || p0 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int dd = d * d;
@@ -230,13 +233,13 @@ DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
         vec == 4 ? launch<4>(mode, grid, threads, cuda_stream,
                              scores + b0 * dd, e, out + off, keys, per, units,
                              upp, d, n_samples, group,
-                             static_cast<uint32_t>(b0), k0, k1, stream, alpha,
-                             tau)
+                             static_cast<uint32_t>(b0) + p0, k0, k1, stream,
+                             alpha, tau)
                  : launch<1>(mode, grid, threads, cuda_stream,
                              scores + b0 * dd, e, out + off, keys, per, units,
                              upp, d, n_samples, group,
-                             static_cast<uint32_t>(b0), k0, k1, stream, alpha,
-                             tau);
+                             static_cast<uint32_t>(b0) + p0, k0, k1, stream,
+                             alpha, tau);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

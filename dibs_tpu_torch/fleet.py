@@ -20,12 +20,17 @@ Serves ``MarginalDiBS`` (BGe, ``score`` and ``score_rb``) and ``JointDiBS``
 on its fused reparameterization route (``LinearGaussian`` up to d = 70, one
 or two passes; the one-hidden-layer ``DenseNonlinearGaussian`` of kernel
 #8). Raises ``ValueError`` for joint ``score``, the generic
-reparameterization route, the wide fused tier past d = 70 and a ``mesh``
-(``ROADMAP.md`` queue 1). Typical use::
+reparameterization route and the wide fused tier past d = 70 (``ROADMAP.md``
+queue 1). Typical use::
 
     dibs = JointDiBS(x=xs[0], graph_model=gm, likelihood_model=lm)
     gs, thetas = fleet_sample(dibs, xs=xs, seed=0, n_particles=30,
                               steps=1000)   # gs: [B, P, d, d]
+
+With ``mesh=`` (a ``DeviceMesh`` with a ``"datasets"`` axis, one rank a
+card) each rank runs ``B / world`` of the datasets, keyed by their entries
+of ``fleet_seeds(seed, B)``, and every rank gets the gathered result:
+datasets are independent, so no other collective runs.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import torch
 from dibs_tpu_torch.inference.optimizers import ScaleByRmsState
 from dibs_tpu_torch.inference.svgd import JointDiBS, MarginalDiBS, SVGDState
 from dibs_tpu_torch.ops.edges import particle_to_g_lim
+from dibs_tpu_torch.parallel import axis_sharding, gather_state
+from dibs_tpu_torch.parallel.shard_ops import gather_rows
 from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["fleet_sample", "fleet_seeds", "fleet_init_state", "fleet_step"]
@@ -119,9 +126,11 @@ def fleet_sample(dibs, *, xs, seed: int, n_particles: int, steps: int,
         seed: int; :func:`fleet_seeds` turns it into one seed a dataset.
         interv_masks: optional ``[B, N, d]`` hard-intervention masks
             (all-observational by default, as the engine).
-        mesh: must be ``None`` (the ``datasets`` axis across cards is
-            multi-GPU work, not ported yet); ``axis_name`` is kept for the
-            reference's signature.
+        mesh: optional ``torch.distributed.device_mesh.DeviceMesh`` with
+            an axis ``axis_name``; the datasets are split over it (``B``
+            a multiple of the axis's size), each rank running its block
+            of datasets as one fleet, and the results gathered on every
+            rank. Each dataset's result is that of the meshless fleet.
         return_states: also return the stacked final :class:`SVGDState`.
 
     Returns:
@@ -129,14 +138,29 @@ def fleet_sample(dibs, *, xs, seed: int, n_particles: int, steps: int,
         (parameter leaves with leading ``[B, P]``) for joint ones; the
         stacked state last with ``return_states=True``.
     """
-    if mesh is not None:
+    if getattr(dibs, "sharding", None) is not None:
         raise ValueError(
-            "fleet_sample: the 'datasets' mesh axis across cards comes with "
-            "multi-GPU (ROADMAP.md queue 1, slice 6); pass mesh=None")
+            "fleet_sample shards the dataset axis; construct the engine "
+            "without a particle sharding (sharding=None)")
+    seeds = fleet_seeds(seed, len(xs))
+    shards = None
+    if mesh is not None:
+        shards = axis_sharding(mesh, axis_name)
+        if len(xs) % shards.world != 0:
+            raise ValueError(f"B={len(xs)} must divide the '{axis_name}' "
+                             f"mesh axis ({shards.world})")
+        per = len(xs) // shards.world
+        rows = slice(shards.rank * per, (shards.rank + 1) * per)
+        xs, seeds = xs[rows], seeds[rows]
+        if interv_masks is not None:
+            interv_masks = interv_masks[rows]
     step = fleet_step(dibs, xs, interv_masks)
-    state = fleet_init_state(dibs, fleet_seeds(seed, len(xs)), n_particles)
+    state = fleet_init_state(dibs, seeds, n_particles)
     for _ in range(steps):
         state = step(state)
+    if shards is not None:
+        state = gather_state(state, shards)._replace(
+            seed=gather_rows(state.seed, shards))
     gs = particle_to_g_lim(state.z)
     out = (gs,) if state.theta is None else (gs, state.theta)
     if return_states:

@@ -36,6 +36,12 @@ particle as they are. A joint fleet serves the fused reparameterization
 route only (up to d = 70 for the linear model): joint ``score``, the
 generic reparameterization route and the wide tier raise ``ValueError``.
 
+Under a particle sharding (:mod:`dibs_tpu_torch.parallel`) the particle
+batch is this rank's block of ``world`` equal blocks: every sampler and
+fused kernel call takes its first particle's global index as
+``particle_offset``, so each particle's samples, scores and gradients are
+bitwise those of the unsharded call.
+
 Estimator maths (as the reference): the self-normalized ratio
 
     grad log E_{p(G|Z)}[p(D | G)] = E[p(D|G) grad log p(G|Z)] / E[p(D|G)]
@@ -70,6 +76,7 @@ from dibs_tpu_torch.ops.edges import (
     grad_latent_log_prob_batch,
 )
 from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs, sample_soft_graphs
+from dibs_tpu_torch.parallel.shard_ops import shard_offset
 from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp, zero_diagonal
 from dibs_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -192,7 +199,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                     fused_linear_model=None,
                     fused_nonlinear_model=None,
                     fused_sample_sharing: Optional[str] = None,
-                    fused_single_pass: bool = True) -> Estimators:
+                    fused_single_pass: bool = True,
+                    sharding=None) -> Estimators:
     """Builds the batched estimator callables for fixed data and models.
 
     Args:
@@ -227,6 +235,10 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             ``False`` runs the two-pass kernels (log-likelihoods, softmax in
             PyTorch, weighted replay), as the reference's
             ``single_pass=False``
+        sharding: a :func:`~dibs_tpu_torch.parallel.particle_sharding`
+            when the particles passed are this rank's block of a sharded
+            run: the samplers and the fused kernels then draw at the
+            block's global particle indices (bitwise the unsharded call)
     """
     if cfg.grad_estimator_z not in ("score", "score_rb", "reparam"):
         raise ValueError(
@@ -246,11 +258,17 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     if fused_sample_sharing not in (None, "hard"):
         raise ValueError(f"fused_sample_sharing must be None or 'hard'; got "
                          f"{fused_sample_sharing!r}")
+    if sharding is not None and x.dim() == 3:
+        raise ValueError("a fleet shards its datasets, not its particles; "
+                         "build its estimators without a sharding")
     n_mc = cfg.n_grad_mc_samples
+
+    def _offset(zs):
+        return shard_offset(sharding, zs.shape[0])
 
     def _hard_samples(zs, t, seed, stream, eps):
         return sample_hard_graphs(edge_scores(zs), seed, stream, cfg.alpha(t),
-                                  n_mc, eps=eps)
+                                  n_mc, eps=eps, particle_offset=_offset(zs))
 
     # a fleet's hook takes each dataset's graphs on its own axis
     graphs_lead = (x.shape[0],) if x.dim() == 3 else ()
@@ -342,7 +360,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
             gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
-                                    cfg.alpha(t), cfg.tau, n_mc, eps=eps)
+                                    cfg.alpha(t), cfg.tau, n_mc, eps=eps,
+                                    particle_offset=_offset(zs))
             return _weighted_grad(_log_joint(gs, thetas), z_req), baselines
 
     def eltwise_grad_theta_likelihood(zs, thetas, t, seed, stream, eps=None):
@@ -362,7 +381,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             z_req = zs.detach().requires_grad_(True)
             gs = sample_soft_graphs(edge_scores(z_req), seed, streams[0],
                                     cfg.alpha(t), cfg.tau, n_mc,
-                                    eps=None if eps is None else eps[0])
+                                    eps=None if eps is None else eps[0],
+                                    particle_offset=_offset(zs))
             dz = _weighted_grad(_log_joint(gs, thetas), z_req)
             hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
             th_req = _requires_grad(thetas)
@@ -376,7 +396,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         dscores, dtheta = fused_linear_estimators(
             zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
             streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
-            model=fused_linear_model, eps=eps, single_pass=fused_single_pass)
+            model=fused_linear_model, eps=eps, single_pass=fused_single_pass,
+            particle_offset=_offset(zs))
         return _chain_scores(dscores, zs), dtheta
 
     def fused_nonlinear(zs, thetas, t, seed, streams, eps=None):
@@ -385,7 +406,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         dscores, dtheta = fused_nonlinear_estimators(
             zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
             streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
-            model=fused_nonlinear_model, eps=eps)
+            model=fused_nonlinear_model, eps=eps,
+            particle_offset=_offset(zs))
         return _chain_scores(dscores, zs), dtheta
 
     # --- latent prior score ---
@@ -413,7 +435,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             else:
                 k = cfg.n_acyclicity_mc_samples
                 gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
-                                        alpha, cfg.tau, k, eps=eps)
+                                        alpha, cfg.tau, k, eps=eps,
+                                        particle_offset=_offset(zs))
                 h_vals = h_fn(gs)  # [P, K]
                 cot = torch.full_like(h_vals, 1.0 / k)
             (grad_constraint,) = torch.autograd.grad(h_vals, z_req, cot)

@@ -66,6 +66,13 @@ and ``w`` ``[B_ds, N, d]``, the particles in dataset order and ``seed`` the
 dataset and key in the same launch (particle counter: the index within the
 dataset); the plain versions run on each dataset's slice in turn. The wide
 tier serves one dataset only.
+
+A particle shard (:mod:`dibs_tpu_torch.parallel`) passes its first
+particle's global index as ``particle_offset``: its particles draw at
+those counters, bitwise their part of one launch over the whole batch. A
+non-zero offset launches the shard build of the same kernels
+(``csrc/fused_linear_shard.cu``), so the other builds compile as without
+it.
 """
 from __future__ import annotations
 
@@ -81,6 +88,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _check_launch,
     _stream,
     build,
+    check_offset,
     fleet_keys,
     fleet_particles,
     philox_uniform,
@@ -361,20 +369,22 @@ def fused_linear_available(n_vars: int, n_obs: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _logistic(shape, seed, stream, device):
-    u = philox_uniform(shape, seed, stream, device)
+def _logistic(shape, seed, stream, device, particle_offset=0):
+    u = philox_uniform(shape, seed, stream, device, particle_offset)
     return torch.log(u) - torch.log1p(-u)
 
 
-def _noise(shape, seed, streams, eps, device):
+def _noise(shape, seed, streams, eps, device, particle_offset=0):
     """``(eps_soft, eps_hard)``: the injected pair or the kernels' Philox
-    draws (one draw when the two streams are equal)."""
+    draws (one draw when the two streams are equal), particle ``b`` at the
+    counter ``particle_offset + b``."""
     if eps is not None:
         return eps
-    eps_soft = _logistic(shape, seed, streams[0], device)
+    eps_soft = _logistic(shape, seed, streams[0], device, particle_offset)
     if streams[1] == streams[0]:
         return eps_soft, eps_soft
-    return eps_soft, _logistic(shape, seed, streams[1], device)
+    return eps_soft, _logistic(shape, seed, streams[1], device,
+                               particle_offset)
 
 
 class _Particles:
@@ -456,7 +466,8 @@ def _fleet(x) -> bool:
 
 
 def fused_linear_pass1_plain(scores, thetas, x, w, *, seed, streams, alpha,
-                             tau, n_samples, model, eps=None):
+                             tau, n_samples, model, eps=None,
+                             particle_offset=0):
     """Plain version of kernel #6: ``(dll_soft, dll_hard)``, each ``[P, M]``
     (a fleet's ``x, w [B_ds, N, d]``: each dataset in turn)."""
     if _fleet(x):
@@ -465,7 +476,7 @@ def fused_linear_pass1_plain(scores, thetas, x, w, *, seed, streams, alpha,
                            n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
-                          scores.device)
+                          scores.device, particle_offset)
     part = _Particles(scores, thetas, x, w, alpha, tau, model)
     ll_s, ll_h = [], []
     for m0, m1 in _chunks(n_samples):
@@ -476,7 +487,8 @@ def fused_linear_pass1_plain(scores, thetas, x, w, *, seed, streams, alpha,
 
 
 def fused_linear_pass2_plain(scores, thetas, x, w, weights, *, seed, streams,
-                             alpha, tau, n_samples, model, eps=None):
+                             alpha, tau, n_samples, model, eps=None,
+                             particle_offset=0):
     """Plain version of kernel #7: replays the samples with the softmax
     ``weights = (w_soft, w_hard)`` ``[P, M]``; returns ``(d scores, d Theta)``
     (a fleet: each dataset in turn)."""
@@ -486,7 +498,7 @@ def fused_linear_pass2_plain(scores, thetas, x, w, weights, *, seed, streams,
                            tau=tau, n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
-                          scores.device)
+                          scores.device, particle_offset)
     part = _Particles(scores, thetas, x, w, alpha, tau, model)
     w_soft, w_hard = weights
     acc_s = torch.zeros_like(scores)
@@ -500,7 +512,8 @@ def fused_linear_pass2_plain(scores, thetas, x, w, weights, *, seed, streams,
 
 
 def fused_linear_single_plain(scores, thetas, x, w, *, seed, streams, alpha,
-                              tau, n_samples, model, eps=None):
+                              tau, n_samples, model, eps=None,
+                              particle_offset=0):
     """Plain version of kernel #5: one pass over the samples in chunks with
     the kernel's online softmax; returns ``(d scores, d Theta)`` (a fleet:
     each dataset in turn)."""
@@ -510,7 +523,7 @@ def fused_linear_single_plain(scores, thetas, x, w, *, seed, streams, alpha,
                            n_samples=n_samples, model=model, eps=eps)
     p, d, _ = scores.shape
     eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps,
-                          scores.device)
+                          scores.device, particle_offset)
     part = _Particles(scores, thetas, x, w, alpha, tau, model)
     neg_inf = torch.full((p,), -math.inf, device=scores.device)
     state = {"soft": [neg_inf, torch.zeros(p, device=scores.device),
@@ -585,7 +598,8 @@ def _fleet_keys(name, seed, x, p, device):
 
 
 def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
-            n_samples, model, eps, weights=None, plan=None):
+            n_samples, model, eps, weights=None, plan=None,
+            particle_offset=0):
     """Launches the row-tier kernel; ``plan`` (a :class:`RowPlan`) replaces
     :func:`fused_linear_row_plan`'s, for timing other plans."""
     eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
@@ -593,6 +607,7 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     p, d, _ = scores.shape
     n_obs = x.shape[-2]
     keys, per = _fleet_keys(name, seed, x, p, scores.device)
+    check_offset(seed, particle_offset)
     if fused_linear_tile_rows(d, n_obs) is None:
         raise ValueError(f"{name}: d={d} exceeds the kernel's shared-memory "
                          "limit (fused_linear_available)")
@@ -609,11 +624,14 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
     resid_ref = (torch.empty((p, n_split, n_obs, -(-d // 4) * 4), **empty)
                  if plan.tile_rows < n_obs else None)
     part = torch.empty((p, n_split, 4 + 2 * d * d), **empty)
+    # a shard's counters start at its offset: the DIBS_FL_SHARD build
+    launch = (lib.dibs_fused_linear_shard if particle_offset
+              else lib.dibs_fused_linear)
     with torch.cuda.device(scores.device):
-        rc = lib.dibs_fused_linear(
+        rc = launch(
             _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
             w.data_ptr(), None if keys is None else keys.data_ptr(), per,
-            *eps_ptrs, *wts_ptrs,
+            particle_offset & 0xFFFFFFFF, *eps_ptrs, *wts_ptrs,
             None if resid_ref is None else resid_ref.data_ptr(),
             part.data_ptr(), out_a.data_ptr(), out_b.data_ptr(), p,
             n_samples, d, n_obs, plan.tile_rows, plan.chunk, plan.group,
@@ -627,12 +645,13 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
 
 
 def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
-                 n_samples, model, eps, weights=None):
+                 n_samples, model, eps, weights=None, particle_offset=0):
     eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
                                        eps, weights)
     if _fleet(x) or isinstance(seed, torch.Tensor):
         raise ValueError(f"{name}: the wide tier (d > 70) serves one dataset, "
                          "not a fleet (ROADMAP.md queue 1)")
+    check_offset(seed, particle_offset)
     p, d, _ = scores.shape
     n_obs = x.shape[0]
     tile_rows = fused_linear_wide_tile_rows(d, n_obs)
@@ -659,12 +678,15 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
         outs = [torch.empty((p, d, d), dtype=torch.float32, device=dev)
                 for _ in range(2)]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    launch = (lib.dibs_fused_linear_wide_shard if particle_offset
+              else lib.dibs_fused_linear_wide)
     with torch.cuda.device(dev):
-        rc = lib.dibs_fused_linear_wide(
+        rc = launch(
             _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
             w.data_ptr(), *eps_ptrs, *wts_ptrs, ptr(resid_ref),
             *map(ptr, dlls), *map(ptr, outs), p, n_samples, d, n_obs,
-            tile_rows, seed & 0xFFFFFFFFFFFFFFFF, streams[0] & 0xFFFFFFFF,
+            tile_rows, seed & 0xFFFFFFFFFFFFFFFF,
+            particle_offset & 0xFFFFFFFF, streams[0] & 0xFFFFFFFF,
             streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
             1.0 / model.obs_noise, float(model.mean_edge),
             float(model.sig_edge), _stream(dev))
@@ -676,11 +698,12 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
 
 
 def fused_linear_single(scores, thetas, x, w, *, seed, streams, alpha, tau,
-                        n_samples, model, eps=None):
+                        n_samples, model, eps=None, particle_offset=0):
     """Kernel #5: ``[P, d, d]`` scores and ``Theta``, ``x, w [N, d]`` ->
     ``(d scores, d Theta)`` in one pass (online softmax)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
-              n_samples=n_samples, model=model, eps=eps)
+              n_samples=n_samples, model=model, eps=eps,
+              particle_offset=particle_offset)
     if not use_kernel(scores):
         return fused_linear_single_plain(scores, thetas, x, w, **kw)
     return _launch("fused_linear_single", scores, thetas, x, w, **kw)
@@ -691,12 +714,13 @@ def _row_tier(scores, x) -> bool:
 
 
 def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
-                       n_samples, model, eps=None):
+                       n_samples, model, eps=None, particle_offset=0):
     """Kernel #6: the ``[P, M]`` soft and hard centred log-likelihoods (past
     the row tier, the wide tier's pass 1: float64 partials per column tile,
     summed in a fixed order)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
-              n_samples=n_samples, model=model, eps=eps)
+              n_samples=n_samples, model=model, eps=eps,
+              particle_offset=particle_offset)
     if not use_kernel(scores):
         return fused_linear_pass1_plain(scores, thetas, x, w, **kw)
     if _row_tier(scores, x):
@@ -705,12 +729,14 @@ def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
 
 
 def fused_linear_pass2(scores, thetas, x, w, weights, *, seed, streams,
-                       alpha, tau, n_samples, model, eps=None):
+                       alpha, tau, n_samples, model, eps=None,
+                       particle_offset=0):
     """Kernel #7: replays the samples of pass 1 with ``weights = (w_soft,
     w_hard)`` ``[P, M]`` -> ``(d scores, d Theta)`` (past the row tier, the
     wide tier's pass 2, per column tile)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
-              n_samples=n_samples, model=model, eps=eps)
+              n_samples=n_samples, model=model, eps=eps,
+              particle_offset=particle_offset)
     if not use_kernel(scores):
         return fused_linear_pass2_plain(scores, thetas, x, w, weights, **kw)
     if _row_tier(scores, x):
@@ -725,13 +751,15 @@ def _softmax_weights(lls):
 
 
 def _estimators(single, pass1, pass2, *, zs, thetas, x, interv_mask, seed,
-                streams, alpha, tau, n_samples, model, eps, single_pass):
+                streams, alpha, tau, n_samples, model, eps, single_pass,
+                particle_offset):
+    check_offset(seed, particle_offset)
     scores = edge_scores(zs).contiguous()
     w = (1.0 - interv_mask.to(torch.float32)).contiguous()
     kw = dict(seed=seed if isinstance(seed, torch.Tensor) else int(seed),
               streams=tuple(int(s) for s in streams),
               alpha=float(alpha), tau=float(tau), n_samples=n_samples,
-              model=model, eps=eps)
+              model=model, eps=eps, particle_offset=int(particle_offset))
     thetas, x = thetas.contiguous(), x.contiguous()
     if single_pass and _row_tier(scores, x):
         return single(scores, thetas, x, w, **kw)
@@ -742,7 +770,8 @@ def _estimators(single, pass1, pass2, *, zs, thetas, x, interv_mask, seed,
 def fused_linear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
                             alpha, tau, n_samples, model,
                             eps: Optional[Tuple[torch.Tensor, ...]] = None,
-                            single_pass: bool = True):
+                            single_pass: bool = True,
+                            particle_offset: int = 0):
     """``(d scores [P, d, d], d Theta [P, d, d])``: the fused reparam
     Z-likelihood and Theta-likelihood estimates for ``LinearGaussian``.
 
@@ -753,22 +782,27 @@ def fused_linear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
     settings run the wide tier's two passes. A fleet passes ``x`` and
     ``interv_mask`` ``[B_ds, N, d]``, ``zs`` and ``thetas`` with the
     particles in dataset order and ``seed`` its ``[B_ds]`` keys (row tier
-    only).
+    only). A particle shard passes its first particle's global index as
+    ``particle_offset``: its samples are those of its particles in one call
+    over the whole batch.
     """
     return _estimators(fused_linear_single, fused_linear_pass1,
                        fused_linear_pass2, zs=zs, thetas=thetas, x=x,
                        interv_mask=interv_mask, seed=seed, streams=streams,
                        alpha=alpha, tau=tau, n_samples=n_samples, model=model,
-                       eps=eps, single_pass=single_pass)
+                       eps=eps, single_pass=single_pass,
+                       particle_offset=particle_offset)
 
 
 def fused_linear_estimators_plain(*, zs, thetas, x, interv_mask, seed,
                                   streams, alpha, tau, n_samples, model,
-                                  eps=None, single_pass: bool = True):
+                                  eps=None, single_pass: bool = True,
+                                  particle_offset: int = 0):
     """:func:`fused_linear_estimators` through the plain versions on any
     device (the yardstick of the kernels)."""
     return _estimators(fused_linear_single_plain, fused_linear_pass1_plain,
                        fused_linear_pass2_plain, zs=zs, thetas=thetas, x=x,
                        interv_mask=interv_mask, seed=seed, streams=streams,
                        alpha=alpha, tau=tau, n_samples=n_samples, model=model,
-                       eps=eps, single_pass=single_pass)
+                       eps=eps, single_pass=single_pass,
+                       particle_offset=particle_offset)

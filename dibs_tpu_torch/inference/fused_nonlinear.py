@@ -30,7 +30,10 @@ hard)``, equal streams give the hard sample as the threshold of the soft
 sample's noise, or the injected ``eps = (eps_soft, eps_hard)`` of
 ``[P, M, d, d]``). Dispatch (:func:`~dibs_tpu_torch.ops.gpu_kernels.
 use_kernel`): a CUDA tensor goes to the kernel, a CPU tensor (or any, with
-the kill switch off) to the plain version in this module.
+the kill switch off) to the plain version in this module. A particle
+shard's ``particle_offset`` (its first particle's global index) launches
+the shard build (``csrc/fused_nonlinear_shard.cu``), a fleet's keys the
+fleet build.
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     _check_launch,
     _stream,
     build,
+    check_offset,
     use_kernel,
 )
 
@@ -233,13 +237,16 @@ def fused_nonlinear_plan(d: int, h1: int, n_obs: int) -> Optional[NonlinearPlan]
 
 
 def fused_nonlinear_plain(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams,
-                          alpha, tau, n_samples, model, eps=None):
+                          alpha, tau, n_samples, model, eps=None,
+                          particle_offset=0):
     """Plain version of kernel #8, in its layout: returns ``(d scores [P, d,
     d], dW1 [P, h1, d, d], small [P, 2 h1 + 1, d])`` (``small`` holds the
     ``db1``, ``dW2`` and ``db2`` rows), before the outside prior terms.
     One pass over the samples in chunks with the kernel's online softmax.
     A fleet's ``x, w [B_ds, N, d]`` with its ``[B_ds]`` keys: each dataset
-    in turn."""
+    in turn. ``particle_offset``: the global index of particle 0 (a
+    particle shard's first)."""
+    check_offset(seed, particle_offset)
     if x.dim() == 3:
         return per_dataset(fused_nonlinear_plain, 5, scores, w1t, l1, b1t,
                            w2t, x, w, seed=seed, streams=streams, alpha=alpha,
@@ -248,7 +255,8 @@ def fused_nonlinear_plain(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams,
     h1 = w1t.shape[1]
     act, dact = ACTIVATIONS[model.activation], _DACTS[model.activation]
     dev = scores.device
-    eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps, dev)
+    eps_s, eps_h = _noise((p, n_samples, d, d), seed, streams, eps, dev,
+                          particle_offset)
     offdiag = 1.0 - torch.eye(d, dtype=scores.dtype, device=dev)
     alpha_s = alpha * scores
     sig = torch.sigmoid(alpha_s) * offdiag  # E[G]
@@ -331,13 +339,14 @@ def _chunk(p: int, n_samples: int, n_sms: int) -> int:
 
 
 def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
-            n_samples, model, eps):
+            n_samples, model, eps, particle_offset=0):
     name = "fused_nonlinear"
     p, d, d2 = scores.shape
     h1 = w1t.shape[1]
     lead = tuple(x.shape[:-2])  # a fleet's [B_ds]
     n_obs = x.shape[-2]
     keys, per = _fleet_keys(name, seed, x, p, scores.device)
+    check_offset(seed, particle_offset)
     shapes = {"w1t": (w1t, (p, h1, d, d)), "l1": (l1, (p, d, d)),
               "b1t": (b1t, (p, h1, d)), "w2t": (w2t, (p, h1 + 1, d)),
               "x": (x, (*lead, n_obs, d)), "w": (w, (*lead, n_obs, d))}
@@ -375,13 +384,15 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
     ref = torch.empty((p, h1 + 1, n_obs, d), **empty)
     part = torch.empty((p, n_split, 4 + (1 + h1) * d * d + (2 * h1 + 1) * d),
                        **empty)
-    launch = (lib.dibs_fused_nonlinear if keys is None
-              else lib.dibs_fused_nonlinear_fleet)
+    launch = (lib.dibs_fused_nonlinear_fleet if keys is not None
+              else lib.dibs_fused_nonlinear_shard if particle_offset
+              else lib.dibs_fused_nonlinear)
     with torch.cuda.device(scores.device):
         rc = launch(
             scores.data_ptr(), w1t.data_ptr(), l1.data_ptr(), b1t.data_ptr(),
             w2t.data_ptr(), x.data_ptr(), w.data_ptr(),
-            None if keys is None else keys.data_ptr(), per, *eps_ptrs,
+            None if keys is None else keys.data_ptr(), per,
+            particle_offset & 0xFFFFFFFF, *eps_ptrs,
             ref.data_ptr(), part.data_ptr(), ds.data_ptr(), dw1.data_ptr(),
             small.data_ptr(), p, n_samples, d, h1, n_obs, plan.tile_rows,
             plan.sub_rows, plan.group, chunk, _ACT_CODES[model.activation],
@@ -395,10 +406,11 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
 
 
 def fused_nonlinear(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha,
-                    tau, n_samples, model, eps=None):
+                    tau, n_samples, model, eps=None, particle_offset=0):
     """Kernel #8 in its layout (see :func:`fused_nonlinear_plain`)."""
     kw = dict(seed=seed, streams=streams, alpha=alpha, tau=tau,
-              n_samples=n_samples, model=model, eps=eps)
+              n_samples=n_samples, model=model, eps=eps,
+              particle_offset=particle_offset)
     if not use_kernel(scores):
         return fused_nonlinear_plain(scores, w1t, l1, b1t, w2t, x, w, **kw)
     return _launch(scores, w1t, l1, b1t, w2t, x, w, **kw)
@@ -435,13 +447,15 @@ def _model_layout(thetas, model, dw1, small):
 
 
 def fused_nonlinear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
-                               alpha, tau, n_samples, model, eps=None):
+                               alpha, tau, n_samples, model, eps=None,
+                               particle_offset: int = 0):
     """``(d scores [P, d, d], d Theta tree)``: the fused reparam
     Z-likelihood and Theta-likelihood estimates for a one-hidden-layer
     :class:`~dibs_tpu_torch.models.DenseNonlinearGaussian`. The caller
     chains ``d scores`` to ``Z`` with ``dU = dS V``, ``dV = dS^T U``. A
     fleet passes ``x`` and ``interv_mask`` ``[B_ds, N, d]``, the particles
-    in dataset order and ``seed`` its ``[B_ds]`` keys."""
+    in dataset order and ``seed`` its ``[B_ds]`` keys. A particle shard
+    passes its first particle's global index as ``particle_offset``."""
     scores = edge_scores(zs).contiguous()
     w = (1.0 - interv_mask.to(torch.float32)).contiguous()
     ds, dw1, small = fused_nonlinear(
@@ -449,5 +463,5 @@ def fused_nonlinear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
         seed=seed if isinstance(seed, torch.Tensor) else int(seed),
         streams=tuple(int(s) for s in streams),
         alpha=float(alpha), tau=float(tau), n_samples=n_samples, model=model,
-        eps=eps)
+        eps=eps, particle_offset=int(particle_offset))
     return ds, _model_layout(thetas, model, dw1, small)

@@ -24,6 +24,19 @@ transport_fn=)``, take a state whose tensors (and parameter leaves) lead
 with ``[B_ds, P]`` and whose ``seed`` is the ``[B_ds]`` int64 keys, with
 the same streams a step and the noise above with a leading ``[B_ds]``.
 
+With ``sharding=`` (:func:`dibs_tpu_torch.parallel.particle_sharding`) each
+rank of a ``torch.distributed`` world runs the engine on its block of the
+particles: every rank draws the global initial particles from the same
+generator and keeps its block, the estimators draw at the block's global
+particle indices (bitwise the unsharded step's per-particle quantities),
+and the transport runs around the ring (:mod:`dibs_tpu_torch.parallel.
+ring`) or, for kernels the ring does not serve, by the all-gather route;
+``sample`` and ``resume`` return the gathered global result on every rank.
+An injected ``noise`` is the global tensor; each rank takes its rows. A
+run whose particle count the world does not divide is replicated (every
+rank runs the whole unsharded step, kernel #4 off, as in the reference),
+and a one-rank world runs the unsharded step.
+
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
 where CUDA is absent). ``theta`` is the likelihood's parameter tree
 (:mod:`dibs_tpu_torch.utils.tree`): ``[P, d, d]`` for ``LinearGaussian``,
@@ -42,6 +55,8 @@ from dibs_tpu_torch.inference.optimizers import get_optimizer
 from dibs_tpu_torch.inference.transport import (
     fleet_joint_transport,
     fleet_marginal_transport,
+    gathered_joint_transport,
+    gathered_marginal_transport,
     joint_transport,
     marginal_transport,
 )
@@ -53,6 +68,21 @@ from dibs_tpu_torch.metrics import ParticleDistribution
 from dibs_tpu_torch.models.linear_gaussian import LinearGaussian
 from dibs_tpu_torch.models.nonlinear_gaussian import DenseNonlinearGaussian
 from dibs_tpu_torch.ops import edges as edge_ops
+from dibs_tpu_torch.parallel import (
+    check_devices,
+    gather_state,
+    shard_state,
+)
+from dibs_tpu_torch.parallel.ring import (
+    ring_available,
+    ring_joint_transport,
+    ring_marginal_transport,
+)
+from dibs_tpu_torch.parallel.shard_ops import (
+    divides_mesh,
+    gather_rows,
+    shard_offset,
+)
 from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["SVGDState", "DiBS", "MarginalDiBS", "JointDiBS"]
@@ -68,7 +98,9 @@ class SVGDState(NamedTuple):
     theta: Any
     opt_state_z: Any
     opt_state_theta: Any
-    sf_baseline: torch.Tensor  # [n_particles]
+    # [n_particles], whole on every rank of a sharded run (rank-1 leaves
+    # are replicated), so z holding fewer particles marks a shard
+    sf_baseline: torch.Tensor
 
 
 def _check_precision():
@@ -92,8 +124,11 @@ class DiBS:
                  grad_estimator_z="reparam",
                  score_function_baseline=0.0, latent_prior_std=None,
                  acyclicity="notears", acyclicity_constraint="sampled",
-                 verbose=False, device=DEFAULT_DEVICE):
+                 verbose=False, sharding=None, device=DEFAULT_DEVICE):
         self.device = resolve_device(device)
+        self.sharding = sharding
+        if sharding is not None:
+            check_devices(sharding, self.device)
         self.x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
         self.interv_mask = torch.as_tensor(interv_mask).to(self.device)
         self.n_vars = self.x.shape[-1]
@@ -122,7 +157,8 @@ class DiBS:
             fused_single_pass=fused_single_pass)
         self.est = make_estimators(cfg=self.cfg, x=self.x,
                                    interv_mask=self.interv_mask,
-                                   **self._est_kwargs)
+                                   sharding=sharding, **self._est_kwargs)
+        self._est_whole = None if sharding is not None else self.est
 
     def alpha(self, t):
         return self.cfg.alpha(t)
@@ -205,6 +241,61 @@ class DiBS:
         return make_estimators(cfg=self.cfg, x=xs, interv_mask=interv_masks,
                                **self._est_kwargs)
 
+    # --- particle sharding ---
+
+    def _attach_kernel_sharding(self):
+        """The kernel learns of a sharding that splits particles (a world
+        of more than one rank): kernel #4 is then off, as in the
+        reference."""
+        if (self.sharding is not None and self.sharding.world > 1
+                and hasattr(self.kernel, "sharding")):
+            self.kernel.sharding = self.sharding
+
+    def _shards(self, n_particles: int) -> bool:
+        """True where a run of ``n_particles`` splits over the mesh: more
+        than one rank, and the world divides the particles."""
+        s = self.sharding
+        return s is not None and s.world > 1 and divides_mesh(s, n_particles)
+
+    def _is_shard(self, state) -> bool:
+        return (self.sharding is not None
+                and state.z.shape[0] < state.sf_baseline.shape[0])
+
+    def _view(self, state):
+        """``(estimators, rows, sharded)`` of a step on ``state``: a
+        shard's estimators (global particle indices) and its rows of the
+        whole batch's tensors, or the unsharded estimators and every
+        row."""
+        if self._is_shard(state):
+            n = state.z.shape[0]
+            offset = shard_offset(self.sharding, n)
+            return self.est, slice(offset, offset + n), True
+        if self._est_whole is None:
+            self._est_whole = make_estimators(
+                cfg=self.cfg, x=self.x, interv_mask=self.interv_mask,
+                **self._est_kwargs)
+        return self._est_whole, slice(None), False
+
+    def _baselines(self, state, new, sharded):
+        """The step's new ``sf_baseline``, whole on every rank (a shard's
+        new rows gathered where the EMA baseline moves them)."""
+        if sharded and self.cfg.score_function_baseline > 0.0:
+            return gather_rows(new, self.sharding)
+        return state.sf_baseline if sharded else new
+
+    def _local_state(self, state):
+        """This rank's shard of a whole ``state`` where the run splits its
+        particles, else ``state``."""
+        if self._shards(state.z.shape[0]) and not self._is_shard(state):
+            return shard_state(state, self.sharding)
+        return state
+
+    def _whole_state(self, state):
+        """The whole (gathered) state of a shard, else ``state``."""
+        if self._is_shard(state):
+            return gather_state(state, self.sharding)
+        return state
+
     def _resolve_latent_std(self, n_dim):
         return self.latent_prior_std or (1.0 / math.sqrt(n_dim))
 
@@ -226,9 +317,10 @@ class DiBS:
         for i in range(steps):
             state = step_fn(state)
             if callback and ((i + 1) % callback_every == 0 or i + 1 == steps):
-                kwargs = dict(dibs=self, t=int(state.t), zs=state.z)
+                whole = self._whole_state(state)
+                kwargs = dict(dibs=self, t=int(state.t), zs=whole.z)
                 if state.theta is not None:
-                    kwargs["thetas"] = state.theta
+                    kwargs["thetas"] = whole.theta
                 callback(**kwargs)
         return state
 
@@ -248,7 +340,7 @@ class MarginalDiBS(DiBS):
                  n_acyclicity_mc_samples=32, grad_estimator_z="score",
                  score_function_baseline=0.0, latent_prior_std=None,
                  acyclicity="notears", acyclicity_constraint="sampled",
-                 verbose=False, device=DEFAULT_DEVICE):
+                 sharding=None, verbose=False, device=DEFAULT_DEVICE):
         if kernel_param is None:
             kernel_param = {"h": 5.0}
         if optimizer_param is None:
@@ -273,7 +365,7 @@ class MarginalDiBS(DiBS):
             score_function_baseline=score_function_baseline,
             latent_prior_std=latent_prior_std, acyclicity=acyclicity,
             acyclicity_constraint=acyclicity_constraint, verbose=verbose,
-            device=device)
+            sharding=sharding, device=device)
         self.likelihood_model = likelihood_model
         self.graph_model = graph_model
         # the per-graph marginal likelihood, as the reference's log_joint_prob
@@ -281,6 +373,7 @@ class MarginalDiBS(DiBS):
         self.log_joint_prob = getattr(likelihood_model,
                                       "interventional_log_marginal_prob", None)
         self.kernel = kernel(**kernel_param) if isinstance(kernel, type) else kernel
+        self._attach_kernel_sharding()
         self.opt = (get_optimizer(optimizer, optimizer_param)
                     if isinstance(optimizer, str) else optimizer)
 
@@ -310,29 +403,41 @@ class MarginalDiBS(DiBS):
     def init_state(self, *, seed: int, n_particles: int,
                    n_dim_particles=None) -> SVGDState:
         """Initial particles ``z ~ N(0, sigma_z^2)`` from a ``torch.Generator``
-        seeded with ``seed``, plus the optimizer state."""
+        seeded with ``seed``, plus the optimizer state (under a sharding
+        that splits the particles, this rank's shard of it)."""
         gen = torch.Generator().manual_seed(seed)
         z = self._init_z(gen, n_particles, n_dim_particles or self.n_vars)
-        return SVGDState(t=0, seed=seed, z=z, theta=None,
-                         opt_state_z=self.opt.init(z), opt_state_theta=None,
-                         sf_baseline=self._init_sf_baseline(n_particles))
+        return self._local_state(SVGDState(
+            t=0, seed=seed, z=z, theta=None, opt_state_z=self.opt.init(z),
+            opt_state_theta=None,
+            sf_baseline=self._init_sf_baseline(n_particles)))
 
     def _make_phi(self, latent_prior_std) -> Callable:
         """``phi(state, noise=None) -> (phi_z, sf_baseline)``: the transport
         of one step, before the optimizer."""
-        est, kernel = self.est, self.kernel
+        kernel = self.kernel
 
         def phi(state: SVGDState, noise=None):
-            eps_hard, eps_soft = (None, None) if noise is None else noise
+            est, rows, sharded = self._view(state)
+            eps_hard, eps_soft = (None, None) if noise is None else (
+                e[rows] for e in noise)
             stream = 2 * state.t
             dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
-                state.z, None, state.sf_baseline, state.t, state.seed, stream,
-                eps=eps_hard)
+                state.z, None, state.sf_baseline[rows], state.t, state.seed,
+                stream, eps=eps_hard)
             dz_prior = est.eltwise_grad_latent_prior(
                 state.z, state.t, state.seed, stream + 1, latent_prior_std,
                 eps=eps_soft)
-            return marginal_transport(kernel, state.z, dz_prior + dz_lik), \
-                sf_baseline
+            dz = dz_prior + dz_lik
+            if not sharded:
+                phi_z = marginal_transport(kernel, state.z, dz)
+            elif ring_available(kernel, self.sharding):
+                phi_z = ring_marginal_transport(kernel, state.z, dz,
+                                                self.sharding)
+            else:
+                phi_z = gathered_marginal_transport(kernel, state.z, dz,
+                                                    self.sharding)
+            return phi_z, self._baselines(state, sf_baseline, sharded)
 
         return phi
 
@@ -388,7 +493,8 @@ class MarginalDiBS(DiBS):
                n_dim_particles=None, callback=None, callback_every=None,
                return_state=False):
         """Runs SVGD and returns hard graphs ``[n_particles, d, d]`` (int32),
-        plus the final :class:`SVGDState` with ``return_state=True``."""
+        plus the final :class:`SVGDState` with ``return_state=True`` (both
+        whole on every rank of a sharded run)."""
         state = self.init_state(seed=seed, n_particles=n_particles,
                                 n_dim_particles=n_dim_particles)
         return self.resume(state, steps=steps, callback=callback,
@@ -397,9 +503,12 @@ class MarginalDiBS(DiBS):
 
     def resume(self, state: SVGDState, *, steps, callback=None,
                callback_every=None, return_state=False):
-        """Continues a run from ``state`` for ``steps`` more steps."""
+        """Continues a run from ``state`` (whole, or this rank's shard) for
+        ``steps`` more steps."""
         step_fn = self._make_step(self._resolve_latent_std(state.z.shape[2]))
-        state = self._run(state, steps, callback, callback_every, step_fn)
+        state = self._run(self._local_state(state), steps, callback,
+                          callback_every, step_fn)
+        state = self._whole_state(state)
         g_final = self.particle_to_g_lim(state.z)
         if return_state:
             return g_final, state
@@ -452,7 +561,7 @@ class JointDiBS(DiBS):
                  n_acyclicity_mc_samples=32, grad_estimator_z="reparam",
                  score_function_baseline=0.0, latent_prior_std=None,
                  acyclicity="notears", acyclicity_constraint="sampled",
-                 verbose=False, fused_sample_sharing="hard",
+                 sharding=None, verbose=False, fused_sample_sharing="hard",
                  fused_single_pass=True, device=DEFAULT_DEVICE):
         if kernel_param is None:
             kernel_param = {"h_latent": 5.0, "h_theta": 500.0}
@@ -477,11 +586,12 @@ class JointDiBS(DiBS):
             score_function_baseline=score_function_baseline,
             latent_prior_std=latent_prior_std, acyclicity=acyclicity,
             acyclicity_constraint=acyclicity_constraint, verbose=verbose,
-            device=device)
+            sharding=sharding, device=device)
         self.likelihood_model = likelihood_model
         self.graph_model = graph_model
         self.fused_sample_sharing = fused_sample_sharing
         self.kernel = kernel(**kernel_param) if isinstance(kernel, type) else kernel
+        self._attach_kernel_sharding()
         self.opt = (get_optimizer(optimizer, optimizer_param)
                     if isinstance(optimizer, str) else optimizer)
 
@@ -501,17 +611,17 @@ class JointDiBS(DiBS):
     def init_state(self, *, seed: int, n_particles: int,
                    n_dim_particles=None) -> SVGDState:
         """Initial ``z ~ N(0, sigma_z^2)`` and ``theta ~ p(Theta)`` from a
-        ``torch.Generator`` seeded with ``seed``, plus the optimizer
-        states."""
+        ``torch.Generator`` seeded with ``seed``, plus the optimizer states
+        (under a sharding that splits the particles, this rank's shard)."""
         gen = torch.Generator().manual_seed(seed)
         z = self._init_z(gen, n_particles, n_dim_particles or self.n_vars)
         theta = self.likelihood_model.sample_parameters(
             generator=gen, n_particles=n_particles, n_vars=self.n_vars,
             device=self.device)
-        return SVGDState(t=0, seed=seed, z=z, theta=theta,
-                         opt_state_z=self.opt.init(z),
-                         opt_state_theta=self.opt.init(theta),
-                         sf_baseline=self._init_sf_baseline(n_particles))
+        return self._local_state(SVGDState(
+            t=0, seed=seed, z=z, theta=theta, opt_state_z=self.opt.init(z),
+            opt_state_theta=self.opt.init(theta),
+            sf_baseline=self._init_sf_baseline(n_particles)))
 
     def _streams(self, t):
         """``(soft, hard, acyclicity)`` noise streams of step ``t``; the
@@ -525,13 +635,14 @@ class JointDiBS(DiBS):
         """``transport(state, noise=None) -> (phi_z, phi_theta,
         sf_baseline)``: the transports of one step, before the optimizer,
         and the score estimator's updated baseline."""
-        est, kernel = self.est, self.kernel
+        kernel = self.kernel
 
         def transport(state: SVGDState, noise=None):
+            est, rows, sharded = self._view(state)
             eps_soft, eps_hard, eps_acyc = (None,) * 3 if noise is None \
-                else noise
+                else (e[rows] for e in noise)
             s_soft, s_hard, s_acyc = self._streams(state.t)
-            sf_baseline = state.sf_baseline
+            sf_baseline = state.sf_baseline[rows]
             if est.fused_grad_both is not None:
                 dz_lik, dtheta = est.fused_grad_both(
                     state.z, state.theta, state.t, state.seed,
@@ -542,14 +653,19 @@ class JointDiBS(DiBS):
                     state.z, state.theta, state.t, state.seed, s_hard,
                     eps=eps_hard)
                 dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
-                    state.z, state.theta, state.sf_baseline, state.t,
+                    state.z, state.theta, sf_baseline, state.t,
                     state.seed, s_soft, eps=eps_soft)
             dz_prior = est.eltwise_grad_latent_prior(
                 state.z, state.t, state.seed, s_acyc, latent_prior_std,
                 eps=eps_acyc)
-            return (*joint_transport(kernel, state.z, state.theta,
-                                     dz_prior + dz_lik, dtheta),
-                    sf_baseline)
+            args = (kernel, state.z, state.theta, dz_prior + dz_lik, dtheta)
+            if not sharded:
+                phis = joint_transport(*args)
+            elif ring_available(kernel, self.sharding):
+                phis = ring_joint_transport(*args, self.sharding)
+            else:
+                phis = gathered_joint_transport(*args, self.sharding)
+            return (*phis, self._baselines(state, sf_baseline, sharded))
 
         return transport
 
@@ -626,7 +742,8 @@ class JointDiBS(DiBS):
                n_dim_particles=None, callback=None, callback_every=None,
                return_state=False):
         """Runs SVGD; returns ``(g [P, d, d] int32, theta tree)``, plus
-        the final :class:`SVGDState` with ``return_state=True``."""
+        the final :class:`SVGDState` with ``return_state=True`` (whole on
+        every rank of a sharded run)."""
         state = self.init_state(seed=seed, n_particles=n_particles,
                                 n_dim_particles=n_dim_particles)
         return self.resume(state, steps=steps, callback=callback,
@@ -635,9 +752,12 @@ class JointDiBS(DiBS):
 
     def resume(self, state: SVGDState, *, steps, callback=None,
                callback_every=None, return_state=False):
-        """Continues a run from ``state`` for ``steps`` more steps."""
+        """Continues a run from ``state`` (whole, or this rank's shard) for
+        ``steps`` more steps."""
         step_fn = self._make_step(self._resolve_latent_std(state.z.shape[2]))
-        state = self._run(state, steps, callback, callback_every, step_fn)
+        state = self._run(self._local_state(state), steps, callback,
+                          callback_every, step_fn)
+        state = self._whole_state(state)
         g_final = self.particle_to_g_lim(state.z)
         if return_state:
             return g_final, state.theta, state

@@ -26,6 +26,16 @@ each, or, for ``h="median"``, the two-matmul route batched over the
 datasets with each dataset's own bandwidth. :func:`fleet_joint_transport`
 is the joint one: both component matrices and both families, one launch
 each for all the datasets.
+
+Under a particle sharding (:mod:`dibs_tpu_torch.parallel`) the engines run
+the ring (:mod:`dibs_tpu_torch.parallel.ring`) where the kernel allows it,
+else :func:`gathered_marginal_transport` / :func:`gathered_joint_transport`:
+the particles and gradients are all-gathered, and this rank's rows of the
+kernel matrix are #3's ``[P_local, P]`` row block against them (a median
+bandwidth from the whole gathered batch). Kernel #4 is off for a kernel
+whose ``sharding`` is set (a run whose particle count the world does not
+divide, replicated on every rank, then takes the two-matmul route), as in
+the reference.
 """
 from __future__ import annotations
 
@@ -47,7 +57,8 @@ from dibs_tpu_torch.utils.tree import (
 )
 
 __all__ = ["marginal_transport", "joint_transport",
-           "fleet_marginal_transport", "fleet_joint_transport"]
+           "fleet_marginal_transport", "fleet_joint_transport",
+           "gathered_marginal_transport", "gathered_joint_transport"]
 
 
 def _flat(a: torch.Tensor, lead: int) -> torch.Tensor:
@@ -104,12 +115,18 @@ def _fused_phi_or_none(k_own, k_other, c, values, grads):
     return tree_unflatten(values, out)
 
 
+def _sharded(kernel) -> bool:
+    """Kernel #4 is off for a kernel whose particles are sharded."""
+    return getattr(kernel, "sharding", None) is not None
+
+
 def marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
     """Transport ``phi_z [P, d, k, 2]`` for Z-only SVGD."""
     n_particles = z.shape[0]
     if hasattr(kernel, "matrix_and_grad_factor"):
         k_mat, factor = kernel.matrix_and_grad_factor(z, z)
-        fused = _fused_phi_or_none(k_mat, None, factor, z, dz)
+        fused = None if _sharded(kernel) else _fused_phi_or_none(
+            k_mat, None, factor, z, dz)
         if fused is not None:
             return fused
         phi = _weighted_scores(k_mat, dz) + _se_repulsion(k_mat, factor, z)
@@ -185,6 +202,91 @@ def fleet_joint_transport(kernel, z: torch.Tensor, theta, dz: torch.Tensor,
     return phi_z.reshape(z.shape), tree_unflatten(theta, leaves)
 
 
+def _rows_and_factor(x_loc, x_all, h, scale, offset):
+    """This rank's ``[P_local, P]`` rows of one SE term and its factor:
+    #3's row block for a float bandwidth, the rows of the whole gathered
+    matrix for ``h="median"`` (its bandwidth needs every distance)."""
+    from dibs_tpu_torch.parallel.shard_ops import se_row_block
+
+    if h == "median":
+        k_all, c = median_se(x_all, x_all, scale)
+        return k_all[offset:offset + x_loc.shape[0]], c
+    return se_row_block(x_loc, x_all, h, scale), -2.0 / h
+
+
+def _rows_phi(k_rows, k_own, c, values_loc, values_all, grads_all):
+    """``-(1/P) (K[:, i]^T grads + c (K_own[:, i]^T v - colsum_i v_i))``
+    for this rank's particles ``i``, from the symmetric matrices' rows (``v``
+    centred by the global mean)."""
+    mu = values_all.mean(dim=0, keepdim=True)
+    with _precision():
+        drv = k_rows @ grads_all
+        rep = c * (k_own @ (values_all - mu)
+                   - k_own.sum(dim=1)[:, None] * (values_loc - mu))
+    return -(drv + rep) / values_all.shape[0]
+
+
+def gathered_marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor,
+                                sharding) -> torch.Tensor:
+    """This rank's rows of :func:`marginal_transport` under a particle
+    sharding, by the all-gather route (kernels the ring does not serve):
+    ``z, dz [P_local, d, k, 2]`` are gathered, the kernel matrix's rows come
+    from #3 against the gathered particles (or the median heuristic over
+    them); ``eval``-only kernels take the autodiff transport of the whole
+    batch and keep their rows."""
+    from dibs_tpu_torch.parallel.shard_ops import gather_rows, shard_offset
+
+    p_loc = z.shape[0]
+    offset = shard_offset(sharding, p_loc)
+    z_all, dz_all = gather_rows(z, sharding), gather_rows(dz, sharding)
+    if not hasattr(kernel, "matrix_and_grad_factor"):
+        return _marginal_transport_autodiff(kernel, z_all, dz_all)[
+            offset:offset + p_loc]
+    zf, zf_all = z.reshape(p_loc, -1), z_all.reshape(z_all.shape[0], -1)
+    k_rows, c = _rows_and_factor(zf, zf_all, kernel.h, kernel.scale, offset)
+    return _rows_phi(k_rows, k_rows, c, zf, zf_all,
+                     dz_all.reshape(zf_all.shape)).reshape(z.shape)
+
+
+def gathered_joint_transport(kernel, z: torch.Tensor, theta, dz: torch.Tensor,
+                             dtheta, sharding):
+    """This rank's rows of :func:`joint_transport` under a particle
+    sharding, by the all-gather route: each SE component's rows from #3
+    (float bandwidth) or the median heuristic over the gathered batch; the
+    parameter tree gathered as flattened rows and split back into its
+    leaves."""
+    from dibs_tpu_torch.parallel.shard_ops import gather_rows, shard_offset
+
+    p_loc = z.shape[0]
+    offset = shard_offset(sharding, p_loc)
+    z_all, dz_all = gather_rows(z, sharding), gather_rows(dz, sharding)
+    if not hasattr(kernel, "component_matrices_and_factors"):
+        gather = lambda t: gather_rows(t, sharding)  # noqa: E731
+        phi_z, phi_t = _joint_transport_autodiff(
+            kernel, z_all, tree_map(gather, theta), dz_all,
+            tree_map(gather, dtheta))
+        rows = slice(offset, offset + p_loc)
+        return phi_z[rows], tree_map(lambda leaf: leaf[rows], phi_t)
+    zf, zf_all = z.reshape(p_loc, -1), z_all.reshape(z_all.shape[0], -1)
+    tf = tree_rows(theta)
+    tf_all = gather_rows(tf, sharding)
+    k_z, c_z = _rows_and_factor(zf, zf_all, kernel.h_latent,
+                                kernel.scale_latent, offset)
+    k_t, c_t = _rows_and_factor(tf, tf_all, kernel.h_theta,
+                                kernel.scale_theta, offset)
+    k_rows = k_z + k_t
+    phi_z = _rows_phi(k_rows, k_z, c_z, zf, zf_all,
+                      dz_all.reshape(zf_all.shape))
+    phi_t = _rows_phi(k_rows, k_t, c_t, tf, tf_all,
+                      gather_rows(tree_rows(dtheta), sharding))
+    leaves, col = [], 0
+    for leaf in tree_leaves(theta):
+        size = leaf[0].numel()
+        leaves.append(phi_t[:, col:col + size].reshape(leaf.shape))
+        col += size
+    return phi_z.reshape(z.shape), tree_unflatten(theta, leaves)
+
+
 def _marginal_transport_autodiff(kernel, z, dz):
     def f_kernel(a, b):
         return kernel.eval(x=a, y=b)
@@ -206,8 +308,10 @@ def joint_transport(kernel, z: torch.Tensor, theta: torch.Tensor,
     if hasattr(kernel, "component_matrices_and_factors"):
         k_z, k_t, c_z, c_t = kernel.component_matrices_and_factors(
             z, theta, z, theta)
-        phi_z = _fused_phi_or_none(k_z, k_t, c_z, z, dz)
-        phi_t = _fused_phi_or_none(k_t, k_z, c_t, theta, dtheta)
+        phi_z = phi_t = None
+        if not _sharded(kernel):
+            phi_z = _fused_phi_or_none(k_z, k_t, c_z, z, dz)
+            phi_t = _fused_phi_or_none(k_t, k_z, c_t, theta, dtheta)
         if phi_z is None or phi_t is None:
             k_mat = k_z + k_t
         if phi_z is None:

@@ -68,6 +68,7 @@ class AdditiveFrobeniusSEKernel:
     def __init__(self, *, h=20.0, scale=1.0):
         self.h = h
         self.scale = scale
+        self.sharding = None  # set by an engine whose particles are sharded
 
     def eval(self, *, x, y):
         """Single-pair kernel value (reference-compatible signature)."""
@@ -116,6 +117,7 @@ class JointAdditiveFrobeniusSEKernel:
         self.h_theta = h_theta
         self.scale_latent = scale_latent
         self.scale_theta = scale_theta
+        self.sharding = None  # set by an engine whose particles are sharded
 
     def eval(self, *, x_latent, x_theta, y_latent, y_theta):
         """Single-pair kernel value (reference-compatible signature)."""

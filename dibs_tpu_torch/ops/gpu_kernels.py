@@ -53,6 +53,7 @@ __all__ = [
     "gumbel_graphs",
     "gumbel_graphs_plain",
     "gumbel_plan",
+    "check_offset",
     "fleet_keys",
     "fleet_particles",
     "philox_uniform",
@@ -152,8 +153,8 @@ def build() -> ctypes.CDLL:
                          ctypes.c_float)
     lib.dibs_gumbel_graphs.argtypes = [vp, vp, vp, i64, i32, i32,
                                        ctypes.c_uint64, vp, i32,
-                                       ctypes.c_uint32, f32, f32, i32, i32,
-                                       i32, i32, vp]
+                                       ctypes.c_uint32, ctypes.c_uint32,
+                                       f32, f32, i32, i32, i32, i32, vp]
     lib.dibs_gumbel_graphs.restype = i32
     lib.dibs_bge_pairs.argtypes = [vp] * 7 + [i32, i32, i32,
                                               ctypes.POINTER(i32), vp]
@@ -165,11 +166,13 @@ def build() -> ctypes.CDLL:
     lib.dibs_se_matrix_slots.argtypes = [i32, ctypes.POINTER(i32)]
     lib.dibs_se_matrix_slots.restype = i32
     u32, f64 = ctypes.c_uint32, ctypes.c_double
-    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 5 + [i32] + [vp] * 8
-                                      + [i32] * 8
+    lib.dibs_fused_linear.argtypes = ([i32] + [vp] * 5 + [i32, u32]
+                                      + [vp] * 8 + [i32] * 8
                                       + [ctypes.c_uint64, u32, u32, f32, f32,
                                          f64, f32, f32, vp])
     lib.dibs_fused_linear.restype = i32
+    lib.dibs_fused_linear_shard.argtypes = lib.dibs_fused_linear.argtypes
+    lib.dibs_fused_linear_shard.restype = i32
     lib.dibs_fused_linear_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_fused_linear_row_smem_bytes.argtypes = [i32] * 4
@@ -177,9 +180,12 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear_row_items.argtypes = [i32, i32]
     lib.dibs_fused_linear_row_items.restype = i32
     lib.dibs_fused_linear_wide.argtypes = ([i32] + [vp] * 13 + [i32] * 5
-                                           + [ctypes.c_uint64, u32, u32, f32,
-                                              f32, f64, f32, f32, vp])
+                                           + [ctypes.c_uint64, u32, u32, u32,
+                                              f32, f32, f64, f32, f32, vp])
     lib.dibs_fused_linear_wide.restype = i32
+    lib.dibs_fused_linear_wide_shard.argtypes = \
+        lib.dibs_fused_linear_wide.argtypes
+    lib.dibs_fused_linear_wide_shard.restype = i32
     lib.dibs_fused_linear_wide_smem_bytes.argtypes = [i32, i32]
     lib.dibs_fused_linear_wide_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_fused_linear_wide_pass1_smem_bytes.argtypes = [i32, i32, i32]
@@ -191,13 +197,15 @@ def build() -> ctypes.CDLL:
     lib.dibs_transport_phi.argtypes = [vp] * 7 + [i32, i32, i32, f32, f32,
                                                i32, vp]
     lib.dibs_transport_phi.restype = i32
-    lib.dibs_fused_nonlinear.argtypes = ([vp] * 8 + [i32] + [vp] * 7
+    lib.dibs_fused_nonlinear.argtypes = ([vp] * 8 + [i32, u32] + [vp] * 7
                                          + [i32] * 10
                                          + [ctypes.c_uint64, u32, u32, f32,
                                             f32, f64, f32, vp])
     lib.dibs_fused_nonlinear.restype = i32
     lib.dibs_fused_nonlinear_fleet.argtypes = lib.dibs_fused_nonlinear.argtypes
     lib.dibs_fused_nonlinear_fleet.restype = i32
+    lib.dibs_fused_nonlinear_shard.argtypes = lib.dibs_fused_nonlinear.argtypes
+    lib.dibs_fused_nonlinear_shard.restype = i32
     lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32] * 6
     lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, vp, i32, i32, i32,
@@ -279,16 +287,19 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def _key_words(seed, b: int, device):
+def _key_words(seed, b: int, device, particle_offset: int = 0):
     """Philox key words ``(k0, k1)`` of a batch of ``b`` particles: ints
     for an int ``seed``; for a fleet's ``[B_ds]`` int64 keys (``b`` a
     multiple of ``B_ds``), ``[b, 1, 1, 1]`` tensors holding each particle's
-    dataset key. Also returns the particle counters (the index within the
-    dataset)."""
+    dataset key. Also returns the particle counters: ``particle_offset +``
+    the index in the batch for an int ``seed`` (a particle shard's global
+    indices), the index within the dataset for a fleet."""
     kw = dict(dtype=torch.int64, device=device)
     particle = torch.arange(b, **kw)
     if not isinstance(seed, torch.Tensor):
-        return seed & _MASK32, (seed >> 32) & _MASK32, particle
+        return (seed & _MASK32, (seed >> 32) & _MASK32,
+                (particle + particle_offset) & _MASK32)
+    check_offset(seed, particle_offset)
     keys = seed.to(**kw).reshape(-1)
     per = fleet_particles(b, keys.numel())
     ds = particle // per
@@ -303,6 +314,17 @@ def fleet_particles(batch: int, n_keys: int) -> int:
         raise ValueError(f"a fleet's batch of {batch} particles does not "
                          f"split into {n_keys} datasets")
     return batch // n_keys
+
+
+def check_offset(seed, particle_offset: int) -> None:
+    """Raises ``ValueError`` for a particle offset with a fleet's keys (a
+    fleet's particle counter is the index within its dataset) or a
+    negative one."""
+    if particle_offset < 0 or (particle_offset
+                               and isinstance(seed, torch.Tensor)):
+        raise ValueError(f"particle_offset={particle_offset}: a shard's "
+                         "offset is a non-negative int and goes with one "
+                         "dataset's int seed, not a fleet's keys")
 
 
 def fleet_keys(name: str, seed, batch: int, device):
@@ -321,15 +343,18 @@ def fleet_keys(name: str, seed, batch: int, device):
     return keys, per
 
 
-def philox_uniform(shape, seed, stream: int, device) -> torch.Tensor:
+def philox_uniform(shape, seed, stream: int, device,
+                   particle_offset: int = 0) -> torch.Tensor:
     """The sampler kernel's uniforms for a ``[B, M, d, d]`` output, in
     PyTorch: Philox4x32-10 with counter (element, sample, particle, stream)
     and key = ``seed``; top 24 bits, half-ulp offset, clamp at 1 - 2^-23.
-    ``seed`` may be a fleet's ``[B_ds]`` int64 keys: particle ``b`` then
-    takes key ``seed[b // per]`` and counter ``b % per`` (``per = B /
-    B_ds``), as the kernel does."""
+    Particle ``b`` takes the counter ``particle_offset + b``, so a shard
+    holding particles ``o .. o + B - 1`` of a batch draws their uniforms
+    with ``particle_offset=o``. ``seed`` may be a fleet's ``[B_ds]`` int64
+    keys (offset 0): particle ``b`` then takes key ``seed[b // per]`` and
+    counter ``b % per`` (``per = B / B_ds``), as the kernel does."""
     b, m, d, _ = shape
-    k0, k1, particle = _key_words(seed, b, device)
+    k0, k1, particle = _key_words(seed, b, device, particle_offset)
     kw = dict(dtype=torch.int64, device=device)
     c0 = torch.arange(d * d, **kw).view(1, 1, d, d).expand(b, m, d, d)
     c1 = torch.arange(m, **kw).view(1, m, 1, 1).expand(b, m, d, d)
@@ -343,12 +368,16 @@ def philox_uniform(shape, seed, stream: int, device) -> torch.Tensor:
 
 def gumbel_graphs_plain(scores: torch.Tensor, seed, stream: int,
                         alpha: float, tau: float, n_samples: int, hard: bool,
-                        eps: torch.Tensor | None = None) -> torch.Tensor:
+                        eps: torch.Tensor | None = None,
+                        particle_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of the sampler kernel (same noise, same maths;
-    ``seed`` an int or a fleet's ``[B_ds]`` keys)."""
+    ``seed`` an int or a fleet's ``[B_ds]`` keys; ``particle_offset`` as
+    :func:`philox_uniform`)."""
     b, d, _ = scores.shape
+    check_offset(seed, particle_offset)
     if eps is None:
-        u = philox_uniform((b, n_samples, d, d), seed, stream, scores.device)
+        u = philox_uniform((b, n_samples, d, d), seed, stream, scores.device,
+                           particle_offset)
         eps = torch.log(u) - torch.log1p(-u)
     logits = eps + alpha * scores[:, None]
     if hard:
@@ -391,7 +420,8 @@ def gumbel_plan(batch: int, n_samples: int, d: int, aligned: bool,
 
 def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
                   tau: float, n_samples: int, hard: bool,
-                  eps: torch.Tensor | None = None) -> torch.Tensor:
+                  eps: torch.Tensor | None = None,
+                  particle_offset: int = 0) -> torch.Tensor:
     """``[B, d, d]`` scores -> ``[B, n_samples, d, d]`` Gumbel graph samples.
 
     ``hard``: ``1[eps + alpha s > 0]`` (Bernoulli(sigmoid(alpha s)));
@@ -402,11 +432,15 @@ def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
     form, within a few float32 ulps of the twin's log form. ``seed`` is an
     int, or a fleet's ``[B_ds]`` int64 keys (on the scores' device for the
     kernel) over ``B_ds`` datasets of ``B / B_ds`` particles: each dataset
-    then draws what a single batch keyed by its key draws.
+    then draws what a single batch keyed by its key draws. With an int
+    ``seed``, particle ``b`` draws at the counter ``particle_offset + b``:
+    launches over the shards of a batch, each with its first particle's
+    index as the offset, draw what one launch over the batch draws.
     """
+    check_offset(seed, particle_offset)
     if not use_kernel(scores):
         return gumbel_graphs_plain(scores, seed, stream, alpha, tau,
-                                   n_samples, hard, eps)
+                                   n_samples, hard, eps, particle_offset)
     b, d, d2 = scores.shape
     if d != d2:
         raise ValueError(f"scores must be [B, d, d], got {tuple(scores.shape)}")
@@ -429,7 +463,8 @@ def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
             scores.data_ptr(), None if eps is None else eps.data_ptr(),
             out.data_ptr(), b, n_samples, d,
             0 if keys is not None else seed & 0xFFFFFFFFFFFFFFFF,
-            None if keys is None else keys.data_ptr(), per, stream & _MASK32,
+            None if keys is None else keys.data_ptr(), per,
+            particle_offset & _MASK32, stream & _MASK32,
             float(alpha), float(tau), int(bool(hard)),
             plan.vec, plan.threads, plan.group, _stream(scores.device))
     _check_launch(lib, rc, "gumbel_graphs")

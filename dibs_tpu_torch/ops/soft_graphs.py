@@ -13,6 +13,8 @@ which the REINFORCE estimators treat as constants.
 Noise: Logistic(0, 1) drawn inside the kernel from the counter-based
 stream (``seed``, ``stream``), or the injected ``eps`` of shape
 ``[B, n_samples, d, d]`` (used by the tests to feed the reference's draw).
+``particle_offset`` is the global index of the batch's first particle: a
+particle shard draws what its particles draw in the whole batch.
 """
 from __future__ import annotations
 
@@ -25,9 +27,11 @@ __all__ = ["sample_soft_graphs", "sample_hard_graphs"]
 
 class _SoftGraphs(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, scores, seed, stream, alpha, tau, n_samples, eps):
+    def forward(ctx, scores, seed, stream, alpha, tau, n_samples, eps,
+                particle_offset):
         out = gumbel_graphs(scores.detach().contiguous(), seed, stream, alpha,
-                            tau, n_samples, hard=False, eps=eps)
+                            tau, n_samples, hard=False, eps=eps,
+                            particle_offset=particle_offset)
         ctx.save_for_backward(out)
         ctx.alpha, ctx.tau = alpha, tau
         return out
@@ -37,22 +41,26 @@ class _SoftGraphs(torch.autograd.Function):
         (out,) = ctx.saved_tensors
         # dG/ds = tau * alpha * G (1 - G); the diagonal of G is already 0
         sensit = ctx.tau * out * (1.0 - out) * g_out  # [B, M, d, d]
-        return ctx.alpha * sensit.sum(dim=1), None, None, None, None, None, None
+        return (ctx.alpha * sensit.sum(dim=1), None, None, None, None, None,
+                None, None)
 
 
 def sample_soft_graphs(scores: torch.Tensor, seed: int, stream: int,
                        alpha: float, tau: float, n_samples: int,
-                       eps: torch.Tensor | None = None) -> torch.Tensor:
+                       eps: torch.Tensor | None = None,
+                       particle_offset: int = 0) -> torch.Tensor:
     """``[B, d, d]`` scores -> ``[B, n_samples, d, d]`` relaxed graph samples,
     differentiable w.r.t. ``scores``."""
     return _SoftGraphs.apply(scores, seed, stream, float(alpha), float(tau),
-                             n_samples, eps)
+                             n_samples, eps, particle_offset)
 
 
 def sample_hard_graphs(scores: torch.Tensor, seed: int, stream: int,
                        alpha: float, n_samples: int,
-                       eps: torch.Tensor | None = None) -> torch.Tensor:
+                       eps: torch.Tensor | None = None,
+                       particle_offset: int = 0) -> torch.Tensor:
     """``[B, d, d]`` scores -> ``[B, n_samples, d, d]`` hard Bernoulli
     adjacency samples (not differentiated)."""
     return gumbel_graphs(scores.detach().contiguous(), seed, stream,
-                         float(alpha), 1.0, n_samples, hard=True, eps=eps)
+                         float(alpha), 1.0, n_samples, hard=True, eps=eps,
+                         particle_offset=particle_offset)

@@ -26,7 +26,10 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` applied leaf by leaf to ``tree`` and the trees of the same
-    structure in ``rest``; keeps the nesting and the list/tuple types."""
+    structure in ``rest``; keeps the nesting and the list/tuple types
+    (named tuples too)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *subs) for subs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *subs) for subs in zip(tree, *rest))
     return fn(tree, *rest)

@@ -366,3 +366,43 @@ def test_package_exports_match_reference(port_mod, ref_mod):
         assert callable(getattr(port_mod, name))
         _same_names(getattr(port_mod, name), getattr(ref_mod, name),
                     key_to_generator=True)
+
+
+# the particle-sharded package: the reference's names, and its keyword
+# names wherever the port's functions take the same arguments (the
+# per-shard launches take the port's seed and stream instead of a key)
+SAME_SIGNATURE = {
+    "parallel": ("make_particle_mesh", "particle_sharding", "shard_state",
+                 "make_constraint"),
+    "parallel.shard_ops": ("particle_axis_name",),
+    "parallel.ring": ("ring_available", "ring_marginal_transport",
+                      "ring_joint_transport"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SAME_SIGNATURE))
+def test_parallel_exports_match_reference(name):
+    import importlib
+
+    port = importlib.import_module(f"dibs_tpu_torch.{name}")
+    ref = importlib.import_module(f"dibs_tpu.{name}")
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    for fn in SAME_SIGNATURE[name]:
+        _same_names(getattr(port, fn), getattr(ref, fn))
+    for fn in port.__all__:
+        assert hasattr(port, fn)
+
+
+def test_ring_payload_knob_has_the_reference_names():
+    from dibs_tpu import config as ref_config
+    from dibs_tpu_torch import config as port_config
+
+    for fn in ("set_ring_payload_dtype", "ring_payload_dtype"):
+        _same_names(getattr(port_config, fn), getattr(ref_config, fn))
+    import dibs_tpu
+    import dibs_tpu.inference as ref_inference
+    import dibs_tpu_torch
+    import dibs_tpu_torch.inference as port_inference
+
+    assert sorted(dibs_tpu_torch.__all__) == sorted(dibs_tpu.__all__)
+    assert sorted(port_inference.__all__) == sorted(ref_inference.__all__)

@@ -2,8 +2,9 @@
 source trees side by side: every kernel of the first tree (the parent), its
 line there and the line of the same instantiation in the second tree. Where
 the second tree added a trailing ``bool`` template argument to a kernel (a
-fleet's variant: ``kFleet`` or ``kBatched``), its ``false`` instantiation is
-the one compared, and its ``true`` one is shown beside it.
+fleet's variant: ``kFleet`` or ``kBatched``; a particle shard's:
+``kShard``), its ``false`` instantiation is the one compared, and its
+``true`` one is shown beside it.
 
     git archive <parent commit> | tar -x -C _tree_check/parent
     python tools/ptxas_compare.py _tree_check/parent .
@@ -85,12 +86,12 @@ def main():
     differ = []
     for name in sorted(old):
         single = new.get(variant(name, 0), new.get(name))
-        fleet = new.get(variant(name, 1))
+        added = new.get(variant(name, 1))
         same = single == old[name]
         if not same:
             differ.append(name)
         print(f"{name}: parent {fmt(old[name])}; change {fmt(single)}"
-              f"{'' if same else ' (DIFFERS)'}; fleet variant {fmt(fleet)}")
+              f"{'' if same else ' (DIFFERS)'}; added variant {fmt(added)}")
     print(f"kernels {len(old)}, differing from the parent: {len(differ)} "
           f"{differ}")
     return 1 if differ else 0
