@@ -110,6 +110,19 @@ Phases, one line each; any failure exits non-zero:
    state and #1's step-0 and step-5 samples bitwise single engines' seeded
    ``fleet_seeds``, with 5 teacher-forced steps of each dataset's ``phi``
    against them.
+14. particle sharding (``dibs_tpu_torch.parallel``): (a) #1 per particle
+   shard bitwise one launch, a one-rank NCCL world, two ``gloo`` ranks on
+   the card running sharded ``MarginalDiBS`` ``score``; (b) #5-#8 per
+   shard bitwise one launch, two ranks running ``JointDiBS`` at configs 2,
+   3 and 5 and ``fleet_sample(mesh=)``; (c) the ``("p", "mc")`` mesh: #1's
+   sample blocks bitwise one launch (headline hard split 2 and 4, config
+   5's soft split 2, particle and sample offsets at once), timed in turns
+   with the unsharded launch; ``1 x 2`` and ``2 x 2`` ``gloo`` worlds on
+   the card running the headline ``score`` and ``score_rb``, joint
+   ``score`` and the fused route at config 2 (20 teacher-forced steps
+   against the unsharded ``phi`` at ``1e-4 max|phi|``, 50 free steps with
+   graphs equal and every rank's final state bitwise the others'), and
+   config 6 on ``1 x 2`` (3 teacher-forced steps, peak memory by rank).
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -2307,10 +2320,11 @@ def phase_joint_score(dev, card):
     sampler = estimators.sample_hard_graphs
 
     def capture(scores, seed, stream, alpha, n_samples, eps=None,
-                particle_offset=0):
+                particle_offset=0, sample_offset=0):
         drawn.append((scores, seed, stream, alpha, eps))
         return sampler(scores, seed, stream, alpha, n_samples, eps=eps,
-                       particle_offset=particle_offset)
+                       particle_offset=particle_offset,
+                       sample_offset=sample_offset)
 
     noise_dev = joint_noise(rng, dev)
     estimators.sample_hard_graphs = capture
@@ -3113,10 +3127,15 @@ def fleet_nonlinear_edges(dev):
 # longest the two-rank world may take
 TF14, FREE14, TF14_C5, FLEET14_B, FLEET14_STEPS = 20, 50, 3, 8, 20
 WORLD14_TIMEOUT = 600
-# the sizes the two ranks take from the parent (a rehearsal may shrink them)
+# 14c, the ("p", "mc") mesh: the worlds as (ranks, n_mc), #1's sample
+# splits at the headline's hard shape, config 6's teacher-forced steps
+MC14_WORLDS = ((2, 2), (4, 2))
+MC14_SPLITS = (2, 4)
+TF14_C6 = 3
+# the sizes the ranks take from the parent (a rehearsal may shrink them)
 SIZES14 = ("P", "D", "K_LAT", "M", "K_ACYC", "N_OBS", "P5", "D5", "K5", "M5",
            "K_ACYC5", "N5", "TF14", "FREE14", "TF14_C5", "FLEET14_B",
-           "FLEET14_STEPS")
+           "FLEET14_STEPS", "P6", "D6", "M6", "K_ACYC6", "TF14_C6")
 
 
 def sync(dev):
@@ -3185,6 +3204,92 @@ def shard_sampler(dev):
             f"bitwise one launch; the shard at particle {off} against the "
             f"twin at its offset: max err {err:.3g}")
         del whole, ref, diff
+
+
+def mc_sampler(dev):
+    """14c's kernel: #1's sample-offset build (``csrc/gumbel.cu``, kMc).
+    Launches over the ``"mc"`` blocks of the samples, each at its first
+    sample's offset, concatenate bitwise to one launch: hard at the
+    headline's ``[30, 128, 20, 20]`` (``MC14_SPLITS`` blocks), soft at
+    tau != 1 there, soft at config 5's ``[1000, 8, 128, 128]`` (2 blocks),
+    and particle and sample offsets at once (3 x 2 blocks, hard and soft);
+    the last block against the twin at its offset. Then the unsharded
+    launch (the parent's instantiation) and the two blocks' launches at
+    config 5, timed in turns, beside a block's bound."""
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    rng = np.random.default_rng(20)
+    for label, p, m, d, hard, tau, splits in (
+            ("hard", P, M, D, True, 1.0, MC14_SPLITS),
+            ("soft tau 0.7", P, M, D, False, 0.7, (2,)),
+            ("soft", P5, 8, D5, False, 1.0, (2,))):
+        scores = torch.from_numpy((2.0 * rng.normal(size=(p, d, d)))
+                                  .astype(np.float32)).to(dev)
+        args = (5, 9, 1.3, tau)
+        whole = gk.gumbel_graphs(scores, *args, m, hard)
+        for k in splits:
+            n = m // k
+            parts = [gk.gumbel_graphs(scores, *args, n, hard,
+                                      sample_offset=j * n) for j in range(k)]
+            check(torch.equal(torch.cat(parts, dim=1), whole),
+                  f"[14c] #1 {label}: {k} sample blocks differ from one "
+                  "launch")
+            del parts
+        # particle and sample offsets at once: 3 x 2 blocks
+        per, n = p // 3, m // 2
+        for r in range(3):
+            rows = slice(r * per, (r + 1) * per)
+            for j in range(2):
+                got = gk.gumbel_graphs(scores[rows], *args, n, hard,
+                                       particle_offset=r * per,
+                                       sample_offset=j * n)
+                check(torch.equal(got, whole[rows, j * n:(j + 1) * n]),
+                      f"[14c] #1 {label}: the block at particle {r * per}, "
+                      f"sample {j * n} differs from one launch")
+        del got
+        n = m // splits[-1]
+        first = m - n
+        block = whole[:, first:]
+        ref = gk.gumbel_graphs_plain(scores, *args, n, hard,
+                                     sample_offset=first)
+        diff = (block - ref).abs()
+        if hard:
+            u = gk.philox_uniform(tuple(ref.shape), 5, 9, dev,
+                                  sample_offset=first)
+            logit = (torch.log(u) - torch.log1p(-u) + 1.3 * scores[:, None])
+            bad = int(((diff > 0) & (logit.abs() >= 1e-5)).sum())
+            check(bad == 0, f"[14c] #1 hard block at sample {first}: {bad} "
+                            "mismatches with the twin off ties")
+            err = 0.0
+            del u, logit
+        else:
+            err = float(diff.max())
+            check(err <= 1e-5, f"[14c] #1 {label} block at sample {first}: "
+                               f"max err {err} against the twin")
+        log(f"[14c kernels] #1 {label} {[p, m, d, d]}: {splits} sample "
+            f"blocks and 3 x 2 (particle, sample) blocks bitwise one launch; "
+            f"the block at sample {first} against the twin at its offset: "
+            f"max err {err:.3g}")
+        del whole, block, ref, diff
+    # timed in turns at config 5's soft shape
+    m, n = 8, 4
+    scores = torch.from_numpy(rng.normal(size=(P5, D5, D5))
+                              .astype(np.float32)).to(dev)
+    arms = {"one launch (unsharded build)": lambda: gk.gumbel_graphs(
+                scores, 5, 9, 1.3, 1.0, m, False),
+            "2 sample blocks (mc build at 4)": lambda: [
+                gk.gumbel_graphs(scores, 5, 9, 1.3, 1.0, n, False,
+                                 sample_offset=j * n) for j in range(2)]}
+    times = {name: [] for name in arms}
+    for _ in range(3):
+        for name, fn in arms.items():
+            times[name].append(cuda_median_ms(fn, reps=20))
+    b_ms, b_by = bound_ms(3 * P5 * n * D5 * D5,
+                          4 * (P5 * D5 * D5 + P5 * n * D5 * D5))
+    shown = {name: [round(t, 4) for t in ts] for name, ts in times.items()}
+    log(f"[14c kernels] #1 soft [{P5}, {m}, {D5}, {D5}] in turns (ms, three "
+        f"medians of 20 events each): {shown}; a block's bound [{P5}, {n}, "
+        f"{D5}, {D5}] {b_ms:.4f} ms ({b_by})")
 
 
 def _bar_err(label, got, refs):
@@ -3308,6 +3413,34 @@ def counted(counts):
         counts[name] += gk.LAUNCHES[name] - before[name]
 
 
+def state_digest(state):
+    """A SHA-256 of every tensor of a state, in tree order (ranks whose
+    digests agree hold the same bits)."""
+    import hashlib
+
+    from dibs_tpu_torch.utils.tree import tree_leaves
+
+    digest = hashlib.sha256()
+    for leaf in tree_leaves(list(state)):
+        if isinstance(leaf, torch.Tensor):
+            digest.update(leaf.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def peak_gb(dev, fn):
+    """``fn()``'s peak device memory in GB above what was allocated before
+    it (0 off the card)."""
+    if dev.type != "cuda":
+        fn()
+        return 0.0
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
 def sharded_vs_whole(make, sharding, counts, *, seed, p, k, tf, free):
     """A sharded engine (``make(sharding)``) against the unsharded one
     (``make(None)``): ``tf`` teacher-forced transports from the unsharded
@@ -3346,7 +3479,8 @@ def sharded_vs_whole(make, sharding, counts, *, seed, p, k, tf, free):
         secs = time.perf_counter() - t0
         run_w = whole.sample(seed=seed + 1, n_particles=p, steps=free,
                              n_dim_particles=k, return_state=True)
-        out.update(graphs_equal=bool(torch.equal(run_s[0], run_w[0])),
+        out.update(state_digest=state_digest(run_s[-1]),
+                   graphs_equal=bool(torch.equal(run_s[0], run_w[0])),
                    particles_differ=int((run_s[0] != run_w[0]).flatten(1)
                                         .any(1).sum()),
                    z_err=float((run_s[-1].z - run_w[-1].z).abs().max()),
@@ -3374,6 +3508,18 @@ def case14(name, dev, sharding, counts):
                 grad_estimator_z="score", n_grad_mc_samples=M,
                 n_acyclicity_mc_samples=K_ACYC, sharding=s, device=dev),
             sharding, counts, seed=2, p=P, k=K_LAT, tf=TF14, free=FREE14)
+    if name == "marginal score_rb":
+        data, gm, lm = make_linear_gaussian_equivalent_model(
+            generator=gen, n_vars=D, graph_prior_str="er",
+            n_observations=N_OBS, device=dev)
+        return sharded_vs_whole(
+            lambda s: MarginalDiBS(
+                x=data.x, graph_model=gm, likelihood_model=lm,
+                grad_estimator_z="score_rb", n_grad_mc_samples=M,
+                n_acyclicity_mc_samples=K_ACYC, sharding=s, device=dev),
+            sharding, counts, seed=2, p=P, k=K_LAT, tf=TF14, free=FREE14)
+    if name == "config 6":
+        return config6_mc(dev, sharding, counts)
     if name == "fleet":
         return fleet14(dev, sharding, counts)
     if name == "config 5":
@@ -3392,13 +3538,49 @@ def case14(name, dev, sharding, counts):
                            device=dev)
     kernel_param = ({"h_latent": 5.0, "h_theta": "median"}
                     if name == "config 2, median h_theta" else None)
-    steps = (5, 10) if kernel_param else (TF14, TF14)
+    steps = ((5, 10) if kernel_param else
+             (TF14, FREE14) if sharding.mc_size > 1 else (TF14, TF14))
+    estimator = "score" if name == "joint score" else "reparam"
     return sharded_vs_whole(
         lambda s: JointDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
                             kernel_param=kernel_param, n_grad_mc_samples=M,
                             n_acyclicity_mc_samples=K_ACYC, sharding=s,
-                            device=dev),
+                            grad_estimator_z=estimator, device=dev),
         sharding, counts, seed=2, p=P, k=K_LAT, tf=steps[0], free=steps[1])
+
+
+def config6_mc(dev, sharding, counts):
+    """14c's config 6 (``MarginalDiBS`` + BGe, sf d=128, N=100, P=100,
+    M=64, K=8) on the ``("p", "mc")`` mesh: ``TF14_C6`` teacher-forced
+    transports against the unsharded engine's, and this rank's peak
+    device memory for one transport beside the unsharded engine's."""
+    from dibs_tpu_torch.inference import MarginalDiBS
+    from dibs_tpu_torch.parallel import shard_state
+    from dibs_tpu_torch.target import make_linear_gaussian_equivalent_model
+
+    data, gm, lm = make_linear_gaussian_equivalent_model(
+        generator=torch.Generator().manual_seed(123), n_vars=D6,
+        graph_prior_str="sf", device=dev)
+
+    def make(s):
+        return MarginalDiBS(x=data.x, graph_model=gm, likelihood_model=lm,
+                            n_grad_mc_samples=M6,
+                            n_acyclicity_mc_samples=K_ACYC6, sharding=s,
+                            device=dev)
+
+    whole, shard = make(None), make(sharding)
+    std = whole._resolve_latent_std(D6)
+    state = whole.init_state(seed=1, n_particles=P6)
+    with torch.no_grad():
+        peak_w = peak_gb(dev, lambda: whole._make_phi(std)(state))
+        local = shard_state(state, sharding)
+        with counted(counts):
+            peak_s = peak_gb(dev, lambda: shard._make_phi(std)(local))
+    del local
+    out = sharded_vs_whole(make, sharding, counts, seed=1, p=P6, k=D6,
+                           tf=TF14_C6, free=0)
+    out.update(peak_gb_sharded=peak_s, peak_gb_unsharded=peak_w)
+    return out
 
 
 def fleet14(dev, sharding, counts):
@@ -3431,10 +3613,11 @@ CASES14 = {"14a": ("marginal score",),
                    "config 5", "fleet")}
 
 
-def rank14(rank, world, store, out_dir, names, dev_name, sizes):
+def rank14(rank, world, store, out_dir, names, dev_name, sizes, n_mc=1):
     """A rank of phase 14's ``gloo`` world on the one card (``dev_name``)
-    at the parent's ``sizes``: each case of ``names``; writes its results
-    and its sharded launches."""
+    at the parent's ``sizes``, on the mesh ``make_particle_mesh(n_mc=
+    n_mc)``: each case of ``names``; writes its results and its sharded
+    launches."""
     import datetime
     import os
 
@@ -3454,7 +3637,7 @@ def rank14(rank, world, store, out_dir, names, dev_name, sizes):
         torch.set_float32_matmul_precision("highest")
         if dev.type == "cuda":
             gk.build()
-        sharding = particle_sharding(make_particle_mesh())
+        sharding = particle_sharding(make_particle_mesh(n_mc=n_mc))
         counts = dict.fromkeys(gk.LAUNCHES, 0)
         out = {name: case14(name, dev, sharding, counts) for name in names}
         out["launches"] = counts
@@ -3463,10 +3646,10 @@ def rank14(rank, world, store, out_dir, names, dev_name, sizes):
         dist.destroy_process_group()
 
 
-def two_ranks(names, dev):
-    """Runs ``rank14`` on two ``gloo`` ranks sharing the card ``dev`` (a
-    file store in a fresh temporary directory); returns each rank's
-    results."""
+def ranks14(names, dev, world=2, n_mc=1):
+    """Runs ``rank14`` on ``world`` ``gloo`` ranks sharing the card ``dev``
+    (a file store in a fresh temporary directory), on a mesh with
+    ``n_mc`` ranks on its ``"mc"`` axis; returns each rank's results."""
     import os
     import tempfile
 
@@ -3474,18 +3657,23 @@ def two_ranks(names, dev):
 
     with tempfile.TemporaryDirectory() as tmp:
         sizes = {name: globals()[name] for name in SIZES14}
-        ctx = mp.spawn(rank14, args=(2, os.path.join(tmp, "store"), tmp,
-                                     names, str(dev), sizes),
-                       nprocs=2, join=False)
+        ctx = mp.spawn(rank14, args=(world, os.path.join(tmp, "store"), tmp,
+                                     names, str(dev), sizes, n_mc),
+                       nprocs=world, join=False)
         deadline = time.perf_counter() + WORLD14_TIMEOUT
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
                 for proc in ctx.processes:
                     proc.kill()
-                fail(f"[14] the two-rank world took more than "
+                fail(f"[14] the {world}-rank world took more than "
                      f"{WORLD14_TIMEOUT} s")
         return [torch.load(os.path.join(tmp, f"{r}.pt"), weights_only=False)
-                for r in range(2)]
+                for r in range(world)]
+
+
+def two_ranks(names, dev):
+    """``ranks14`` on two ranks of a one-dimensional mesh."""
+    return ranks14(names, dev)
 
 
 def nccl_one_rank(dev, counts):
@@ -3574,24 +3762,7 @@ def phase_sharding(dev, card):
     shard_fused(dev)
     ranks = two_ranks(CASES14["14a"] + CASES14["14b"], dev)
     for step, names in CASES14.items():
-        for name in names:
-            res = ranks[0][name]
-            for other in ranks[1:]:
-                check(other[name].get("graphs_equal", True)
-                      == res.get("graphs_equal", True),
-                      f"[{step}] {name}: the ranks disagree")
-            if "tf_worst" in res:
-                check(res["tf_worst"] <= 1.0,
-                      f"[{step}] {name}: teacher-forced phi "
-                      f"{res['tf_worst']:.3f} x the bar")
-            if "graphs_equal" in res:
-                check(res["graphs_equal"],
-                      f"[{step}] {name}: graphs differ from the unsharded "
-                      f"run ({res.get('particles_differ')} particles)")
-            shown = {k: (round(v, 6) if isinstance(v, float) else v)
-                     for k, v in res.items()}
-            log(f"[{step} two gloo ranks, one card] {name}: {shown} on "
-                f"'{card}' (ranks sharing one card, not a multi-GPU rate)")
+        check_ranks(step, names, ranks, card, "two gloo ranks")
     for r in ranks:
         for name in counts:
             counts[name] += r["launches"][name]
@@ -3599,9 +3770,76 @@ def phase_sharding(dev, card):
                  "fused_nonlinear", "fused_linear_wide_pass1",
                  "fused_linear_wide_pass2", "se_matrix"):
         check(counts[name] > 0, f"[14] {name} never launched sharded")
-    log(f"[14 launches] sharded runs, both ranks: {counts}; phase "
+    log(f"[14 launches] sharded runs, both ranks: {counts}; 14a-b "
         f"{time.perf_counter() - t0:.1f} s")
+    phase_mc(dev, card, counts)
+    log(f"[14] phase {time.perf_counter() - t0:.1f} s")
     return counts
+
+
+def check_ranks(step, names, ranks, card, what):
+    """Phase 14's checks of every case of ``names`` on ``ranks``' results:
+    the ranks agree (graphs, and the final state bit for bit where a
+    digest was taken), teacher-forced transports within the bar, graphs
+    equal to the unsharded run's."""
+    for name in names:
+        res = ranks[0][name]
+        for other in ranks[1:]:
+            check(other[name].get("graphs_equal", True)
+                  == res.get("graphs_equal", True)
+                  and other[name].get("state_digest")
+                  == res.get("state_digest"),
+                  f"[{step}] {name}: the ranks disagree")
+        if "tf_worst" in res:
+            worst = max(r[name]["tf_worst"] for r in ranks)
+            check(worst <= 1.0, f"[{step}] {name}: teacher-forced phi "
+                                f"{worst:.3f} x the bar")
+        if "graphs_equal" in res:
+            check(res["graphs_equal"],
+                  f"[{step}] {name}: graphs differ from the unsharded "
+                  f"run ({res.get('particles_differ')} particles)")
+        shown = {k: (round(v, 6) if isinstance(v, float) else v)
+                 for k, v in res.items() if k != "state_digest"}
+        if "peak_gb_sharded" in res:
+            shown["peak_gb_sharded_by_rank"] = [
+                round(r[name]["peak_gb_sharded"], 4) for r in ranks]
+        log(f"[{step} {what}, one card] {name}: {shown} on '{card}' (ranks "
+            f"sharing one card, not a multi-GPU rate)")
+
+
+MC14_CASES = ("marginal score", "marginal score_rb", "joint score",
+              "config 2")
+
+
+def phase_mc(dev, card, counts):
+    """14c, the ``("p", "mc")`` mesh: #1's sample blocks (``mc_sampler``),
+    then for each of ``MC14_WORLDS`` (``1 x 2`` and ``2 x 2``) ``gloo``
+    ranks sharing the card running the headline ``score`` and
+    ``score_rb``, joint ``score`` and the fused route at config 2 (each
+    ``TF14`` teacher-forced steps against the unsharded engine's ``phi``,
+    then ``FREE14`` free steps: graphs equal, every rank's final state
+    bitwise the others'), and on ``1 x 2`` config 6 (``TF14_C6``
+    teacher-forced steps, peak memory). Adds the worlds' launches to
+    ``counts``."""
+    t0 = time.perf_counter()
+    mc_sampler(dev)
+    mc_counts = dict.fromkeys(counts, 0)
+    for world, n_mc in MC14_WORLDS:
+        names = MC14_CASES + (("config 6",) if world == n_mc else ())
+        ranks = ranks14(names, dev, world, n_mc)
+        check_ranks("14c", names, ranks, card,
+                    f"{world // n_mc} x {n_mc} gloo ranks")
+        for r in ranks:
+            for name in counts:
+                mc_counts[name] += r["launches"][name]
+    for name in ("gumbel_graphs", "bge_pairs", "fused_linear_single",
+                 "se_matrix", "transport_phi"):
+        check(mc_counts[name] > 0, f"[14c] {name} never launched on the "
+                                   "('p', 'mc') mesh")
+    for name in counts:
+        counts[name] += mc_counts[name]
+    log(f"[14c launches] ('p', 'mc') runs, all ranks: {mc_counts}; 14c "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main():

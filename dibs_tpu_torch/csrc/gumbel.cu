@@ -55,6 +55,14 @@
 // the key is `seed` and the counter b, as before. The fleet's indexing is a
 // compile-time variant (kFleet), so that the single-run kernels keep their
 // registers: a run-time branch there cost 8-19 registers a thread.
+//
+// Sample shards (the ("p", "mc") mesh of dibs_tpu_torch/parallel): a rank
+// holding samples m0 .. m0 + n_samples - 1 of every particle draws its
+// local sample m at the counter m0 + m, so its [B, n_samples, d, d] block
+// is bitwise that slice of one launch over all the samples. The offset is
+// a compile-time variant too (kMc), taken only where m0 != 0, so the
+// unsharded and particle-shard kernels keep their registers; a fleet has
+// no sample shards (m0 = 0 there).
 #include <climits>
 
 #include "common.h"
@@ -90,14 +98,17 @@ __device__ __forceinline__ void store(float* __restrict__ p,
 }
 
 // One thread: elements e0 .. e0 + kVec - 1 of particle b0 + unit / upp, for
-// samples blockIdx.y * group .. + group - 1. `units` = particles of this
-// launch x upp (< 2^31, the launcher slices the batch).
-template <int kVec, int kMode, bool kFleet>
+// samples blockIdx.y * group .. + group - 1, drawn at the sample counters
+// m_off + m with kMc. `units` = particles of this launch x upp (< 2^31, the
+// launcher slices the batch). m_off comes last, so the other parameters
+// keep their offsets (and the kernels without kMc their registers).
+template <int kVec, int kMode, bool kFleet, bool kMc>
 __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
     const float* __restrict__ scores, const float* __restrict__ eps,
     float* __restrict__ out, const int64_t* __restrict__ keys, int per,
     int units, int upp, int d, int n_samples, int group, uint32_t b0,
-    uint32_t k0, uint32_t k1, uint32_t stream, float alpha, float tau) {
+    uint32_t k0, uint32_t k1, uint32_t stream, float alpha, float tau,
+    uint32_t m_off) {
   const int unit = blockIdx.x * blockDim.x + threadIdx.x;
   if (unit >= units) return;
   const int bl = unit / upp;
@@ -131,13 +142,14 @@ __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
   float* __restrict__ op = out + first;
   const float* __restrict__ ep = eps == nullptr ? nullptr : eps + first;
   for (int m = m0; m < m1; ++m, op += dd) {
+    const uint32_t mc =
+        kMc ? static_cast<uint32_t>(m) + m_off : static_cast<uint32_t>(m);
     float g[kVec];
     if constexpr (kMode == kSoftFast) {
 #pragma unroll
       for (int v = 0; v < kVec; ++v) {
         const float u = dibs::philox_uniform(static_cast<uint32_t>(e0 + v),
-                                             static_cast<uint32_t>(m), b,
-                                             stream, k0, k1);
+                                             mc, b, stream, k0, k1);
         g[v] = __fdiv_rn(
             u, __fadd_rn(u, __fmul_rn(__fsub_rn(1.0f, u), en[v])));
       }
@@ -148,9 +160,8 @@ __global__ void __launch_bounds__(256) gumbel_graphs_kernel(
       } else {
 #pragma unroll
         for (int v = 0; v < kVec; ++v) {
-          g[v] = dibs::philox_logistic(static_cast<uint32_t>(e0 + v),
-                                       static_cast<uint32_t>(m), b, stream,
-                                       k0, k1);
+          g[v] = dibs::philox_logistic(static_cast<uint32_t>(e0 + v), mc,
+                                       b, stream, k0, k1);
         }
       }
 #pragma unroll
@@ -173,20 +184,28 @@ template <int kVec>
 cudaError_t launch(int mode, dim3 grid, int threads, cudaStream_t stream,
                    const float* scores, const float* eps, float* out,
                    const int64_t* keys, int per, int units, int upp, int d,
-                   int n_samples, int group, uint32_t b0, uint32_t k0,
-                   uint32_t k1, uint32_t rng_stream, float alpha, float tau) {
+                   int n_samples, int group, uint32_t b0, uint32_t m_off,
+                   uint32_t k0, uint32_t k1, uint32_t rng_stream, float alpha,
+                   float tau) {
   constexpr bool F = false, T = true;
   auto kernel =
       keys != nullptr
-          ? (mode == kHard       ? gumbel_graphs_kernel<kVec, kHard, T>
-             : mode == kSoftFast ? gumbel_graphs_kernel<kVec, kSoftFast, T>
-                                 : gumbel_graphs_kernel<kVec, kSoftLog, T>)
-          : (mode == kHard       ? gumbel_graphs_kernel<kVec, kHard, F>
-             : mode == kSoftFast ? gumbel_graphs_kernel<kVec, kSoftFast, F>
-                                 : gumbel_graphs_kernel<kVec, kSoftLog, F>);
+          ? (mode == kHard ? gumbel_graphs_kernel<kVec, kHard, T, F>
+             : mode == kSoftFast
+                 ? gumbel_graphs_kernel<kVec, kSoftFast, T, F>
+                 : gumbel_graphs_kernel<kVec, kSoftLog, T, F>)
+      : m_off != 0
+          ? (mode == kHard ? gumbel_graphs_kernel<kVec, kHard, F, T>
+             : mode == kSoftFast
+                 ? gumbel_graphs_kernel<kVec, kSoftFast, F, T>
+                 : gumbel_graphs_kernel<kVec, kSoftLog, F, T>)
+          : (mode == kHard ? gumbel_graphs_kernel<kVec, kHard, F, F>
+             : mode == kSoftFast
+                 ? gumbel_graphs_kernel<kVec, kSoftFast, F, F>
+                 : gumbel_graphs_kernel<kVec, kSoftLog, F, F>);
   kernel<<<grid, threads, 0, stream>>>(scores, eps, out, keys, per, units,
                                        upp, d, n_samples, group, b0, k0, k1,
-                                       rng_stream, alpha, tau);
+                                       rng_stream, alpha, tau, m_off);
   return cudaGetLastError();
 }
 
@@ -199,10 +218,14 @@ cudaError_t launch(int mode, dim3 grid, int threads, cudaStream_t stream,
 // `p0` is the particle counter of the batch's first particle: a shard of
 // a particle-sharded run holding particles p0 .. p0 + batch - 1 draws what
 // those particles draw in one launch over all of them (0 for a fleet).
+// `m0` is the sample counter of the first sample: a sample shard holding
+// samples m0 .. m0 + n_samples - 1 draws that slice of one launch over all
+// the samples (0 for a fleet; the counters must stay below 2^32).
 DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
                                 float* out, int64_t batch, int n_samples,
                                 int d, uint64_t seed, const int64_t* keys,
-                                int per, uint32_t p0, uint32_t stream,
+                                int per, uint32_t p0, uint32_t m0,
+                                uint32_t stream,
                                 float alpha, float tau, int hard, int vec,
                                 int threads, int group,
                                 cudaStream_t cuda_stream) {
@@ -211,7 +234,10 @@ DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
   if (d < 0 || d > 46340 || batch > (int64_t{1} << 32) || n_samples < 0 ||
       (vec != 1 && vec != 4) || (d * d) % vec != 0 || threads < 32 ||
       threads > 256 || groups < 1 || groups > 65535 ||
-      (keys != nullptr && (per < 1 || batch % per != 0 || p0 != 0))) {
+      static_cast<uint64_t>(m0) + static_cast<uint64_t>(n_samples) >
+          (uint64_t{1} << 32) ||
+      (keys != nullptr &&
+       (per < 1 || batch % per != 0 || p0 != 0 || m0 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int dd = d * d;
@@ -233,13 +259,13 @@ DIBS_API int dibs_gumbel_graphs(const float* scores, const float* eps,
         vec == 4 ? launch<4>(mode, grid, threads, cuda_stream,
                              scores + b0 * dd, e, out + off, keys, per, units,
                              upp, d, n_samples, group,
-                             static_cast<uint32_t>(b0) + p0, k0, k1, stream,
-                             alpha, tau)
+                             static_cast<uint32_t>(b0) + p0, m0, k0, k1,
+                             stream, alpha, tau)
                  : launch<1>(mode, grid, threads, cuda_stream,
                              scores + b0 * dd, e, out + off, keys, per, units,
                              upp, d, n_samples, group,
-                             static_cast<uint32_t>(b0) + p0, k0, k1, stream,
-                             alpha, tau);
+                             static_cast<uint32_t>(b0) + p0, m0, k0, k1,
+                             stream, alpha, tau);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

@@ -42,6 +42,20 @@ fused kernel call takes its first particle's global index as
 ``particle_offset``, so each particle's samples, scores and gradients are
 bitwise those of the unsharded call.
 
+On the ``("p", "mc")`` mesh the samples are split too: where the ``"mc"``
+axis divides ``M`` (or ``K``), each ``"mc"`` rank draws its block of the
+samples at their global sample indices (``sample_offset``) and every sum
+over samples becomes a local sum followed by a sum over the ``"mc"`` group
+(:func:`~dibs_tpu_torch.parallel.shard_ops.mc_sum`). The ``[P, M]``
+log-probabilities (``[P, M, d]`` node scores for ``score_rb``) are
+all-gathered first, so every weight, every logsumexp and the baseline
+update come from all ``M`` as in the unsharded step, and the baseline is
+bitwise the same on every rank. Where the axis does not divide the
+count, every ``"mc"`` rank draws all the samples (replicated). The fused
+kernels #5-#8 are not split over ``"mc"``: every ``"mc"`` rank of a
+``"p"`` block runs the same launch, as the reference's ``shard_map``
+declares the particle axis only.
+
 Estimator maths (as the reference): the self-normalized ratio
 
     grad log E_{p(G|Z)}[p(D | G)] = E[p(D|G) grad log p(G|Z)] / E[p(D|G)]
@@ -76,7 +90,9 @@ from dibs_tpu_torch.ops.edges import (
     grad_latent_log_prob_batch,
 )
 from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs, sample_soft_graphs
-from dibs_tpu_torch.parallel.shard_ops import shard_offset
+from dibs_tpu_torch.parallel import constrain_mc
+from dibs_tpu_torch.parallel.shard_ops import mc_block, mc_gather, mc_sum, \
+    shard_offset
 from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp, zero_diagonal
 from dibs_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -238,7 +254,9 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         sharding: a :func:`~dibs_tpu_torch.parallel.particle_sharding`
             when the particles passed are this rank's block of a sharded
             run: the samplers and the fused kernels then draw at the
-            block's global particle indices (bitwise the unsharded call)
+            block's global particle indices (bitwise the unsharded call);
+            on the ``("p", "mc")`` mesh the samples are split over
+            ``"mc"`` as the module docstring says
     """
     if cfg.grad_estimator_z not in ("score", "score_rb", "reparam"):
         raise ValueError(
@@ -262,13 +280,44 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         raise ValueError("a fleet shards its datasets, not its particles; "
                          "build its estimators without a sharding")
     n_mc = cfg.n_grad_mc_samples
+    # this rank's blocks of the M and K samples on the "mc" axis
+    m_first, m_local = mc_block(sharding, n_mc)
+    k_first, k_local = mc_block(sharding, cfg.n_acyclicity_mc_samples)
+    split_m = m_local != n_mc
 
     def _offset(zs):
         return shard_offset(sharding, zs.shape[0])
 
+    def _block(eps):
+        """This rank's samples of an injected ``[P, n, d, d]`` noise."""
+        return None if eps is None else \
+            constrain_mc(eps, sharding).contiguous()
+
     def _hard_samples(zs, t, seed, stream, eps):
-        return sample_hard_graphs(edge_scores(zs), seed, stream, cfg.alpha(t),
-                                  n_mc, eps=eps, particle_offset=_offset(zs))
+        return sample_hard_graphs(
+            edge_scores(zs), seed, stream, cfg.alpha(t), m_local,
+            eps=_block(eps), particle_offset=_offset(zs),
+            sample_offset=m_first)
+
+    def _all_samples(t):
+        """``[P, M_local, ...]`` -> ``[P, M, ...]`` over the "mc" group."""
+        return mc_gather(t, sharding) if split_m else t
+
+    def _mine(t):
+        """This rank's samples of a ``[P, M, ...]`` tensor."""
+        return constrain_mc(t, sharding)
+
+    def _sum_samples(tree):
+        """A tree of this rank's sums over its samples -> the sums over all
+        ``M`` (one collective for every leaf)."""
+        if not split_m:
+            return tree
+        leaves = tree_leaves(tree)
+        flat = mc_sum(torch.cat([leaf.reshape(-1) for leaf in leaves]),
+                      sharding)
+        parts = torch.split(flat, [leaf.numel() for leaf in leaves])
+        return tree_unflatten(tree, [part.view_as(leaf) for part, leaf
+                                     in zip(parts, leaves)])
 
     # a fleet's hook takes each dataset's graphs on its own axis
     graphs_lead = (x.shape[0],) if x.dim() == 3 else ()
@@ -283,26 +332,37 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     # --- REINFORCE with the signed linear-space EMA control variate ---
 
     def _score_from_logprobs(zs, baselines, g_all, logprobs, alpha):
-        """The REINFORCE ratio of ``[P, M]`` log-probabilities of the hard
-        samples ``g_all``, with the baseline update."""
+        """The REINFORCE ratio of ``[P, M]`` log-probabilities (all the
+        samples) of this rank's hard samples ``g_all [P, M_local, d, d]``,
+        with the baseline update."""
         grad_z = grad_latent_log_prob_batch(g_all, zs, alpha)
         c = cfg.score_function_baseline
+        # The ratio is unchanged when every log-weight of a particle moves
+        # by one constant. Centred at the samples' largest log-probability,
+        # the float32 log-space sums stay near 0: uncentred joint
+        # log-probabilities of -1e3 to -1e4 nats carry their rounding (an
+        # ulp of 1e-4 to 1e-3 nats) into every weight.
+        shift = logprobs.max(1, keepdim=True).values
+        shift = torch.where(torch.isfinite(shift), shift,
+                            torch.zeros_like(shift))
+        centred = logprobs - shift
         if c > 0.0:
             # numerator weights w_m = p_m - exp(b), b the log-space EMA of
             # the mean log-likelihood (-inf = off); the reference's
             # deliberate divergence from the paper's log-space form
-            b = baselines[:, None]
-            m = torch.maximum(logprobs, b)
+            b = baselines[:, None] - shift
+            m = torch.maximum(centred, b)
             log_w = m + torch.log(
-                torch.abs(torch.exp(logprobs - m) - torch.exp(b - m)))
-            sign_w = torch.sign(logprobs - b)
+                torch.abs(torch.exp(centred - m) - torch.exp(b - m)))
+            sign_w = torch.sign(centred - b)
             grad_est = stable_ratio_grad(
-                log_w, logprobs, expand_by(sign_w, 3) * grad_z)
+                _mine(log_w), centred, expand_by(_mine(sign_w), 3) * grad_z)
             new_baselines = torch.logaddexp(
                 math.log(c) + logprobs.mean(1),
                 math.log(1 - c) + baselines)
-            return grad_est, new_baselines
-        return stable_ratio_grad(logprobs, logprobs, grad_z), baselines
+            return _sum_samples(grad_est), new_baselines
+        return (_sum_samples(stable_ratio_grad(_mine(centred), centred,
+                                               grad_z)), baselines)
 
     def eltwise_grad_z_score(zs, thetas, baselines, t, seed, stream,
                              eps=None):
@@ -316,8 +376,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             logprobs = _node_scores(g_all).double().sum(-1).float()
         else:
             logprobs = _log_joint(g_all, thetas)
-        return _score_from_logprobs(zs, baselines, g_all, logprobs,
-                                    cfg.alpha(t))
+        return _score_from_logprobs(zs, baselines, g_all,
+                                    _all_samples(logprobs), cfg.alpha(t))
 
     # --- per-node Rao-Blackwellized REINFORCE ---
 
@@ -325,11 +385,11 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                                 eps=None):
         alpha = cfg.alpha(t)
         g_all = _hard_samples(zs, t, seed, stream, eps)
-        node_scores = _node_scores(g_all)  # [P, M, d]
+        node_scores = _all_samples(_node_scores(g_all))  # [P, M, d]
         p = edge_probs(zs, alpha)
         w = torch.exp(node_scores
                       - torch.logsumexp(node_scores, dim=1, keepdim=True))
-        g_bar = torch.einsum("pmij,pmj->pij", g_all, w)
+        g_bar = _sum_samples(torch.einsum("pmij,pmj->pij", g_all, _mine(w)))
         resid = alpha * (g_bar - p)  # diagonals of g_bar and p are both 0
         u, v = zs[..., 0], zs[..., 1]
         du = resid @ v
@@ -340,10 +400,11 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     def _weighted_grad(logp, wrt):
         """``sum_m softmax(logp)_m grad logp_m`` per particle; ``wrt`` is a
-        tensor or a parameter tree."""
-        weights = torch.softmax(logp.detach(), dim=1)
+        tensor or a parameter tree. The softmax is over all ``M`` samples;
+        autograd runs with this rank's slice of the weights."""
+        weights = _mine(torch.softmax(_all_samples(logp.detach()), dim=1))
         grads = torch.autograd.grad(logp, tree_leaves(wrt), weights)
-        return tree_unflatten(wrt, grads)
+        return _sum_samples(tree_unflatten(wrt, grads))
 
     def _log_joint(gs, thetas):
         # [P, M, d, d] graphs with the particle's parameters -> [P, M]
@@ -360,8 +421,10 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
             gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
-                                    cfg.alpha(t), cfg.tau, n_mc, eps=eps,
-                                    particle_offset=_offset(zs))
+                                    cfg.alpha(t), cfg.tau, m_local,
+                                    eps=_block(eps),
+                                    particle_offset=_offset(zs),
+                                    sample_offset=m_first)
             return _weighted_grad(_log_joint(gs, thetas), z_req), baselines
 
     def eltwise_grad_theta_likelihood(zs, thetas, t, seed, stream, eps=None):
@@ -380,9 +443,11 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
             gs = sample_soft_graphs(edge_scores(z_req), seed, streams[0],
-                                    cfg.alpha(t), cfg.tau, n_mc,
-                                    eps=None if eps is None else eps[0],
-                                    particle_offset=_offset(zs))
+                                    cfg.alpha(t), cfg.tau, m_local,
+                                    eps=None if eps is None else _block(
+                                        eps[0]),
+                                    particle_offset=_offset(zs),
+                                    sample_offset=m_first)
             dz = _weighted_grad(_log_joint(gs, thetas), z_req)
             hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
             th_req = _requires_grad(thetas)
@@ -392,7 +457,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     def fused_linear(zs, thetas, t, seed, streams, eps=None):
         """Both joint likelihood gradients of ``LinearGaussian`` through the
         fused kernels; ``d scores`` is chained to ``Z`` by ``dU = dS V``,
-        ``dV = dS^T U``."""
+        ``dV = dS^T U``. Not split over ``"mc"``: every ``"mc"`` rank runs
+        its ``"p"`` block's whole launch."""
         dscores, dtheta = fused_linear_estimators(
             zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
             streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
@@ -402,7 +468,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     def fused_nonlinear(zs, thetas, t, seed, streams, eps=None):
         """Both joint likelihood gradients of a one-hidden-layer
-        ``DenseNonlinearGaussian`` through kernel #8."""
+        ``DenseNonlinearGaussian`` through kernel #8 (not split over
+        ``"mc"``, as :func:`fused_linear`)."""
         dscores, dtheta = fused_nonlinear_estimators(
             zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
             streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
@@ -419,9 +486,10 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                                   eps=None):
         """``-beta(t) E[grad h] - Z / sigma_z^2 + grad log f(Z)``, with the
         acyclicity term from ``n_acyclicity_mc_samples`` soft samples
-        (``'sampled'``) or from the edge probabilities (``'mean'``); ``h``
-        is the NOTEARS trace penalty or, with ``acyclicity='spectral'``,
-        the spectral radius by power iteration."""
+        (``'sampled'``; split over ``"mc"`` like the likelihood's) or from
+        the edge probabilities (``'mean'``); ``h`` is the NOTEARS trace
+        penalty or, with ``acyclicity='spectral'``, the spectral radius by
+        power iteration."""
         alpha = cfg.alpha(t)
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
@@ -435,11 +503,15 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             else:
                 k = cfg.n_acyclicity_mc_samples
                 gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
-                                        alpha, cfg.tau, k, eps=eps,
-                                        particle_offset=_offset(zs))
-                h_vals = h_fn(gs)  # [P, K]
+                                        alpha, cfg.tau, k_local,
+                                        eps=_block(eps),
+                                        particle_offset=_offset(zs),
+                                        sample_offset=k_first)
+                h_vals = h_fn(gs)  # [P, K_local]
                 cot = torch.full_like(h_vals, 1.0 / k)
             (grad_constraint,) = torch.autograd.grad(h_vals, z_req, cot)
+            if cfg.acyclicity_constraint != "mean" and k_local != k:
+                grad_constraint = mc_sum(grad_constraint, sharding)
         return (-cfg.beta(t) * grad_constraint
                 - zs / (latent_prior_std ** 2.0)
                 + grad_prior_z)

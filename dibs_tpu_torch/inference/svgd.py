@@ -35,7 +35,11 @@ ring`) or, for kernels the ring does not serve, by the all-gather route;
 An injected ``noise`` is the global tensor; each rank takes its rows. A
 run whose particle count the world does not divide is replicated (every
 rank runs the whole unsharded step, kernel #4 off, as in the reference),
-and a one-rank world runs the unsharded step.
+and a one-rank world runs the unsharded step. On a ``("p", "mc")`` mesh
+the particles split over ``"p"`` only (the transport, the ring and
+``shard_offset`` take the ``"p"`` group, rank and size) and the
+estimators split their samples over ``"mc"``: every ``"mc"`` rank of a
+``"p"`` block ends each step with the same state, bitwise.
 
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
 where CUDA is absent). ``theta`` is the likelihood's parameter tree
@@ -271,9 +275,13 @@ class DiBS:
             offset = shard_offset(self.sharding, n)
             return self.est, slice(offset, offset + n), True
         if self._est_whole is None:
+            # every particle on this rank: the samples still split over a
+            # ("p", "mc") mesh's "mc" axis, at particle offset 0
+            whole = (self.sharding._replace(rank=0, world=1)
+                     if self.sharding.mc_size > 1 else None)
             self._est_whole = make_estimators(
                 cfg=self.cfg, x=self.x, interv_mask=self.interv_mask,
-                **self._est_kwargs)
+                sharding=whole, **self._est_kwargs)
         return self._est_whole, slice(None), False
 
     def _baselines(self, state, new, sharded):

@@ -154,7 +154,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_gumbel_graphs.argtypes = [vp, vp, vp, i64, i32, i32,
                                        ctypes.c_uint64, vp, i32,
                                        ctypes.c_uint32, ctypes.c_uint32,
-                                       f32, f32, i32, i32, i32, i32, vp]
+                                       ctypes.c_uint32, f32, f32, i32, i32,
+                                       i32, i32, vp]
     lib.dibs_gumbel_graphs.restype = i32
     lib.dibs_bge_pairs.argtypes = [vp] * 7 + [i32, i32, i32,
                                               ctypes.POINTER(i32), vp]
@@ -299,7 +300,7 @@ def _key_words(seed, b: int, device, particle_offset: int = 0):
     if not isinstance(seed, torch.Tensor):
         return (seed & _MASK32, (seed >> 32) & _MASK32,
                 (particle + particle_offset) & _MASK32)
-    check_offset(seed, particle_offset)
+    check_offset(seed, particle_offset, b)
     keys = seed.to(**kw).reshape(-1)
     per = fleet_particles(b, keys.numel())
     ds = particle // per
@@ -316,15 +317,27 @@ def fleet_particles(batch: int, n_keys: int) -> int:
     return batch // n_keys
 
 
-def check_offset(seed, particle_offset: int) -> None:
-    """Raises ``ValueError`` for a particle offset with a fleet's keys (a
-    fleet's particle counter is the index within its dataset) or a
-    negative one."""
-    if particle_offset < 0 or (particle_offset
-                               and isinstance(seed, torch.Tensor)):
+def check_offset(seed, particle_offset: int, n_particles: int = 0,
+                 sample_offset: int = 0, n_samples: int = 0) -> None:
+    """Raises ``ValueError`` for a particle or sample offset with a fleet's
+    keys (a fleet's particle counter is the index within its dataset, and
+    a fleet has no sample shards), a negative one, or counters past 32
+    bits (``particle_offset + n_particles`` or ``sample_offset +
+    n_samples`` above ``2^32``)."""
+    fleet = isinstance(seed, torch.Tensor)
+    if particle_offset < 0 or (particle_offset and fleet):
         raise ValueError(f"particle_offset={particle_offset}: a shard's "
                          "offset is a non-negative int and goes with one "
                          "dataset's int seed, not a fleet's keys")
+    if sample_offset < 0 or (sample_offset and fleet):
+        raise ValueError(f"sample_offset={sample_offset}: a sample shard's "
+                         "offset is a non-negative int and goes with one "
+                         "dataset's int seed, not a fleet's keys")
+    for what, first, n in (("particle", particle_offset, n_particles),
+                           ("sample", sample_offset, n_samples)):
+        if first + n > 1 << 32:
+            raise ValueError(f"{what} counters {first} .. {first + n - 1} "
+                             "pass 32 bits")
 
 
 def fleet_keys(name: str, seed, batch: int, device):
@@ -344,20 +357,24 @@ def fleet_keys(name: str, seed, batch: int, device):
 
 
 def philox_uniform(shape, seed, stream: int, device,
-                   particle_offset: int = 0) -> torch.Tensor:
+                   particle_offset: int = 0,
+                   sample_offset: int = 0) -> torch.Tensor:
     """The sampler kernel's uniforms for a ``[B, M, d, d]`` output, in
     PyTorch: Philox4x32-10 with counter (element, sample, particle, stream)
     and key = ``seed``; top 24 bits, half-ulp offset, clamp at 1 - 2^-23.
     Particle ``b`` takes the counter ``particle_offset + b``, so a shard
     holding particles ``o .. o + B - 1`` of a batch draws their uniforms
-    with ``particle_offset=o``. ``seed`` may be a fleet's ``[B_ds]`` int64
-    keys (offset 0): particle ``b`` then takes key ``seed[b // per]`` and
-    counter ``b % per`` (``per = B / B_ds``), as the kernel does."""
+    with ``particle_offset=o``; sample ``m`` takes ``sample_offset + m``
+    alike. ``seed`` may be a fleet's ``[B_ds]`` int64 keys (offsets 0):
+    particle ``b`` then takes key ``seed[b // per]`` and counter ``b %
+    per`` (``per = B / B_ds``), as the kernel does."""
     b, m, d, _ = shape
+    check_offset(seed, particle_offset, b, sample_offset, m)
     k0, k1, particle = _key_words(seed, b, device, particle_offset)
     kw = dict(dtype=torch.int64, device=device)
     c0 = torch.arange(d * d, **kw).view(1, 1, d, d).expand(b, m, d, d)
-    c1 = torch.arange(m, **kw).view(1, m, 1, 1).expand(b, m, d, d)
+    c1 = (torch.arange(m, **kw) + sample_offset).view(1, m, 1, 1).expand(
+        b, m, d, d)
     c2 = particle.view(b, 1, 1, 1).expand(b, m, d, d)
     c3 = torch.full((b, m, d, d), stream & _MASK32, **kw)
     word0 = philox4x32(c0, c1, c2, c3, k0, k1)[0]
@@ -369,15 +386,16 @@ def philox_uniform(shape, seed, stream: int, device,
 def gumbel_graphs_plain(scores: torch.Tensor, seed, stream: int,
                         alpha: float, tau: float, n_samples: int, hard: bool,
                         eps: torch.Tensor | None = None,
-                        particle_offset: int = 0) -> torch.Tensor:
+                        particle_offset: int = 0,
+                        sample_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of the sampler kernel (same noise, same maths;
-    ``seed`` an int or a fleet's ``[B_ds]`` keys; ``particle_offset`` as
-    :func:`philox_uniform`)."""
+    ``seed`` an int or a fleet's ``[B_ds]`` keys; ``particle_offset`` and
+    ``sample_offset`` as :func:`philox_uniform`)."""
     b, d, _ = scores.shape
-    check_offset(seed, particle_offset)
+    check_offset(seed, particle_offset, b, sample_offset, n_samples)
     if eps is None:
         u = philox_uniform((b, n_samples, d, d), seed, stream, scores.device,
-                           particle_offset)
+                           particle_offset, sample_offset)
         eps = torch.log(u) - torch.log1p(-u)
     logits = eps + alpha * scores[:, None]
     if hard:
@@ -421,7 +439,8 @@ def gumbel_plan(batch: int, n_samples: int, d: int, aligned: bool,
 def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
                   tau: float, n_samples: int, hard: bool,
                   eps: torch.Tensor | None = None,
-                  particle_offset: int = 0) -> torch.Tensor:
+                  particle_offset: int = 0,
+                  sample_offset: int = 0) -> torch.Tensor:
     """``[B, d, d]`` scores -> ``[B, n_samples, d, d]`` Gumbel graph samples.
 
     ``hard``: ``1[eps + alpha s > 0]`` (Bernoulli(sigmoid(alpha s)));
@@ -435,12 +454,18 @@ def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
     then draws what a single batch keyed by its key draws. With an int
     ``seed``, particle ``b`` draws at the counter ``particle_offset + b``:
     launches over the shards of a batch, each with its first particle's
-    index as the offset, draw what one launch over the batch draws.
+    index as the offset, draw what one launch over the batch draws. Sample
+    ``m`` draws at the counter ``sample_offset + m`` alike: a rank holding
+    samples ``s .. s + n_samples - 1`` (the ``("p", "mc")`` mesh) draws
+    that slice of one launch over all the samples (an injected ``eps`` is
+    then the slice's noise).
     """
-    check_offset(seed, particle_offset)
+    check_offset(seed, particle_offset, scores.shape[0], sample_offset,
+                 n_samples)
     if not use_kernel(scores):
         return gumbel_graphs_plain(scores, seed, stream, alpha, tau,
-                                   n_samples, hard, eps, particle_offset)
+                                   n_samples, hard, eps, particle_offset,
+                                   sample_offset)
     b, d, d2 = scores.shape
     if d != d2:
         raise ValueError(f"scores must be [B, d, d], got {tuple(scores.shape)}")
@@ -464,7 +489,8 @@ def gumbel_graphs(scores: torch.Tensor, seed, stream: int, alpha: float,
             out.data_ptr(), b, n_samples, d,
             0 if keys is not None else seed & 0xFFFFFFFFFFFFFFFF,
             None if keys is None else keys.data_ptr(), per,
-            particle_offset & _MASK32, stream & _MASK32,
+            particle_offset & _MASK32, sample_offset & _MASK32,
+            stream & _MASK32,
             float(alpha), float(tau), int(bool(hard)),
             plan.vec, plan.threads, plan.group, _stream(scores.device))
     _check_launch(lib, rc, "gumbel_graphs")

@@ -13,6 +13,12 @@ quantity:
   ``seed_offset``).
 * **Row blocks of the SE matrix.** #3 computes the ``[P_local, P]`` rows of
   the kernel matrix against the all-gathered opposite side.
+* **Global sample counters** on the ``("p", "mc")`` mesh. Where the ``"mc"``
+  axis divides a launch's ``M`` samples, ``"mc"`` rank ``j`` draws samples
+  ``[j M / n_mc, (j + 1) M / n_mc)`` at ``sample_offset = j M / n_mc``:
+  bitwise that slice of one launch. :func:`mc_gather` and :func:`mc_sum`
+  are the collectives over the ``"mc"`` group that turn the estimators'
+  sums over samples into sums over all ``M``.
 
 The BGe pairs #2 score each graph on its own, so each shard scores its own
 particles' graphs. The collectives here wait at most ``sharding.timeout``.
@@ -26,6 +32,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from dibs_tpu_torch.parallel import constrain_mc, mc_shard_size
 
 __all__ = [
     "particle_axis_name",
@@ -76,6 +84,36 @@ def gather_rows(t: torch.Tensor, sharding) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def mc_block(sharding, n_samples: int):
+    """``(sample_offset, n_local)``: this rank's block of ``n_samples``
+    samples on the ``"mc"`` axis, or ``(0, n_samples)`` where the axis is
+    size 1 or does not divide ``n_samples`` (every ``"mc"`` rank then
+    draws all of them, replicated)."""
+    n_mc = mc_shard_size(sharding)
+    if n_mc == 1 or n_samples % n_mc:
+        return 0, n_samples
+    n_local = n_samples // n_mc
+    return sharding.mc_rank * n_local, n_local
+
+
+def mc_gather(t: torch.Tensor, sharding, dim: int = 1) -> torch.Tensor:
+    """Every ``"mc"`` rank's ``t`` concatenated along ``dim`` (the sample
+    axis), in ``"mc"`` order (one all-gather over the ``"mc"`` group)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(sharding.mc_size)]
+    _wait(dist.all_gather(parts, t, group=sharding.mc_group, async_op=True),
+          sharding)
+    return torch.cat(parts, dim=dim)
+
+
+def mc_sum(t: torch.Tensor, sharding) -> torch.Tensor:
+    """The sum of every ``"mc"`` rank's ``t``: one all-gather over the
+    ``"mc"`` group, then the same sum of the same parts on every rank, so
+    every rank holds the same bits whatever the backend's reduction
+    order (an all-reduce need not give them)."""
+    return mc_gather(t[None], sharding, dim=0).sum(0)
+
+
 def all_reduce_sum(t: torch.Tensor, sharding) -> torch.Tensor:
     """The sum of every rank's ``t`` (one all-reduce)."""
     t = t.clone()
@@ -113,12 +151,25 @@ def sharded_gumbel_graphs(scores, seed, stream, alpha, tau, n_samples, *,
                           sharding, hard: bool = False, eps=None):
     """The sampler #1 on this rank's ``scores [P_local, d, d]``: its
     ``[P_local, n_samples, d, d]`` samples, bitwise those of its particles
-    in one launch over all of them."""
+    in one launch over all of them. On the ``("p", "mc")`` mesh, where the
+    ``"mc"`` axis divides ``n_samples``, it returns this rank's block
+    ``[P_local, n_samples / n_mc, d, d]``, drawn at its global sample
+    offset and bitwise that slice (an injected ``eps`` is the whole
+    ``[P_local, n_samples, d, d]`` and is sliced here); elsewhere every
+    ``"mc"`` rank draws all the samples, replicated, as the reference
+    does. The reference also asks the per-shard count to fill its
+    kernel's sample groups, whose seeds are per group; the port's
+    counters are per sample, so any split that divides ``n_samples``
+    serves."""
     from dibs_tpu_torch.ops.gpu_kernels import gumbel_graphs
 
-    return gumbel_graphs(scores, seed, stream, alpha, tau, n_samples, hard,
+    first, n_local = mc_block(sharding, n_samples)
+    if eps is not None:
+        eps = constrain_mc(eps, sharding).contiguous()
+    return gumbel_graphs(scores, seed, stream, alpha, tau, n_local, hard,
                          eps=eps, particle_offset=shard_offset(
-                             sharding, scores.shape[0]))
+                             sharding, scores.shape[0]),
+                         sample_offset=first)
 
 
 def se_row_block(x, y_all, h: float, scale: float):

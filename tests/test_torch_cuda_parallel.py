@@ -13,8 +13,10 @@ offset: the shards, concatenated, are bitwise one launch over the batch
 (the shard at offset 0 through the single-dataset build, the others
 through the shard build), and the last shard
 matches the plain version at its offset (#1 hard exact off ties, soft
-within 1e-5; #5-#8 within ``1e-4 max(1, max|ref|)``). The phase-14 checks
-of ``chip_smoke.py`` at the main paths' shapes are the same code.
+within 1e-5; #5-#8 within ``1e-4 max(1, max|ref|)``). #1 also takes
+``sample_offset`` (the ``("p", "mc")`` mesh): its sample blocks are
+bitwise one launch too. The phase-14 checks of ``chip_smoke.py`` at the
+main paths' shapes are the same code.
 """
 import os
 import sys
@@ -68,6 +70,43 @@ def test_sampler_shards_are_one_launch(cuda, hard, tau, d):
     if hard:
         u = gk.philox_uniform(tuple(ref.shape), 77, 3, cuda, off)
         logit = torch.log(u) - torch.log1p(-u) + 1.1 * scores[rows][:, None]
+        assert int(((diff > 0) & (logit.abs() >= 1e-5)).sum()) == 0
+    else:
+        assert float(diff.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("hard, tau", [(True, 1.0), (False, 1.0),
+                                        (False, 0.7)])
+@pytest.mark.parametrize("d", [5, 20, 33])
+def test_sampler_sample_blocks_are_one_launch(cuda, hard, tau, d):
+    """#1's sample-offset build (the ``("p", "mc")`` mesh): the samples'
+    blocks, each at its first sample's offset, alone and with a particle
+    offset, are bitwise one launch; the last block matches the plain
+    version at its offset."""
+    rng = np.random.default_rng(100 + d)
+    m = 12
+    scores = torch.from_numpy((2.0 * rng.normal(size=(P_SHARDS, d, d)))
+                              .astype(np.float32)).to(cuda)
+    args = (77, 3, 1.1, tau)
+    whole = gk.gumbel_graphs(scores, *args, m, hard)
+    for k in (2, 3, 4):
+        n = m // k
+        parts = [gk.gumbel_graphs(scores, *args, n, hard, sample_offset=j * n)
+                 for j in range(k)]
+        assert torch.equal(torch.cat(parts, dim=1), whole)
+        per = P_SHARDS // k
+        for r in range(k):
+            rows = slice(r * per, (r + 1) * per)
+            got = gk.gumbel_graphs(scores[rows], *args, n, hard,
+                                   particle_offset=r * per,
+                                   sample_offset=(k - 1) * n)
+            assert torch.equal(got, whole[rows, (k - 1) * n:])
+    ref = gk.gumbel_graphs_plain(scores, *args, 3, hard, sample_offset=9)
+    diff = (whole[:, 9:] - ref).abs()
+    if hard:
+        u = gk.philox_uniform(tuple(ref.shape), 77, 3, cuda,
+                              sample_offset=9)
+        logit = torch.log(u) - torch.log1p(-u) + 1.1 * scores[:, None]
         assert int(((diff > 0) & (logit.abs() >= 1e-5)).sum()) == 0
     else:
         assert float(diff.max()) <= 1e-5

@@ -17,8 +17,9 @@ holds the rank side; each world runs many checks in one spawn).
   whose particles the world does not divide (replicated), a one-rank world
   (bitwise the unsharded run);
 * ``shard_state`` / ``gather_state``, ``fleet_sample(mesh=)`` against the
-  meshless fleet, and the refusals (``n_mc > 1``, NCCL ranks on one card,
-  a fleet's datasets the mesh does not divide, a sharded fleet engine).
+  meshless fleet, and the refusals (a mesh without a world, NCCL ranks on
+  one card, a fleet's datasets the mesh does not divide, a sharded fleet
+  engine); the ``("p", "mc")`` mesh is ``tests/test_torch_parallel_mc.py``.
 """
 import datetime
 
@@ -280,10 +281,11 @@ def test_shard_state_keeps_the_block_and_replicates_the_rest(p, world):
 
 
 def test_mc_axis_and_uninitialized_worlds_raise():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        make_particle_mesh(n_mc=2)
-    with pytest.raises(RuntimeError, match="init_process_group"):
-        make_particle_mesh()
+    # the ("p", "mc") mesh runs in worlds (tests/test_torch_parallel_mc.py);
+    # without a world both meshes raise
+    for n_mc in (1, 2):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            make_particle_mesh(n_mc=n_mc)
 
 
 def test_ring_payload_dtype_knob():

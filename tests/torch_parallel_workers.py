@@ -276,3 +276,111 @@ def _tensors(tree):
     """The tensors of a state tree, depth first."""
     return [leaf for leaf in tree_leaves(tree)
             if isinstance(leaf, torch.Tensor)]
+
+
+# --- the ("p", "mc") mesh ----------------------------------------------------
+
+
+def _mc_sharding(n_mc):
+    return particle_sharding(make_particle_mesh(n_mc=n_mc))
+
+
+def _estimator_outputs(est, state, stream, noise):
+    """Every estimator of ``est`` on ``state`` (this rank's particles):
+    the Z likelihood gradient and baseline, the Theta likelihood gradient
+    and the fused pair where the engine has them, the latent prior."""
+    eps_z, eps_theta, eps_prior = noise
+    out = {}
+    with torch.no_grad():
+        out["z"] = est.eltwise_grad_z_likelihood(
+            state.z, state.theta, state.sf_baseline, state.t, state.seed,
+            stream, eps=eps_z)
+        if est.eltwise_grad_theta_likelihood is not None:
+            out["theta"] = est.eltwise_grad_theta_likelihood(
+                state.z, state.theta, state.t, state.seed, stream + 1,
+                eps=eps_theta)
+        if est.fused_grad_both is not None:
+            out["both"] = est.fused_grad_both(
+                state.z, state.theta, state.t, state.seed,
+                (stream, stream), eps=(eps_z, eps_theta))
+        out["prior"] = est.eltwise_grad_latent_prior(
+            state.z, state.t, state.seed, stream + 2, 0.4, eps=eps_prior)
+    return out
+
+
+def _rows_of(tree, rows):
+    return tree_map(lambda leaf: leaf[rows] if isinstance(leaf, torch.Tensor)
+                    and leaf.dim() >= 1 else leaf, tree)
+
+
+def mc_checks(rank, world, n_mc, est_cases, engine_cases, odd_case):
+    """The ``("p", "mc")`` mesh of ``world // n_mc`` x ``n_mc`` ranks:
+
+    * ``est_cases``: ``name -> (spec, state, stream, noise)``; this rank's
+      estimator outputs on its ``"p"`` block of the whole ``state`` (the
+      global noise, whose rows and samples the estimators take);
+    * ``engine_cases``: as :func:`engine_checks` (teacher-forced
+      transports gathered over ``"p"``, a free run's graphs and whole
+      state), plus the shapes of every sampler call of one step;
+    * ``odd_case``: ``(spec, free)``, a run whose ``M`` the ``"mc"`` axis
+      does not divide;
+    * the refusal of an ``n_mc`` that does not divide the world.
+    """
+    from dibs_tpu_torch.ops import soft_graphs
+
+    sharding = _mc_sharding(n_mc)
+    out = dict(p_rank=sharding.rank, p_size=sharding.world,
+               mc_rank=sharding.mc_rank, mc_size=sharding.mc_size,
+               mesh=tuple(sharding.mesh.mesh.shape),
+               names=tuple(sharding.mesh.mesh_dim_names))
+    for name, (spec, state, stream, noise) in est_cases.items():
+        dibs = _engine(spec, sharding)
+        n = state.z.shape[0] // sharding.world
+        rows = slice(sharding.rank * n, (sharding.rank + 1) * n)
+        local = shard_state(state, sharding)._replace(
+            sf_baseline=state.sf_baseline[rows])
+        out[("est", name)] = _estimator_outputs(
+            dibs.est, local, stream, _rows_of(noise, rows))
+    shapes = []
+    saved = soft_graphs.gumbel_graphs
+
+    def recording(scores, *args, **kwargs):
+        got = saved(scores, *args, **kwargs)
+        shapes.append(tuple(got.shape))
+        return got
+
+    for name, (spec, std, states, noises, free) in engine_cases.items():
+        dibs = _engine(spec, sharding)
+        phi_fn = dibs._make_phi(std)
+        phis = []
+        for i, (state, noise) in enumerate(zip(states, noises)):
+            soft_graphs.gumbel_graphs = recording if i == 0 else saved
+            try:
+                with torch.no_grad():
+                    phi = phi_fn(dibs._local_state(state), noise)
+            finally:
+                soft_graphs.gumbel_graphs = saved
+            phis.append(_gather_phi(spec, phi, state.z.shape[0], sharding))
+        run = dibs.sample(**free, return_state=True)
+        out[("engine", name)] = dict(phi=phis, g=run[0], state=run[-1],
+                                     shapes=list(shapes))
+        shapes.clear()
+    spec, free = odd_case
+    run = _engine(spec, sharding).sample(**free, return_state=True)
+    out["odd"] = dict(g=run[0], state=run[-1])
+    try:
+        make_particle_mesh(n_mc=3)
+    except ValueError as err:
+        out["refusal"] = str(err)
+    return out
+
+
+def _gather_phi(spec, phi, n_particles, sharding):
+    """A step's transports, gathered over ``"p"`` where the step ran on a
+    shard of the ``n_particles``."""
+    def whole(a):
+        return gather_rows(a, sharding) if a.shape[0] < n_particles else a
+
+    if spec[0] == "marginal":
+        return whole(phi[0])
+    return whole(phi[0]), tree_map(whole, phi[1])
