@@ -102,14 +102,19 @@ Phases, one line each; any failure exits non-zero:
    unbatched launches, the twin, the bound and a batched library call;
    #8's fleet build also at every gate edge of ``SHAPES_NL_EDGES`` with
    B = 1 and 3 and in each of its 16 instantiations (``FLEET_NL_CASES``);
+   the wide passes' fleet builds at d = 75 and 128 with B = 1 and 3
+   (``FLEET_WIDE_CASES``) and at config 5's shape with B = 2, timed there;
    (b) ``MarginalDiBS`` at the headline config (``score``, ``score_rb``)
    with B = 8 and 32 datasets and ``JointDiBS`` at configs 2 and 3 with
-   B = 8: launches a fleet step equal to one dataset's step (required),
-   dataset-steps/s over 100 steps after 10 beside B serial single runs in
-   turns, peak device memory, a 50-step profile, and at B = 8 the initial
-   state and #1's step-0 and step-5 samples bitwise single engines' seeded
-   ``fleet_seeds``, with 5 teacher-forced steps of each dataset's ``phi``
-   against them.
+   B = 8, config 2 also with median bandwidths and with joint ``score``
+   (baselines 0 and 0.5) and config 3's model with ``hidden_layers=(5,
+   5)`` (the generic route): launches a fleet step equal to one dataset's
+   step (required), dataset-steps/s over 50 steps after 5 beside B serial
+   single runs in turns, peak device memory, a 50-step profile, and at B =
+   8 the initial state and #1's step-0 and step-5 samples bitwise single
+   engines' seeded ``fleet_seeds``, with 5 teacher-forced steps of each
+   dataset's ``phi`` against them; config 5 with B = 2 alike (3
+   teacher-forced steps, 10 timed after 3, a 10-step profile).
 14. particle sharding (``dibs_tpu_torch.parallel``): (a) #1 per particle
    shard bitwise one launch, a one-rank NCCL world, two ``gloo`` ranks on
    the card running sharded ``MarginalDiBS`` ``score``; (b) #5-#8 per
@@ -189,7 +194,10 @@ RATES = {}
 # phase 13, the fleet at the headline marginal config and joint configs 2
 # and 3: datasets a fleet (joint: the first), warm-up and timed steps,
 # teacher-forced steps (at the first fleet size)
-FLEET_B, WARM13, STEPS13, TF13 = (8, 32), 10, 100, 5
+FLEET_B, WARM13, STEPS13, TF13 = (8, 32), 5, 50, 5
+# config 5's fleet: datasets, warm-up, timed and teacher-forced steps,
+# profiled steps
+FLEET_C5_B, WARM13_C5, STEPS13_C5, TF13_C5, PROF13_C5 = 2, 3, 10, 3, 10
 # the batched kernels' cases: datasets (1, not a power of two, the fleet
 # sizes), and #2 at d on both sides of 32 with every route's k edges
 FLEET_KERNEL_B = (1, 3, 8, 32)
@@ -2713,13 +2721,16 @@ def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
     return "; ".join(out)
 
 
-def fleet_problem(dev, nb, cell):
-    """``nb`` datasets of a phase-13 cell (generators seeded 0..nb-1), the
-    fleet's engine on the first and one engine a dataset: the headline
-    marginal (``make_linear_gaussian_equivalent_model``, ER d=20, N=100;
-    ``score`` or ``score_rb``), joint config 2 (``make_linear_gaussian_
-    model``, sf d=20, N=100) or config 3 (``make_nonlinear_gaussian_model``,
-    ``hidden_layers=(5,)``)."""
+def cell13(cell):
+    """``(factory, its kwargs, engine class, engine kwargs, sizes)`` of a
+    phase-13 cell: the headline marginal (``make_linear_gaussian_
+    equivalent_model``, ER d=20; ``score`` or ``score_rb``), joint config 2
+    (``make_linear_gaussian_model``, sf d=20; also with ``h_latent =
+    h_theta = "median"``, and joint ``score`` at baselines 0 and 0.5),
+    config 3 (``make_nonlinear_gaussian_model``, ``hidden_layers=(5,)``;
+    also ``(5, 5)``, the generic route) and config 5 (sf d=128, P=1000,
+    M=32, K=8). ``sizes``: d, N, particles, latent dim, M, K and the steps
+    (warm-up, timed, teacher-forced, profiled)."""
     from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
     from dibs_tpu_torch.target import (
         make_linear_gaussian_equivalent_model,
@@ -2727,26 +2738,47 @@ def fleet_problem(dev, nb, cell):
         make_nonlinear_gaussian_model,
     )
 
-    factory = {"config 2": make_linear_gaussian_model,
-               "config 3": make_nonlinear_gaussian_model}.get(
-                   cell, make_linear_gaussian_equivalent_model)
-    kw = {} if cell in ("config 2", "config 3") else dict(
-        graph_prior_str="er")
+    d20 = dict(d=D, n=N_OBS, p=P, k=K_LAT, m=M, k_acyc=K_ACYC, warm=WARM13,
+               steps=STEPS13, tf=TF13, prof=50)
+    if cell in ("score", "score_rb"):
+        return (make_linear_gaussian_equivalent_model,
+                dict(graph_prior_str="er"), MarginalDiBS,
+                dict(grad_estimator_z=cell), d20)
+    if cell.startswith("config 3"):
+        hidden = (5, 5) if cell == "config 3 (5, 5)" else (5,)
+        return (make_nonlinear_gaussian_model, dict(hidden_layers=hidden),
+                JointDiBS, {}, d20)
+    if cell == "config 5":
+        return (make_linear_gaussian_model, {}, JointDiBS, {}, dict(
+            d=D5, n=N5, p=P5, k=K5, m=M5, k_acyc=K_ACYC5, warm=WARM13_C5,
+            steps=STEPS13_C5, tf=TF13_C5, prof=PROF13_C5))
+    engine = {"config 2": {},
+              "config 2 median": dict(kernel_param=dict(
+                  h_latent="median", h_theta="median")),
+              "config 2 score": dict(grad_estimator_z="score"),
+              "config 2 score baseline": dict(grad_estimator_z="score",
+                                              score_function_baseline=0.5),
+              }[cell]
+    return make_linear_gaussian_model, {}, JointDiBS, engine, d20
+
+
+def fleet_problem(dev, nb, cell):
+    """``nb`` datasets of a phase-13 cell (:func:`cell13`; generators
+    seeded 0..nb-1), the fleet's engine on the first and one engine a
+    dataset."""
+    factory, data_kw, engine, engine_kw, sz = cell13(cell)
     xs, gm, lm = [], None, None
     for b in range(nb):
         data, gm, lm = factory(generator=torch.Generator().manual_seed(b),
-                               n_vars=D, n_observations=N_OBS, device=dev,
-                               **kw)
+                               n_vars=sz["d"], n_observations=sz["n"],
+                               device=dev, **data_kw)
         xs.append(data.x)
 
     def make(x):
-        if cell in ("config 2", "config 3"):
-            return JointDiBS(x=x, graph_model=gm, likelihood_model=lm,
-                             n_grad_mc_samples=M,
-                             n_acyclicity_mc_samples=K_ACYC, device=dev)
-        return MarginalDiBS(x=x, graph_model=gm, likelihood_model=lm,
-                            grad_estimator_z=cell, n_grad_mc_samples=M,
-                            n_acyclicity_mc_samples=K_ACYC, device=dev)
+        return engine(x=x, graph_model=gm, likelihood_model=lm,
+                      n_grad_mc_samples=sz["m"],
+                      n_acyclicity_mc_samples=sz["k_acyc"], device=dev,
+                      **engine_kw)
 
     xs = torch.stack(xs)
     return xs, make(xs[0]), [make(x) for x in xs]
@@ -2755,11 +2787,14 @@ def fleet_problem(dev, nb, cell):
 def phase_fleet(dev, card):
     """13: ``dibs_tpu_torch.fleet`` on the card. (a) the batched kernels
     #1-#4 (:func:`fleet_kernels`) and #5-#8 (:func:`fleet_fused_kernels`,
-    :func:`fleet_nonlinear_edges`);
+    :func:`fleet_nonlinear_edges`, :func:`fleet_wide`);
     (b) the headline marginal config (``bench.py``: ER d=20, N=100, P=30,
     k=20, M=128, K=32, BGe), ``score`` and ``score_rb``, with ``FLEET_B``
-    datasets, and joint configs 2 and 3 (``benchmarks/run_benchmarks.py:
-    99-134``) with the first fleet size, each a cell of
+    datasets; joint configs 2 and 3 (``benchmarks/run_benchmarks.py:
+    99-134``) with the first fleet size, and so config 2 with median
+    bandwidths and with joint ``score`` (baselines 0 and 0.5) and config
+    3's model with ``hidden_layers=(5, 5)`` (the generic route); config 5
+    (``:171-185``) with ``FLEET_C5_B`` datasets; each a cell of
     :func:`fleet_cell`. Returns the launches of the fleets' own steps."""
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
@@ -2770,6 +2805,8 @@ def phase_fleet(dev, card):
     for ln in fleet_fused_kernels(dev):
         log(f"[13a fleet fused kernels] {ln}")
     log(f"[13a fleet fused kernels] {fleet_nonlinear_edges(dev)}")
+    for ln in fleet_wide(dev):
+        log(f"[13a fleet wide passes] {ln}")
 
     total = dict.fromkeys(gk.LAUNCHES, 0)
 
@@ -2782,34 +2819,40 @@ def phase_fleet(dev, card):
         return out
 
     cells = [(c, nb) for c in ("score", "score_rb") for nb in FLEET_B]
-    cells += [("config 2", FLEET_B[0]), ("config 3", FLEET_B[0])]
+    cells += [(c, FLEET_B[0]) for c in (
+        "config 2", "config 3", "config 2 median", "config 2 score",
+        "config 2 score baseline", "config 3 (5, 5)")]
+    cells += [("config 5", FLEET_C5_B)]
     for cell, nb in cells:
         fleet_cell(dev, card, cell, nb, counted)
     return total
 
 
 def fleet_cell(dev, card, cell, nb, counted):
-    """One cell of 13(b): launches per fleet step equal to one dataset's
-    step; at the first fleet size the parity checks of
-    :func:`fleet_parity`; dataset-steps/s over ``STEPS13`` timed steps
-    after ``WARM13``, the fleet and ``nb`` serial single runs on the same
-    datasets in turns (fleet, serial, serial, fleet); the fleet's peak
-    device memory; ``torch.profiler`` over 50 fleet steps."""
+    """One cell of 13(b) (sizes from :func:`cell13`): launches per fleet
+    step equal to one dataset's step; at the first fleet size (config 5:
+    at ``FLEET_C5_B``) the parity checks of :func:`fleet_parity`;
+    dataset-steps/s over the cell's timed steps after its warm-up, the
+    fleet and ``nb`` serial single runs on the same datasets in turns
+    (fleet, serial, serial, fleet); the fleet's peak device memory;
+    ``torch.profiler`` over the cell's profiled fleet steps."""
     from dibs_tpu_torch.fleet import fleet_init_state, fleet_seeds
     from dibs_tpu_torch.fleet import fleet_step as make_fleet_step
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
     xs, dibs, singles = fleet_problem(dev, nb, cell)
-    std = dibs._resolve_latent_std(K_LAT)
+    sz = cell13(cell)[-1]
+    std = dibs._resolve_latent_std(sz["k"])
     seeds = fleet_seeds(nb, nb)
     fleet_step = make_fleet_step(dibs, xs)
     steps = [e._make_step(std) for e in singles]
 
     def fleet_init():
-        return fleet_init_state(dibs, seeds, P)
+        return fleet_init_state(dibs, seeds, sz["p"])
 
     def single_init(i):
-        return singles[i].init_state(seed=int(seeds[i]), n_particles=P)
+        return singles[i].init_state(seed=int(seeds[i]),
+                                     n_particles=sz["p"])
 
     state = fleet_init()
     counted(lambda: fleet_step(state))
@@ -2821,44 +2864,45 @@ def fleet_cell(dev, card, cell, nb, counted):
     check(one_fleet == one_single and sum(one_fleet.values()) > 0,
           f"fleet {cell} B={nb}: a fleet step launched {one_fleet}, a "
           f"single step {one_single}")
-    if nb == FLEET_B[0]:
+    if nb <= FLEET_B[0]:
         fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell,
-                     counted)
+                     counted, sz)
 
     def fleet_turn():
         st = fleet_init()
-        for _ in range(WARM13):
+        for _ in range(sz["warm"]):
             st = fleet_step(st)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(STEPS13):
+        for _ in range(sz["steps"]):
             st = fleet_step(st)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         check(bool(torch.isfinite(st.z).all()),
               f"fleet {cell} B={nb}: z not finite")
-        return nb * STEPS13 / secs
+        return nb * sz["steps"] / secs
 
     def serial_turn():
         secs = 0.0
         for i in range(nb):
             st = single_init(i)
-            for _ in range(WARM13):
+            for _ in range(sz["warm"]):
                 st = steps[i](st)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(STEPS13):
+            for _ in range(sz["steps"]):
                 st = steps[i](st)
             torch.cuda.synchronize()
             secs += time.perf_counter() - t0
-        return nb * STEPS13 / secs
+        return nb * sz["steps"] / secs
 
     torch.cuda.reset_peak_memory_stats()
     f1 = counted(fleet_turn)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     s1, s2 = serial_turn(), serial_turn()
     f2 = counted(fleet_turn)
-    prof = counted(lambda: profile_steps(fleet_step, fleet_init()))
+    prof = counted(lambda: profile_steps(fleet_step, fleet_init(),
+                                         n_steps=sz["prof"]))
     top = ", ".join(f"{k} {v:.4f} ms" for k, v in prof["top"])
     launched = {k: v for k, v in one_fleet.items() if v}
     log(f"[13b fleet {cell} B={nb}] on '{card}': dataset-steps/s fleet "
@@ -2866,19 +2910,20 @@ def fleet_cell(dev, card, cell, nb, counted):
         f"runs {(s1 + s2) / 2:.2f} (turns {s1:.2f}, {s2:.2f}), ratio "
         f"{(f1 + f2) / (s1 + s2):.3f}; launches a step {launched} (equal to "
         f"one dataset's step); peak device memory {peak_gb:.4f} GB; "
-        f"profiled 50 steps: wall {prof['wall_ms']:.3f} ms/step, device "
-        f"{prof['device_ms']:.3f} ms/step, busy {prof['busy']:.3f}, "
+        f"profiled {sz['prof']} steps: wall {prof['wall_ms']:.3f} ms/step, "
+        f"device {prof['device_ms']:.3f} ms/step, busy {prof['busy']:.3f}, "
         f"launches/step {prof['launches']:.1f}; top: {top}")
 
 
-def fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell, counted):
+def fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell, counted,
+                 sz):
     """13(b) at the first fleet size: the fleet's initial particles (and
     parameters) bitwise single engines' from ``seeds``; the samples #1
-    draws at step 0 and step ``TF13`` (marginal: the hard graphs, stream
-    2t; joint: the acyclicity soft graphs, stream 3t + 2) bitwise theirs;
-    ``TF13`` teacher-forced steps of each dataset's ``phi`` (Philox noise,
-    the fleet's state; joint: ``phi_z`` and every ``phi_theta`` leaf)
-    against its single engine at ``1e-4 max|phi|``."""
+    draws at step 0 and step ``sz["tf"]`` (marginal: the hard graphs,
+    stream 2t; joint: the acyclicity soft graphs, stream 3t + 2) bitwise
+    theirs; ``sz["tf"]`` teacher-forced steps of each dataset's ``phi``
+    (Philox noise, the fleet's state; joint: ``phi_z`` and every
+    ``phi_theta`` leaf) against its single engine at ``1e-4 max|phi|``."""
     from dibs_tpu_torch.fleet import fleet_init_state
     from dibs_tpu_torch.inference import JointDiBS
     from dibs_tpu_torch.ops.edges import edge_scores
@@ -2891,9 +2936,10 @@ def fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell, counted):
     nb = len(singles)
     joint = isinstance(dibs, JointDiBS)
     keys = seeds.to(dev)
-    state = fleet_init_state(dibs, seeds, P)
+    p, tf = sz["p"], sz["tf"]
+    state = fleet_init_state(dibs, seeds, p)
     for i, single in enumerate(singles):
-        one = single.init_state(seed=int(seeds[i]), n_particles=P)
+        one = single.init_state(seed=int(seeds[i]), n_particles=p)
         check(torch.equal(one.z, state.z[i]) and all(
             torch.equal(a, b[i]) for a, b in zip(
                 tree_leaves(one.theta if joint else []),
@@ -2913,23 +2959,24 @@ def fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell, counted):
     def draw(z, key, t):
         if joint:
             return sample_soft_graphs(edge_scores(z), key, 3 * t + 2,
-                                      dibs.alpha(t), dibs.cfg.tau, K_ACYC)
+                                      dibs.alpha(t), dibs.cfg.tau,
+                                      sz["k_acyc"])
         return sample_hard_graphs(edge_scores(z), key, 2 * t, dibs.alpha(t),
-                                  M)
+                                  sz["m"])
 
-    for t in range(TF13 + 1):
-        if t in (0, TF13):
-            z = state.z.reshape(nb * P, *state.z.shape[2:])
+    for t in range(tf + 1):
+        if t in (0, tf):
+            z = state.z.reshape(nb * p, *state.z.shape[2:])
             with torch.no_grad():
                 drawn = draw(z, keys, state.t)
                 for i in range(nb):
                     check(torch.equal(draw(state.z[i], int(seeds[i]),
                                            state.t),
-                                      drawn[i * P:(i + 1) * P]),
+                                      drawn[i * p:(i + 1) * p]),
                           f"fleet {cell} t={state.t}: dataset {i}'s samples "
                           "differ from its single engine's")
             graphs += drawn.shape[0] * drawn.shape[1]
-        if t == TF13:
+        if t == tf:
             break
         with torch.no_grad():
             got = counted(lambda: phi_fleet(state))
@@ -2946,16 +2993,24 @@ def fleet_parity(dev, dibs, singles, seeds, fleet_step, std, cell, counted):
                                                    tree_leaves(want[1]))]
                         if joint else []))
             for a, b in pairs:
-                err = float((a - b).abs().max())
-                tol = 1e-4 * float(b.abs().max())
+                # joint score's signed baseline may overflow (its formula):
+                # the fleet must overflow where the single engine does
+                fin = torch.isfinite(b)
+                check(torch.equal(torch.isfinite(a), fin),
+                      f"fleet {cell} t={state.t} dataset {i}: phi finite "
+                      "elsewhere than the single engine's")
+                if not bool(fin.any()):
+                    continue
+                err = float((a[fin] - b[fin]).abs().max())
+                tol = 1e-4 * float(b[fin].abs().max())
                 worst = max(worst, err / max(tol, 1e-30))
                 check(err <= tol, f"fleet {cell} t={state.t} dataset {i}: "
                                   f"phi err {err} > {tol}")
         state = counted(lambda: fleet_step(state))
     what = ("acyclicity soft samples" if joint else "hard graphs")
     log(f"[13b fleet {cell} B={nb}] initial state bitwise the single "
-        f"engines'; Philox {what} at t=0 and t={TF13} bitwise ({graphs} "
-        f"graphs); teacher-forced phi t=0..{TF13 - 1} against single engines "
+        f"engines'; Philox {what} at t=0 and t={tf} bitwise ({graphs} "
+        f"graphs); teacher-forced phi t=0..{tf - 1} against single engines "
         f"seeded fleet_seeds: worst {worst:.3f} of the 1e-4 max|phi| bar")
 
 
@@ -3100,6 +3155,124 @@ def check_fleet_nonlinear(dev, rng, nb, p, d, n, h1, blocks, m, activation):
                             "unbatched launch")
             worst = max(worst, e / tol)
     return worst
+
+
+# the wide tier's fleet builds (13a; tests/test_torch_cuda_fleet.py):
+# (datasets, particles a dataset, d, N, interventional blocks, M): d = 75 at
+# N = 600 (the kernel table's smallest wide shape, tiled rows) and d = 128
+# at N = 100 (rows resident), B = 1 and 3
+FLEET_WIDE_CASES = ([(nb, 20, 75, 600, 5, 32) for nb in (1, 3)]
+                    + [(nb, 4, 128, 100, 0, 8) for nb in (1, 3)])
+# 13a's config 5 fleet of the wide passes: B, and P, d, N, M a dataset
+FLEET_WIDE_C5 = (2, P5, D5, N5, 0, M5)
+
+
+def fleet_wide_problem(dev, rng, nb, p, d, n, blocks, m, streams):
+    """``nb`` datasets of :func:`fused_problem` (each its own data and
+    observation weights) with their keys, and pass 2's weights: the
+    softmax of the plain pass 1's log-likelihoods. Returns ``(args, x, w,
+    weights, kw, seeds)``, ``args`` the particles' ``(scores, thetas)``."""
+    from dibs_tpu_torch.fleet import fleet_seeds
+    from dibs_tpu_torch.inference import fused_linear as fl
+    from dibs_tpu_torch.models import LinearGaussian
+
+    probs = [fused_problem(rng, dev, p, d, n, blocks) for _ in range(nb)]
+    args = tuple(torch.cat([pr[i] for pr in probs]) for i in range(2))
+    x, w = (torch.stack([pr[i] for pr in probs]) for i in (2, 3))
+    keys = fleet_seeds(d + nb, nb).to(dev)
+    kw = dict(seed=keys, streams=streams, alpha=1.7, tau=1.0, n_samples=m,
+              model=LinearGaussian(n_vars=d))
+    lls = fl.fused_linear_pass1_plain(*args, x, w, **kw)
+    weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
+    return args, x, w, weights, kw, keys.tolist()
+
+
+def check_fleet_wide(dev, rng, nb, p, d, n, blocks, m, streams=(4, 5)):
+    """Wide passes 1 and 2's fleet builds (``kFleet``, ``csrc/
+    fused_linear.cu``) on ``nb`` datasets of ``p`` particles
+    (:func:`fleet_wide_problem`, Philox noise from each dataset's key):
+    each pass against its plain version with the dataset axis and against
+    its unbatched launch on each dataset, within 1e-4 max(1, max|ref|), and
+    two calls bitwise equal. Returns the worst error as a share of the
+    bar."""
+    from dibs_tpu_torch.inference import fused_linear as fl
+
+    args, x, w, weights, kw, seeds = fleet_wide_problem(
+        dev, rng, nb, p, d, n, blocks, m, streams)
+    label = f"wide fleet B={nb} P={p} d={d} N={n} M={m}"
+    worst = 0.0
+    for name, kern, plain, extra in (
+            ("pass 1", fl.fused_linear_pass1, fl.fused_linear_pass1_plain,
+             ()),
+            ("pass 2", fl.fused_linear_pass2, fl.fused_linear_pass2_plain,
+             (weights,))):
+        got = kern(*args, x, w, *extra, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(
+            got, kern(*args, x, w, *extra, **kw))),
+            f"{label} {name}: two calls differ")
+        refs = [(plain(*args, x, w, *extra, **kw), "its plain version",
+                 slice(None))]
+        for i, seed in enumerate(seeds):
+            sl = slice(i * p, (i + 1) * p)
+            refs.append((kern(*(t[sl] for t in args), x[i], w[i],
+                              *(tuple(t[sl] for t in e) for e in extra),
+                              **dict(kw, seed=seed)),
+                         f"dataset {i}'s unbatched launch", sl))
+        for ref, what, sl in refs:
+            for a, b in zip(got, ref):
+                tol = 1e-4 * max(1.0, float(b.abs().max()))
+                e = float((a[sl] - b).abs().max())
+                check(e <= tol, f"{label} {name}: {e} > {tol} from {what}")
+                worst = max(worst, e / tol)
+    return worst
+
+
+def fleet_wide(dev):
+    """13(a), the wide passes' fleet builds at ``FLEET_WIDE_CASES`` and at
+    config 5's shape with ``FLEET_WIDE_C5``'s B datasets (the engine's one
+    shared noise stream; :func:`check_fleet_wide`), and at config 5 both
+    passes' batched launch timed beside B unbatched launches, the plain
+    version and the bound. Returns the printed lines."""
+    from dibs_tpu_torch.inference import fused_linear as fl
+
+    rng = np.random.default_rng(39)
+    worst = max(check_fleet_wide(dev, rng, *case)
+                for case in FLEET_WIDE_CASES)
+    worst5 = check_fleet_wide(dev, rng, *FLEET_WIDE_C5, streams=(4, 4))
+    lines = [f"wide passes 1 and 2, fleet builds, (B,P,d,N,blocks,M) "
+             f"{FLEET_WIDE_CASES} and config 5's {FLEET_WIDE_C5}: within "
+             f"1e-4 max(1, max|ref|) of the plain versions and of the "
+             f"unbatched launches on each dataset, worst {worst:.3f} "
+             f"({worst5:.3f} at config 5) of the bar; two calls bitwise "
+             f"equal"]
+    nb, p, d, n, blocks, m = FLEET_WIDE_C5
+    args, x, w, weights, kw, seeds = fleet_wide_problem(
+        dev, rng, nb, p, d, n, blocks, m, (4, 4))
+    kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
+    for name, kern, plain, extra, flops in (
+            ("fused_linear_wide_pass1", fl.fused_linear_pass1,
+             fl.fused_linear_pass1_plain, (),
+             fused_linear_flops("pass1", nb * p, m, n, d)),
+            ("fused_linear_wide_pass2", fl.fused_linear_pass2,
+             fl.fused_linear_pass2_plain, (weights,),
+             2 * kept * (4 * n * d * d + 2 * n * d) + 2 * nb * p * n * d * d)):
+
+        def serial(kern=kern, extra=extra):
+            return [kern(*(t[i * p:(i + 1) * p] for t in args), x[i], w[i],
+                         *(tuple(t[i * p:(i + 1) * p] for t in e)
+                           for e in extra), **dict(kw, seed=s))
+                    for i, s in enumerate(seeds)]
+
+        out = kern(*args, x, w, *extra, **kw)
+        n_bytes = 4 * (sum(t.numel() for t in args) + 2 * x.numel()
+                       + sum(wt.numel() for e in extra for wt in e)
+                       + sum(o.numel() for o in out))
+        lines.append(fleet_times(
+            nb, f"{name} (config 5)",
+            lambda kern=kern, extra=extra: kern(*args, x, w, *extra, **kw),
+            serial, lambda plain=plain, extra=extra: plain(
+                *args, x, w, *extra, **kw), flops, n_bytes))
+    return lines
 
 
 def fleet_nonlinear_edges(dev):

@@ -667,6 +667,12 @@ __global__ void __launch_bounds__(kThreads)
 //     column tile into d scores[:, :, tile] and d Theta[:, :, tile] with
 //     those weights.
 // No float atomics: every output element is written by one block.
+// Both passes take the row tier's two compile-time variants, exclusive:
+// kShard (a shard's counters p0 + p, the DIBS_FL_SHARD build) and kFleet (a
+// fleet's B_ds datasets in one launch: block p reads dataset p / per's x
+// and w and draws with its key at the counter p % per; launched only where
+// the launcher gets keys), so the single-dataset kernels compile as
+// without either.
 // ---------------------------------------------------------------------------
 
 constexpr int kCols = 8;  // columns per block
@@ -675,8 +681,8 @@ enum WideMode : int { kWide1 = 3, kWide2 = 4 };
 struct WideArgs {
   const float* scores;    // [P, d, d]
   const float* theta;     // [P, d, d]
-  const float* x;         // [N, d]
-  const float* w;         // [N, d]
+  const float* x;         // [B_ds, N, d] (one dataset: [N, d])
+  const float* w;         // [B_ds, N, d]
   const float* eps_soft;  // [P, M, d, d] injected noise or nullptr
   const float* eps_hard;  // [P, M, d, d] injected noise or nullptr
   const float* wts_soft;  // [P, M] softmax weights (pass 2)
@@ -691,6 +697,9 @@ struct WideArgs {
   float alpha, tau, mean_edge, sig_edge;
   double inv_var;
   uint32_t p0;  // particle counter of particle 0 (kShard: a shard's first)
+  // last, so that the single-dataset kernels' parameters keep their places
+  const int64_t* keys;  // [B_ds] a fleet's keys (kFleet), or nullptr
+  int per;              // particles a dataset (P for one dataset)
 };
 
 // The soft and hard sample of element (i, j) (global index eg = i d + j) of
@@ -852,9 +861,10 @@ int wide1_group(int d, int tile_rows) {
   return 1;
 }
 
-template <int kG, bool kShard>
+template <int kG, bool kShard, bool kFleet>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_linear_wide_pass1_kernel(const WideArgs a) {
+  static_assert(!(kShard && kFleet), "a fleet does not shard its particles");
   constexpr int kSlots = 2 * kG;                 // (sample, branch) pairs
   constexpr int kLaneCombos = kG >= 4 ? 16 : 4 * kG;  // combos of a warp
   constexpr int kLaneRows = 32 / kLaneCombos;    // row quads of a warp
@@ -877,6 +887,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp = tid / 32, lane = tid % 32;
   const int j0 = ct * kCols, cw = min(kCols, d - j0);
   const int n_obs = a.n_obs, n_smp = a.n_samples;
+  // a fleet (kFleet): block p of dataset ds = p / per reads that dataset's
+  // x and w and draws with its key at the particle counter p - ds per. The
+  // helpers read these from `ar`: for a fleet a copy of the arguments with
+  // the dataset's pointers and key, for one dataset the arguments
+  // themselves, so that those kernels compile as before the fleet builds.
+  WideArgs af = a;
+  int pc = p;
+  if constexpr (kFleet) {
+    const int ds = p / a.per;
+    const int64_t data0 = static_cast<int64_t>(ds) * n_obs * d;
+    const uint64_t key = static_cast<uint64_t>(a.keys[ds]);
+    af.x += data0;
+    af.w += data0;
+    af.k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
+    af.k1 = static_cast<uint32_t>(key >> 32);
+    pc = p - ds * a.per;
+  }
+  const WideArgs& ar = kFleet ? af : a;
   const int64_t pdd = static_cast<int64_t>(p) * d * d;
   const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
   const int n_tiles = (n_obs + tn_max - 1) / tn_max;
@@ -904,7 +932,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
-    wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, false);
+    wide_load_tile(ar, rr, xt, wt, rt, ldn, j0, cw, t0, tn, false);
     __syncthreads();
     for (int idx = tid; idx < tn * kCols; idx += kThreads) {
       const int n = idx / kCols, jj = idx - n * kCols;
@@ -938,8 +966,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int i = e / kCols, jj = e - i * kCols, j = j0 + jj;
         float g_soft = 0.0f, g_hard = 0.0f;
         if (jj < cw && i != j) {
-          wide_sample_pair<kShard>(a, nbase,
-                                   static_cast<uint32_t>(i * d + j), m, p,
+          wide_sample_pair<kShard>(ar, nbase,
+                                   static_cast<uint32_t>(i * d + j), m, pc,
                                    as_[e], &g_soft, &g_hard);
         }
         const float ds = g_soft - sig[e], dh = g_hard - sig[e];
@@ -968,7 +996,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int t = 0; t < n_tiles; ++t) {
       const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
       if (n_tiles > 1) {
-        wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, true);
+        wide_load_tile(ar, rr, xt, wt, rt, ldn, j0, cw, t0, tn, true);
         __syncthreads();
       }
       const int n_rq = (tn + 3) / 4;
@@ -1150,9 +1178,10 @@ __device__ __forceinline__ void wide_tile_product(const float* xt, int ldn,
   }
 }
 
-template <bool kShard>
+template <bool kShard, bool kFleet>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_linear_wide_kernel(const WideArgs a) {
+  static_assert(!(kShard && kFleet), "a fleet does not shard its particles");
   extern __shared__ __align__(16) float smem_w[];
   const int d = a.d, slab = d * kCols, tn_max = a.tile_rows;
   const int ldn = wide2_ldn(tn_max);
@@ -1174,6 +1203,24 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int lane = tid % 32;
   const int j0 = ct * kCols, cw = min(kCols, d - j0);
   const int n_obs = a.n_obs, n_smp = a.n_samples;
+  // a fleet (kFleet): block p of dataset ds = p / per reads that dataset's
+  // x and w and draws with its key at the particle counter p - ds per. The
+  // helpers read these from `ar`: for a fleet a copy of the arguments with
+  // the dataset's pointers and key, for one dataset the arguments
+  // themselves, so that those kernels compile as before the fleet builds.
+  WideArgs af = a;
+  int pc = p;
+  if constexpr (kFleet) {
+    const int ds = p / a.per;
+    const int64_t data0 = static_cast<int64_t>(ds) * n_obs * d;
+    const uint64_t key = static_cast<uint64_t>(a.keys[ds]);
+    af.x += data0;
+    af.w += data0;
+    af.k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
+    af.k1 = static_cast<uint32_t>(key >> 32);
+    pc = p - ds * a.per;
+  }
+  const WideArgs& ar = kFleet ? af : a;
   const int64_t pdd = static_cast<int64_t>(p) * d * d;
   const float log_norm_e = logf(a.sig_edge) + 0.918938533204672742f;
   const float inv_var_f = static_cast<float>(a.inv_var);
@@ -1223,7 +1270,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
-    wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, false);
+    wide_load_tile(ar, rr, xt, wt, rt, ldn, j0, cw, t0, tn, false);
     __syncthreads();
     float* rr_t = n_tiles == 1 ? rt : rr + static_cast<int64_t>(t0) * kCols;
     wide_tile_product<1>(xt, ldn, aa, d, tn, [&](int n, int cq, float4 v) {
@@ -1261,8 +1308,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         float g_soft = 0.0f, g_hard = 0.0f, ref = 0.0f;
         if (jj < cw && i != j) {
           const float s = as_[e];
-          wide_sample_pair<kShard>(a, nbase,
-                                   static_cast<uint32_t>(i * d + j), m, p,
+          wide_sample_pair<kShard>(ar, nbase,
+                                   static_cast<uint32_t>(i * d + j), m, pc,
                                    s, &g_soft, &g_hard);
           ref = 1.0f / (1.0f + expf(-s));  // E[G]
         }
@@ -1281,7 +1328,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int t0 = t * tn_max, tn = min(tn_max, n_obs - t0);
         const bool last = t + 1 == n_tiles;
         if (n_tiles > 1) {
-          wide_load_tile(a, rr, xt, wt, rt, ldn, j0, cw, t0, tn, true);
+          wide_load_tile(ar, rr, xt, wt, rt, ldn, j0, cw, t0, tn, true);
           __syncthreads();
         }
         wide_tile_product<2>(
@@ -1372,8 +1419,14 @@ size_t wide_smem_bytes(int d, int tile_rows) {
 template <int kG>
 int launch_wide1(const WideArgs& a, int n_particles, size_t smem,
                  cudaStream_t stream) {
-  const auto kernel =
-      fused_linear_wide_pass1_kernel<kG, DIBS_FL_SHARD != 0>;
+  // one dataset, a fleet (keys), or, in the DIBS_FL_SHARD build, a shard
+  constexpr bool kShard = DIBS_FL_SHARD != 0;
+  auto kernel = fused_linear_wide_pass1_kernel<kG, kShard, false>;
+  if constexpr (!kShard) {
+    if (a.keys != nullptr) {
+      kernel = fused_linear_wide_pass1_kernel<kG, false, true>;
+    }
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1404,7 +1457,11 @@ int launch_wide(const WideArgs& a, int mode, int n_particles,
   if (mode != kWide2) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wide2_smem_bytes(a.d, a.tile_rows);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = fused_linear_wide_kernel<DIBS_FL_SHARD != 0>;
+  constexpr bool kShard = DIBS_FL_SHARD != 0;
+  auto kernel = fused_linear_wide_kernel<kShard, false>;
+  if constexpr (!kShard) {
+    if (a.keys != nullptr) kernel = fused_linear_wide_kernel<false, true>;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1589,7 +1646,11 @@ DIBS_API size_t dibs_fused_linear_wide_pass2_smem_bytes(int d, int tile_rows) {
 // (dscores, dtheta). `resid_ref` is [P, n_ct, N, 8] floats of scratch when
 // the rows are tiled (tile_rows < N), else nullptr. `p0`: the particle
 // counter of particle 0, a shard's first global particle in
-// dibs_fused_linear_wide_shard (the DIBS_FL_SHARD build), else 0.
+// dibs_fused_linear_wide_shard (the DIBS_FL_SHARD build), else 0. A fleet
+// passes B_ds = P / `per` datasets' x and w [B_ds, N, d] and their keys
+// [B_ds] (device int64; dibs_fused_linear_wide only): particle p reads
+// dataset p / per and draws with its key at the particle counter p % per
+// (the kFleet builds); one dataset: keys null, per = P (the key is `seed`).
 #if DIBS_FL_SHARD
 DIBS_API int dibs_fused_linear_wide_shard(
 #else
@@ -1602,11 +1663,12 @@ DIBS_API int dibs_fused_linear_wide(
     int n_particles, int n_samples, int d, int n_obs, int tile_rows,
     uint64_t seed, uint32_t p0, uint32_t stream_soft, uint32_t stream_hard,
     float alpha, float tau, double inv_var, float mean_edge, float sig_edge,
-    cudaStream_t stream) {
+    cudaStream_t stream, const int64_t* keys, int per) {
   if (d < 1 || n_obs < 1 || n_samples < 1 || tile_rows < 1 ||
       tile_rows > n_obs || tile_rows > kThreads / 2 ||
-      (tile_rows < n_obs && resid_ref == nullptr) ||
-      (DIBS_FL_SHARD == 0 && p0 != 0)) {
+      (tile_rows < n_obs && resid_ref == nullptr) || per < 1 ||
+      n_particles % per != 0 ||
+      (DIBS_FL_SHARD != 0 ? keys != nullptr : p0 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
@@ -1639,5 +1701,7 @@ DIBS_API int dibs_fused_linear_wide(
   a.mean_edge = mean_edge;
   a.sig_edge = sig_edge;
   a.inv_var = inv_var;
+  a.keys = keys;
+  a.per = per;
   return launch_wide(a, mode, n_particles, stream);
 }

@@ -4,24 +4,25 @@
 ``fleet_sample`` runs one engine's SVGD on ``B`` independent datasets of the
 same shape as one batched step: every tensor of the state leads with the
 dataset axis, and every kernel of the step takes that axis in one launch
-(the sampler #1 and the fused joint kernels #5-#8 read each dataset's key,
-the BGe pairs #2 each dataset's posterior matrices, #5-#8 each dataset's
-data, the SE matrix #3 and the transport #4 one grid slice a dataset). A
-fleet step therefore launches each kernel as many times as one dataset's
-step, whatever ``B`` is: on a card where the d <= 30 steps are bound by
-the host's launches, the host cost of ``B`` datasets is about that of
-one.
+(the sampler #1 and the fused joint kernels #5-#8, both tiers, read each
+dataset's key, the BGe pairs #2 each dataset's posterior matrices, #5-#8
+each dataset's data, the SE matrix #3 and the transport #4 one grid slice
+a dataset; the generic estimators score each particle's samples on its
+dataset's data in one call). A fleet step therefore launches each kernel
+as many times as one dataset's step, whatever ``B`` is: on a card where
+the d <= 30 steps are bound by the host's launches, the host cost of
+``B`` datasets is about that of one.
 
 Datasets are independent: dataset ``b`` of a fleet equals a single engine
 run on ``xs[b]`` with ``sample(seed=fleet_seeds(seed, B)[b])`` (the same
 initial particles, the same noise streams, the same key).
 
-Serves ``MarginalDiBS`` (BGe, ``score`` and ``score_rb``) and ``JointDiBS``
-on its fused reparameterization route (``LinearGaussian`` up to d = 70, one
-or two passes; the one-hidden-layer ``DenseNonlinearGaussian`` of kernel
-#8). Raises ``ValueError`` for joint ``score``, the generic
-reparameterization route and the wide fused tier past d = 70 (``ROADMAP.md``
-queue 1). Typical use::
+Serves every engine a single run serves: ``MarginalDiBS`` (``score``,
+``score_rb``) and ``JointDiBS`` (``reparam`` through the fused kernels of
+both tiers or the generic estimators, and ``score``), with every SVGD
+kernel (float or ``"median"`` bandwidths, or only ``eval``). Like the
+reference, it refuses an engine with a particle ``sharding``. Typical
+use::
 
     dibs = JointDiBS(x=xs[0], graph_model=gm, likelihood_model=lm)
     gs, thetas = fleet_sample(dibs, xs=xs, seed=0, n_particles=30,
@@ -102,7 +103,7 @@ def fleet_step(dibs, xs, interv_masks=None):
     """``step(state, noise=None) -> state``: one batched SVGD step of
     ``dibs`` on the datasets ``xs [B, N, d]`` (``interv_masks`` alike, all
     observational by default), for states from :func:`fleet_init_state`.
-    Raises ``ValueError`` for what the fleet does not serve."""
+    Raises ``ValueError`` for data of another shape than ``dibs.x``'s."""
     xs, interv_masks = _check(dibs, xs, interv_masks)
     std = dibs._resolve_latent_std(dibs.n_vars)
     if isinstance(dibs, JointDiBS):

@@ -29,12 +29,13 @@ the particle batch is the ``B_ds * P`` particles in dataset order, and
 ``seed`` is the ``[B_ds]`` int64 keys, so each dataset's samples are those
 of a single run keyed by its key. Only the data-dependent parts see the
 dataset axis: the marginal hook (each dataset's ``P * M`` hard samples
-scored on its own data, every dataset in one call) and the fused joint
-kernels (each particle's dataset and key, in one launch); the REINFORCE
-ratio, its baseline, the latent prior and the graph prior work per
-particle as they are. A joint fleet serves the fused reparameterization
-route only (up to d = 70 for the linear model): joint ``score``, the
-generic reparameterization route and the wide tier raise ``ValueError``.
+scored on its own data, every dataset in one call), ``log_joint_prob``
+(the graphs ``[B_ds, P, M, d, d]`` with the parameter leaves ``[B_ds, P,
+1, ...]`` and ``x`` / ``interv_mask`` ``[B_ds, 1, 1, N, d]``, so one call
+scores every particle's samples on its dataset's data) and the fused joint
+kernels (each particle's dataset and key, in one launch, both tiers); the
+REINFORCE ratio, its baseline, the softmax weights, the latent prior and
+the graph prior work per particle as they are.
 
 Under a particle sharding (:mod:`dibs_tpu_torch.parallel`) the particle
 batch is this rank's block of ``world`` equal blocks: every sampler and
@@ -74,7 +75,6 @@ import torch
 from dibs_tpu_torch.inference.fused_linear import (
     fused_linear_available,
     fused_linear_estimators,
-    fused_linear_tile_rows,
 )
 from dibs_tpu_torch.inference.fused_nonlinear import (
     fused_nonlinear_decline_reason,
@@ -184,28 +184,6 @@ def _warn_on_data_scale(x, obs_noise):
             "sig_param^2) weight priors make structure recovery unreliable "
             "regardless of estimator; standardizing x is the usual "
             "practice.", stacklevel=4)
-
-
-def _check_joint_fleet(cfg, fused, fused_linear_model, x):
-    """Raises ``ValueError`` naming what a joint fleet does not serve yet
-    (``ROADMAP.md`` queue 1): it runs the fused kernels #5-#8 with the
-    dataset axis, and nothing else of the joint estimators."""
-    if cfg.grad_estimator_z != "reparam":
-        raise ValueError(
-            f"a joint fleet serves grad_estimator_z='reparam' through the "
-            f"fused kernels; joint {cfg.grad_estimator_z!r} is not ported to "
-            "the fleet yet (ROADMAP.md queue 1)")
-    if not fused:
-        raise ValueError(
-            "a joint fleet serves the fused reparameterization kernels only; "
-            "this model takes the generic reparameterization route, which "
-            "is not ported to the fleet yet (ROADMAP.md queue 1)")
-    if fused_linear_model is not None and \
-            fused_linear_tile_rows(x.shape[-1], x.shape[-2]) is None:
-        raise ValueError(
-            f"a joint fleet serves the fused linear row tier (d <= 70); the "
-            f"wide tier at d={x.shape[-1]} is not ported to the fleet yet "
-            "(ROADMAP.md queue 1)")
 
 
 def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
@@ -408,8 +386,18 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     def _log_joint(gs, thetas):
         # [P, M, d, d] graphs with the particle's parameters -> [P, M]
-        return log_joint_prob(gs, tree_map(lambda leaf: leaf[:, None], thetas),
-                              x, interv_mask, None)
+        if not graphs_lead:
+            return log_joint_prob(gs, tree_map(lambda leaf: leaf[:, None],
+                                               thetas),
+                                  x, interv_mask, None)
+        # a fleet: particle p's samples on dataset p // (P / B_ds)'s data
+        lead = (*graphs_lead, -1)
+        return log_joint_prob(
+            gs.reshape(*lead, *gs.shape[1:]),
+            tree_map(lambda leaf: leaf.reshape(*lead, 1, *leaf.shape[1:]),
+                     thetas),
+            x[:, None, None], interv_mask[:, None, None], None,
+        ).reshape(gs.shape[:2])
 
     def _requires_grad(thetas):
         return tree_map(lambda leaf: leaf.detach().requires_grad_(True),
@@ -560,10 +548,6 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                     stacklevel=3)
             if fused_sample_sharing == "hard":
                 fused_grad_both = fused_shared
-    if x.dim() == 3 and log_joint_prob is not None:
-        _check_joint_fleet(cfg, fused_grad_both in (fused_linear,
-                                                    fused_nonlinear),
-                           fused_linear_model, x)
     return Estimators(
         eltwise_grad_z_likelihood=grad_z,
         eltwise_grad_latent_prior=eltwise_grad_latent_prior,

@@ -62,10 +62,10 @@ versions in this module, which take the same noise.
 
 A fleet (:mod:`dibs_tpu_torch.fleet`) passes ``B_ds`` datasets at once: ``x``
 and ``w`` ``[B_ds, N, d]``, the particles in dataset order and ``seed`` the
-``[B_ds]`` int64 keys. The row tier's kernels then read each particle's
-dataset and key in the same launch (particle counter: the index within the
-dataset); the plain versions run on each dataset's slice in turn. The wide
-tier serves one dataset only.
+``[B_ds]`` int64 keys. The kernels of both tiers then read each
+particle's dataset and key in the same launch (particle counter: the index
+within the dataset; the wide passes' ``kFleet`` builds past d = 70); the
+plain versions run on each dataset's slice in turn.
 
 A particle shard (:mod:`dibs_tpu_torch.parallel`) passes its first
 particle's global index as ``particle_offset``: its particles draw at
@@ -646,14 +646,14 @@ def _launch(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
 
 def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
                  n_samples, model, eps, weights=None, particle_offset=0):
+    """Launches a wide-tier pass; a fleet's (``x, w [B_ds, N, d]``, ``seed``
+    its keys) takes the passes' ``kFleet`` builds."""
     eps_ptrs, wts_ptrs = _checked_ptrs(name, scores, thetas, x, w, n_samples,
                                        eps, weights)
-    if _fleet(x) or isinstance(seed, torch.Tensor):
-        raise ValueError(f"{name}: the wide tier (d > 70) serves one dataset, "
-                         "not a fleet (ROADMAP.md queue 1)")
-    check_offset(seed, particle_offset)
     p, d, _ = scores.shape
-    n_obs = x.shape[0]
+    n_obs = x.shape[-2]
+    keys, per = _fleet_keys(name, seed, x, p, scores.device)
+    check_offset(seed, particle_offset)
     tile_rows = fused_linear_wide_tile_rows(d, n_obs)
     if tile_rows is None:
         raise ValueError(f"{name}: d={d} exceeds the wide tier's shared-"
@@ -685,11 +685,12 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
             _MODES[name], scores.data_ptr(), thetas.data_ptr(), x.data_ptr(),
             w.data_ptr(), *eps_ptrs, *wts_ptrs, ptr(resid_ref),
             *map(ptr, dlls), *map(ptr, outs), p, n_samples, d, n_obs,
-            tile_rows, seed & 0xFFFFFFFFFFFFFFFF,
+            tile_rows,
+            0 if keys is not None else seed & 0xFFFFFFFFFFFFFFFF,
             particle_offset & 0xFFFFFFFF, streams[0] & 0xFFFFFFFF,
             streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
             1.0 / model.obs_noise, float(model.mean_edge),
-            float(model.sig_edge), _stream(dev))
+            float(model.sig_edge), _stream(dev), ptr(keys), per)
     _check_launch(lib, rc, name)
     if name == "fused_linear_wide_pass1":
         # the column tiles' float64 partials, summed in a fixed order
@@ -781,8 +782,8 @@ def fused_linear_estimators(*, zs, thetas, x, interv_mask, seed, streams,
     with the softmax in between instead of kernel #5. Past ``d = 70`` both
     settings run the wide tier's two passes. A fleet passes ``x`` and
     ``interv_mask`` ``[B_ds, N, d]``, ``zs`` and ``thetas`` with the
-    particles in dataset order and ``seed`` its ``[B_ds]`` keys (row tier
-    only). A particle shard passes its first particle's global index as
+    particles in dataset order and ``seed`` its ``[B_ds]`` keys (both
+    tiers). A particle shard passes its first particle's global index as
     ``particle_offset``: its samples are those of its particles in one call
     over the whole batch.
     """

@@ -240,8 +240,7 @@ class DiBS:
 
     def _make_fleet_estimators(self, xs, interv_masks):
         """The estimators on a fleet's datasets ``xs [B_ds, N, d]`` (masks
-        alike): the dataset axis through the data-dependent parts (raises
-        ``ValueError`` for what a joint fleet does not serve)."""
+        alike): the dataset axis through the data-dependent parts."""
         return make_estimators(cfg=self.cfg, x=xs, interv_mask=interv_masks,
                                **self._est_kwargs)
 
@@ -681,13 +680,14 @@ class JointDiBS(DiBS):
                               latent_prior_std) -> Callable:
         """``transport(state, noise=None) -> (phi_z, phi_theta,
         sf_baseline)`` of a fleet on the datasets ``xs [B_ds, N, d]``
-        (masks alike): one batched step through the fused kernels, each
+        (masks alike): one batched step on the route the single engine
+        takes (the fused kernels, or the generic estimators with their
+        ``[B_ds P]`` particles scored on their datasets' data), each kernel
         launched as often as in one dataset's step. The state's tensors and
         parameter leaves lead with ``[B_ds, P]``, its ``seed`` is the
         ``[B_ds]`` int64 keys on the device; ``noise`` is ``(eps_soft,
-        eps_hard, eps_acyc)`` with a leading ``[B_ds]``. Raises
-        ``ValueError`` where the joint fleet does not serve the engine (the
-        fused route only)."""
+        eps_hard, eps_acyc)`` with a leading ``[B_ds]``; joint ``score``
+        returns the updated ``[B_ds, P]`` baselines."""
         est = self._make_fleet_estimators(xs, interv_masks)
         kernel = self.kernel
 
@@ -703,18 +703,26 @@ class JointDiBS(DiBS):
             eps_soft, eps_hard, eps_acyc = (None,) * 3 if noise is None \
                 else tuple(flat(e) for e in noise)
             s_soft, s_hard, s_acyc = self._streams(state.t)
-            z = flat(state.z)
-            dz_lik, dtheta = est.fused_grad_both(
-                z, tree_map(flat, state.theta), state.t, state.seed,
-                (s_soft, s_hard),
-                eps=None if noise is None else (eps_soft, eps_hard))
+            z, theta = flat(state.z), tree_map(flat, state.theta)
+            sf_baseline = state.sf_baseline
+            if est.fused_grad_both is not None:
+                dz_lik, dtheta = est.fused_grad_both(
+                    z, theta, state.t, state.seed, (s_soft, s_hard),
+                    eps=None if noise is None else (eps_soft, eps_hard))
+            else:
+                dtheta = est.eltwise_grad_theta_likelihood(
+                    z, theta, state.t, state.seed, s_hard, eps=eps_hard)
+                dz_lik, baselines = est.eltwise_grad_z_likelihood(
+                    z, theta, flat(sf_baseline), state.t, state.seed,
+                    s_soft, eps=eps_soft)
+                sf_baseline = unflat(baselines)
             dz_prior = est.eltwise_grad_latent_prior(
                 z, state.t, state.seed, s_acyc, latent_prior_std,
                 eps=eps_acyc)
             return (*fleet_joint_transport(kernel, state.z, state.theta,
                                            unflat(dz_prior + dz_lik),
                                            tree_map(unflat, dtheta)),
-                    state.sf_baseline)
+                    sf_baseline)
 
         return transport
 

@@ -25,7 +25,10 @@ dataset axis, each dataset's SE matrix (#3) and family (#4) from one launch
 each, or, for ``h="median"``, the two-matmul route batched over the
 datasets with each dataset's own bandwidth. :func:`fleet_joint_transport`
 is the joint one: both component matrices and both families, one launch
-each for all the datasets.
+each for all the datasets, each family on the route :func:`joint_transport`
+gives it (#4 for a float factor, the batched two-matmul route for a median
+bandwidth). Kernels with only ``eval`` take the autodiff transport under
+``torch.func.vmap`` over the datasets.
 
 Under a particle sharding (:mod:`dibs_tpu_torch.parallel`) the engines run
 the ring (:mod:`dibs_tpu_torch.parallel.ring`) where the kernel allows it,
@@ -137,26 +140,25 @@ def marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
 def fleet_marginal_transport(kernel, z: torch.Tensor, dz: torch.Tensor):
     """Transports ``phi_z [B_ds, P, d, k, 2]`` of ``B_ds`` independent
     datasets: each dataset's is :func:`marginal_transport` of its own
-    particles. Serves :class:`~dibs_tpu_torch.kernel.
-    AdditiveFrobeniusSEKernel` (a float bandwidth through kernels #3 and #4,
-    ``"median"`` through batched matmuls); raises ``ValueError`` for other
-    kernels."""
-    h = getattr(kernel, "h", None)
-    if not (hasattr(kernel, "matrix_and_grad_factor")
-            and (isinstance(h, (int, float)) or h == "median")):
-        raise ValueError("a fleet's transport serves AdditiveFrobeniusSE"
-                         f"Kernel with a float bandwidth or 'median', not "
-                         f"{type(kernel).__name__}")
+    particles. :class:`~dibs_tpu_torch.kernel.AdditiveFrobeniusSEKernel`
+    with a float bandwidth goes through kernels #3 and #4, with
+    ``"median"`` through batched matmuls (each dataset its own bandwidth);
+    a kernel with only ``eval`` through the autodiff transport, vmapped
+    over the datasets."""
+    if not hasattr(kernel, "matrix_and_grad_factor"):
+        return vmap(lambda a, g: _marginal_transport_autodiff(kernel, a, g))(
+            z, dz)
     n_ds, p = z.shape[:2]
-    if h == "median":  # each dataset its own bandwidth
+    if kernel.h == "median":  # each dataset its own bandwidth
         k_mat, factor = median_se(z, z, kernel.scale, batch_dims=1)
         return -(_weighted_scores(k_mat, dz, 2)
                  + _se_repulsion(k_mat, factor, z, 2)) / p
+    h = float(kernel.h)
     vf = z.reshape(n_ds, p, -1).contiguous()
     gf = dz.reshape(n_ds, p, -1).contiguous()
-    k_mat = se_matrix(vf, vf, float(h), float(kernel.scale))
+    k_mat = se_matrix(vf, vf, h, float(kernel.scale))
     with _precision():  # reaches the plain version's matmuls only
-        return transport_phi(k_mat, None, gf, vf, c=-2.0 / float(h),
+        return transport_phi(k_mat, None, gf, vf, c=-2.0 / h,
                              mu=vf.mean(dim=1, keepdim=True)).reshape(z.shape)
 
 
@@ -168,38 +170,61 @@ def _fleet_rows(tree, n_ds, p):
         .contiguous()
 
 
+def _fleet_component(values, rows, h, scale):
+    """``(K [B_ds, P, P], c)`` of one SE term of a fleet: #3 over the
+    flattened rows with a float ``c`` for a float bandwidth; the median
+    heuristic per dataset (``c`` a ``[B_ds, 1, 1]`` tensor) for
+    ``"median"``."""
+    if h == "median":
+        return median_se(values, values, scale, batch_dims=1)
+    return se_matrix(rows, rows, float(h), float(scale)), -2.0 / float(h)
+
+
 def fleet_joint_transport(kernel, z: torch.Tensor, theta, dz: torch.Tensor,
                           dtheta):
     """Transports ``(phi_z, phi_theta)`` of ``B_ds`` independent datasets:
     each dataset's is :func:`joint_transport` of its own particles
-    (``z [B_ds, P, d, k, 2]``, parameter leaves ``[B_ds, P, ...]``), with
-    ``K_z`` and ``K_Theta`` from one #3 launch each and both families from
-    one #4 launch each. Serves :class:`~dibs_tpu_torch.kernel.
-    JointAdditiveFrobeniusSEKernel` with float bandwidths; raises
-    ``ValueError`` for other kernels."""
-    h_z, h_t = (getattr(kernel, "h_latent", None),
-                getattr(kernel, "h_theta", None))
-    if not (hasattr(kernel, "component_matrices_and_factors")
-            and all(isinstance(h, (int, float)) for h in (h_z, h_t))):
-        raise ValueError("a joint fleet's transport serves JointAdditive"
-                         "FrobeniusSEKernel with float bandwidths, not "
-                         f"{type(kernel).__name__} with h={h_z!r}, {h_t!r}")
+    (``z [B_ds, P, d, k, 2]``, parameter leaves ``[B_ds, P, ...]``). For
+    :class:`~dibs_tpu_torch.kernel.JointAdditiveFrobeniusSEKernel`, ``K_z``
+    and ``K_Theta`` come from one #3 launch each (``"median"``: batched
+    matmuls, each dataset its own bandwidth), a family whose factor is a
+    float from one #4 launch, a family with a median factor from the
+    batched two-matmul route on ``K_z + K_Theta``; a kernel with only
+    ``eval`` takes the autodiff transport, vmapped over the datasets."""
+    if not hasattr(kernel, "component_matrices_and_factors"):
+        return vmap(lambda *a: _joint_transport_autodiff(kernel, *a))(
+            z, theta, dz, dtheta)
     n_ds, p = z.shape[:2]
     vz, gz = _fleet_rows(z, n_ds, p), _fleet_rows(dz, n_ds, p)
     vt, gt = _fleet_rows(theta, n_ds, p), _fleet_rows(dtheta, n_ds, p)
-    k_z = se_matrix(vz, vz, float(h_z), float(kernel.scale_latent))
-    k_t = se_matrix(vt, vt, float(h_t), float(kernel.scale_theta))
+    k_z, c_z = _fleet_component(z, vz, kernel.h_latent, kernel.scale_latent)
+    k_t, c_t = _fleet_component(theta, vt, kernel.h_theta,
+                                kernel.scale_theta)
+    phi_z = phi_t = None
     with _precision():  # reaches the plain version's matmuls only
-        phi_z = transport_phi(k_z, k_t, gz, vz, c=-2.0 / float(h_z),
-                              mu=vz.mean(dim=1, keepdim=True))
-        phi_t = transport_phi(k_t, k_z, gt, vt, c=-2.0 / float(h_t),
-                              mu=vt.mean(dim=1, keepdim=True))
+        if isinstance(c_z, float):
+            phi_z = transport_phi(k_z, k_t, gz, vz, c=c_z,
+                                  mu=vz.mean(dim=1, keepdim=True)) \
+                .reshape(z.shape)
+        if isinstance(c_t, float):
+            phi_t = transport_phi(k_t, k_z, gt, vt, c=c_t,
+                                  mu=vt.mean(dim=1, keepdim=True))
+    if phi_z is None or phi_t is None:
+        k_mat = k_z + k_t
+    if phi_z is None:
+        phi_z = -(_weighted_scores(k_mat, dz, 2)
+                  + _se_repulsion(k_z, c_z, z, 2)) / p
+    if phi_t is None:
+        return phi_z, tree_map(
+            lambda g, v: -(_weighted_scores(k_mat, g, 2)
+                           + _se_repulsion(k_t, c_t, v, 2)) / p,
+            dtheta, theta)
     leaves, offset = [], 0
     for leaf in tree_leaves(theta):
         size = leaf[0, 0].numel()
         leaves.append(phi_t[..., offset:offset + size].reshape(leaf.shape))
         offset += size
-    return phi_z.reshape(z.shape), tree_unflatten(theta, leaves)
+    return phi_z, tree_unflatten(theta, leaves)
 
 
 def _rows_and_factor(x_loc, x_all, h, scale, offset):

@@ -17,8 +17,10 @@ with optional leading batch dims ``...`` (particles, samples) and the node
 axis ``d`` first after them. The scoring functions broadcast graphs
 ``[..., d, d]`` against parameter leaves with broadcastable leading dims:
 the generic estimators pass ``[P, M, d, d]`` graphs with ``[P, 1, ...]``
-leaves, the mixture ``[P, d, d]`` with ``[P, ...]``. The forward runs in
-full float32 matmuls, layout ``[..., node, N, width]``.
+leaves (a fleet: ``[B_ds, P, M, d, d]`` with ``[B_ds, P, 1, ...]`` and
+``x [B_ds, 1, 1, N, d]``), the mixture ``[P, d, d]`` with ``[P, ...]``.
+The forward runs in full float32 matmuls, layout ``[..., node, N,
+width]``.
 """
 from __future__ import annotations
 
@@ -106,10 +108,15 @@ class DenseNonlinearGaussian:
         The parent mask is applied to the first-layer weights,
         ``(x * g[:, j]) @ W1_j == x @ (g[:, j, None] * W1_j)``, so the first
         layer is one ``[N, d] @ [..., d, d, h1]`` matmul for every node.
+        Data with leading dims, ``x [..., N, d]`` (a fleet's datasets),
+        broadcast against the graphs' leading dims, as ``x``'s in
+        :meth:`log_likelihood`: the node axis gets a unit axis in ``x``.
         The matmuls run at :func:`~dibs_tpu_torch.config.
         likelihood_matmul_precision`.
         """
         w1 = theta[0][0]  # [..., j, i, h1]
+        if x.dim() > 2:
+            x = x[..., None, :, :]  # [..., 1 (node j), N, d]
         with matmul_precision(likelihood_matmul_precision()):
             h = x @ (g.transpose(-1, -2)[..., None] * w1)  # [..., j, N, h1]
             if self.bias:

@@ -182,7 +182,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear_row_items.restype = i32
     lib.dibs_fused_linear_wide.argtypes = ([i32] + [vp] * 13 + [i32] * 5
                                            + [ctypes.c_uint64, u32, u32, u32,
-                                              f32, f32, f64, f32, f32, vp])
+                                              f32, f32, f64, f32, f32, vp,
+                                              vp, i32])
     lib.dibs_fused_linear_wide.restype = i32
     lib.dibs_fused_linear_wide_shard.argtypes = \
         lib.dibs_fused_linear_wide.argtypes

@@ -13,13 +13,15 @@ a power of two and the fleet sizes, #2 on both sides of d = 32 and of every
 block frame; the fused joint kernels #5-#8 with the axis against their
 plain versions and their unbatched launches (within 1e-4 max(1,
 max|ref|)), #8 also at every gate edge with ``B = 1`` and ``3`` and in
-each of its 16 instantiations (``chip_smoke.FLEET_NL_CASES``); the fleet
+each of its 16 instantiations (``chip_smoke.FLEET_NL_CASES``), the wide
+passes at d = 75 and 128 (``chip_smoke.FLEET_WIDE_CASES``); the fleet
 step's launches against one dataset's step, its
 ``phi`` against single engines and against the plain versions on the CPU,
 marginal and joint.
 """
 import os
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -302,6 +304,18 @@ def test_fused_kernels_read_each_datasets_data_and_key(cuda, n_ds, name, d,
         _close([a[sl] for a in got], one)
 
 
+@pytest.mark.parametrize("n_ds,p,d,n,blocks,m", chip_smoke.FLEET_WIDE_CASES)
+def test_wide_passes_read_each_datasets_data_and_key(cuda, n_ds, p, d, n,
+                                                     blocks, m):
+    """Wide passes 1 and 2's fleet builds (``kFleet``) at d = 75, N = 600
+    (tiled rows, interventional) and d = 128, N = 100 with B = 1 and 3:
+    against their plain versions with the dataset axis and their
+    unbatched launches on each dataset, within 1e-4 max(1, max|ref|); two
+    calls bitwise equal (:func:`chip_smoke.check_fleet_wide`)."""
+    rng = np.random.default_rng(10 * n_ds + d)
+    chip_smoke.check_fleet_wide(cuda, rng, n_ds, p, d, n, blocks, m)
+
+
 @pytest.mark.parametrize("n_ds,p,d,n,h1,blocks,m,activation",
                          chip_smoke.FLEET_NL_CASES)
 def test_fused_nonlinear_fleet_gate_edges(cuda, n_ds, p, d, n, h1, blocks, m,
@@ -317,25 +331,43 @@ def test_fused_nonlinear_fleet_gate_edges(cuda, n_ds, p, d, n, h1, blocks, m,
                                      activation)
 
 
-@pytest.mark.parametrize("model", ["linear", "linear two-pass", "mlp"])
+@pytest.mark.parametrize("model", ["linear", "linear two-pass", "mlp",
+                                   "score", "score baseline", "median",
+                                   "mlp (3, 3)", "wide"])
 def test_joint_fleet_step_launches_and_matches_single_engines(cuda, model):
-    n_ds, p, d = 3, 4, 8
+    """A joint fleet step (the fused routes of both tiers, the generic
+    route, joint ``score`` and median bandwidths) launches each kernel as
+    often as one dataset's step, and each dataset's ``phi`` is a single
+    engine's on its data within 1e-4 max|phi|."""
+    n_ds, p = 3, 4
+    d = 75 if model == "wide" else 8
     rng = np.random.default_rng(6)
     xs = torch.from_numpy(rng.normal(size=(n_ds, 20, d)).astype(np.float32))
+    kw = {"score": dict(grad_estimator_z="score"),
+          "score baseline": dict(grad_estimator_z="score",
+                                 score_function_baseline=0.5),
+          "median": dict(kernel_param=dict(h_latent="median",
+                                           h_theta="median")),
+          "linear two-pass": dict(fused_single_pass=False)}.get(model, {})
 
     def make(x):
-        lik = (DenseNonlinearGaussian(n_vars=d, hidden_layers=(5,))
-               if model == "mlp" else LinearGaussian(n_vars=d))
-        return JointDiBS(
-            x=x, graph_model=ErdosReniDAGDistribution(d, n_edges_per_node=1),
-            likelihood_model=lik, n_grad_mc_samples=16,
-            n_acyclicity_mc_samples=8, device=cuda,
-            fused_single_pass=model != "linear two-pass")
+        lik = (DenseNonlinearGaussian(n_vars=d, hidden_layers=(
+                   (3, 3) if model == "mlp (3, 3)" else (5,)))
+               if model.startswith("mlp") else LinearGaussian(n_vars=d))
+        with warnings.catch_warnings():  # the generic route warns
+            warnings.simplefilter("ignore", UserWarning)
+            return JointDiBS(
+                x=x, graph_model=ErdosReniDAGDistribution(
+                    d, n_edges_per_node=1),
+                likelihood_model=lik, n_grad_mc_samples=16,
+                n_acyclicity_mc_samples=8, device=cuda, **kw)
 
     fleet = make(xs[0])
     std = fleet._resolve_latent_std(d)
     masks = torch.zeros(xs.shape, dtype=torch.int32, device=cuda)
-    transport = fleet._make_fleet_transport(xs.to(cuda), masks, std)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        transport = fleet._make_fleet_transport(xs.to(cuda), masks, std)
     step = fleet._make_step(std, transport_fn=transport)
     seeds = fleet_seeds(5, n_ds)
     singles = [make(x) for x in xs]
@@ -358,13 +390,22 @@ def test_joint_fleet_step_launches_and_matches_single_engines(cuda, model):
             for a, b in [(phi_z[i], want_z)] + [
                     (a[i], b) for a, b in zip(tree_leaves(phi_t),
                                               tree_leaves(want_t))]:
-                tol = 1e-4 * float(b.abs().max())
-                assert float((a - b).abs().max()) <= tol, (t, i)
+                fin = torch.isfinite(b)  # joint score's baseline overflows
+                assert torch.equal(torch.isfinite(a), fin), (t, i)
+                tol = 1e-4 * float(b[fin].abs().max())
+                assert float((a - b)[fin].abs().max()) <= tol, (t, i)
         state = step(state)
-    fused = "fused_nonlinear" if model == "mlp" else (
-        "fused_linear_pass2" if model == "linear two-pass"
-        else "fused_linear_single")
-    assert fleet_launches[fused] == 1
-    gs, thetas = fleet_sample(fleet, xs=xs, seed=5, n_particles=p, steps=2)
+    fused = {"mlp": "fused_nonlinear", "linear": "fused_linear_single",
+             "linear two-pass": "fused_linear_pass2", "median":
+             "fused_linear_single", "wide": "fused_linear_wide_pass2"}
+    if model in fused:
+        assert fleet_launches[fused[model]] == 1
+    else:  # joint score and the generic route launch no fused kernel
+        assert not any(fleet_launches[k] for k in gk.LAUNCHES
+                       if k.startswith("fused"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        gs, thetas = fleet_sample(fleet, xs=xs, seed=5, n_particles=p,
+                                  steps=2)
     assert gs.shape == (n_ds, p, d, d)
     assert all(leaf.shape[:2] == (n_ds, p) for leaf in tree_leaves(thetas))

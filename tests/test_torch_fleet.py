@@ -309,12 +309,15 @@ def test_fleet_state_from_reference_takes_the_stacked_state(datasets):
 
 
 def test_fleet_transport_kernels():
-    """The marginal fleet's median bandwidth is each dataset's own
-    (``marginal_transport`` on its particles); a kernel with only the
-    ``eval`` signature, and a joint fleet's median bandwidth, raise."""
+    """The fleets' transports serve every kernel, each dataset's that of a
+    single run on its particles: the marginal fleet's median bandwidth (its
+    own a dataset) and a kernel with only the ``eval`` signature (the
+    autodiff transport, vmapped over the datasets); the joint fleet's
+    median bandwidths."""
     from dibs_tpu_torch.inference.transport import (
         fleet_joint_transport,
         fleet_marginal_transport,
+        joint_transport,
         marginal_transport,
     )
     from dibs_tpu_torch.kernel import (
@@ -325,19 +328,24 @@ def test_fleet_transport_kernels():
     rng = np.random.default_rng(4)
     z = torch.from_numpy(rng.normal(size=(B, P, D, 3, 2)).astype(np.float32))
     dz = torch.from_numpy(rng.normal(size=z.shape).astype(np.float32))
-    kernel = AdditiveFrobeniusSEKernel(h="median")
-    phi = fleet_marginal_transport(kernel, z, dz)
-    for b in range(B):
-        torch.testing.assert_close(phi[b], marginal_transport(
-            kernel, z[b], dz[b]), rtol=1e-5, atol=1e-6)
 
     class EvalOnly:
         def eval(self, *, x, y):
             return torch.exp(-torch.sum((x - y) ** 2))
 
-    with pytest.raises(ValueError, match="EvalOnly"):
-        fleet_marginal_transport(EvalOnly(), z, dz)
-    theta = torch.zeros((B, P, D, D))
-    with pytest.raises(ValueError, match="median"):
-        fleet_joint_transport(JointAdditiveFrobeniusSEKernel(
-            h_latent="median"), z, theta, dz, theta)
+    for kernel in (AdditiveFrobeniusSEKernel(h="median"), EvalOnly()):
+        phi = fleet_marginal_transport(kernel, z, dz)
+        for b in range(B):
+            torch.testing.assert_close(phi[b], marginal_transport(
+                kernel, z[b], dz[b]), rtol=1e-5, atol=1e-6)
+    theta = torch.from_numpy(rng.normal(size=(B, P, D, D)).astype(
+        np.float32))
+    dtheta = torch.from_numpy(rng.normal(size=theta.shape).astype(
+        np.float32))
+    kernel = JointAdditiveFrobeniusSEKernel(h_latent="median")
+    phi_z, phi_t = fleet_joint_transport(kernel, z, theta, dz, dtheta)
+    for b in range(B):
+        want_z, want_t = joint_transport(kernel, z[b], theta[b], dz[b],
+                                         dtheta[b])
+        torch.testing.assert_close(phi_z[b], want_z, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(phi_t[b], want_t, rtol=1e-5, atol=1e-6)

@@ -11,6 +11,8 @@ serves both likelihood gradients, with ``None`` the soft noise comes from
 ``split(k_lik, P)[0]`` and the hard noise from ``split(k_theta, P)[0]``; the
 acyclicity noise from ``split(k_prior, P)[0]``.
 """
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -309,31 +311,44 @@ def test_fused_twins_per_dataset(name):
 
 
 def test_joint_fleet_rejects_what_it_does_not_serve():
+    """A joint fleet serves every engine a single run serves: joint
+    ``score``, the generic route (an MLP of two hidden layers) and the wide
+    fused tier (d = 80) each run one fleet step with finite outputs of the
+    right shapes. It refuses what the reference refuses: an engine with a
+    particle sharding, and a mesh without a ``"datasets"`` axis."""
     xs = np.random.default_rng(0).normal(size=(B, 10, D)).astype(np.float32)
 
-    def engine(**kw):
-        lik = kw.pop("likelihood_model", LinearGaussian(n_vars=D))
-        return JointDiBS(x=torch.from_numpy(xs[0]),
-                         graph_model=ScaleFreeDAGDistribution(D),
-                         likelihood_model=lik, device="cpu", **kw)
+    def engine(x=xs, d=D, **kw):
+        lik = kw.pop("likelihood_model", LinearGaussian(n_vars=d))
+        return JointDiBS(x=torch.from_numpy(x[0]),
+                         graph_model=ScaleFreeDAGDistribution(d),
+                         likelihood_model=lik, n_grad_mc_samples=M,
+                         n_acyclicity_mc_samples=K_ACYC, device="cpu", **kw)
 
-    with pytest.raises(ValueError, match="'score'"):
-        fleet_sample(engine(grad_estimator_z="score"), xs=xs, seed=0,
-                     n_particles=2, steps=1)
     with pytest.warns(UserWarning, match="fused nonlinear kernel disabled"):
         generic = engine(likelihood_model=DenseNonlinearGaussian(
             n_vars=D, hidden_layers=(3, 3)))
-    with pytest.warns(UserWarning), \
-            pytest.raises(ValueError, match="generic reparameterization"):
-        fleet_sample(generic, xs=xs, seed=0, n_particles=2, steps=1)
     d = 80  # past the row tier's shared memory: the wide tier
-    wide_x = np.zeros((2, 20, d), np.float32)
-    wide = JointDiBS(x=torch.from_numpy(wide_x[0]),
-                     graph_model=ScaleFreeDAGDistribution(d),
-                     likelihood_model=LinearGaussian(n_vars=d),
-                     device="cpu")
-    with pytest.raises(ValueError, match="wide tier"):
-        fleet_sample(wide, xs=wide_x, seed=0, n_particles=2, steps=1)
+    wide_x = np.random.default_rng(1).normal(size=(2, 20, d)).astype(
+        np.float32)
+    for dibs, x, d_x in ((engine(grad_estimator_z="score"), xs, D),
+                         (generic, xs, D), (engine(wide_x, d), wide_x, d)):
+        with warnings.catch_warnings():  # the generic route warns again
+            warnings.simplefilter("ignore", UserWarning)
+            gs, thetas, state = fleet_sample(dibs, xs=x, seed=0,
+                                             n_particles=2, steps=1,
+                                             return_states=True)
+        assert gs.shape == (len(x), 2, d_x, d_x) and state.t == 1
+        assert torch.isfinite(state.z).all()
+        assert torch.isfinite(state.sf_baseline).all()
+        for leaf, want in zip(tree_leaves(thetas), tree_leaves(
+                dibs.init_state(seed=0, n_particles=2).theta)):
+            assert leaf.shape == (len(x), *want.shape)
+            assert torch.isfinite(leaf).all()
+    sharded = engine()
+    sharded.sharding = object()  # what a particle-sharded engine carries
+    with pytest.raises(ValueError, match="without a particle sharding"):
+        fleet_sample(sharded, xs=xs, seed=0, n_particles=2, steps=1)
     with pytest.raises(ValueError, match="has no axis 'datasets'"):
         fleet_sample(engine(), xs=xs, seed=0, n_particles=2, steps=1,
                      mesh=object())
