@@ -128,6 +128,17 @@ Phases, one line each; any failure exits non-zero:
    against the unsharded ``phi`` at ``1e-4 max|phi|``, 50 free steps with
    graphs equal and every rank's final state bitwise the others'), and
    config 6 on ``1 x 2`` (3 teacher-forced steps, peak memory by rank).
+15. accounting and warm-up (``dibs_tpu_torch.accounting``,
+   ``dibs_tpu_torch.warmup``): ``warmup(20)`` of its three models, timed,
+   with the launch counts and RNG states left as they were, every kernel
+   of the three paths counted launched and ``sample()``
+   bitwise the same before and after it, then timed in a new process; the
+   reference's step model of each of phase 7's cells as a roofline row
+   against its wall and device time a step (every share at most 105% of
+   the H100 SXM's peaks); config 5's device time by the model's phases;
+   every kernel time of phases 3, 6, 8 and 10 at or above 1/1.05 of its
+   ``kernel_cost`` bound (the bounds of every phase come from
+   ``kernel_cost`` and ``bound_ms``).
 
 The second-to-last line is a JSON summary of the kernels, the line before it
 the card's ``nvidia-smi`` name and power limit; the last line is
@@ -188,9 +199,11 @@ D_BGE_LARGE, B_BGE_LARGE, N_BGE_LARGE = 130, 20, 60
 P6, D6, M6, K_ACYC6, WARM6, STEPS6, CHUNK6 = 100, 128, 64, 8, 3, 10, 64
 # phase 11, joint score at config 2: warm-up steps, then the timed window
 WARM11, STEPS11 = 10, 200
-F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM data sheet
 # steps/s of phase 5 by estimator, for phase 12(d)'s StepTimer check
 RATES = {}
+# (label, kernel ms, bound ms) of the kernel times phases 3, 6, 8 and 10
+# take (``timed``), for the accounting phase's check
+TIMED = []
 # phase 13, the fleet at the headline marginal config and joint configs 2
 # and 3: datasets a fleet (joint: the first), warm-up and timed steps,
 # teacher-forced steps (at the first fleet size)
@@ -232,12 +245,19 @@ def cuda_median_ms(fn, reps=50):
     return statistics.median(times)
 
 
-def bound_ms(flops, n_bytes):
-    """Least time on an H100 SXM: the larger of float32 operations at
-    67 TFLOP/s and bytes at 3.35 TB/s. Returns ``(ms, bound_by)``."""
-    t_ops, t_bytes = flops / F32_FLOPS, n_bytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def bound(kernel, **shape):
+    """``(ms, bound_by)``: the least time an H100 SXM could take for one
+    call of ``kernel`` at ``shape`` (``dibs_tpu_torch.accounting``'s
+    ``kernel_cost`` and ``bound_ms``)."""
+    from dibs_tpu_torch.accounting import bound_ms, kernel_cost
+
+    return bound_ms(*kernel_cost(kernel, **shape))
+
+
+def timed(label, ms, b_ms):
+    """Keeps a kernel time of phases 3, 6, 8 and 10 beside its bound for
+    the accounting phase's check (no bound past 1.05x its time)."""
+    TIMED.append((label, ms, b_ms))
 
 
 def joint_state_cpu(state):
@@ -369,6 +389,7 @@ def k_edge_graph(rng, d):
 
 
 def phase_kernels(dev, results):
+    from dibs_tpu_torch.accounting import bound_ms, kernel_cost
     from dibs_tpu_torch.models.linear_gaussian import BGe
     from dibs_tpu_torch.ops import gpu_kernels as gk
     from dibs_tpu_torch.ops.bge_kernel import (
@@ -447,8 +468,8 @@ def phase_kernels(dev, results):
         f"equal; hard [30,128,20,20] "
         f"kernel {t_g:.4f} ms twin {t_gp:.4f} ms; soft [30,32,20,20] "
         f"kernel {t_gs:.4f} ms twin {t_gsp:.4f} ms")
-    # elementwise: scores read once, [P, M, d, d] samples written once
-    b_ms, b_by = bound_ms(3 * P * M * D * D, 4 * (P * D * D + P * M * D * D))
+    b_ms, b_by = bound("gumbel_graphs", p=P, m=M, d=D)
+    timed(f"#1 hard [{P},{M},{D},{D}]", t_g, b_ms)
     results["gumbel_graphs"] = dict(max_abs_err=max(err_g, philox_err),
                                     ms=t_g, plain_ms=t_gp, bound_ms=b_ms,
                                     bound_by=b_by, library_ms=None)
@@ -510,8 +531,9 @@ def phase_kernels(dev, results):
             stacked = (outer * r_mats[None] + (1 - outer) * eye).reshape(
                 -1, d, d).contiguous()
             t_lib = cuda_median_ms(lambda: torch.linalg.slogdet(stacked))
-            flops_b, bytes_b = bge_flops_bytes(gs_t)
+            flops_b, bytes_b = kernel_cost("bge_pairs", gs=gs_t)
             b_ms, b_by = bound_ms(flops_b, bytes_b)
+            timed(f"#2 [{b} graphs, d={d}]", t_b, b_ms)
     check(err_64 <= 1e-4, f"bge vs float64 slogdet: rel err {err_64}")
     log(f"[3 bge] (d, graphs, collinear) in {SHAPES_BGE}, masks of density "
         f"0.3 with one empty, one full and one k-edge graph (k in {K_EDGES}), "
@@ -520,8 +542,8 @@ def phase_kernels(dev, results):
         f"calls bitwise equal; vs float64 slogdet max |err|/(1+|ref|) "
         f"{err_64:.3g}; [3840 graphs, d=20] kernel {t_b:.4f} ms twin "
         f"{t_bp:.4f} ms slogdet {t_lib:.4f} ms bound {b_ms:.5f} ms ({b_by}; "
-        f"operations {1e3 * flops_b / F32_FLOPS:.5f} ms for {flops_b:.4g} "
-        f"FLOP, bytes {1e3 * bytes_b / HBM_BYTES_PER_S:.5f} ms)")
+        f"operations {bound_ms(flops_b, 0)[0]:.5f} ms for {flops_b:.4g} "
+        f"FLOP, bytes {bound_ms(0, bytes_b)[0]:.5f} ms)")
     results["bge_pairs"] = dict(max_abs_err=err_b, ms=t_b, plain_ms=t_bp,
                                 bound_ms=b_ms, bound_by=b_by,
                                 library_ms=t_lib)
@@ -544,23 +566,13 @@ def phase_kernels(dev, results):
         if n == 800:
             t_s = cuda_median_ms(lambda: gk.se_matrix(x, x, 5.0, 1.0))
             t_sp = cuda_median_ms(lambda: gk.se_matrix_plain(x, x, 5.0, 1.0))
-            b_ms, b_by = bound_ms(3 * a * a * n, 4 * (2 * a * n + a * a))
+            b_ms, b_by = bound("se_matrix", a=a, n=n, triangle=True)
+            timed(f"#3 [{a},{a}] over {n}", t_s, b_ms)
     log(f"[3 se] (A,B,n) in (30,30,800),(100,100,32768) atol 1e-5 max err "
         f"{err_s:.3g}, diagonal == scale; [30,30,800] kernel {t_s:.4f} ms "
         f"twin {t_sp:.4f} ms")
     results["se_matrix"] = dict(max_abs_err=err_s, ms=t_s, plain_ms=t_sp,
                                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
-
-
-def fused_linear_flops(kind, p, m, n, d):
-    """Float32 operations of one fused-linear call, counted from its
-    arithmetic: per sample and branch ``2 N d^2`` for ``delta``, ``4 N d``
-    for the log-likelihood terms, ``2 N d`` for the residuals and ``2 N d^2``
-    for ``x^T resid``; plus ``2 N d^2`` per particle for ``resid_ref``."""
-    per = {"single": 4 * n * d * d + 6 * n * d,
-           "pass1": 2 * n * d * d + 4 * n * d,
-           "pass2": 4 * n * d * d + 2 * n * d}[kind]
-    return 2 * p * m * per + 2 * p * n * d * d
 
 
 def fused_problem(rng, dev, p, d, n, interv_blocks):
@@ -692,30 +704,25 @@ def phase_fused(dev, results):
         lls = fl.fused_linear_pass1(*args, **kw)
         weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
         kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
-        in_bytes = 4 * (2 * p * d * d + 2 * n * d)
+        shape = dict(p=p, m=M, n=n, d=d)
         times = {
             "fused_linear_single": (
                 lambda: fl.fused_linear_single(*args, **kw),
-                lambda: fl.fused_linear_single_plain(*args, **kw),
-                fused_linear_flops("single", p, M, n, d),
-                in_bytes + 4 * 2 * p * d * d),
+                lambda: fl.fused_linear_single_plain(*args, **kw), shape),
             "fused_linear_pass1": (
                 lambda: fl.fused_linear_pass1(*args, **kw),
-                lambda: fl.fused_linear_pass1_plain(*args, **kw),
-                fused_linear_flops("pass1", p, M, n, d),
-                in_bytes + 4 * 2 * p * M),
+                lambda: fl.fused_linear_pass1_plain(*args, **kw), shape),
             "fused_linear_pass2": (
                 lambda: fl.fused_linear_pass2(*args, weights, **kw),
                 lambda: fl.fused_linear_pass2_plain(*args, weights, **kw),
-                # the replayed samples' products, resid_ref once a particle
-                2 * kept * (4 * n * d * d + 2 * n * d) + 2 * p * n * d * d,
-                in_bytes + 4 * 2 * p * M + 4 * 2 * p * d * d),
+                dict(shape, replayed=kept)),
         }
         line = []
-        for name, (kern, plain, flops, n_bytes) in times.items():
+        for name, (kern, plain, cost) in times.items():
             t_k, t_p = cuda_median_ms(kern, reps=20), cuda_median_ms(plain,
                                                                      reps=5)
-            b_ms, b_by = bound_ms(flops, n_bytes)
+            b_ms, b_by = bound(name, **cost)
+            timed(f"{name} P={p} d={d} N={n}", t_k, b_ms)
             line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound "
                         f"{b_ms:.5f} {b_by})")
             if d == D:  # the headline shape is the one the main path runs
@@ -738,14 +745,6 @@ def phase_fused(dev, results):
         f"with interventions), injected / Philox / shared-stream noise, "
         f"single and two-pass, #5 vs #6+#7: within 1e-4 max(1, max|ref|), "
         f"worst {worst:.3f} of the bar")
-
-
-def fused_nonlinear_flops(p, m, n, d, h1):
-    """Float32 operations of one #8 call, counted from its arithmetic: per
-    sample and stream ``2 h1 N d^2`` for the first-layer deltas and
-    ``2 h1 N d^2`` for ``x^T u_h``; plus ``2 h1 N d^2`` per particle for the
-    reference forward (the ``O(h1 N d)`` elementwise work is not counted)."""
-    return 2 * p * m * 4 * h1 * n * d * d + p * 2 * h1 * n * d * d
 
 
 def nonlinear_problem(rng, dev, p, d, n, h1, interv_blocks):
@@ -797,6 +796,7 @@ def check_fused_nonlinear(fnl, args, kw, label):
 
 
 def phase_fused_nonlinear(dev, results):
+    from dibs_tpu_torch.accounting import bound_ms, kernel_cost
     from dibs_tpu_torch.inference import fused_nonlinear as fnl
     from dibs_tpu_torch.models import DenseNonlinearGaussian
 
@@ -831,14 +831,13 @@ def phase_fused_nonlinear(dev, results):
                              reps=20)
         t_p = cuda_median_ms(lambda: fnl.fused_nonlinear_plain(*args, **kw),
                              reps=5)
-        # bytes: the kernel-layout inputs read once, the outputs written once
-        n_bytes = 4 * (sum(a.numel() for a in args)
-                       + p * (d * d + h1 * d * d + (2 * h1 + 1) * d))
-        b_ms, b_by = bound_ms(fused_nonlinear_flops(p, M, n, d, h1), n_bytes)
+        flops, n_bytes = kernel_cost("fused_nonlinear", p=p, m=M, n=n, d=d,
+                                     h1=h1)
+        b_ms, b_by = bound_ms(flops, n_bytes)
+        timed(f"#8 P={p} d={d} N={n} h1={h1}", t_k, b_ms)
         log(f"[3 fused_nonlinear P={p} d={d} N={n} h1={h1} M={M} {plan}]"
             f" kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms "
-            f"({b_by}, {fused_nonlinear_flops(p, M, n, d, h1) / 1e9:.3f} "
-            f"GFLOP)")
+            f"({b_by}, {flops / 1e9:.3f} GFLOP)")
         if d == D:  # the shape config 3's main path runs
             results["fused_nonlinear"] = dict(
                 ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
@@ -924,9 +923,9 @@ def phase_transport(dev, results):
                                                    mu=mu), 20)
         t_p = cuda_median_ms(lambda: tk.transport_phi_plain(
             k_own, k_other, g, v, c=c, mu=mu), reps=20)
-        n_mats = 2 if joint else 1
-        b_ms, b_by = bound_ms(2 * n_mats * p * p * n,
-                              4 * (3 * p * n + n_mats * p * p + n + p))
+        b_ms, b_by = bound("transport_phi", p=p, n=n,
+                           n_mats=2 if joint else 1)
+        timed(f"#4 {name} [{p},{n}]", t_k, b_ms)
         aligned = tk.transport_phi_aligned(p, n, k_own, g, v, mu)
         line.append(f"{name} [{p},{n}] {'joint' if joint else 'marginal'} "
                     f"({'aligned' if aligned else 'scalar'} instantiation) "
@@ -1043,20 +1042,16 @@ def phase_config5_kernels(dev, results):
         weights = tuple(torch.softmax(ll, dim=1) for ll in lls)
         # pass 2 skips the samples whose two weights are both 0
         kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
-        in_bytes = 4 * (2 * p * d * d + 2 * n * d)
         n_ct = -(-d // 8)
-        per2 = 4 * n * d * d + 2 * n * d
-        flops2 = 2 * kept * per2 + 2 * p * n * d * d
+        shape = dict(p=p, m=m, n=n, d=d)
         cases = {
             "fused_linear_wide_pass1": (
                 lambda: fl.fused_linear_pass1(*args, **kw),
-                lambda: fl.fused_linear_pass1_plain(*args, **kw),
-                fused_linear_flops("pass1", p, m, n, d),
-                in_bytes + 4 * 2 * p * m),
+                lambda: fl.fused_linear_pass1_plain(*args, **kw), shape),
             "fused_linear_wide_pass2": (
                 lambda: fl.fused_linear_pass2(*args, weights, **kw),
                 lambda: fl.fused_linear_pass2_plain(*args, weights, **kw),
-                flops2, in_bytes + 4 * 2 * p * m + 4 * 2 * p * d * d),
+                dict(shape, replayed=kept)),
         }
         # the noise's share: a second stream draws once more per element
         kw2 = {**kw, "streams": (4, 5)}
@@ -1079,10 +1074,11 @@ def phase_config5_kernels(dev, results):
             f"{p * m} replayed {t_all:.4f} ms ("
             + ", ".join(f"{t:.4f}" for t in four) + ")")
         line = []
-        for name, (kern, plain, flops, n_bytes) in cases.items():
+        for name, (kern, plain, cost) in cases.items():
             t_k = cuda_median_ms(kern, reps=10)
             t_p = cuda_median_ms(plain, reps=3)
-            b_ms, b_by = bound_ms(flops, n_bytes)
+            b_ms, b_by = bound(name, **cost)
+            timed(f"{name} P={p} d={d} N={n}", t_k, b_ms)
             line.append(f"{name} {t_k:.4f} ms (plain {t_p:.4f}, bound "
                         f"{b_ms:.5f} {b_by})")
             results[name] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
@@ -1105,8 +1101,8 @@ def phase_config5_kernels(dev, results):
                                                   K_ACYC5, False), reps=10)
     t_p = cuda_median_ms(lambda: gk.gumbel_graphs_plain(
         scores, 7, 0, 1.0, 1.0, K_ACYC5, False), reps=3)
-    n_el = P5 * K_ACYC5 * D5 * D5
-    b_ms, b_by = bound_ms(3 * n_el, 4 * (P5 * D5 * D5 + n_el))
+    b_ms, b_by = bound("gumbel_graphs", p=P5, m=K_ACYC5, d=D5)
+    timed(f"#1 soft [{P5},{K_ACYC5},{D5},{D5}]", t_k, b_ms)
     log(f"[6 config 5: gumbel soft [{P5},{K_ACYC5},{D5},{D5}]] kernel "
         f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
         f"{P5 * K_ACYC5 * D5 * (D5 - 1)} Philox draws; kernel vs plain "
@@ -1186,9 +1182,9 @@ def phase_se_matrix(dev, results):
         t_p = cuda_median_ms(lambda: gk.se_matrix_plain(x, x, h, 1.0),
                              reps=3)
         # the symmetric call's least work: one triangle with its diagonal
-        tri = P5 * (P5 + 1) // 2
-        b_ms, b_by = bound_ms(3 * tri * n, 4 * (P5 * n + P5 * P5))
-        full_ms, _ = bound_ms(3 * P5 * P5 * n, 4 * (2 * P5 * n + P5 * P5))
+        b_ms, b_by = bound("se_matrix", a=P5, n=n, triangle=True)
+        full_ms, _ = bound("se_matrix", a=P5, b=P5, n=n)
+        timed(f"#3 [{P5},{P5}] over {n}", t_s, b_ms)
         slots = gk._slots(gk.build(), x.device, gk.se_tile_size(P5, P5))
         line.append(
             f"over n={n}: kernel {t_s:.4f} ms (symmetric, {tiles} tiles x "
@@ -1664,7 +1660,8 @@ def profile_steps(step, state, n_steps=50):
     """``torch.profiler`` over ``n_steps`` steady steps (after 10 warm-up
     steps): wall ms per step, device kernel ms per step, the device busy
     share (kernels run on one stream, so their times add), kernel launches
-    per step and the five kernels with the most device time."""
+    per step, each kernel's device ms per step (``kernels``) and the five
+    kernels with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(10):
@@ -1689,6 +1686,7 @@ def profile_steps(step, state, n_steps=50):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy=device_ms / wall_ms, launches=launches / n_steps,
+                kernels={name: ms / n_steps for name, ms in kernels.items()},
                 top=[(name[:40], ms / n_steps) for name, ms in top],
                 state=state)
 
@@ -1719,6 +1717,7 @@ def config4_joint(dev):
 
 
 def phase_profile(dev, card):
+    """Phase 7; returns each cell's profile (without its state) by name."""
     from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
     from dibs_tpu_torch.ops import gpu_kernels as gk
     from dibs_tpu_torch.target import (
@@ -1756,6 +1755,7 @@ def phase_profile(dev, card):
     check(tuple(joint4.x.shape) == (600, D4)
           and int(joint4.interv_mask.sum()) == 5 * 100 * math.ceil(0.1 * D4),
           "config 4's data is not 100 + 5 x 100 rows with 3 clamped nodes")
+    profiles = {}
     for name, dibs, p, k in (("marginal score", marginal, P, K_LAT),
                              ("joint", joint, P, K_LAT),
                              ("joint nonlinear", joint_nl, P, K_LAT),
@@ -1780,15 +1780,8 @@ def phase_profile(dev, card):
             f"{prof['device_ms']:.3f} ms/step, busy share "
             f"{prof['busy']:.3f}, kernel launches/step "
             f"{prof['launches']:.1f}; top: {top}")
-
-
-def acyclic_grad_flops(p, d, k):
-    """Float32 operations of kernel #9: the ``[d, d]`` products of the
-    binary-exponentiation chain ``M^(d-1)`` (the first, I M, is a copy),
-    2 d^3 each, per sample; the draw and the accumulation are O(d^2)."""
-    n = d - 1
-    products = max(n.bit_count() - 1, 0) + max(n.bit_length() - 1, 0)
-    return 2 * d ** 3 * products * p * k
+        profiles[name] = {k: v for k, v in prof.items() if k != "state"}
+    return profiles
 
 
 def phase_acyclic(dev, card, results):
@@ -1844,7 +1837,8 @@ def phase_acyclic(dev, card, results):
     with torch.no_grad():
         t_c = cuda_median_ms(lambda: acyclic_constr(soft), reps=10)
     del soft
-    b_ms, b_by = bound_ms(acyclic_grad_flops(p, d, k), 2 * 4 * p * d * d)
+    b_ms, b_by = bound("acyclic_grad", p=p, d=d, k=k)
+    timed(f"#9 P={p} d={d} K={k}", t_k, b_ms)
     results["acyclic_grad"] = dict(max_abs_err=err_main, ms=t_k, plain_ms=t_p,
                                    bound_ms=b_ms, bound_by=b_by,
                                    library_ms=t_e)
@@ -1918,17 +1912,6 @@ def phase_bge_large(dev, card):
         f"'{card}'")
 
 
-def bge_flops_bytes(gs):
-    """#2's work on ``gs [B, d, d]``: float32 operations a k^3/3
-    elimination and its k^2 border need per (graph, node) with k parents,
-    2 (k^3/3 + k^2), over the actual masks; bytes: R, the masks and the
-    two outputs, each once."""
-    b, d, _ = gs.shape
-    k = gs.sum(1).double()
-    return (float((2 * (k ** 3 / 3 + k ** 2)).sum()),
-            4 * (d ** 3 + b * d * d + 2 * b * d))
-
-
 def j_last_masked(r_mats, gs):
     """The masked matrices of ``torch.linalg.cholesky``'s route to the
     pairs (``ops/logdet.py``'s d > 64 tier): per (graph, node j) the mask
@@ -1958,6 +1941,7 @@ def phase_config6(dev, card, results):
     bit over all of them, its times beside the bound, the twin's and the
     library's; then a 10-step profile. Returns the timed steps' launch
     counts; adds the timings to ``results["bge_pairs"]["block_tier"]``."""
+    from dibs_tpu_torch.accounting import bound_ms, kernel_cost
     from dibs_tpu_torch.inference import MarginalDiBS
     from dibs_tpu_torch.models import linear_gaussian as lg
     from dibs_tpu_torch.ops import gpu_kernels as gk
@@ -2079,8 +2063,10 @@ def phase_config6(dev, card, results):
     t_lib = cuda_median_ms(lambda: torch.linalg.cholesky(mats),
                            reps=3) * b / CHUNK6
     del mats, chol, logd
-    flops, n_bytes = bge_flops_bytes(gs)
+    flops, n_bytes = kernel_cost("bge_pairs", gs=gs)
     b_ms, b_by = bound_ms(flops, n_bytes)
+    timed(f"#2 config 6 [{b} graphs, d={d}] events", t_k, b_ms)
+    timed(f"#2 config 6 [{b} graphs, d={d}] device", t_dev, b_ms)
     log(f"[10 config 6: #2] on one step's {b} hard graphs at d={d}: bitwise "
         f"equal to the twin at all {2 * b * d} values (twin in chunks of "
         f"{CHUNK6} graphs), two calls bitwise equal, vs float64 slogdet "
@@ -2091,8 +2077,8 @@ def phase_config6(dev, card, results):
         f"{t_lib:.2f} ms (one chunk of {CHUNK6 * d} matrices x "
         f"{b // CHUNK6}; its logdets within {lib_err:.3g} of the kernel's); "
         f"bound {b_ms:.4f} ms ({b_by}; operations "
-        f"{1e3 * flops / F32_FLOPS:.4f} ms for {flops:.4g} FLOP, bytes "
-        f"{1e3 * n_bytes / HBM_BYTES_PER_S:.4f} ms) on '{card}'")
+        f"{bound_ms(flops, 0)[0]:.4f} ms for {flops:.4g} FLOP, bytes "
+        f"{bound_ms(0, n_bytes)[0]:.4f} ms) on '{card}'")
     short = {re.search(r"bge_pairs\w*(<[^>]*>)?", n).group(0): ms
              for n, ms in split.items()}
     log("[10 config 6: #2 by kernel] device ms a call: " + ", ".join(
@@ -2628,16 +2614,16 @@ def fleet_kernels(dev):
     return lines, worst4
 
 
-def fleet_times(nb, name, batched, serial, plain, flops, n_bytes,
+def fleet_times(nb, name, batched, serial, plain, kernel, shape,
                 library=None):
     """One timing line of 13(a): median ms of the batched launch, of ``nb``
     unbatched launches, of the plain version and of a library call, beside
-    the bound."""
+    the bound of ``kernel`` at ``shape``."""
     t_b = cuda_median_ms(batched, reps=20)
     t_s = cuda_median_ms(serial, reps=10)
     t_p = cuda_median_ms(plain, reps=2)
     t_l = cuda_median_ms(library, reps=20) if library is not None else None
-    b_ms, b_by = bound_ms(flops, n_bytes)
+    b_ms, b_by = bound(kernel, **shape)
     return (f"{name} B={nb}: batched {t_b:.4f} ms, {nb} unbatched {t_s:.4f}"
             f" ms, plain {t_p:.4f} ms, bound {b_ms:.5f} ({b_by})"
             + ("" if t_l is None else f", library {t_l:.4f} ms"))
@@ -2687,7 +2673,7 @@ def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
         lambda: [gk.gumbel_graphs(scores[i * P:(i + 1) * P], s, 7, 1.0, 1.0,
                                   M, True) for i, s in enumerate(seeds)],
         lambda: gk.gumbel_graphs_plain(scores, keys, 7, 1.0, 1.0, M, True),
-        3 * bp * M * D * D, 4 * (bp * D * D + bp * M * D * D))
+        "gumbel_graphs", dict(p=bp, m=M, d=D))
     x = torch.from_numpy(rng.normal(size=(nb, N_OBS, D)).astype(
         np.float32)).to(dev)
     r_mats, _ = BGe(n_vars=D, device=dev)._posterior_r_mats(
@@ -2696,25 +2682,24 @@ def fleet_kernel_times(dev, nb, keys, scores, z, g, k_mat, mu, rng):
     gs = gk.gumbel_graphs(scores, keys, 3, 1.0, 1.0, M, True).reshape(
         -1, D, D)
     per = P * M
-    flops_b, _ = bge_flops_bytes(gs)
     stacked = bge_masked_stack(r_mats, gs, nb)
     row("#2", lambda: bge_logdet_pairs(r_mats, gs),
         lambda: [bge_logdet_pairs(r_mats[i], gs[i * per:(i + 1) * per])
                  for i in range(nb)],
         lambda: bge_logdet_pairs_plain(r_mats, gs),
-        flops_b, 4 * (nb * D ** 3 + gs.shape[0] * (D * D + 2 * D)),
+        "bge_pairs", dict(gs=gs, datasets=nb),
         lambda: torch.linalg.slogdet(stacked))
     del stacked
     row("#3", lambda: gk.se_matrix(z, z, 5.0, 1.0),
         lambda: [gk.se_matrix(z[i], z[i], 5.0, 1.0) for i in range(nb)],
         lambda: gk.se_matrix_plain(z, z, 5.0, 1.0),
-        3 * nb * P * P * n, 4 * nb * (P * n + P * P),
+        "se_matrix", dict(a=P, n=n, batch=nb, triangle=True),
         lambda: torch.cdist(z, z))
     row("#4", lambda: tk.transport_phi(k_mat, None, g, z, c=-0.4, mu=mu),
         lambda: [tk.transport_phi(k_mat[i], None, g[i], z[i], c=-0.4,
                                   mu=mu[i]) for i in range(nb)],
         lambda: tk.transport_phi_plain(k_mat, None, g, z, c=-0.4, mu=mu),
-        2 * nb * P * P * n, 4 * nb * (3 * P * n + P * P + n + P),
+        "transport_phi", dict(p=P, n=n, batch=nb),
         lambda: -(k_mat.transpose(-1, -2) @ g - 0.4 * (
             k_mat.transpose(-1, -2) @ (z - mu)
             - k_mat.sum(dim=1)[..., None] * (z - mu))) / P)
@@ -3099,21 +3084,15 @@ def fleet_fused_kernels(dev):
                                      for e in extra), **dict(kw, seed=s))
                         for i, s in enumerate(seeds)]
 
-            kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
-            flops = {"fused_linear_single": fused_linear_flops(
-                "single", bp, M, N_OBS, D),
-                "fused_linear_pass1": fused_linear_flops(
-                    "pass1", bp, M, N_OBS, D),
-                "fused_linear_pass2": 2 * kept * (4 * N_OBS * D * D
-                                                  + 2 * N_OBS * D)
-                + 2 * bp * N_OBS * D * D,
-                "fused_nonlinear": fused_nonlinear_flops(
-                    bp, M, N_OBS, D, h1)}[name]
-            n_bytes = 4 * (sum(t.numel() for t in lead) + 2 * x.numel()
-                           + sum(o.numel() for o in got))
+            shape = dict(p=bp, m=M, n=N_OBS, d=D, datasets=nb)
+            if name == "fused_linear_pass2":
+                shape["replayed"] = int(((weights[0] != 0)
+                                         | (weights[1] != 0)).sum())
+            if name == "fused_nonlinear":
+                shape["h1"] = h1
             lines.append(fleet_times(
                 nb, name, lambda: kern(*lead, x, w, *extra, **kw), serial,
-                lambda: plain(*lead, x, w, *extra, **kw), flops, n_bytes))
+                lambda: plain(*lead, x, w, *extra, **kw), name, shape))
         lines.append(f"B={nb}: #5-#8 within 1e-4 max(1, max|ref|) of their "
                      f"plain versions (worst " + ", ".join(
                          f"{k} {v:.3f}" for k, v in worst.items())
@@ -3248,14 +3227,14 @@ def fleet_wide(dev):
     nb, p, d, n, blocks, m = FLEET_WIDE_C5
     args, x, w, weights, kw, seeds = fleet_wide_problem(
         dev, rng, nb, p, d, n, blocks, m, (4, 4))
+    shape = dict(p=nb * p, m=m, n=n, d=d, datasets=nb)
     kept = int(((weights[0] != 0) | (weights[1] != 0)).sum())
-    for name, kern, plain, extra, flops in (
+    for name, kern, plain, extra, cost in (
             ("fused_linear_wide_pass1", fl.fused_linear_pass1,
-             fl.fused_linear_pass1_plain, (),
-             fused_linear_flops("pass1", nb * p, m, n, d)),
+             fl.fused_linear_pass1_plain, (), shape),
             ("fused_linear_wide_pass2", fl.fused_linear_pass2,
              fl.fused_linear_pass2_plain, (weights,),
-             2 * kept * (4 * n * d * d + 2 * n * d) + 2 * nb * p * n * d * d)):
+             dict(shape, replayed=kept))):
 
         def serial(kern=kern, extra=extra):
             return [kern(*(t[i * p:(i + 1) * p] for t in args), x[i], w[i],
@@ -3263,15 +3242,11 @@ def fleet_wide(dev):
                            for e in extra), **dict(kw, seed=s))
                     for i, s in enumerate(seeds)]
 
-        out = kern(*args, x, w, *extra, **kw)
-        n_bytes = 4 * (sum(t.numel() for t in args) + 2 * x.numel()
-                       + sum(wt.numel() for e in extra for wt in e)
-                       + sum(o.numel() for o in out))
         lines.append(fleet_times(
             nb, f"{name} (config 5)",
             lambda kern=kern, extra=extra: kern(*args, x, w, *extra, **kw),
             serial, lambda plain=plain, extra=extra: plain(
-                *args, x, w, *extra, **kw), flops, n_bytes))
+                *args, x, w, *extra, **kw), name, cost))
     return lines
 
 
@@ -3457,8 +3432,7 @@ def mc_sampler(dev):
     for _ in range(3):
         for name, fn in arms.items():
             times[name].append(cuda_median_ms(fn, reps=20))
-    b_ms, b_by = bound_ms(3 * P5 * n * D5 * D5,
-                          4 * (P5 * D5 * D5 + P5 * n * D5 * D5))
+    b_ms, b_by = bound("gumbel_graphs", p=P5, m=n, d=D5)
     shown = {name: [round(t, 4) for t in ts] for name, ts in times.items()}
     log(f"[14c kernels] #1 soft [{P5}, {m}, {D5}, {D5}] in turns (ms, three "
         f"medians of 20 events each): {shown}; a block's bound [{P5}, {n}, "
@@ -4015,6 +3989,227 @@ def phase_mc(dev, card, counts):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# phase 15(c): config 5's profiled kernels by the step model's phases they
+# run. The wide passes draw the likelihood samples in their own bodies
+# (``sampling_in_kernel``); #1 draws the acyclicity samples, which the model
+# counts in ``acyclicity_prior`` with the chain's cuBLAS products.
+CONFIG5_PHASES = {
+    "fused linear (wide passes 1 and 2, their sampling)": (
+        ("fused_linear",),
+        ("fused_forward", "fused_backward", "sampling_in_kernel")),
+    "transport (#3, #4)": (("se_matrix", "se_reduce", "transport_phi_kernel"),
+                           ("kernel_transport",)),
+    "acyclicity prior (#1, cuBLAS gemm)": (("gumbel_graphs_kernel", "gemm"),
+                                           ("acyclicity_prior",)),
+}
+
+
+# phase 15(a): the kernels the three warm-up paths launch at d = 20, by
+# their launch counters (#5, or its two passes)
+WARM_LAUNCHES = (("gumbel_graphs",), ("bge_pairs",), ("se_matrix",),
+                 ("transport_phi",), ("fused_linear_single",
+                                      "fused_linear_pass1"),
+                 ("fused_nonlinear",))
+
+
+class SeenLaunches(dict):
+    """A stand-in for ``gpu_kernels.LAUNCHES`` that keeps, in ``seen``,
+    every count's increments: a restore of the counts (lower values) adds
+    nothing."""
+
+    def __init__(self, counts):
+        super().__init__(counts)
+        self.seen = dict.fromkeys(counts, 0)
+
+    def __setitem__(self, name, value):
+        self.seen[name] += max(value - self.get(name, 0), 0)
+        super().__setitem__(name, value)
+
+
+def warm_runs(dev):
+    """Three ``sample()`` steps of each warm-up model in a fresh engine at
+    ``warmup(D)``'s shape on seeded data: the outputs, in a flat list."""
+    from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
+    from dibs_tpu_torch.models import (
+        BGe,
+        DenseNonlinearGaussian,
+        ErdosReniDAGDistribution,
+        LinearGaussian,
+    )
+    from dibs_tpu_torch.utils.tree import tree_leaves
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(N_OBS, D)).astype(np.float32)).to(dev)
+    kw = dict(x=x, graph_model=ErdosReniDAGDistribution(D),
+              n_grad_mc_samples=M, device=dev)
+    out = []
+    for lik in (LinearGaussian(n_vars=D),
+                DenseNonlinearGaussian(n_vars=D, hidden_layers=(5,))):
+        g, theta = JointDiBS(likelihood_model=lik, **kw).sample(
+            seed=1, n_particles=P, steps=3)
+        out += [g, *tree_leaves(theta)]
+    out.append(MarginalDiBS(likelihood_model=BGe(n_vars=D, device=dev),
+                            **kw).sample(seed=1, n_particles=P, steps=3))
+    return out
+
+
+def cold_warmup():
+    """``warmup(D)`` in a new process, whose first kernel call loads the
+    library built by phase 2: its stderr lines (load, then each model's
+    first step)."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run(
+        [sys.executable, "-c", "from dibs_tpu_torch.warmup import warmup; "
+         f"warmup({D})"], cwd=root, env=env, capture_output=True, text=True,
+        timeout=300)
+    check(res.returncode == 0, f"cold warmup failed ({res.returncode}): "
+                               f"{res.stderr[-2000:]}")
+    lines = [ln for ln in res.stderr.splitlines() if "warmup]" in ln]
+    check(sum("first step" in ln for ln in lines) == 3,
+          f"cold warmup printed {lines}")
+    return lines
+
+
+def step_models():
+    """The reference's step model (``dibs_tpu_torch.accounting``) of each
+    of phase 7's cells."""
+    from dibs_tpu_torch.accounting import (
+        bge_step_cost,
+        linear_step_cost,
+        nonlinear_step_cost,
+    )
+
+    return {
+        "marginal score": bge_step_cost(d=D, n_obs=N_OBS, p=P, m=M,
+                                        kmc=K_ACYC, k=K_LAT),
+        "joint": linear_step_cost(d=D, n_obs=N_OBS, p=P, m=M, kmc=K_ACYC,
+                                  k=K_LAT),
+        "joint nonlinear": nonlinear_step_cost(
+            d=D, n_obs=N_OBS, p=P, m=M, hidden=(5,), kmc=K_ACYC, k=K_LAT,
+            fused_kernel=True),
+        "joint config 5": linear_step_cost(d=D5, n_obs=N5, p=P5, m=M5,
+                                           kmc=K_ACYC5, k=K5),
+        "joint config 4": linear_step_cost(d=D4, n_obs=600, p=P4, m=M,
+                                           kmc=K_ACYC, k=D4),
+    }
+
+
+def phase_accounting(dev, card, profiles):
+    """15. accounting and warm-up: (a) ``dibs_tpu_torch.warmup.warmup(D)``
+    for its three models with the launch counts at 0, which it leaves at 0,
+    and the RNG states as they were; again with ``SeenLaunches`` counting,
+    each group of ``WARM_LAUNCHES`` launched; ``warm_runs`` bitwise before
+    and after; then in a new process (:func:`cold_warmup`); (b) ``accounting.roofline`` of each of
+    phase 7's cells' step model against its wall and its device time a
+    step, every share at or under 105%; (c) ``accounting.phase_roofline``
+    of config 5 from phase 7's per-kernel device times; (d) every kernel
+    time of phases 3, 6, 8 and 10 at or above 1/1.05 of its
+    ``kernel_cost`` bound."""
+    import io
+
+    from dibs_tpu_torch.accounting import (
+        bge_step_cost,
+        phase_roofline,
+        roofline,
+    )
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.warmup import MODELS, warmup
+
+    # (a) the library is loaded since phase 2: these are the first steps
+    before = warm_runs(dev)
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    rng, rng_cuda = torch.get_rng_state(), torch.cuda.get_rng_state(dev)
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        warmup(D, device=dev)
+    secs = time.perf_counter() - t0
+    lines = [ln for ln in err.getvalue().splitlines() if "first step" in ln]
+    check(len(lines) == len(MODELS), f"warmup printed {lines}")
+    check(not any(gk.LAUNCHES.values()),
+          f"warmup left launch counts {gk.LAUNCHES}")
+    check(torch.equal(rng, torch.get_rng_state())
+          and torch.equal(rng_cuda, torch.cuda.get_rng_state(dev)),
+          "warmup moved an RNG state")
+    # the restore above hides the launches: a second warm-up records them
+    counts = gk.LAUNCHES
+    gk.LAUNCHES = seen = SeenLaunches(counts)
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            warmup(D, device=dev)
+    finally:
+        counts.update(seen)
+        gk.LAUNCHES = counts
+    missing = [names for names in WARM_LAUNCHES
+               if not any(seen.seen[n] for n in names)]
+    check(not missing, f"warmup launched none of {missing}: {seen.seen}")
+    after = warm_runs(dev)
+    check(all(torch.equal(a, b) for a, b in zip(before, after)),
+          "a sample() after warmup differs from one before it")
+    log(f"[15a warmup] warmup({D}) of {MODELS} (N=100, P=30, M=128) on "
+        f"'{card}': {secs:.2f} s; launch counts and RNG states as before; "
+        f"a second warmup launched {seen.seen}; sample() of the three "
+        f"models bitwise as before it; "
+        + "; ".join(ln.split("] ", 1)[-1] for ln in lines))
+    cold = cold_warmup()
+    log(f"[15a warmup, cold process] warmup({D}) in a new process on "
+        f"'{card}' (the library built, not loaded): "
+        + "; ".join(ln.split("] ", 1)[-1] for ln in cold))
+
+    # (b) each cell's step model against its measured step
+    models = step_models()
+    for name, cost in models.items():
+        prof = profiles[name]
+        for clock in ("wall", "device"):
+            ms = prof[f"{clock}_ms"]
+            row = roofline(cost.flops, cost.bytes_min, cost.transcendentals,
+                           ms / 1e3)
+            shares = {k: row[k] for k in ("mfu_pct", "hbm_pct",
+                                          "transc_pct")}
+            check(all(v <= 105.0 for v in shares.values()),
+                  f"{name}: a share of the step model past 105% of the "
+                  f"card's peak ({shares}): the count exceeds the card")
+            log(f"[15b roofline {name}] {clock} {ms:.3f} ms/step on "
+                f"'{card}' against the H100 SXM's peaks: {cost.flops:.4g} "
+                f"FLOP, {cost.bytes_min:.4g} B, {cost.transcendentals:.4g} "
+                f"transcendentals a step: {row}")
+    elim = bge_step_cost(d=D6, n_obs=N_OBS, p=P6, m=M6, kmc=K_ACYC6,
+                         k=D6).phases["bge_eliminations"]
+    log(f"[15b roofline config 6] not printed: bge_step_cost counts a full "
+        f"d^3 elimination a (graph, node), {elim:.4g} FLOP a step at d={D6}, "
+        f"P={P6}, M={M6}, more than the card can do in the step's device "
+        f"time; #2 eliminates over the parents only")
+
+    # (c) config 5 by phase, from phase 7's per-kernel device times
+    kernels = profiles["joint config 5"]["kernels"]
+    measured, covered = {}, 0.0
+    for label, (keys, phases) in CONFIG5_PHASES.items():
+        ms = sum(t for n, t in kernels.items()
+                 if any(k in n.lower() for k in keys))
+        measured[label] = (ms, phases)
+        covered += ms
+    for row in phase_roofline(models["joint config 5"], measured, D5):
+        log(f"[15c config 5 by phase] on '{card}': {row}")
+    log(f"[15c config 5 by phase] the rows cover {covered:.3f} of "
+        f"{sum(kernels.values()):.3f} device ms a step (the rest: "
+        f"elementwise and reduction kernels)")
+
+    # (d) no count past what the card did
+    check(bool(TIMED), "no kernel times kept")
+    for label, ms, b_ms in TIMED:
+        check(b_ms <= 1.05 * ms, f"{label}: bound {b_ms} ms past 1.05 x the "
+                                 f"measured {ms} ms")
+    label, ms, b_ms = max(TIMED, key=lambda t: t[2] / t[1])
+    log(f"[15d bounds] {len(TIMED)} kernel times of phases 3, 6, 8 and 10, "
+        f"each at or above 1/1.05 of its kernel_cost bound; the closest: "
+        f"{label} {ms:.4f} ms against its bound {b_ms:.5f} ms "
+        f"({b_ms / ms:.3f})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4030,40 +4225,50 @@ def main():
         return 1
 
     dev = torch.device("cuda:0")
-    card = phase_env()
-    phase_build()
+    seconds = {}
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = run(phase_env)
+    run(phase_build)
     results = {}
-    phase_kernels(dev, results)
-    phase_fused(dev, results)
-    phase_fused_nonlinear(dev, results)
-    phase_rng(dev)
-    launches = phase_e2e(dev, card, STEPS)
+    run(phase_kernels, dev, results)
+    run(phase_fused, dev, results)
+    run(phase_fused_nonlinear, dev, results)
+    run(phase_rng, dev)
+    launches = run(phase_e2e, dev, card, STEPS)
     # each path's counts are set to 0 just before it runs: the joint
     # path's launches are added to the marginal path's
-    for name, count in phase_joint(dev, card, STEPS).items():
+    for name, count in run(phase_joint, dev, card, STEPS).items():
         launches[name] += count
-    for name, count in phase_joint_nonlinear(dev, card, STEPS_NL).items():
+    for name, count in run(phase_joint_nonlinear, dev, card, STEPS_NL).items():
         launches[name] += count
-    phase_transport(dev, results)
-    phase_config5_kernels(dev, results)
-    phase_se_matrix(dev, results)
-    for name, count in phase_config5(dev, card, STEPS5).items():
+    run(phase_transport, dev, results)
+    run(phase_config5_kernels, dev, results)
+    run(phase_se_matrix, dev, results)
+    for name, count in run(phase_config5, dev, card, STEPS5).items():
         launches[name] += count
-    phase_profile(dev, card)
-    for name, count in phase_acyclic(dev, card, results).items():
+    profiles = run(phase_profile, dev, card)
+    for name, count in run(phase_acyclic, dev, card, results).items():
         launches[name] += count
-    for name, count in phase_spectral_checkpoint(dev, card, 100).items():
+    for name, count in run(phase_spectral_checkpoint, dev, card, 100).items():
         launches[name] += count
-    phase_bge_large(dev, card)
-    for name, count in phase_config6(dev, card, results).items():
+    run(phase_bge_large, dev, card)
+    for name, count in run(phase_config6, dev, card, results).items():
         launches[name] += count
-    for name, count in phase_joint_score(dev, card).items():
+    for name, count in run(phase_joint_score, dev, card).items():
         launches[name] += count
-    phase_switches(dev, card)
-    for name, count in phase_fleet(dev, card).items():
+    run(phase_switches, dev, card)
+    for name, count in run(phase_fleet, dev, card).items():
         launches[name] += count
-    for name, count in phase_sharding(dev, card).items():
+    for name, count in run(phase_sharding, dev, card).items():
         launches[name] += count
+    run(phase_accounting, dev, card, profiles)
+    log(f"[seconds by phase] {seconds}")
     fused = "dibs_tpu/inference/fused_linear.py"
     sources = {
         "gumbel_graphs": ("dibs_tpu_torch/csrc/gumbel.cu",

@@ -41,6 +41,7 @@ from dibs_tpu_torch.models import (
 )
 from dibs_tpu_torch.ops.acyclic import acyclic_constr
 from dibs_tpu_torch.target import make_graph_model, make_linear_gaussian_model
+from dibs_tpu_torch.warmup import warmup
 
 torch.set_num_threads(1)
 
@@ -375,6 +376,7 @@ def test_entry_points_default_to_the_card(problem):
                                                            n_vars=D),
         lambda: ScaleFreeDAGDistribution(D).sample_G(gen),
         lambda: make_linear_gaussian_model(generator=gen, n_vars=D),
+        lambda: warmup(D, verbose=False),
     ]
     if torch.cuda.is_available():
         assert JointDiBS(x=x_t, graph_model=ScaleFreeDAGDistribution(D),

@@ -204,7 +204,8 @@ def test_port_imports_without_jax():
             "dibs_tpu_torch.inference.fused_nonlinear, "
             "dibs_tpu_torch.models.nonlinear_gaussian, "
             "dibs_tpu_torch.utils.tree, dibs_tpu_torch.target, "
-            "dibs_tpu_torch.models.graph, chip_smoke; "
+            "dibs_tpu_torch.models.graph, dibs_tpu_torch.accounting, "
+            "dibs_tpu_torch.warmup, chip_smoke; "
             "assert not any(m == 'dibs_tpu' or m.startswith('dibs_tpu.') "
             "for m in sys.modules)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -7,8 +7,9 @@ node has exactly k parents (numpy seed k), and times one call of
 ``bge_logdet_pairs`` on them: the device time of each kernel whose name
 holds ``bge_pairs`` (``torch.profiler``, mean of 5 calls), the ns a pair,
 the route ``gpu_kernels.bge_pairs_plan`` names, and the call's operation
-bound (2 (k^3/3 + k^2) float32 operations a pair at 67 TFLOP/s) with the
-time's multiple of it. Prints the card's ``nvidia-smi`` name and power
+bound (``dibs_tpu_torch.accounting.kernel_cost``'s 2 (k^3/3 + k^2) float32
+operations a pair at the H100 SXM's 67 TFLOP/s) with the time's multiple of
+it. Prints the card's ``nvidia-smi`` name and power
 limit first. With ``--sass`` it times nothing: it reads the SASS of the
 built library (``cuobjdump``) and prints, for each block-route kernel, its
 pivot-step loops (a backward branch over one ``BAR.SYNC``, one a phase,
@@ -26,7 +27,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import F32_FLOPS, kernel_device_split  # noqa: E402
+from chip_smoke import kernel_device_split  # noqa: E402
+from dibs_tpu_torch.accounting import bound_ms, kernel_cost  # noqa: E402
 from dibs_tpu_torch.models.linear_gaussian import BGe  # noqa: E402
 from dibs_tpu_torch.ops import gpu_kernels as gk  # noqa: E402
 from dibs_tpu_torch.ops.bge_kernel import bge_logdet_pairs  # noqa: E402
@@ -64,7 +66,7 @@ def main():
         split = kernel_device_split(lambda: bge_logdet_pairs(r_mats, gs_t),
                                     "bge_pairs", 5)
         total = sum(split.values())
-        bound = 1e3 * b * d * 2 * (k ** 3 / 3 + k ** 2) / F32_FLOPS
+        bound = bound_ms(kernel_cost("bge_pairs", gs=gs_t)[0], 0)[0]
         plan = gk.bge_pairs_plan(d, k)
         parts = ", ".join(f"{n[n.index('bge_pairs'):].split('(')[0]} {ms:.4f}"
                           for n, ms in sorted(split.items(),
