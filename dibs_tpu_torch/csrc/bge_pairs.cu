@@ -206,7 +206,8 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
     bge_pairs_warp_kernel(const float* __restrict__ r_mats,
                           const float* __restrict__ gs,
                           float* __restrict__ out_pa,
-                          float* __restrict__ out_full, int gpd, int d) {
+                          float* __restrict__ out_full, int gpd, int d,
+                          unsigned long long* __restrict__ parents) {
   __shared__ float masks[kSmallMaxD * (kSmallMaxD + 1)];  // [row][ld]
   __shared__ int lists[kWarps][32];
   const int ld = d | 1;  // odd row stride: a column read hits 32 banks
@@ -248,6 +249,26 @@ __global__ void __launch_bounds__(kWarps * 32, 8)
     }
     __syncwarp();  // plist is rewritten by the next node
   }
+  if (parents != nullptr) {
+    // the block's histogram of k, recounted from the staged mask into the
+    // parent lists' memory once every warp is done with it (nothing is
+    // held across the loop above), then added to the counter
+    __syncthreads();
+    int* hist = &lists[0][0];
+    for (int k = threadIdx.x; k <= d; k += blockDim.x) hist[k] = 0;
+    __syncthreads();
+    for (int j = warp; j < d; j += kWarps) {
+      const float m = lane < d ? masks[lane * ld + j] : 0.0f;
+      const int k = __popc(__ballot_sync(kFull, m != 0.0f));
+      if (lane == 0) atomicAdd(hist + k, 1);
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k <= d; k += blockDim.x) {
+      if (hist[k] != 0) {
+        atomicAdd(parents + k, static_cast<unsigned long long>(hist[k]));
+      }
+    }
+  }
 }
 
 // ---- d > 32: parent sets as bits, then each pair routed by k -------------
@@ -270,12 +291,17 @@ __device__ __forceinline__ int parent_rank(uint4 w, int q) {
 __global__ void __launch_bounds__(256)
     bge_pairs_bits_kernel(const float* __restrict__ gs,
                           uint4* __restrict__ words, int* __restrict__ soft,
-                          int* __restrict__ counters, int n_graphs, int d) {
+                          int* __restrict__ counters, int n_graphs, int d,
+                          unsigned long long* __restrict__ parents) {
   __shared__ unsigned rows[kMaxD][4];  // bit l of rows[r][c]: m[r, 32c + l]
+  __shared__ int hist[kMaxD + 1];  // the block's pairs by parent count k
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int64_t b = blockIdx.x;
   const float* __restrict__ g = gs + b * d * d;
+  if (parents != nullptr) {
+    for (int k = threadIdx.x; k <= d; k += blockDim.x) hist[k] = 0;
+  }
   int nonbinary = 0;
   for (int r = warp; r < kMaxD; r += 8) {
     float v[4];
@@ -309,6 +335,19 @@ __global__ void __launch_bounds__(256)
     if (q < d) {
       words[static_cast<int64_t>(q) * n_graphs + b] =
           make_uint4(mine[0], mine[1], mine[2], mine[3]);
+      if (parents != nullptr) {
+        atomicAdd(hist + parent_count(
+                             make_uint4(mine[0], mine[1], mine[2], mine[3])),
+                  1);
+      }
+    }
+  }
+  if (parents != nullptr) {  // the block's histogram, added to the counter
+    __syncthreads();
+    for (int k = threadIdx.x; k <= d; k += blockDim.x) {
+      if (hist[k] != 0) {
+        atomicAdd(parents + k, static_cast<unsigned long long>(hist[k]));
+      }
     }
   }
   if (threadIdx.x == 0) soft[b] = any_soft;
@@ -716,15 +755,16 @@ int launch_route(Kernel kernel, int threads, int64_t items,
 template <bool kFleet>
 int launch_routes(const float* r_mats, const float* gs, float* out_pa,
                   float* out_full, void* words, int* soft, int* counters,
-                  int n_graphs, int gpd, int d, cudaStream_t stream) {
+                  int n_graphs, int gpd, int d, cudaStream_t stream,
+                  unsigned long long* parents) {
   if (d <= kSmallMaxD) {
     bge_pairs_warp_kernel<kFleet><<<n_graphs, kWarps * 32, 0, stream>>>(
-        r_mats, gs, out_pa, out_full, gpd, d);
+        r_mats, gs, out_pa, out_full, gpd, d, parents);
     return static_cast<int>(cudaGetLastError());
   }
   uint4* w = static_cast<uint4*>(words);
   bge_pairs_bits_kernel<<<n_graphs, 256, 0, stream>>>(gs, w, soft, counters,
-                                                      n_graphs, d);
+                                                      n_graphs, d, parents);
   int rc = static_cast<int>(cudaGetLastError());
   const int64_t items = static_cast<int64_t>(n_graphs) * d;
   if (rc == 0) {
@@ -787,11 +827,14 @@ DIBS_API int dibs_bge_pairs_smem_bytes(int d, int k) {
 // `words` ([d][n_graphs] x 16 bytes), `soft` ([n_graphs]) and `counters`
 // ([kRoutes] ints, zeroed by the bits pass) are the wrapper's scratch.
 // `gpd`: graphs a dataset (r_mats is [n_graphs / gpd, d, d, d]); n_graphs
-// for one dataset.
+// for one dataset. `parents`: null, or a [d + 1] counter to which each
+// (graph, node) pair adds 1 at its parent count k (the kernel that reads
+// the pair's parent set counts it: one shared histogram a block).
 DIBS_API int dibs_bge_pairs(const float* r_mats, const float* gs,
                             float* out_pa, float* out_full, void* words,
                             int* soft, int* counters, int n_graphs, int gpd,
-                            int d, const int* plan, cudaStream_t stream) {
+                            int d, const int* plan, cudaStream_t stream,
+                            unsigned long long* parents) {
   if (d < 2 || d > kMaxD || gpd < 1 || n_graphs % gpd != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -803,7 +846,9 @@ DIBS_API int dibs_bge_pairs(const float* r_mats, const float* gs,
   if (n_graphs == 0) return 0;
   return gpd < n_graphs
              ? launch_routes<true>(r_mats, gs, out_pa, out_full, words, soft,
-                                   counters, n_graphs, gpd, d, stream)
+                                   counters, n_graphs, gpd, d, stream,
+                                   parents)
              : launch_routes<false>(r_mats, gs, out_pa, out_full, words,
-                                    soft, counters, n_graphs, gpd, d, stream);
+                                    soft, counters, n_graphs, gpd, d, stream,
+                                    parents);
 }

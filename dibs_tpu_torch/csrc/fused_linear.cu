@@ -700,6 +700,7 @@ struct WideArgs {
   // last, so that the single-dataset kernels' parameters keep their places
   const int64_t* keys;  // [B_ds] a fleet's keys (kFleet), or nullptr
   int per;              // particles a dataset (P for one dataset)
+  unsigned long long* replayed;  // pass 2's replay counter, or nullptr
 };
 
 // The soft and hard sample of element (i, j) (global index eg = i d + j) of
@@ -1072,7 +1073,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 //
 // Replays the samples per column tile with the softmax weights into the
 // block's [d, kCols] slabs of d scores and d Theta. A sample whose two
-// weights are both exactly 0 adds exactly 0 and is skipped.
+// weights are both exactly 0 adds exactly 0 and is skipped. Given a
+// counter (`replayed`, while a profiler records), column tile 0 adds each
+// 32-sample chunk's replayed samples to it, one atomic a chunk.
 //
 // What bounds it on this card: float32 FFMA, 2 branches x (the delta product
 // + the x^T resid product) = 8 N d kCols FLOPs per replayed (particle,
@@ -1294,6 +1297,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     unsigned live = __ballot_sync(0xFFFFFFFFu,
                                   w_lane_s != 0.0f || w_lane_h != 0.0f);
+    if (a.replayed != nullptr && blockIdx.y == 0 && threadIdx.x == 0) {
+      // the chunk's replayed samples, counted once a particle (column
+      // tile 0), one atomic a 32-sample ballot
+      atomicAdd(a.replayed, static_cast<unsigned long long>(__popc(live)));
+    }
     while (live != 0u) {
       const int b = __ffs(live) - 1;
       live &= live - 1u;
@@ -1651,6 +1659,8 @@ DIBS_API size_t dibs_fused_linear_wide_pass2_smem_bytes(int d, int tile_rows) {
 // [B_ds] (device int64; dibs_fused_linear_wide only): particle p reads
 // dataset p / per and draws with its key at the particle counter p % per
 // (the kFleet builds); one dataset: keys null, per = P (the key is `seed`).
+// `replayed`: null, or a counter to which pass 2 adds the (particle,
+// sample) pairs it replays (those whose two weights are not both 0).
 #if DIBS_FL_SHARD
 DIBS_API int dibs_fused_linear_wide_shard(
 #else
@@ -1663,7 +1673,8 @@ DIBS_API int dibs_fused_linear_wide(
     int n_particles, int n_samples, int d, int n_obs, int tile_rows,
     uint64_t seed, uint32_t p0, uint32_t stream_soft, uint32_t stream_hard,
     float alpha, float tau, double inv_var, float mean_edge, float sig_edge,
-    cudaStream_t stream, const int64_t* keys, int per) {
+    cudaStream_t stream, const int64_t* keys, int per,
+    unsigned long long* replayed) {
   if (d < 1 || n_obs < 1 || n_samples < 1 || tile_rows < 1 ||
       tile_rows > n_obs || tile_rows > kThreads / 2 ||
       (tile_rows < n_obs && resid_ref == nullptr) || per < 1 ||
@@ -1703,5 +1714,6 @@ DIBS_API int dibs_fused_linear_wide(
   a.inv_var = inv_var;
   a.keys = keys;
   a.per = per;
+  a.replayed = mode == kWide2 ? replayed : nullptr;
   return launch_wide(a, mode, n_particles, stream);
 }

@@ -93,6 +93,7 @@ from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs, sample_soft_graph
 from dibs_tpu_torch.parallel import constrain_mc
 from dibs_tpu_torch.parallel.shard_ops import mc_block, mc_gather, mc_sum, \
     shard_offset
+from dibs_tpu_torch.profiling import span
 from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp, zero_diagonal
 from dibs_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -163,8 +164,10 @@ def stable_ratio_grad(log_num: torch.Tensor, log_den: torch.Tensor,
 
 def _chain_scores(dscores, zs):
     """``d scores -> dZ``: ``dU = dS V``, ``dV = dS^T U``."""
-    u, v = zs[..., 0], zs[..., 1]
-    return torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u], dim=-1)
+    with span("dibs.likelihood.grad"):
+        u, v = zs[..., 0], zs[..., 1]
+        return torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u],
+                           dim=-1)
 
 
 def _warn_on_data_scale(x, obs_noise):
@@ -272,10 +275,11 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             constrain_mc(eps, sharding).contiguous()
 
     def _hard_samples(zs, t, seed, stream, eps):
-        return sample_hard_graphs(
-            edge_scores(zs), seed, stream, cfg.alpha(t), m_local,
-            eps=_block(eps), particle_offset=_offset(zs),
-            sample_offset=m_first)
+        with span("dibs.likelihood.sampler"):
+            return sample_hard_graphs(
+                edge_scores(zs), seed, stream, cfg.alpha(t), m_local,
+                eps=_block(eps), particle_offset=_offset(zs),
+                sample_offset=m_first)
 
     def _all_samples(t):
         """``[P, M_local, ...]`` -> ``[P, M, ...]`` over the "mc" group."""
@@ -348,14 +352,17 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         ``P * M`` hard samples; joint: ``log_joint_prob`` scores each
         particle's samples with its own parameters."""
         g_all = _hard_samples(zs, t, seed, stream, eps)  # [P, M, d, d]
-        if thetas is None:
-            # float64 sum: exact for d float32 terms, so the same on any
-            # device
-            logprobs = _node_scores(g_all).double().sum(-1).float()
-        else:
-            logprobs = _log_joint(g_all, thetas)
-        return _score_from_logprobs(zs, baselines, g_all,
-                                    _all_samples(logprobs), cfg.alpha(t))
+        with span("dibs.likelihood.score"):
+            if thetas is None:
+                # float64 sum: exact for d float32 terms, so the same on
+                # any device
+                logprobs = _node_scores(g_all).double().sum(-1).float()
+            else:
+                logprobs = _log_joint(g_all, thetas)
+            logprobs = _all_samples(logprobs)
+        with span("dibs.likelihood.grad"):
+            return _score_from_logprobs(zs, baselines, g_all, logprobs,
+                                        cfg.alpha(t))
 
     # --- per-node Rao-Blackwellized REINFORCE ---
 
@@ -363,16 +370,19 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
                                 eps=None):
         alpha = cfg.alpha(t)
         g_all = _hard_samples(zs, t, seed, stream, eps)
-        node_scores = _all_samples(_node_scores(g_all))  # [P, M, d]
-        p = edge_probs(zs, alpha)
-        w = torch.exp(node_scores
-                      - torch.logsumexp(node_scores, dim=1, keepdim=True))
-        g_bar = _sum_samples(torch.einsum("pmij,pmj->pij", g_all, _mine(w)))
-        resid = alpha * (g_bar - p)  # diagonals of g_bar and p are both 0
-        u, v = zs[..., 0], zs[..., 1]
-        du = resid @ v
-        dv = resid.transpose(-1, -2) @ u
-        return torch.stack([du, dv], dim=-1), baselines
+        with span("dibs.likelihood.score"):
+            node_scores = _all_samples(_node_scores(g_all))  # [P, M, d]
+        with span("dibs.likelihood.grad"):
+            p = edge_probs(zs, alpha)
+            w = torch.exp(node_scores - torch.logsumexp(node_scores, dim=1,
+                                                        keepdim=True))
+            g_bar = _sum_samples(torch.einsum("pmij,pmj->pij", g_all,
+                                              _mine(w)))
+            resid = alpha * (g_bar - p)  # diagonals of g_bar, p both 0
+            u, v = zs[..., 0], zs[..., 1]
+            du = resid @ v
+            dv = resid.transpose(-1, -2) @ u
+            return torch.stack([du, dv], dim=-1), baselines
 
     # --- joint: softmax-weighted per-sample gradients, one autograd call ---
 
@@ -380,9 +390,11 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         """``sum_m softmax(logp)_m grad logp_m`` per particle; ``wrt`` is a
         tensor or a parameter tree. The softmax is over all ``M`` samples;
         autograd runs with this rank's slice of the weights."""
-        weights = _mine(torch.softmax(_all_samples(logp.detach()), dim=1))
-        grads = torch.autograd.grad(logp, tree_leaves(wrt), weights)
-        return _sum_samples(tree_unflatten(wrt, grads))
+        with span("dibs.likelihood.grad"):
+            weights = _mine(torch.softmax(_all_samples(logp.detach()),
+                                          dim=1))
+            grads = torch.autograd.grad(logp, tree_leaves(wrt), weights)
+            return _sum_samples(tree_unflatten(wrt, grads))
 
     def _log_joint(gs, thetas):
         # [P, M, d, d] graphs with the particle's parameters -> [P, M]
@@ -408,19 +420,24 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         """Gumbel-softmax reparameterization estimator of the Z score."""
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
-            gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
-                                    cfg.alpha(t), cfg.tau, m_local,
-                                    eps=_block(eps),
-                                    particle_offset=_offset(zs),
-                                    sample_offset=m_first)
-            return _weighted_grad(_log_joint(gs, thetas), z_req), baselines
+            with span("dibs.likelihood.sampler"):
+                gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
+                                        cfg.alpha(t), cfg.tau, m_local,
+                                        eps=_block(eps),
+                                        particle_offset=_offset(zs),
+                                        sample_offset=m_first)
+            with span("dibs.likelihood.score"):
+                logp = _log_joint(gs, thetas)
+            return _weighted_grad(logp, z_req), baselines
 
     def eltwise_grad_theta_likelihood(zs, thetas, t, seed, stream, eps=None):
         """Theta score from ``M`` hard graph samples per particle."""
         gs = _hard_samples(zs, t, seed, stream, eps)
         with torch.enable_grad():
             th_req = _requires_grad(thetas)
-            return _weighted_grad(_log_joint(gs, th_req), th_req)
+            with span("dibs.likelihood.score"):
+                logp = _log_joint(gs, th_req)
+            return _weighted_grad(logp, th_req)
 
     def fused_shared(zs, thetas, t, seed, streams, eps=None):
         """Both joint likelihood gradients from ONE soft noise batch
@@ -430,16 +447,21 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         samples)."""
         with torch.enable_grad():
             z_req = zs.detach().requires_grad_(True)
-            gs = sample_soft_graphs(edge_scores(z_req), seed, streams[0],
-                                    cfg.alpha(t), cfg.tau, m_local,
-                                    eps=None if eps is None else _block(
-                                        eps[0]),
-                                    particle_offset=_offset(zs),
-                                    sample_offset=m_first)
-            dz = _weighted_grad(_log_joint(gs, thetas), z_req)
+            with span("dibs.likelihood.sampler"):
+                gs = sample_soft_graphs(edge_scores(z_req), seed, streams[0],
+                                        cfg.alpha(t), cfg.tau, m_local,
+                                        eps=None if eps is None else _block(
+                                            eps[0]),
+                                        particle_offset=_offset(zs),
+                                        sample_offset=m_first)
+            with span("dibs.likelihood.score"):
+                logp = _log_joint(gs, thetas)
+            dz = _weighted_grad(logp, z_req)
             hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
             th_req = _requires_grad(thetas)
-            dtheta = _weighted_grad(_log_joint(hard, th_req), th_req)
+            with span("dibs.likelihood.score"):
+                logp = _log_joint(hard, th_req)
+            dtheta = _weighted_grad(logp, th_req)
         return dz, dtheta
 
     def fused_linear(zs, thetas, t, seed, streams, eps=None):
@@ -447,22 +469,24 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         fused kernels; ``d scores`` is chained to ``Z`` by ``dU = dS V``,
         ``dV = dS^T U``. Not split over ``"mc"``: every ``"mc"`` rank runs
         its ``"p"`` block's whole launch."""
-        dscores, dtheta = fused_linear_estimators(
-            zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
-            streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
-            model=fused_linear_model, eps=eps, single_pass=fused_single_pass,
-            particle_offset=_offset(zs))
+        with span("dibs.likelihood.score"):
+            dscores, dtheta = fused_linear_estimators(
+                zs=zs, thetas=thetas, x=x, interv_mask=interv_mask,
+                seed=seed, streams=streams, alpha=cfg.alpha(t), tau=cfg.tau,
+                n_samples=n_mc, model=fused_linear_model, eps=eps,
+                single_pass=fused_single_pass, particle_offset=_offset(zs))
         return _chain_scores(dscores, zs), dtheta
 
     def fused_nonlinear(zs, thetas, t, seed, streams, eps=None):
         """Both joint likelihood gradients of a one-hidden-layer
         ``DenseNonlinearGaussian`` through kernel #8 (not split over
         ``"mc"``, as :func:`fused_linear`)."""
-        dscores, dtheta = fused_nonlinear_estimators(
-            zs=zs, thetas=thetas, x=x, interv_mask=interv_mask, seed=seed,
-            streams=streams, alpha=cfg.alpha(t), tau=cfg.tau, n_samples=n_mc,
-            model=fused_nonlinear_model, eps=eps,
-            particle_offset=_offset(zs))
+        with span("dibs.likelihood.score"):
+            dscores, dtheta = fused_nonlinear_estimators(
+                zs=zs, thetas=thetas, x=x, interv_mask=interv_mask,
+                seed=seed, streams=streams, alpha=cfg.alpha(t), tau=cfg.tau,
+                n_samples=n_mc, model=fused_nonlinear_model, eps=eps,
+                particle_offset=_offset(zs))
         return _chain_scores(dscores, zs), dtheta
 
     # --- latent prior score ---
@@ -479,30 +503,36 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         penalty or, with ``acyclicity='spectral'``, the spectral radius by
         power iteration."""
         alpha = cfg.alpha(t)
-        with torch.enable_grad():
-            z_req = zs.detach().requires_grad_(True)
-            prior = log_graph_prior(soft_g=edge_probs(z_req, alpha)).sum()
-            (grad_prior_z,) = torch.autograd.grad(prior, z_req)
+        with span("dibs.prior"):
+            with torch.enable_grad():
+                z_req = zs.detach().requires_grad_(True)
+                prior = log_graph_prior(
+                    soft_g=edge_probs(z_req, alpha)).sum()
+                with span("dibs.prior.grad"):
+                    (grad_prior_z,) = torch.autograd.grad(prior, z_req)
 
-            z_req = zs.detach().requires_grad_(True)
-            if cfg.acyclicity_constraint == "mean":
-                h_vals = h_fn(edge_probs(z_req, alpha))  # [P]
-                cot = torch.ones_like(h_vals)
-            else:
-                k = cfg.n_acyclicity_mc_samples
-                gs = sample_soft_graphs(edge_scores(z_req), seed, stream,
-                                        alpha, cfg.tau, k_local,
-                                        eps=_block(eps),
-                                        particle_offset=_offset(zs),
-                                        sample_offset=k_first)
-                h_vals = h_fn(gs)  # [P, K_local]
-                cot = torch.full_like(h_vals, 1.0 / k)
-            (grad_constraint,) = torch.autograd.grad(h_vals, z_req, cot)
-            if cfg.acyclicity_constraint != "mean" and k_local != k:
-                grad_constraint = mc_sum(grad_constraint, sharding)
-        return (-cfg.beta(t) * grad_constraint
-                - zs / (latent_prior_std ** 2.0)
-                + grad_prior_z)
+                z_req = zs.detach().requires_grad_(True)
+                if cfg.acyclicity_constraint == "mean":
+                    h_vals = h_fn(edge_probs(z_req, alpha))  # [P]
+                    cot = torch.ones_like(h_vals)
+                else:
+                    k = cfg.n_acyclicity_mc_samples
+                    with span("dibs.prior.sampler"):
+                        gs = sample_soft_graphs(
+                            edge_scores(z_req), seed, stream, alpha,
+                            cfg.tau, k_local, eps=_block(eps),
+                            particle_offset=_offset(zs),
+                            sample_offset=k_first)
+                    h_vals = h_fn(gs)  # [P, K_local]
+                    cot = torch.full_like(h_vals, 1.0 / k)
+                with span("dibs.prior.grad"):
+                    (grad_constraint,) = torch.autograd.grad(h_vals, z_req,
+                                                             cot)
+                if cfg.acyclicity_constraint != "mean" and k_local != k:
+                    grad_constraint = mc_sum(grad_constraint, sharding)
+            return (-cfg.beta(t) * grad_constraint
+                    - zs / (latent_prior_std ** 2.0)
+                    + grad_prior_z)
 
     grad_z = {"score": eltwise_grad_z_score,
               "score_rb": eltwise_grad_z_score_rb,

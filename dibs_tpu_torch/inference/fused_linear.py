@@ -49,7 +49,11 @@ Pass 2 (``fused_linear_wide_kernel``, sized by
 :func:`fused_linear_wide_pass2_plan`) replays only the samples with a
 non-zero weight over the same transposed tile.
 Both ``single_pass`` settings take the two passes there (the same
-estimand).
+estimand). While a profiler records (:mod:`dibs_tpu_torch.profiling`),
+each wide pass-2 call adds the (particle, sample) pairs it replays (their
+two weights not both exactly 0) to the counter ``wide_pass2.replayed``
+(counted by the kernel; by the plain version, at the shapes the wide tier
+serves, from the weights) and itself to ``wide_pass2.calls``.
 
 Noise: soft samples ``sigmoid(tau (eps + alpha s))`` draw their Logistic
 ``eps`` from the counter-based stream ``(seed, streams[0])``, hard samples
@@ -82,6 +86,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from dibs_tpu_torch import profiling
 from dibs_tpu_torch.ops.edges import edge_scores
 from dibs_tpu_torch.ops.gpu_kernels import (
     _check_cuda,
@@ -677,6 +682,8 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
         dlls = [None, None]
         outs = [torch.empty((p, d, d), dtype=torch.float32, device=dev)
                 for _ in range(2)]
+    replayed = (None if name == "fused_linear_wide_pass1"
+                else _replay_counter(dev))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     launch = (lib.dibs_fused_linear_wide_shard if particle_offset
               else lib.dibs_fused_linear_wide)
@@ -690,7 +697,8 @@ def _launch_wide(name, scores, thetas, x, w, *, seed, streams, alpha, tau,
             particle_offset & 0xFFFFFFFF, streams[0] & 0xFFFFFFFF,
             streams[1] & 0xFFFFFFFF, float(alpha), float(tau),
             1.0 / model.obs_noise, float(model.mean_edge),
-            float(model.sig_edge), _stream(dev), ptr(keys), per)
+            float(model.sig_edge), _stream(dev), ptr(keys), per,
+            ptr(replayed))
     _check_launch(lib, rc, name)
     if name == "fused_linear_wide_pass1":
         # the column tiles' float64 partials, summed in a fixed order
@@ -729,6 +737,15 @@ def fused_linear_pass1(scores, thetas, x, w, *, seed, streams, alpha, tau,
     return _launch_wide("fused_linear_wide_pass1", scores, thetas, x, w, **kw)
 
 
+def _replay_counter(device):
+    """The counter ``wide_pass2.replayed`` while a profiler records (and
+    one more ``wide_pass2.calls``), else ``None``."""
+    replayed = profiling.counter("wide_pass2.replayed", 1, device)
+    if replayed is not None:
+        profiling.count("wide_pass2.calls", 1)
+    return replayed
+
+
 def fused_linear_pass2(scores, thetas, x, w, weights, *, seed, streams,
                        alpha, tau, n_samples, model, eps=None,
                        particle_offset=0):
@@ -739,6 +756,10 @@ def fused_linear_pass2(scores, thetas, x, w, weights, *, seed, streams,
               n_samples=n_samples, model=model, eps=eps,
               particle_offset=particle_offset)
     if not use_kernel(scores):
+        replayed = None if _row_tier(scores, x) else _replay_counter(
+            scores.device)
+        if replayed is not None:  # the pairs the card's wide pass 2 replays
+            replayed += ((weights[0] != 0) | (weights[1] != 0)).sum()
         return fused_linear_pass2_plain(scores, thetas, x, w, weights, **kw)
     if _row_tier(scores, x):
         return _launch("fused_linear_pass2", scores, thetas, x, w,

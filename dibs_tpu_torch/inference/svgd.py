@@ -41,6 +41,11 @@ the particles split over ``"p"`` only (the transport, the ring and
 estimators split their samples over ``"mc"``: every ``"mc"`` rank of a
 ``"p"`` block ends each step with the same state, bitwise.
 
+While a ``torch.profiler`` records, a step marks its layers with the spans
+of :mod:`dibs_tpu_torch.profiling` (``dibs.step``; ``dibs.likelihood``, the
+latent prior's ``dibs.prior``, ``dibs.transport`` and ``dibs.update``
+inside it); otherwise the spans do nothing.
+
 Every class runs on the card unless ``device="cpu"`` is passed (and raises
 where CUDA is absent). ``theta`` is the likelihood's parameter tree
 (:mod:`dibs_tpu_torch.utils.tree`): ``[P, d, d]`` for ``LinearGaussian``,
@@ -87,6 +92,7 @@ from dibs_tpu_torch.parallel.shard_ops import (
     gather_rows,
     shard_offset,
 )
+from dibs_tpu_torch.profiling import span
 from dibs_tpu_torch.utils.tree import tree_map
 
 __all__ = ["SVGDState", "DiBS", "MarginalDiBS", "JointDiBS"]
@@ -429,21 +435,23 @@ class MarginalDiBS(DiBS):
             eps_hard, eps_soft = (None, None) if noise is None else (
                 e[rows] for e in noise)
             stream = 2 * state.t
-            dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
-                state.z, None, state.sf_baseline[rows], state.t, state.seed,
-                stream, eps=eps_hard)
+            with span("dibs.likelihood"):
+                dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
+                    state.z, None, state.sf_baseline[rows], state.t,
+                    state.seed, stream, eps=eps_hard)
             dz_prior = est.eltwise_grad_latent_prior(
                 state.z, state.t, state.seed, stream + 1, latent_prior_std,
                 eps=eps_soft)
             dz = dz_prior + dz_lik
-            if not sharded:
-                phi_z = marginal_transport(kernel, state.z, dz)
-            elif ring_available(kernel, self.sharding):
-                phi_z = ring_marginal_transport(kernel, state.z, dz,
-                                                self.sharding)
-            else:
-                phi_z = gathered_marginal_transport(kernel, state.z, dz,
+            with span("dibs.transport"):
+                if not sharded:
+                    phi_z = marginal_transport(kernel, state.z, dz)
+                elif ring_available(kernel, self.sharding):
+                    phi_z = ring_marginal_transport(kernel, state.z, dz,
                                                     self.sharding)
+                else:
+                    phi_z = gathered_marginal_transport(kernel, state.z, dz,
+                                                        self.sharding)
             return phi_z, self._baselines(state, sf_baseline, sharded)
 
         return phi
@@ -465,15 +473,17 @@ class MarginalDiBS(DiBS):
             eps_hard, eps_soft = (None, None) if noise is None else (
                 e.reshape(n_ds * p, *e.shape[2:]) for e in noise)
             stream = 2 * state.t
-            dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
-                z, None, state.sf_baseline.reshape(n_ds * p), state.t,
-                state.seed, stream, eps=eps_hard)
+            with span("dibs.likelihood"):
+                dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
+                    z, None, state.sf_baseline.reshape(n_ds * p), state.t,
+                    state.seed, stream, eps=eps_hard)
             dz_prior = est.eltwise_grad_latent_prior(
                 z, state.t, state.seed, stream + 1, latent_prior_std,
                 eps=eps_soft)
             dz = (dz_prior + dz_lik).reshape(state.z.shape)
-            return (fleet_marginal_transport(kernel, state.z, dz),
-                    sf_baseline.reshape(n_ds, p))
+            with span("dibs.transport"):
+                phi_z = fleet_marginal_transport(kernel, state.z, dz)
+            return phi_z, sf_baseline.reshape(n_ds, p)
 
         return phi
 
@@ -484,13 +494,15 @@ class MarginalDiBS(DiBS):
         opt = self.opt
 
         def step(state: SVGDState, noise=None) -> SVGDState:
-            _check_precision()
-            with torch.no_grad():
+            with span("dibs.step"), torch.no_grad():
+                _check_precision()
                 phi_z, sf_baseline = phi_fn(state, noise)
-                updates, opt_state_z = opt.update(phi_z, state.opt_state_z)
-                return SVGDState(t=state.t + 1, seed=state.seed,
-                                 z=state.z + updates, theta=None,
-                                 opt_state_z=opt_state_z,
+                with span("dibs.update"):
+                    updates, opt_state_z = opt.update(phi_z,
+                                                      state.opt_state_z)
+                    z = state.z + updates
+                return SVGDState(t=state.t + 1, seed=state.seed, z=z,
+                                 theta=None, opt_state_z=opt_state_z,
                                  opt_state_theta=None,
                                  sf_baseline=sf_baseline)
 
@@ -650,28 +662,30 @@ class JointDiBS(DiBS):
                 else (e[rows] for e in noise)
             s_soft, s_hard, s_acyc = self._streams(state.t)
             sf_baseline = state.sf_baseline[rows]
-            if est.fused_grad_both is not None:
-                dz_lik, dtheta = est.fused_grad_both(
-                    state.z, state.theta, state.t, state.seed,
-                    (s_soft, s_hard),
-                    eps=None if noise is None else (eps_soft, eps_hard))
-            else:
-                dtheta = est.eltwise_grad_theta_likelihood(
-                    state.z, state.theta, state.t, state.seed, s_hard,
-                    eps=eps_hard)
-                dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
-                    state.z, state.theta, sf_baseline, state.t,
-                    state.seed, s_soft, eps=eps_soft)
+            with span("dibs.likelihood"):
+                if est.fused_grad_both is not None:
+                    dz_lik, dtheta = est.fused_grad_both(
+                        state.z, state.theta, state.t, state.seed,
+                        (s_soft, s_hard),
+                        eps=None if noise is None else (eps_soft, eps_hard))
+                else:
+                    dtheta = est.eltwise_grad_theta_likelihood(
+                        state.z, state.theta, state.t, state.seed, s_hard,
+                        eps=eps_hard)
+                    dz_lik, sf_baseline = est.eltwise_grad_z_likelihood(
+                        state.z, state.theta, sf_baseline, state.t,
+                        state.seed, s_soft, eps=eps_soft)
             dz_prior = est.eltwise_grad_latent_prior(
                 state.z, state.t, state.seed, s_acyc, latent_prior_std,
                 eps=eps_acyc)
             args = (kernel, state.z, state.theta, dz_prior + dz_lik, dtheta)
-            if not sharded:
-                phis = joint_transport(*args)
-            elif ring_available(kernel, self.sharding):
-                phis = ring_joint_transport(*args, self.sharding)
-            else:
-                phis = gathered_joint_transport(*args, self.sharding)
+            with span("dibs.transport"):
+                if not sharded:
+                    phis = joint_transport(*args)
+                elif ring_available(kernel, self.sharding):
+                    phis = ring_joint_transport(*args, self.sharding)
+                else:
+                    phis = gathered_joint_transport(*args, self.sharding)
             return (*phis, self._baselines(state, sf_baseline, sharded))
 
         return transport
@@ -705,24 +719,26 @@ class JointDiBS(DiBS):
             s_soft, s_hard, s_acyc = self._streams(state.t)
             z, theta = flat(state.z), tree_map(flat, state.theta)
             sf_baseline = state.sf_baseline
-            if est.fused_grad_both is not None:
-                dz_lik, dtheta = est.fused_grad_both(
-                    z, theta, state.t, state.seed, (s_soft, s_hard),
-                    eps=None if noise is None else (eps_soft, eps_hard))
-            else:
-                dtheta = est.eltwise_grad_theta_likelihood(
-                    z, theta, state.t, state.seed, s_hard, eps=eps_hard)
-                dz_lik, baselines = est.eltwise_grad_z_likelihood(
-                    z, theta, flat(sf_baseline), state.t, state.seed,
-                    s_soft, eps=eps_soft)
-                sf_baseline = unflat(baselines)
+            with span("dibs.likelihood"):
+                if est.fused_grad_both is not None:
+                    dz_lik, dtheta = est.fused_grad_both(
+                        z, theta, state.t, state.seed, (s_soft, s_hard),
+                        eps=None if noise is None else (eps_soft, eps_hard))
+                else:
+                    dtheta = est.eltwise_grad_theta_likelihood(
+                        z, theta, state.t, state.seed, s_hard, eps=eps_hard)
+                    dz_lik, baselines = est.eltwise_grad_z_likelihood(
+                        z, theta, flat(sf_baseline), state.t, state.seed,
+                        s_soft, eps=eps_soft)
+                    sf_baseline = unflat(baselines)
             dz_prior = est.eltwise_grad_latent_prior(
                 z, state.t, state.seed, s_acyc, latent_prior_std,
                 eps=eps_acyc)
-            return (*fleet_joint_transport(kernel, state.z, state.theta,
-                                           unflat(dz_prior + dz_lik),
-                                           tree_map(unflat, dtheta)),
-                    sf_baseline)
+            dz = unflat(dz_prior + dz_lik)
+            with span("dibs.transport"):
+                phis = fleet_joint_transport(kernel, state.z, state.theta,
+                                             dz, tree_map(unflat, dtheta))
+            return (*phis, sf_baseline)
 
         return transport
 
@@ -739,16 +755,17 @@ class JointDiBS(DiBS):
         opt = self.opt
 
         def step(state: SVGDState, noise=None) -> SVGDState:
-            _check_precision()
-            with torch.no_grad():
+            with span("dibs.step"), torch.no_grad():
+                _check_precision()
                 phi_z, phi_theta, sf_baseline = transport(state, noise)
-                up_z, opt_state_z = opt.update(phi_z, state.opt_state_z)
-                up_t, opt_state_t = opt.update(phi_theta,
-                                               state.opt_state_theta)
-                return SVGDState(t=state.t + 1, seed=state.seed,
-                                 z=state.z + up_z,
-                                 theta=tree_map(torch.add, state.theta, up_t),
-                                 opt_state_z=opt_state_z,
+                with span("dibs.update"):
+                    up_z, opt_state_z = opt.update(phi_z, state.opt_state_z)
+                    up_t, opt_state_t = opt.update(phi_theta,
+                                                   state.opt_state_theta)
+                    z = state.z + up_z
+                    theta = tree_map(torch.add, state.theta, up_t)
+                return SVGDState(t=state.t + 1, seed=state.seed, z=z,
+                                 theta=theta, opt_state_z=opt_state_z,
                                  opt_state_theta=opt_state_t,
                                  sf_baseline=sf_baseline)
 

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from dibs_tpu_torch.config import matmul_precision
+from dibs_tpu_torch.profiling import span
 
 __all__ = ["acyclic_constr", "acyclic_constr_spectral",
            "elwise_acyclic_constr", "matrix_power"]
@@ -76,14 +77,15 @@ class _AcyclicConstr(torch.autograd.Function):
     def forward(ctx, g, precision):
         d = g.shape[-1]
         scaled = d >= _SCALED_MIN_D
-        m = torch.eye(d, dtype=g.dtype, device=g.device) + (1.0 / d) * g
-        with matmul_precision(precision):
-            p, shift = _scaled_matrix_power(m, d - 1, scaled)
-        tr = (m * p.transpose(-1, -2)).sum(dim=(-2, -1))
-        if scaled:
-            h = tr * _recon(shift, tr.dtype) - d
-        else:
-            h = tr - d
+        with span("dibs.prior.acyclic"):
+            m = torch.eye(d, dtype=g.dtype, device=g.device) + (1.0 / d) * g
+            with matmul_precision(precision):
+                p, shift = _scaled_matrix_power(m, d - 1, scaled)
+            tr = (m * p.transpose(-1, -2)).sum(dim=(-2, -1))
+            if scaled:
+                h = tr * _recon(shift, tr.dtype) - d
+            else:
+                h = tr - d
         ctx.save_for_backward(p, shift)
         ctx.scaled = scaled
         return h
@@ -91,10 +93,11 @@ class _AcyclicConstr(torch.autograd.Function):
     @staticmethod
     def backward(ctx, h_bar):
         p, shift = ctx.saved_tensors
-        grad = p.transpose(-1, -2)
-        if ctx.scaled:
-            grad = grad * _recon(shift, grad.dtype)[..., None, None]
-        return h_bar[..., None, None] * grad, None
+        with span("dibs.prior.acyclic"):
+            grad = p.transpose(-1, -2)
+            if ctx.scaled:
+                grad = grad * _recon(shift, grad.dtype)[..., None, None]
+            return h_bar[..., None, None] * grad, None
 
 
 def acyclic_constr(g: torch.Tensor, n_vars: Optional[int] = None,
@@ -152,7 +155,7 @@ def _power_iteration(g, n_iter):
 class _SpectralConstr(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g, n_iter, precision):
-        with matmul_precision(precision):
+        with span("dibs.prior.acyclic"), matmul_precision(precision):
             lam, u, v = _power_iteration(g, n_iter)
         ctx.save_for_backward(u, v)
         return lam
@@ -160,9 +163,10 @@ class _SpectralConstr(torch.autograd.Function):
     @staticmethod
     def backward(ctx, h_bar):
         u, v = ctx.saved_tensors
-        denom = (u * v).sum(-1) + _SPECTRAL_EPS
-        grad = u[..., :, None] * v[..., None, :]
-        return (h_bar / denom)[..., None, None] * grad, None, None
+        with span("dibs.prior.acyclic"):
+            denom = (u * v).sum(-1) + _SPECTRAL_EPS
+            grad = u[..., :, None] * v[..., None, :]
+            return (h_bar / denom)[..., None, None] * grad, None, None
 
 
 def acyclic_constr_spectral(g: torch.Tensor, n_iter: int = _SPECTRAL_ITERS,

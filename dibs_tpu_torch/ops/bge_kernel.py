@@ -13,13 +13,20 @@ constants. Serves ``2 <= d <= 128``; an all-zero mask gives
 posterior matrices a dataset, ``[B_ds, d, d, d]``, with its graphs in
 dataset order: graph ``g`` reads the set of dataset ``g // (B / B_ds)``, in
 one launch.
+
+While a profiler records (:mod:`dibs_tpu_torch.profiling`), each call adds
+its pairs to the counter ``bge_pairs.parents``, a histogram ``[d + 1]`` of
+the parent count k (the kernel that reads each pair's parent set fills it
+on the card; ``torch.bincount`` of the masks on the plain path), and its
+graphs and itself to ``bge_pairs.graphs`` and ``bge_pairs.calls``.
 """
 from __future__ import annotations
 
-import torch
-
 import ctypes
 
+import torch
+
+from dibs_tpu_torch import profiling
 from dibs_tpu_torch.ops.gpu_kernels import (
     _check_cuda,
     _check_launch,
@@ -102,7 +109,14 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
         raise ValueError(f"bge_logdet_pairs serves 2 <= d <= {BGE_MAX_D}, "
                          f"got d={d}")
     _, gpd = _dataset_sets(r_mats, b, d)
+    parents = profiling.counter("bge_pairs.parents", d + 1, gs.device)
+    if parents is not None:
+        profiling.count("bge_pairs.graphs", b)
+        profiling.count("bge_pairs.calls", 1)
     if not use_kernel(gs):
+        if parents is not None:
+            parents[:d + 1] += torch.bincount(
+                (gs != 0).sum(1).reshape(-1), minlength=d + 1)
         return bge_logdet_pairs_plain(r_mats, gs)
     _check_cuda("bge_pairs", r_mats, gs)
     lib = build()
@@ -126,6 +140,7 @@ def bge_logdet_pairs(r_mats: torch.Tensor, gs: torch.Tensor):
             *(None if t is None else t.data_ptr()
               for t in (words, soft, counters)),
             b, max(1, gpd), d, (ctypes.c_int * len(plan))(*plan),
-            _stream(gs.device))
+            _stream(gs.device),
+            None if parents is None else parents.data_ptr())
     _check_launch(lib, rc, "bge_pairs")
     return out_pa, out_full

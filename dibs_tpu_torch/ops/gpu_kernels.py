@@ -158,7 +158,7 @@ def build() -> ctypes.CDLL:
                                        i32, i32, vp]
     lib.dibs_gumbel_graphs.restype = i32
     lib.dibs_bge_pairs.argtypes = [vp] * 7 + [i32, i32, i32,
-                                              ctypes.POINTER(i32), vp]
+                                              ctypes.POINTER(i32), vp, vp]
     lib.dibs_bge_pairs.restype = i32
     lib.dibs_bge_pairs_smem_bytes.argtypes = [i32, i32]
     lib.dibs_bge_pairs_smem_bytes.restype = i32
@@ -183,7 +183,7 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_linear_wide.argtypes = ([i32] + [vp] * 13 + [i32] * 5
                                            + [ctypes.c_uint64, u32, u32, u32,
                                               f32, f32, f64, f32, f32, vp,
-                                              vp, i32])
+                                              vp, i32, vp])
     lib.dibs_fused_linear_wide.restype = i32
     lib.dibs_fused_linear_wide_shard.argtypes = \
         lib.dibs_fused_linear_wide.argtypes

@@ -1,23 +1,51 @@
-"""Training observability: step timing and device profiling (counterpart of
-``dibs_tpu/profiling.py``).
+"""Training observability: step timing, device profiling, and the engine's
+own layer spans and work counters (counterpart of ``dibs_tpu/profiling.py``).
 
 * :class:`StepTimer`: a ``sample()`` callback measuring wall time and
   steps/s per callback chunk; on a CUDA ``zs`` it synchronizes the device
   first, so a chunk's time is the device's, not the enqueue's.
 * :func:`trace`: a context around :class:`torch.profiler.profile` (CPU and,
-  where CUDA is present, CUDA activities) writing a Chrome trace into
-  ``log_dir``.
+  where CUDA is present, CUDA activities, with input shapes and Python
+  stacks) writing a Chrome trace and the span log into ``log_dir``.
+* :func:`span`, :func:`spans`, :func:`counters`: the layers of an SVGD step
+  (``dibs.step``, ``dibs.likelihood`` and its sampler, score and gradient
+  parts, ``dibs.prior`` and its parts, ``dibs.transport``, ``dibs.update``)
+  and the work the data-dependent kernels did (the parent counts #2 served,
+  the samples wide pass 2 replayed).
+
+Spans and counters record only while a ``torch.profiler`` records in the
+process (:func:`recording`). Otherwise :func:`span` enters nothing and
+logs nothing, :func:`counter` allocates nothing and hands the kernels no
+pointer, and :func:`count` adds nothing. A traced window begins at the
+first call here (a span, a counter, or a read of the log) that finds a
+profiler recording after one that found none, and where :func:`trace`
+starts; it clears what the window before it left. Reading the log after a
+window marks its end, so two profiler windows with no call here between
+them count as one only when nothing read the first.
+
+A span enters a ``FUNCTION``-scope record function (the operators' scope),
+so it shows in Chrome and Perfetto traces and a kernel the program launches
+itself (through ``ctypes``) inside it is linked to it as to its launching
+operator. ``torch.profiler.record_function`` is not used: its user scope
+makes the profiler add a ``gpu_user_annotation`` event on the device's
+timeline for every span, which a reader of the device trace takes for a
+kernel. Each span also appends ``(name, thread, start_ns, end_ns)`` to the
+process's span log, stamped by ``time.time_ns()``, the clock the profiler
+stamps its events with: the logged interval holds the profiler's event.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["StepTimer", "trace"]
+__all__ = ["StepTimer", "trace", "Span", "recording", "span", "spans",
+           "count", "counter", "counters"]
 
 
 class StepTimer:
@@ -72,21 +100,141 @@ class StepTimer:
         }
 
 
+# ---------------------------------------------------------------------------
+# spans and counters
+# ---------------------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    """One logged span: its name, the native id of the thread that opened
+    it, and its interval on the ``time.time_ns()`` clock."""
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_RecordFunction = torch._C._profiler._RecordFunctionFast
+_NULL = contextlib.nullcontext()
+_log: List[Span] = []
+_host: dict = {}  # name -> int
+_device: dict = {}  # name -> int64 tensor
+_was_on = False
+
+
+def _reset() -> None:
+    _log.clear()
+    _host.clear()
+    _device.clear()
+
+
+def recording() -> bool:
+    """True while a ``torch.profiler`` records in this process. The first
+    call that finds it recording after one that did not starts a new
+    window: the span log and the counters are cleared."""
+    global _was_on
+    on = _profiler_enabled()
+    if on and not _was_on:
+        _reset()
+    _was_on = on
+    return on
+
+
+class _Span:
+    __slots__ = ("name", "start", "record")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start = time.time_ns()
+        self.record = _RecordFunction(self.name)
+        self.record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.record.__exit__(None, None, None)
+        _log.append(Span(self.name, threading.get_native_id(), self.start,
+                         time.time_ns()))
+        return False
+
+
+def span(name: str):
+    """A context marking one layer of the step: while a profiler records,
+    a record function ``name`` and an entry of the span log; otherwise a
+    context that does nothing."""
+    return _Span(name) if recording() else _NULL
+
+
+def spans() -> List[Span]:
+    """The span log of the last traced window, by start; it stays readable
+    after the profiler stops, until the next window begins."""
+    recording()
+    return sorted(_log, key=lambda s: s.start_ns)
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the host counter ``name`` while a profiler records."""
+    if recording():
+        _host[name] = _host.get(name, 0) + int(n)
+
+
+def counter(name: str, size: int, device) -> Optional[torch.Tensor]:
+    """The ``[size]`` int64 buffer of the counter ``name`` while a profiler
+    records (allocated and zeroed at its first call in the window, on
+    ``device``), for a kernel or a plain path to add into; ``None``
+    otherwise. A counter has one size and one device a window."""
+    if not recording():
+        return None
+    buf = _device.get(name)
+    if buf is None:
+        _device[name] = buf = torch.zeros(size, dtype=torch.int64,
+                                          device=device)
+    assert buf.numel() == size and buf.device == torch.device(device), (
+        f"counter {name!r} asked for at [{size}] on {device}, "
+        f"held at [{buf.numel()}] on {buf.device}")
+    return buf
+
+
+def counters() -> dict:
+    """The counters of the last traced window: host counters and device
+    counters of one element as ints, the others (histograms) as lists.
+    Copies the device buffers to the host, so it synchronizes; read it
+    after the window, not inside it."""
+    recording()
+    out = dict(_host)
+    for name, buf in _device.items():
+        vals = buf.tolist()
+        out[name] = vals[0] if len(vals) == 1 else vals
+    return out
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profiler context: ``with trace("traces"): dibs.sample(...)``.
 
     Records CPU activity and, where CUDA is available, the card's kernels,
-    and writes ``trace.json`` (Chrome trace format; open it in
-    ``chrome://tracing`` or Perfetto) into ``log_dir``. Yields the
-    :class:`torch.profiler.profile` object (``key_averages()`` for sums by
-    kernel)."""
+    each operator with its input shapes and its Python stack (with the
+    profiler's verbose experimental option, which keeps the stacks of
+    every operator), and writes into ``log_dir`` ``trace.json`` (Chrome
+    trace format; open it in ``chrome://tracing`` or Perfetto) and
+    ``spans.json`` (:func:`spans` as ``[name, thread, start_ns, end_ns]``
+    rows and :func:`counters`). Yields the :class:`torch.profiler.profile`
+    object (``key_averages()`` for sums by kernel)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    _reset()
+    with torch.profiler.profile(
+            activities=acts, record_shapes=True, with_stack=True,
+            experimental_config=torch._C._profiler._ExperimentalConfig(
+                verbose=True)) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump({"spans": [list(s) for s in spans()],
+                   "counters": counters()}, f)

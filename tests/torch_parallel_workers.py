@@ -384,3 +384,36 @@ def _gather_phi(spec, phi, n_particles, sharding):
     if spec[0] == "marginal":
         return whole(phi[0])
     return whole(phi[0]), tree_map(whole, phi[1])
+
+
+# --- the engine's spans ------------------------------------------------------
+
+
+def span_checks(rank, world):
+    """Two traced steps of a marginal (BGe) and a joint (linear, d > 70)
+    engine whose particles split over the world: each rank's span log as
+    ``[name, thread, start_ns, end_ns]`` rows."""
+    import numpy as np
+
+    from dibs_tpu_torch import profiling
+    from dibs_tpu_torch.models import BGe, LinearGaussian
+
+    sharding = _sharding()
+    out = {}
+    for kind, d in (("marginal", 40), ("joint_linear", 72)):
+        x = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(20, d)).astype(np.float32))
+        common = dict(x=x, graph_model=ScaleFreeDAGDistribution(d),
+                      n_grad_mc_samples=4, n_acyclicity_mc_samples=2,
+                      sharding=sharding, device="cpu")
+        dibs = (MarginalDiBS(likelihood_model=BGe(n_vars=d, device="cpu"),
+                             **common) if kind == "marginal" else
+                JointDiBS(likelihood_model=LinearGaussian(n_vars=d),
+                          **common))
+        state = dibs.init_state(seed=3, n_particles=4)
+        assert state.z.shape[0] == 4 // world  # this rank's shard
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            dibs.resume(state, steps=2)
+        out[kind] = [list(s) for s in profiling.spans()]
+    return out
