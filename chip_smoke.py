@@ -92,7 +92,13 @@ Phases, one line each; any failure exits non-zero:
    equal; #2 timed there by CUDA events and profiler device time beside its
    bound, the twin (one chunk, scaled up) and ``torch.linalg.cholesky`` of
    the j-last masked matrices (one chunk, scaled up); then a 10-step
-   profile.
+   profile; then the REINFORCE ratio's kernel #10 against its plain twin
+   at config 6's ``[100, 64, 128, 128]`` (the sampler's hard graphs) and
+   at ``SHAPES_RATIO`` (ragged d = 130 with M = 300, the scalar build at
+   d = 13, graphs 4 bytes past a 16-byte boundary), within ``1e-6
+   max|plain|``, two calls bitwise equal, timed at config 6's shape beside
+   its bound, its twin and the float32 ``einsum`` that computes the same
+   residual.
 
 13. the fleet (``dibs_tpu_torch.fleet``): (a) kernels #1-#8 with a
    dataset axis at B = 1, 3, 8 and 32 datasets of the headline and joint
@@ -197,6 +203,10 @@ D_BGE_LARGE, B_BGE_LARGE, N_BGE_LARGE = 130, 20, 60
 # config 6 (benchmarks/run_benchmarks.py:188-211), nothing cut: warm-up and
 # timed steps, and the graphs a chunk of the twin and the library call take
 P6, D6, M6, K_ACYC6, WARM6, STEPS6, CHUNK6 = 100, 128, 64, 8, 3, 10, 64
+# kernel #10's phase-10 cases (P, M, d, misaligned graphs): ragged d and
+# M past a staged chunk of weights, the scalar build (d * d odd), and the
+# scalar build at an even d with graphs 4 bytes past a 16-byte boundary
+SHAPES_RATIO = [(3, 300, 130, False), (5, 13, 13, False), (4, 9, 16, True)]
 # phase 11, joint score at config 2: warm-up steps, then the timed window
 WARM11, STEPS11 = 10, 200
 # steps/s of phase 5 by estimator, for phase 12(d)'s StepTimer check
@@ -1269,7 +1279,7 @@ def phase_e2e(dev, card, steps):
         if estimator == "score_rb":
             check(auc_e > 0.6, f"score_rb empirical AUROC {auc_e} <= 0.6")
     launches = dict(gk.LAUNCHES)
-    for name in ("gumbel_graphs", "bge_pairs", "se_matrix"):
+    for name in ("gumbel_graphs", "bge_pairs", "se_matrix", "score_ratio"):
         check(launches[name] > 0,
               f"kernel {name} never launched on the marginal path")
     check(launches["transport_phi"] == 2 * steps,
@@ -1983,7 +1993,7 @@ def phase_config6(dev, card, results):
               f"config 6: {what} not finite")
     want = dict.fromkeys(gk.LAUNCHES, 0)
     want.update(gumbel_graphs=2 * steps, bge_pairs=steps, se_matrix=steps,
-                transport_phi=steps)
+                transport_phi=steps, score_ratio=steps)
     check(launches == want, f"config 6 launches {launches}, expected {want}")
     log(f"[10 config 6: e2e] MarginalDiBS + BGe, sf d={d} N={data.x.shape[0]}"
         f" P={P6} M={M6} K={K_ACYC6}: {steps} steps after {WARM6} warm-up, "
@@ -2103,6 +2113,92 @@ def phase_config6(dev, card, results):
     return launches
 
 
+def ratio_einsum(g, w, prob, alpha):
+    """Kernel #10's residual as PyTorch computes it in float32: one
+    batched ``einsum`` over the graphs (the route ``score_rb`` takes for
+    its per-node weights), then ``(sum_m w_m) prob`` and the diagonal."""
+    from dibs_tpu_torch.utils.func import zero_diagonal
+
+    acc = torch.einsum("pmij,pm->pij", g, w)
+    return zero_diagonal(alpha * (acc - w.sum(1)[:, None, None] * prob))
+
+
+def phase_score_ratio(dev, card, results):
+    """Kernel #10 against its plain twin (float64) on the card: at config
+    6's shape on the sampler's hard graphs with the ratio's signed weights
+    (``c = 0.5``), then at ``SHAPES_RATIO``; within ``1e-6 max|plain|``, a
+    zero diagonal, two calls bitwise equal, one launch a call. Times #10 at
+    config 6's shape beside its bound, its twin and :func:`ratio_einsum`
+    (the library column) in turns, and keeps them in
+    ``results["score_ratio"]``."""
+    from dibs_tpu_torch.inference.estimators import _ratio_weights
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+    from dibs_tpu_torch.ops.edges import edge_probs, edge_scores
+    from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs
+
+    alpha = 3.0
+    gen = torch.Generator(device=dev).manual_seed(26)
+    worst, err_main = 0.0, 0.0
+    first = None
+    for p, m, d, misaligned in [(P6, M6, D6, False)] + SHAPES_RATIO:
+        zs = torch.randn((p, d, d, 2), generator=gen,
+                         device=dev) / math.sqrt(d)
+        if (p, m, d) == (P6, M6, D6):
+            g = sample_hard_graphs(edge_scores(zs), 11, 0, alpha, m)
+        else:
+            g = (torch.rand((p, m, d, d), generator=gen, device=dev)
+                 < 0.4).float() * (1 - torch.eye(d, device=dev))
+        if misaligned:
+            flat = torch.empty(g.numel() + 1, device=dev)
+            flat[1:] = g.reshape(-1)
+            g = flat[1:].view(p, m, d, d)
+        logprobs = -40.0 * torch.rand((p, m), generator=gen, device=dev)
+        w = _ratio_weights(logprobs, logprobs.mean(1) - 2.0, 0.5)
+        prob = edge_probs(zs, alpha).contiguous()
+        before = gk.LAUNCHES["score_ratio"]
+        got = gk.score_ratio(g, w, prob, alpha)
+        again = gk.score_ratio(g, w, prob, alpha)
+        torch.cuda.synchronize()
+        check(gk.LAUNCHES["score_ratio"] == before + 2,
+              f"#10 at {p, m, d}: {gk.LAUNCHES['score_ratio'] - before} "
+              f"launches for two calls")
+        want = gk.score_ratio_plain(g, w, prob, alpha)
+        check(bool(torch.isfinite(got).all()), f"#10 at {p, m, d}: not "
+                                               f"finite")
+        check(torch.equal(got, again), f"#10 at {p, m, d}: two calls differ")
+        check(not bool(torch.diagonal(got, dim1=-2, dim2=-1).any()),
+              f"#10 at {p, m, d}: a diagonal entry is not 0")
+        err = float((got - want).abs().max())
+        share = err / (1e-6 * float(want.abs().max()))
+        check(share <= 1.0, f"#10 at {(p, m, d, misaligned)}: err {err}, "
+                            f"{share} of 1e-6 max|plain|")
+        worst = max(worst, share)
+        if first is None:
+            first, err_main = (g, w, prob), err
+    g, w, prob = first
+    lib_err = float((ratio_einsum(g, w, prob, alpha) - gk.score_ratio_plain(
+        g, w, prob, alpha)).abs().max())
+    t_k, t_e, turns = in_turns(lambda: gk.score_ratio(g, w, prob, alpha),
+                               lambda: ratio_einsum(g, w, prob, alpha), 100)
+    t_p = cuda_median_ms(lambda: gk.score_ratio_plain(g, w, prob, alpha),
+                         reps=5)
+    b_ms, b_by = bound("score_ratio", p=P6, m=M6, d=D6)
+    timed(f"#10 P={P6} M={M6} d={D6}", t_k, b_ms)
+    results["score_ratio"] = dict(max_abs_err=err_main, ms=t_k, plain_ms=t_p,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=t_e)
+    log(f"[10 score_ratio #10] kernel vs plain (float64) at (P, M, d) "
+        f"{(P6, M6, D6)} (#1's hard graphs) and {SHAPES_RATIO} "
+        f"(misaligned graphs last): finite, zero diagonal, within 1e-6 "
+        f"max|plain|, worst {worst:.4f} of the bar, two calls bitwise "
+        f"equal, one launch a call; at {(P6, M6, D6)} on '{card}' in turns "
+        f"(kernel, einsum, einsum, kernel: "
+        f"{', '.join(f'{t:.4f}' for t in turns)} ms): kernel {t_k:.4f} ms, "
+        f"float32 einsum route {t_e:.4f} ms (its max err {lib_err:.3e} "
+        f"against the twin, the kernel's {err_main:.3e}), plain twin "
+        f"{t_p:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+
+
 def phase_spectral_checkpoint(dev, card, steps):
     """``acyclicity='spectral'``: ``MarginalDiBS`` at the ``bench.py`` shape
     (``'sampled'``) and ``JointDiBS`` at config 2 (``'mean'``), ``steps``
@@ -2139,7 +2235,7 @@ def phase_spectral_checkpoint(dev, card, steps):
     for name, dibs, want in (
             ("marginal 'sampled'", marginal,
              dict(gumbel_graphs=2 * steps, bge_pairs=steps, se_matrix=steps,
-                  transport_phi=steps)),
+                  transport_phi=steps, score_ratio=steps)),
             ("joint 'mean'", joint,
              dict(fused_linear_single=steps, se_matrix=2 * steps,
                   transport_phi=2 * steps))):
@@ -2253,7 +2349,7 @@ def phase_joint_score(dev, card):
         launches = dict(gk.LAUNCHES)
         want = dict.fromkeys(gk.LAUNCHES, 0)
         want.update(gumbel_graphs=3 * steps, se_matrix=2 * steps,
-                    transport_phi=2 * steps)
+                    transport_phi=2 * steps, score_ratio=steps)
         check(launches == want, f"joint score c={baseline}: launches "
                                 f"{launches}, expected {want}")
         for tensor, what in ((state.z, "z"), (state.theta, "theta"),
@@ -3915,7 +4011,7 @@ def phase_sharding(dev, card):
             counts[name] += r["launches"][name]
     for name in ("gumbel_graphs", "bge_pairs", "fused_linear_single",
                  "fused_nonlinear", "fused_linear_wide_pass1",
-                 "fused_linear_wide_pass2", "se_matrix"):
+                 "fused_linear_wide_pass2", "se_matrix", "score_ratio"):
         check(counts[name] > 0, f"[14] {name} never launched sharded")
     log(f"[14 launches] sharded runs, both ranks: {counts}; 14a-b "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3980,7 +4076,7 @@ def phase_mc(dev, card, counts):
             for name in counts:
                 mc_counts[name] += r["launches"][name]
     for name in ("gumbel_graphs", "bge_pairs", "fused_linear_single",
-                 "se_matrix", "transport_phi"):
+                 "se_matrix", "transport_phi", "score_ratio"):
         check(mc_counts[name] > 0, f"[14c] {name} never launched on the "
                                    "('p', 'mc') mesh")
     for name in counts:
@@ -4009,7 +4105,7 @@ CONFIG5_PHASES = {
 WARM_LAUNCHES = (("gumbel_graphs",), ("bge_pairs",), ("se_matrix",),
                  ("transport_phi",), ("fused_linear_single",
                                       "fused_linear_pass1"),
-                 ("fused_nonlinear",))
+                 ("fused_nonlinear",), ("score_ratio",))
 
 
 class SeenLaunches(dict):
@@ -4260,6 +4356,7 @@ def main():
     run(phase_bge_large, dev, card)
     for name, count in run(phase_config6, dev, card, results).items():
         launches[name] += count
+    run(phase_score_ratio, dev, card, results)
     for name, count in run(phase_joint_score, dev, card).items():
         launches[name] += count
     run(phase_switches, dev, card)
@@ -4293,6 +4390,7 @@ def main():
                             "dibs_tpu/inference/fused_nonlinear.py:515"),
         "acyclic_grad": ("dibs_tpu_torch/csrc/acyclic_grad.cu",
                          "benchmarks/bench_acyclic_kernel.py:84"),
+        "score_ratio": ("dibs_tpu_torch/csrc/score_ratio.cu", None),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])

@@ -123,6 +123,12 @@ def bge_step_cost(*, d, n_obs, p, m, kmc=32, k=None) -> StepCost:
     (``2 (k^3/3 + k^2)`` for k parents, :func:`kernel_cost`), so at d = 128
     this term exceeds what the card does, and a share of a step read from
     it can pass 1.
+
+    The REINFORCE direction keeps the reference's count too: per-sample
+    products, ``4 p m d^2 k`` FLOPs. The port's ``score`` estimator sums
+    the graphs first (kernel #10, :func:`kernel_cost` ``"score_ratio"``)
+    and makes two ``[P, d, d] @ [P, d, k]`` products, ``m / 2`` times less
+    work at ``k = d``, so this term too counts more than the card does.
     """
     k = k or d
     b = p * m * d  # determinant pairs per step
@@ -613,6 +619,13 @@ def _acyclic_grad(*, p, d, k):
     return 2 * d ** 3 * products * p * k, 2 * 4 * p * d * d
 
 
+def _score_ratio(*, p, m, d):
+    """#10: a multiply-add a graph element for ``sum_m w_m G_m``. Bytes:
+    the graphs ``[P, M, d, d]`` and the weights ``[P, M]`` in, the edge
+    probabilities in and ``R`` out (``[P, d, d]`` each)."""
+    return 2 * p * m * d * d, 4 * (p * m * d * d + p * m + 2 * p * d * d)
+
+
 _KERNEL_COSTS = {
     "gumbel_graphs": _gumbel_graphs,
     "bge_pairs": _bge_pairs,
@@ -625,6 +638,7 @@ _KERNEL_COSTS = {
     "fused_linear_wide_pass2": lambda **s: _fused_linear("pass2", **s),
     "fused_nonlinear": _fused_nonlinear,
     "acyclic_grad": _acyclic_grad,
+    "score_ratio": _score_ratio,
 }
 
 
@@ -639,7 +653,8 @@ def kernel_cost(kernel: str, **shape) -> Tuple[float, float]:
     * ``fused_linear_*``: ``p, m, n, d, datasets=1`` (pass 2 also
       ``replayed``);
     * ``fused_nonlinear``: ``p, m, n, d, h1, datasets=1``;
-    * ``acyclic_grad``: ``p, d, k``.
+    * ``acyclic_grad``: ``p, d, k``;
+    * ``score_ratio``: ``p, m, d``.
 
     With a dataset axis ``p`` counts the particles of all datasets.
     """

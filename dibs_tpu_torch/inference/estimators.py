@@ -61,7 +61,10 @@ Estimator maths (as the reference): the self-normalized ratio
 
     grad log E_{p(G|Z)}[p(D | G)] = E[p(D|G) grad log p(G|Z)] / E[p(D|G)]
 
-with the same MC samples in numerator and denominator, in signed log space.
+with the same MC samples in numerator and denominator, its weights in
+signed log space. The REINFORCE ratio is linear in the per-sample
+residuals, so it is summed over the graphs first (kernel #10) and chained
+to ``Z`` once.
 """
 from __future__ import annotations
 
@@ -84,16 +87,13 @@ from dibs_tpu_torch.ops.acyclic import (
     acyclic_constr,
     acyclic_constr_spectral,
 )
-from dibs_tpu_torch.ops.edges import (
-    edge_probs,
-    edge_scores,
-    grad_latent_log_prob_batch,
-)
+from dibs_tpu_torch.ops.edges import edge_probs, edge_scores
+from dibs_tpu_torch.ops.gpu_kernels import score_ratio
 from dibs_tpu_torch.ops.soft_graphs import sample_hard_graphs, sample_soft_graphs
 from dibs_tpu_torch.parallel import constrain_mc
 from dibs_tpu_torch.parallel.shard_ops import mc_block, mc_gather, mc_sum, \
     shard_offset
-from dibs_tpu_torch.profiling import span
+from dibs_tpu_torch.profiling import count, span
 from dibs_tpu_torch.utils.func import expand_by, signed_logsumexp, zero_diagonal
 from dibs_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -162,12 +162,54 @@ def stable_ratio_grad(log_num: torch.Tensor, log_den: torch.Tensor,
     return torch.where(sign == 0, torch.zeros_like(ratio), ratio)
 
 
-def _chain_scores(dscores, zs):
+def _ratio_log_weights(logprobs, baselines, c):
+    """``(log_w, sign_w, centred)`` of the REINFORCE ratio of ``[P, M]``
+    log-probabilities: the numerator's log-weights and signs, and the
+    centred log-probabilities of its denominator. With a baseline (``c >
+    0``) the numerator weights are ``p_m - exp(b)``, ``b`` the log-space
+    EMA of the mean log-likelihood (-inf = off): the reference's deliberate
+    divergence from the paper's log-space form."""
+    # The ratio is unchanged when every log-weight of a particle moves by
+    # one constant. Centred at the samples' largest log-probability, the
+    # float32 log-space sums stay near 0: uncentred joint log-probabilities
+    # of -1e3 to -1e4 nats carry their rounding (an ulp of 1e-4 to 1e-3
+    # nats) into every weight.
+    shift = logprobs.max(1, keepdim=True).values
+    shift = torch.where(torch.isfinite(shift), shift, torch.zeros_like(shift))
+    centred = logprobs - shift
+    if c == 0.0:
+        return centred, torch.ones_like(centred), centred
+    b = baselines[:, None] - shift
+    m = torch.maximum(centred, b)
+    log_w = m + torch.log(torch.abs(torch.exp(centred - m)
+                                    - torch.exp(b - m)))
+    return log_w, torch.sign(centred - b), centred
+
+
+def _ratio_weights(logprobs, baselines, c):
+    """``[P, M]`` weights ``w_m`` of the REINFORCE ratio, signed numerator
+    weight over the denominator's sum, so that the ratio is ``sum_m w_m
+    grad_Z log p(G_m | Z)``. A zero sign or an empty numerator weighs 0
+    (an empty denominator then gives 0, as the signed logsumexp of
+    :func:`stable_ratio_grad` does); a baseline far above the samples
+    overflows to a non-finite weight, as there."""
+    log_w, sign_w, centred = _ratio_log_weights(logprobs, baselines, c)
+    w = sign_w * torch.exp(log_w - torch.logsumexp(centred, dim=1,
+                                                   keepdim=True))
+    return torch.where((sign_w == 0) | (log_w == -math.inf),
+                       torch.zeros_like(w), w)
+
+
+def _scores_to_z(dscores, zs):
     """``d scores -> dZ``: ``dU = dS V``, ``dV = dS^T U``."""
+    u, v = zs[..., 0], zs[..., 1]
+    return torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u], dim=-1)
+
+
+def _chain_scores(dscores, zs):
+    """:func:`_scores_to_z` in the span of the score-gradient chain."""
     with span("dibs.likelihood.grad"):
-        u, v = zs[..., 0], zs[..., 1]
-        return torch.stack([dscores @ v, dscores.transpose(-1, -2) @ u],
-                           dim=-1)
+        return _scores_to_z(dscores, zs)
 
 
 def _warn_on_data_scale(x, obs_noise):
@@ -316,35 +358,25 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     def _score_from_logprobs(zs, baselines, g_all, logprobs, alpha):
         """The REINFORCE ratio of ``[P, M]`` log-probabilities (all the
         samples) of this rank's hard samples ``g_all [P, M_local, d, d]``,
-        with the baseline update."""
-        grad_z = grad_latent_log_prob_batch(g_all, zs, alpha)
+        with the baseline update.
+
+        The ratio ``sum_m w_m grad_Z log p(G_m | Z)`` (:func:`_ratio_
+        weights`) is linear in the residuals ``alpha (G_m - p)``: it is
+        ``R @ V`` and ``R^T @ U`` with ``R = alpha (sum_m w_m G_m - (sum_m
+        w_m) p)``, which kernel #10 (:func:`~dibs_tpu_torch.ops.
+        gpu_kernels.score_ratio`) forms in one pass over the graphs; the
+        per-sample gradients are never made."""
         c = cfg.score_function_baseline
-        # The ratio is unchanged when every log-weight of a particle moves
-        # by one constant. Centred at the samples' largest log-probability,
-        # the float32 log-space sums stay near 0: uncentred joint
-        # log-probabilities of -1e3 to -1e4 nats carry their rounding (an
-        # ulp of 1e-4 to 1e-3 nats) into every weight.
-        shift = logprobs.max(1, keepdim=True).values
-        shift = torch.where(torch.isfinite(shift), shift,
-                            torch.zeros_like(shift))
-        centred = logprobs - shift
+        new_baselines = baselines
         if c > 0.0:
-            # numerator weights w_m = p_m - exp(b), b the log-space EMA of
-            # the mean log-likelihood (-inf = off); the reference's
-            # deliberate divergence from the paper's log-space form
-            b = baselines[:, None] - shift
-            m = torch.maximum(centred, b)
-            log_w = m + torch.log(
-                torch.abs(torch.exp(centred - m) - torch.exp(b - m)))
-            sign_w = torch.sign(centred - b)
-            grad_est = stable_ratio_grad(
-                _mine(log_w), centred, expand_by(_mine(sign_w), 3) * grad_z)
             new_baselines = torch.logaddexp(
                 math.log(c) + logprobs.mean(1),
                 math.log(1 - c) + baselines)
-            return _sum_samples(grad_est), new_baselines
-        return (_sum_samples(stable_ratio_grad(_mine(centred), centred,
-                                               grad_z)), baselines)
+        w = _ratio_weights(logprobs, baselines, c)
+        count("score_ratio.calls", 1)
+        resid = score_ratio(g_all, _mine(w).contiguous(),
+                            edge_probs(zs, alpha), alpha)
+        return _sum_samples(_scores_to_z(resid, zs)), new_baselines
 
     def eltwise_grad_z_score(zs, thetas, baselines, t, seed, stream,
                              eps=None):
@@ -379,10 +411,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             g_bar = _sum_samples(torch.einsum("pmij,pmj->pij", g_all,
                                               _mine(w)))
             resid = alpha * (g_bar - p)  # diagonals of g_bar, p both 0
-            u, v = zs[..., 0], zs[..., 1]
-            du = resid @ v
-            dv = resid.transpose(-1, -2) @ u
-            return torch.stack([du, dv], dim=-1), baselines
+            return _scores_to_z(resid, zs), baselines
 
     # --- joint: softmax-weighted per-sample gradients, one autograd call ---
 

@@ -64,6 +64,8 @@ __all__ = [
     "se_tile_of",
     "se_tile_size",
     "se_tiles",
+    "score_ratio",
+    "score_ratio_plain",
     "use_kernel",
 ]
 
@@ -74,7 +76,7 @@ LAUNCHES = {"gumbel_graphs": 0, "bge_pairs": 0, "se_matrix": 0,
             "transport_phi": 0, "fused_linear_single": 0,
             "fused_linear_pass1": 0, "fused_linear_pass2": 0,
             "fused_linear_wide_pass1": 0, "fused_linear_wide_pass2": 0,
-            "fused_nonlinear": 0, "acyclic_grad": 0}
+            "fused_nonlinear": 0, "acyclic_grad": 0, "score_ratio": 0}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -215,6 +217,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_acyclic_grad.restype = i32
     lib.dibs_acyclic_grad_smem_bytes.argtypes = [i32]
     lib.dibs_acyclic_grad_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_score_ratio.argtypes = [vp] * 4 + [i32] * 3 + [f64, i32, vp]
+    lib.dibs_score_ratio.restype = i32
     lib.dibs_error_string.argtypes = [i32]
     lib.dibs_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -835,4 +839,63 @@ def acyclic_grad(scores: torch.Tensor, seed: int, alpha: float,
             p, d, n_samples, seed & 0xFFFFFFFFFFFFFFFF, float(alpha),
             plan.tile, plan.stride, _stream(scores.device))
     _check_launch(lib, rc, "acyclic_grad")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The REINFORCE ratio's weighted residual (kernel #10)
+# ---------------------------------------------------------------------------
+
+
+def _check_score_ratio_args(g, w, prob):
+    if g.dim() != 4 or g.shape[-1] != g.shape[-2]:
+        raise ValueError(f"g must be [P, M, d, d], got {tuple(g.shape)}")
+    p, m, d, _ = g.shape
+    if tuple(w.shape) != (p, m):
+        raise ValueError(f"w must be {(p, m)}, got {tuple(w.shape)}")
+    if tuple(prob.shape) != (p, d, d):
+        raise ValueError(f"prob must be {(p, d, d)}, got "
+                         f"{tuple(prob.shape)}")
+
+
+def score_ratio_plain(g: torch.Tensor, w: torch.Tensor, prob: torch.Tensor,
+                      alpha: float) -> torch.Tensor:
+    """Plain twin of kernel #10: ``alpha (sum_m w_m g_m - (sum_m w_m)
+    prob)`` in float64, rounded once to ``prob``'s type, with a zero
+    diagonal."""
+    _check_score_ratio_args(g, w, prob)
+    p, m, d, _ = g.shape
+    w64 = w.double()
+    acc = (w64[:, None, :] @ g.double().reshape(p, m, d * d)).view(p, d, d)
+    r = (alpha * (acc - w64.sum(1)[:, None, None] * prob.double())).to(
+        prob.dtype)
+    eye = torch.eye(d, dtype=torch.bool, device=g.device)
+    return torch.where(eye, torch.zeros_like(r), r)
+
+
+def score_ratio(g: torch.Tensor, w: torch.Tensor, prob: torch.Tensor,
+                alpha: float) -> torch.Tensor:
+    """``[P, d, d]`` residual of the REINFORCE ratio: ``R = alpha (sum_m
+    w_m g_m - (sum_m w_m) prob)`` with a zero diagonal, for the hard
+    graphs ``g [P, M, d, d]``, the ratio's weights ``w [P, M]`` and the
+    edge probabilities ``prob [P, d, d]``; ``R @ V`` and ``R^T @ U`` are
+    then ``sum_m w_m grad_Z log p(g_m | Z)``. Sums in float64 in a fixed
+    order (the same bits every call). Non-finite weights give non-finite
+    entries, as the per-sample form does. Any ``P``, ``M`` and ``d``."""
+    _check_score_ratio_args(g, w, prob)
+    if not use_kernel(g):
+        return score_ratio_plain(g, w, prob, alpha)
+    _check_cuda("score_ratio", g, w, prob)
+    if w.device != g.device or prob.device != g.device:
+        raise ValueError("score_ratio: g, w and prob must share a device")
+    lib = build()
+    p, m, d, _ = g.shape
+    out = torch.empty((p, d, d), dtype=torch.float32, device=g.device)
+    vec = 4 if (d * d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                       for t in (g, prob, out))) else 1
+    with torch.cuda.device(g.device):
+        rc = lib.dibs_score_ratio(g.data_ptr(), w.data_ptr(),
+                                  prob.data_ptr(), out.data_ptr(), p, m, d,
+                                  float(alpha), vec, _stream(g.device))
+    _check_launch(lib, rc, "score_ratio")
     return out

@@ -315,6 +315,7 @@ def test_kernel_cost_names_are_the_launch_counters():
                  "transport_phi": dict(p=2, n=3),
                  "fused_nonlinear": dict(p=2, m=2, n=3, d=3, h1=2),
                  "acyclic_grad": dict(p=2, d=3, k=2),
+                 "score_ratio": dict(p=2, m=2, d=3),
                  "gumbel_graphs": dict(p=2, m=2, d=3)}.get(
                      name, dict(p=2, m=2, n=3, d=3))
         flops, n_bytes = port.kernel_cost(name, **shape)

@@ -39,7 +39,7 @@ DISPATCH_MODULES = [gpu_kernels, bge_kernel, transport_kernel, fused_linear,
 DISPATCH_POINTS = {"gumbel_graphs", "se_matrix", "acyclic_grad",
                    "bge_logdet_pairs", "transport_phi", "fused_linear_single",
                    "fused_linear_pass1", "fused_linear_pass2",
-                   "fused_nonlinear"}
+                   "fused_nonlinear", "score_ratio"}
 D, N = 5, 12
 
 

@@ -12,8 +12,8 @@ fleet's variant: ``kFleet`` or ``kBatched``; a particle shard's:
 Each tree builds its kernels (``gpu_kernels.build()``: ``nvcc`` for
 ``sm_90a``, no card needed) in a process of its own (``--tree TREE``) that
 prints its report as one JSON line. The comparison prints one line a
-kernel, then the kernels whose registers or spills differ, and exits 1 if
-any does.
+kernel, then the kernels only the second tree has, then the kernels whose
+registers or spills differ, and exits 1 if any does.
 """
 import json
 import os
@@ -92,6 +92,10 @@ def main():
             differ.append(name)
         print(f"{name}: parent {fmt(old[name])}; change {fmt(single)}"
               f"{'' if same else ' (DIFFERS)'}; added variant {fmt(added)}")
+    seen = {n for name in old for n in (name, variant(name, 0),
+                                        variant(name, 1))}
+    for name in sorted(set(new) - seen):
+        print(f"{name}: new in the change {fmt(new[name])}")
     print(f"kernels {len(old)}, differing from the parent: {len(differ)} "
           f"{differ}")
     return 1 if differ else 0
