@@ -346,6 +346,14 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
     # a fleet's hook takes each dataset's graphs on its own axis
     graphs_lead = (x.shape[0],) if x.dim() == 3 else ()
 
+    def _count_mlp(pairs):
+        """The MLP likelihood's work while a profiler records: the
+        (particle, sample) pairs whose log-joint a call scored, and the
+        calls (the generic route scores the soft and the hard samples in
+        two, #8 both in one)."""
+        count("mlp_lik.pairs", pairs)
+        count("mlp_lik.calls", 1)
+
     def _node_scores(g_all):
         p_n, m_n, d_n = g_all.shape[:3]
         return batched_node_log_joint_prob(
@@ -427,6 +435,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
 
     def _log_joint(gs, thetas):
         # [P, M, d, d] graphs with the particle's parameters -> [P, M]
+        if fused_nonlinear_model is not None:
+            _count_mlp(gs.shape[:2].numel())
         if not graphs_lead:
             return log_joint_prob(gs, tree_map(lambda leaf: leaf[:, None],
                                                thetas),
@@ -486,7 +496,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             with span("dibs.likelihood.score"):
                 logp = _log_joint(gs, thetas)
             dz = _weighted_grad(logp, z_req)
-            hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
+            with span("dibs.likelihood.sampler"):
+                hard = zero_diagonal((gs.detach() > 0.5).to(zs.dtype))
             th_req = _requires_grad(thetas)
             with span("dibs.likelihood.score"):
                 logp = _log_joint(hard, th_req)
@@ -510,6 +521,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         """Both joint likelihood gradients of a one-hidden-layer
         ``DenseNonlinearGaussian`` through kernel #8 (not split over
         ``"mc"``, as :func:`fused_linear`)."""
+        _count_mlp(2 * zs.shape[0] * n_mc)
         with span("dibs.likelihood.score"):
             dscores, dtheta = fused_nonlinear_estimators(
                 zs=zs, thetas=thetas, x=x, interv_mask=interv_mask,

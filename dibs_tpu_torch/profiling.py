@@ -25,13 +25,21 @@ them count as one only when nothing read the first.
 
 A span enters a ``FUNCTION``-scope record function (the operators' scope),
 so it shows in Chrome and Perfetto traces and a kernel the program launches
-itself (through ``ctypes``) inside it is linked to it as to its launching
-operator. ``torch.profiler.record_function`` is not used: its user scope
+itself (through ``ctypes``) inside it is linked to a launching operator
+(its body's record function, below). ``torch.profiler.record_function`` is not used: its user scope
 makes the profiler add a ``gpu_user_annotation`` event on the device's
 timeline for every span, which a reader of the device trace takes for a
 kernel. Each span also appends ``(name, thread, start_ns, end_ns)`` to the
 process's span log, stamped by ``time.time_ns()``, the clock the profiler
-stamps its events with: the logged interval holds the profiler's event.
+stamps its events with. The stamps are taken inside the span's record
+function, so the logged interval and the profiler's event differ by a few
+microseconds: stamped around it, the interval also held the record
+function's own entry, whose first call in a window took 30-40 us, and past
+100 us on a loaded host. Inside the stamps a second record function
+(:data:`BODY`) holds the span's body, so a kernel the program launches
+itself directly in the span is linked to an operator that starts after the
+logged start and ends before the logged end: the innermost span open at
+its operator's start is the span.
 """
 from __future__ import annotations
 
@@ -44,8 +52,8 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["StepTimer", "trace", "Span", "recording", "span", "spans",
-           "count", "counter", "counters"]
+__all__ = ["StepTimer", "trace", "Span", "BODY", "recording", "span",
+           "spans", "count", "counter", "counters"]
 
 
 class StepTimer:
@@ -117,6 +125,8 @@ class Span(NamedTuple):
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _RecordFunction = torch._C._profiler._RecordFunctionFast
 _NULL = contextlib.nullcontext()
+# the record function inside every span's stamps (not a span: no log entry)
+BODY = "profiling.span_body"
 _log: List[Span] = []
 _host: dict = {}  # name -> int
 _device: dict = {}  # name -> int64 tensor
@@ -142,21 +152,25 @@ def recording() -> bool:
 
 
 class _Span:
-    __slots__ = ("name", "start", "record")
+    __slots__ = ("name", "start", "record", "body")
 
     def __init__(self, name: str):
         self.name = name
 
     def __enter__(self):
-        self.start = time.time_ns()
         self.record = _RecordFunction(self.name)
+        self.body = _RecordFunction(BODY)
         self.record.__enter__()
+        self.start = time.time_ns()
+        self.body.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self.body.__exit__(None, None, None)
+        end = time.time_ns()
         self.record.__exit__(None, None, None)
         _log.append(Span(self.name, threading.get_native_id(), self.start,
-                         time.time_ns()))
+                         end))
         return False
 
 

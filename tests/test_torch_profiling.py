@@ -6,10 +6,11 @@ dict for the same callback times (``time.perf_counter`` patched), and
 The engine's spans and counters, on the plain paths: with no profiler a
 step enters no record function and logs and counts nothing, and its bits
 are those with spans on or the facility off; under a profiler the steps of
-the marginal, joint (fused and generic), fleet and sharded engines open
-the layer spans, nested, on the profiler's clock; #2's parent histogram
-and wide pass 2's replays equal counts made from the sampled masks and the
-weights.
+the marginal, joint (fused and generic, the MLP past #8's gate among them),
+fleet and sharded engines open the layer spans, nested, on the profiler's
+clock; #2's parent histogram and wide pass 2's replays equal counts made
+from the sampled masks and the weights, and the MLP likelihood's scored
+pairs are 2 P M a step on either route and absent in other models' steps.
 """
 import json
 import time
@@ -24,6 +25,9 @@ from dibs_tpu_torch import profiling
 from dibs_tpu_torch.fleet import fleet_init_state, fleet_seeds, fleet_step
 from dibs_tpu_torch.inference import JointDiBS, MarginalDiBS
 from dibs_tpu_torch.inference import fused_linear as fl
+from dibs_tpu_torch.inference.fused_nonlinear import (
+    fused_nonlinear_decline_reason,
+)
 from dibs_tpu_torch.models import (
     BGe,
     DenseNonlinearGaussian,
@@ -123,15 +127,23 @@ def _engine(kind, d):
     if kind == "joint_linear":
         return JointDiBS(x=_data(d), likelihood_model=LinearGaussian(
             n_vars=d), **common)
+    if kind == "joint_mlp5":  # one hidden layer of 5: #8 where it serves d
+        lik = DenseNonlinearGaussian(n_vars=d, hidden_layers=(5,))
+        if fused_nonlinear_decline_reason(lik, 20) is None:
+            return JointDiBS(x=_data(d), likelihood_model=lik, **common)
+        with pytest.warns(UserWarning, match="fused nonlinear"):
+            return JointDiBS(x=_data(d), likelihood_model=lik, **common)
     with pytest.warns(UserWarning, match="fused nonlinear"):
         return JointDiBS(x=_data(d), likelihood_model=DenseNonlinearGaussian(
             n_vars=d, hidden_layers=(3, 3)), **common)
 
 
+# joint_mlp5 at d = 48: past #8's gate (config 7's route at d = 50)
 ENGINES = {"marginal": ("marginal", 40), "joint_linear": ("joint_linear", 72),
-           "joint_generic": ("joint_generic", 6)}
+           "joint_generic": ("joint_generic", 6),
+           "joint_mlp5": ("joint_mlp5", 48)}
 EXPECTED = {"marginal": set(PARENTS), "joint_linear": FUSED,
-            "joint_generic": set(PARENTS)}
+            "joint_generic": set(PARENTS), "joint_mlp5": set(PARENTS)}
 
 
 def _profiled(fn):
@@ -258,6 +270,25 @@ def test_logged_intervals_are_the_profilers_events(name):
             assert abs(e.end_ns() - s.end_ns) <= 100_000, span_name
 
 
+@pytest.mark.parametrize("name", ["marginal", "joint_mlp5"])
+def test_span_bodies_lie_inside_the_logged_intervals(name):
+    """Each span's body record function (``profiling.BODY``, k-th with
+    k-th by start) starts at or after the logged start and ends at or
+    before the logged end: a kernel the program launches directly in a
+    span is linked to an operator inside the logged interval."""
+    dibs = _engine(*ENGINES[name])
+    state = _resume(dibs, dibs.init_state(seed=4, n_particles=3), 1)
+    _, prof = _profiled(lambda: _resume(dibs, state, 1))
+    bodies = sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.name() == profiling.BODY),
+                    key=lambda e: e.start_ns())
+    spans = profiling.spans()
+    assert len(bodies) == len(spans) > 0
+    for s, body in zip(spans, bodies):
+        assert s.start_ns <= body.start_ns() <= body.end_ns() <= s.end_ns, \
+            s.name
+
+
 @pytest.mark.parametrize("kind", ["marginal", "joint_linear"])
 def test_fleet_steps_open_the_layer_spans(kind):
     d = ENGINES[kind][1]
@@ -313,6 +344,43 @@ def test_wide_pass2_counter_is_the_weighted_samples():
     w_soft, w_hard = (torch.softmax(ll, dim=1) for ll in lls)
     want = int(((w_soft != 0) | (w_hard != 0)).sum())
     assert counts == {"wide_pass2.replayed": want, "wide_pass2.calls": 1}
+
+
+@pytest.mark.parametrize("kind,d,calls", [
+    ("joint_mlp5", 48, 2),  # past #8's gate: the soft and the hard call
+    ("joint_generic", 6, 2),  # two hidden layers: the generic route too
+    ("joint_mlp5", 8, 1),  # #8 (its plain twin here): one call a step
+])
+def test_mlp_counter_is_two_p_m_a_step(kind, d, calls):
+    """``mlp_lik.pairs`` counts the (particle, sample) pairs whose MLP
+    log-joint a step scored, 2 P M a step on either route, and
+    ``mlp_lik.calls`` the calls that scored them."""
+    dibs = _engine(kind, d)
+    route = dibs.est.fused_grad_both.__name__
+    assert route == ("fused_nonlinear" if calls == 1 else "fused_shared")
+    state = _resume(dibs, dibs.init_state(seed=10, n_particles=3), 1)
+    _profiled(lambda: _resume(dibs, state, 2))
+    m = dibs.cfg.n_grad_mc_samples
+    assert profiling.counters() == {"mlp_lik.pairs": 2 * 3 * m * 2,
+                                    "mlp_lik.calls": calls * 2}
+
+
+@pytest.mark.parametrize("d", [48, 8])
+def test_mlp_steps_keep_no_counter_without_a_profiler(d):
+    dibs = _engine("joint_mlp5", d)
+    profiling._reset()
+    _resume(dibs, dibs.init_state(seed=11, n_particles=3), 2)
+    assert profiling.counters() == {} and profiling.spans() == []
+
+
+@pytest.mark.parametrize("name", ["marginal", "joint_linear"])
+def test_mlp_counter_absent_in_linear_and_bge_steps(name):
+    dibs = _engine(*ENGINES[name])
+    state = _resume(dibs, dibs.init_state(seed=12, n_particles=3), 1)
+    _profiled(lambda: _resume(dibs, state, 1))
+    counts = profiling.counters()
+    assert profiling.spans()
+    assert not {"mlp_lik.pairs", "mlp_lik.calls"} & set(counts), counts
 
 
 def test_counters_of_one_window():
