@@ -23,8 +23,11 @@ Phases, one line each; any failure exits non-zero:
    parent-count edge); the fused
    linear-Gaussian kernels at the headline shape and at config 4's
    interventional d=30, N=600, and the fused MLP kernel #8 at config 3's
-   shape and at d=30, N=600 (tiled rows), relu and tanh, with its plan, and
-   at the edges of its gate (``SHAPES_NL_EDGES``), two calls bitwise equal;
+   shape and at d=30, N=600 (tiled rows), relu and tanh, with its plan, at
+   the edges of its gate (``SHAPES_NL_EDGES``), and its cluster tier at
+   config 7's shape (P=1000, d=50, N=100, h1=5, M=32, relu), timed beside
+   the plain version and its bound, with its one launch and cluster
+   counters a call; two calls bitwise equal;
 4. in-kernel RNG: sample means of the hard and soft samplers against their
    expectations;
 5. end to end, marginal: ``MarginalDiBS`` on a d=20 Erdos-Renyi BGe problem
@@ -170,6 +173,8 @@ STEPS_NL = 2000  # config 3's quality length (benchmarks/run_benchmarks.py)
 P5, D5, K5, M5, K_ACYC5, N5, STEPS5 = 1000, 128, 128, 32, 8, 100, 100
 # config 4 (benchmarks/run_benchmarks.py:137-168): d=30, 600 rows, P=20
 P4, D4 = 20, 30
+# config 7 (portbench/configs/joint_nonlinear_sf50.json): #8's cluster tier
+P7, D7, N7, H7, M7 = 1000, 50, 100, 5, 32
 # the sampler #1's phase-3 cases (B, M, d): injected noise, and Philox noise
 # with (alpha, tau, misaligned scores); d = 5 and 13 and misaligned scores
 # take the scalar path, 600 x 128 passes 65,535 (B * M), 140,000 samples
@@ -789,6 +794,16 @@ FLEET_NL_CASES = ([(nb, *c) for c in SHAPES_NL_EDGES for nb in (1, 3)]
                      for act in ("relu", "tanh", "sigmoid", "leakyrelu")])
 
 
+def cluster_plan_at(fnl, d, h1, n, ranks):
+    """#8's cluster plan at ``(d, h1, N)`` forced to ``ranks`` blocks (every
+    data row resident where that fits, else tiles), or ``None``."""
+    for resident in (True, False):
+        plan = fnl._block_plan(d, h1, n, ranks, resident)
+        if plan is not None:
+            return fnl.ClusterPlan(ranks, *plan)
+    return None
+
+
 def check_fused_nonlinear(fnl, args, kw, label):
     """#8 against its plain version within ``1e-4 max(1, max|ref|)`` and
     two calls bitwise equal; returns ``(worst / bar, max abs err)``."""
@@ -803,6 +818,64 @@ def check_fused_nonlinear(fnl, args, kw, label):
         check(e <= tol, f"fused_nonlinear {label}: max err {e} > {tol}")
         worst, err_max = max(worst, e / tol), max(err_max, e)
     return worst, err_max
+
+
+def cluster_nonlinear(fnl, dev, rng, results):
+    """#8's cluster tier at config 7's shape (relu): against its plain
+    version with Philox noise on one shared stream (the engine's) and with
+    injected noise, one call's launches and cluster counters counted from
+    zero, and its time beside the plain version's and its bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dibs_tpu_torch import profiling
+    from dibs_tpu_torch.accounting import bound_ms, kernel_cost
+    from dibs_tpu_torch.models import DenseNonlinearGaussian
+    from dibs_tpu_torch.ops import gpu_kernels as gk
+
+    p, d, n, h1, m = P7, D7, N7, H7, M7
+    plan = fnl.fused_nonlinear_cluster_plan(d, h1, n)
+    check(fnl.fused_nonlinear_tile_rows(d, h1, n) is None and plan is not None,
+          f"#8 at d={d}, h1={h1}, N={n} is not the cluster tier's ({plan})")
+    args = nonlinear_problem(rng, dev, p, d, n, h1, 0)
+    model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
+    kw = dict(seed=31, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=m,
+              model=model)
+    worst, err_max = check_fused_nonlinear(fnl, args, kw,
+                                           f"cluster d={d} philox-shared")
+    eps = (logistic(rng, (p, m, d, d)).to(dev),
+           logistic(rng, (p, m, d, d)).to(dev))
+    w, e = check_fused_nonlinear(fnl, args, dict(kw, streams=(4, 5), eps=eps),
+                                 f"cluster d={d} injected")
+    worst, err_max = max(worst, w), max(err_max, e)
+    del eps
+    for name in gk.LAUNCHES:
+        gk.LAUNCHES[name] = 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        fnl.fused_nonlinear(*args, **kw)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in gk.LAUNCHES.items() if v}
+    counts = profiling.counters()
+    check(launches == {"fused_nonlinear": 1},
+          f"#8's cluster tier: one call launched {launches}")
+    check(counts == {"fused_nl_cluster.calls": 1,
+                     "fused_nl_cluster.ranks": plan.ranks},
+          f"#8's cluster tier: one call counted {counts}, plan {plan}")
+    t_k = cuda_median_ms(lambda: fnl.fused_nonlinear(*args, **kw), reps=20)
+    t_p = cuda_median_ms(lambda: fnl.fused_nonlinear_plain(*args, **kw),
+                         reps=5)
+    flops, n_bytes = kernel_cost("fused_nonlinear", p=p, m=m, n=n, d=d, h1=h1)
+    b_ms, b_by = bound_ms(flops, n_bytes)
+    timed(f"#8 cluster P={p} d={d} N={n} h1={h1}", t_k, b_ms)
+    results["fused_nonlinear_cluster"] = dict(
+        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        max_abs_err=err_max, launches=launches["fused_nonlinear"])
+    log(f"[3 fused_nonlinear cluster P={p} d={d} N={n} h1={h1} M={m} relu "
+        f"{plan}] kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}, {flops / 1e9:.3f} GFLOP); one call: "
+        f"launches {launches}, counters {counts}; vs plain with Philox noise "
+        f"on one shared stream and injected noise: within 1e-4 max(1, "
+        f"max|ref|), worst {worst:.3f} of the bar, max abs err "
+        f"{err_max:.3g}; two calls bitwise equal")
 
 
 def phase_fused_nonlinear(dev, results):
@@ -864,6 +937,7 @@ def phase_fused_nonlinear(dev, results):
                              logistic(rng, (p, m, d, d)).to(dev))
             run(args, kw, f"edge d={d} N={n} h1={h1} {activation} {noise}")
     results["fused_nonlinear"]["max_abs_err"] = err_max
+    cluster_nonlinear(fnl, dev, rng, results)
     log(f"[3 fused_nonlinear] kernel vs plain at (P,d,N,h1) in (30,20,100,5)"
         f",(20,30,600,5 with interventions, tiled rows), relu and tanh, "
         f"injected / Philox / shared-stream noise, tau 1 and 0.8, and at the "
@@ -4388,10 +4462,16 @@ def main():
                                     f"{fused}:692"),
         "fused_nonlinear": ("dibs_tpu_torch/csrc/fused_nonlinear.cu",
                             "dibs_tpu/inference/fused_nonlinear.py:515"),
+        "fused_nonlinear_cluster": ("dibs_tpu_torch/csrc/fused_nonlinear.cu",
+                                    "dibs_tpu/inference/fused_nonlinear.py:515"),
         "acyclic_grad": ("dibs_tpu_torch/csrc/acyclic_grad.cu",
                          "benchmarks/bench_acyclic_kernel.py:84"),
         "score_ratio": ("dibs_tpu_torch/csrc/score_ratio.cu", None),
     }
+    # #8's cluster tier runs in no end-to-end phase here: its count is one
+    # call's, from zero (phase 3)
+    launches["fused_nonlinear_cluster"] = results[
+        "fused_nonlinear_cluster"].pop("launches")
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[name], **results[name])
                for name, (src, rep) in sources.items()]

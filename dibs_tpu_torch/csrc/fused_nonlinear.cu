@@ -35,7 +35,9 @@
 // Three launches. (1) fused_nl_reference, one block per particle: pre_ref
 // and resid_ref into scratch [P, h1 + 1, N, d]. (2) fused_nl_kernel, a grid
 // of (particle, sample chunk) blocks that fills one wave, each keeping an
-// online softmax per stream over its chunk. (3) fused_nl_merge merges each
+// online softmax per stream over its chunk (past one block's shared
+// memory, fused_nl_cluster_kernel: a cluster of blocks per (particle,
+// sample chunk), below). (3) fused_nl_merge merges each
 // particle's partial states in a fixed order, so the result is
 // deterministic. The per-sample log-likelihoods are summed in float64, as
 // in kernels #2 and #5-#7 and the plain version.
@@ -738,6 +740,552 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster tier: shapes whose per-particle [d, d] slabs overflow one
+// block (fused_nonlinear_cluster_plan; config 7, d = 50). Node column j's
+// mean reads only column j of G, W1, E[G], L1 and node j's b1, W2, b2, and
+// the whole of x, so the `ranks` blocks of a thread-block cluster split a
+// particle's node columns: rank r holds columns [r d / ranks, (r + 1) d /
+// ranks) of every [d, d] slab, of the data tile's w, resid_ref and pre_ref,
+// of the u_h stage and of the accumulators, and all of x. Each rank runs
+// fused_nl_kernel's schedule on its columns (the delta product, x^T u, the
+// row epilogue; the same Philox counters, so the same noise). The one step
+// across ranks: the log-likelihood of each (sample, stream) sums over all
+// columns, so each rank puts its float64 partial into its slot of `xch`
+// (double-buffered by group parity), arrives at the cluster barrier,
+// folds its sample terms into their weight-free form while the others
+// arrive, then reads the `ranks` partials over distributed shared memory
+// and adds them in rank order: every rank holds the same dll, bit for
+// bit, and runs the same online softmax on its columns. Each rank writes
+// its columns of the partial state that fused_nl_merge reads.
+// Bound at config 7 (P = 1000, M = 32, N = 100, d = 50, h1 = 5): 322.5
+// GFLOP a call, 4.81 ms at 67 TFLOP/s FP32. On an H100 SXM (700 W) a call
+// takes 23.4 ms with clusters of 4 (every row resident), 27.8 with 2 (12-row
+// tiles) and 25.9 with 8, so the plan takes the fewest ranks that keep the
+// rows resident.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The double at `local` (an address of this block's shared memory) in the
+// shared memory of block `rank` of the cluster.
+__device__ __forceinline__ double cluster_load(const double* local,
+                                               uint32_t rank) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(local));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  double v;
+  asm volatile("ld.shared::cluster.f64 %0, [%1];"
+               : "=d"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// A rank's shared memory, region by region in the kernel's order: the
+// exchange slots first (at the same offset in every rank), then
+// smem_bytes' regions with the node columns cut to ceil(d / ranks)
+// (inference/fused_nonlinear.py mirrors it: fused_nonlinear_plan_smem_bytes
+// with `ranks`).
+size_t cluster_smem_bytes(int d, int h1, int ranks, int group, int sub_rows,
+                          int tile_rows, int n_obs) {
+  const size_t cols = (d + ranks - 1) / ranks, dc = d * cols;
+  const size_t hh = h1, hs = h1 | 1, g = group, t = tile_rows;
+  const size_t ldt = round_up(tile_rows, 4), ldx = round_up(d, 4);
+  const size_t x_bufs = tile_rows < n_obs ? 2 : 1;
+  const size_t doubles = 2 * kSlotsMax + kThreads + kWarps * kSlotsMax;
+  const size_t tile = d * ldt + x_bufs * t * ldx + (2 + hs) * t * cols;
+  const size_t stage = 2 * 2 * g * sub_rows * cols * hs;
+  const size_t particle = (3 + hs) * dc + hh * cols;
+  const size_t accs = (1 + hh) * dc + (2 * hh + 1) * cols;
+  const size_t samples = g * (3 + hh) * dc;
+  const size_t sums = (2 * hh + 1) * (kThreads / 2) + kSlotsMax;
+  return sizeof(double) * doubles +
+         sizeof(float) * (tile + stage + particle + accs + samples + sums);
+}
+
+// fused_nl_kernel's pass over a chunk of samples, by one rank of a
+// particle's cluster (gridDim.x = P x ranks, clusters of `ranks` blocks
+// along x).
+template <int kH, bool kPad, int kAct, bool kFleet, bool kShard>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_nl_cluster_kernel(const Args a) {
+  extern __shared__ __align__(16) double smem_d[];
+  const int ranks = static_cast<int>(cluster_nctarank());
+  const uint32_t rank = cluster_ctarank();
+  const int d = a.d, dd = d * d, h1 = kPad ? a.h1 : kH;
+  // this rank's node columns j0 .. j0 + dc: [d, dc] slabs, dl elements
+  const int j0 = static_cast<int>(rank) * d / ranks;
+  const int dc = (static_cast<int>(rank) + 1) * d / ranks - j0, dl = d * dc;
+  const int G = a.group, T = a.tile_rows, R = a.sub_rows;
+  const int n_obs = a.n_obs, n_tiles = (n_obs + T - 1) / T;
+  const int ldt = round_up(T, 4), ldx = round_up(d, 4);
+  const int NC = 2 * G * dc, L = kThreads / NC;  // delta product: combos x lanes
+  const int GD = G * dc;                         // hard combos a lane
+  const int hs = h1 | 1;
+  const int stage = R * dc * hs;                 // one (sample, stream) slot
+  double* xch = smem_d;                          // [2][kSlotsMax] dll partials
+  double* ldp = xch + 2 * kSlotsMax;             // [kThreads] data terms
+  double* lpp = ldp + kThreads;                  // [kWarps][kSlotsMax] prior
+  float* xT = reinterpret_cast<float*>(lpp + kWarps * kSlotsMax);  // [d][ldt]
+  float* xr = xT + d * ldt;          // [1 or 2][T][ldx], 2 when tiled
+  float* ub = xr + (n_tiles > 1 ? 2 : 1) * T * ldx;  // [2][2 G][R][dc][hs]
+  float* wt = ub + 2 * 2 * G * stage;  // [T][dc]
+  float* rt = wt + T * dc;             // resid_ref [T][dc]
+  float* pt = rt + T * dc;             // pre_ref [T][dc][hs]
+  float* as_ = pt + T * dc * hs;       // alpha s [d][dc]
+  float* sig = as_ + dl;               // E[G], zero diagonal
+  float* l1 = sig + dl;
+  float* w1 = l1 + dl;                 // [d][dc][hs]
+  float* w2 = w1 + dl * hs;            // [h1][dc]
+  float* acc_ds = w2 + h1 * dc;
+  float* acc_dw1 = acc_ds + dl;        // [h1][d][dc]
+  float* acc_sm = acc_dw1 + h1 * dl;   // [2 h1 + 1][dc]: db1, dW2, db2
+  float* dsm = acc_sm + (2 * h1 + 1) * dc;  // [G][d][dc] G - E[G]
+  float* dhm = dsm + G * dl;           // [G][d][dc] H - E[G]
+  float* dgs = dhm + G * dl;           // [G][d][dc] sum_h W1_h x^T u_h, soft
+  float* xtu = dgs + G * dl;           // [G][h1][d][dc] x^T u_h, hard
+  float* rs = xtu + G * h1 * dl;       // [2 h1 + 1][kThreads / 2] row sums
+  float* sll = rs + (2 * h1 + 1) * (kThreads / 2);  // [kSlotsMax] dll
+
+  const int p = blockIdx.x / ranks, split = blockIdx.y, tid = threadIdx.x;
+  const float* xd = a.x;
+  const float* wd = a.w;
+  uint32_t pk = p, k0 = a.k0, k1 = a.k1;
+  if constexpr (kFleet) {
+    const int ds = p / a.per;
+    const int64_t data0 = static_cast<int64_t>(ds) * a.n_obs * a.d;
+    xd += data0;
+    wd += data0;
+    const uint64_t key = static_cast<uint64_t>(a.keys[ds]);
+    pk = p - ds * a.per;
+    k0 = static_cast<uint32_t>(key & 0xFFFFFFFFull);
+    k1 = static_cast<uint32_t>(key >> 32);
+  }
+  const int warp = tid / 32, lane = tid % 32;
+  const int n_smp = a.n_samples;
+  const int m_begin = split * a.chunk;
+  const int m_end = min(n_smp, m_begin + a.chunk);
+  const int64_t ps = static_cast<int64_t>(p) * a.n_split + split;
+  const int64_t nd = static_cast<int64_t>(n_obs) * d;
+  const int64_t pdd = static_cast<int64_t>(p) * dd;
+  const float* refp = a.ref + static_cast<int64_t>(p) * (h1 + 1) * nd;
+  const float inv_var_f = static_cast<float>(a.inv_var);
+  // this thread's (sample, stream, local node column) and row lane
+  const bool fwd = tid < NC * L;
+  const int cmb = tid % NC, lane_r = tid / NC;
+  const int slot_f = cmb / dc, jq = cmb - slot_f * dc, gq = slot_f >> 1;
+  const int hr = lane_r * GD + gq * dc + jq;  // row-sum index (hard)
+
+  // --- per particle: this rank's columns ---
+  for (int e = tid; e < dl; e += kThreads) {
+    const int i = e / dc, j = j0 + e - i * dc;
+    const float s = __fmul_rn(a.alpha, a.scores[pdd + i * d + j]);
+    as_[e] = s;
+    sig[e] = i == j ? 0.0f : 1.0f / (1.0f + expf(-s));
+    l1[e] = a.l1[pdd + i * d + j];
+    acc_ds[e] = 0.0f;
+  }
+  for (int k = tid; k < h1 * dl; k += kThreads) {  // [h][i][j] -> [i][j][h]
+    const int h = k / dl, e = k - h * dl, i = e / dc;
+    w1[e * hs + h] = a.w1[(static_cast<int64_t>(p) * h1 + h) * dd + i * d +
+                          j0 + e - i * dc];
+    acc_dw1[k] = 0.0f;
+  }
+  for (int k = tid; k < h1 * dc; k += kThreads) {
+    const int h = k / dc;
+    w2[k] = a.w2[(static_cast<int64_t>(p) * (h1 + 1) + h) * d + j0 + k -
+                 h * dc];
+  }
+  for (int k = tid; k < (2 * h1 + 1) * dc; k += kThreads) acc_sm[k] = 0.0f;
+
+  // rows t0 .. t0 + tn: all of x (transposed and row-major, the latter
+  // into buffer xb), this rank's columns of w, resid_ref and pre_ref
+  auto load_tile = [&](int t0, int tn, int xb) {
+    const int64_t base = static_cast<int64_t>(t0) * d;
+    float* xo = xr + xb * T * ldx;
+    for (int idx = tid; idx < ldt * d; idx += kThreads) {
+      const int n = idx / d, i = idx - n * d;
+      xT[i * ldt + n] = n < tn ? xd[base + idx] : 0.0f;
+    }
+    for (int idx = tid; idx < T * ldx; idx += kThreads) {
+      const int n = idx / ldx, i = idx - n * ldx;
+      xo[idx] = n < tn && i < d ? xd[base + n * d + i] : 0.0f;
+    }
+    for (int idx = tid; idx < tn * dc; idx += kThreads) {
+      const int n = idx / dc;
+      const int64_t g = base + n * d + j0 + idx - n * dc;
+      wt[idx] = wd[g];
+      rt[idx] = refp[h1 * nd + g];
+    }
+    for (int k = tid; k < h1 * tn * dc; k += kThreads) {
+      const int h = k / (tn * dc), rem = k - h * tn * dc, n = rem / dc;
+      pt[rem * hs + h] = refp[h * nd + base + n * d + j0 + rem - n * dc];
+    }
+  };
+  if (n_tiles == 1) load_tile(0, n_obs, 0);  // resident for every sample
+  __syncthreads();
+
+  float w2r[kH];  // W2[h][jq], zero past h1
+#pragma unroll
+  for (int h = 0; h < kH; ++h) w2r[h] = (!kPad || h < h1) ? w2[h * dc + jq] : 0.0f;
+
+  float m_s = -INFINITY, z_s = 0.0f, m_h = -INFINITY, z_h = 0.0f;
+  int parity = 0;  // the group's exchange buffer
+  for (int m0 = m_begin; m0 < m_end; m0 += G, parity ^= 1) {
+    const int gl = min(G, m_end - m0);  // samples in this group
+    const bool fwd_g = fwd && gq < gl;
+
+    // --- 1. this rank's columns of the group's samples; prior terms ---
+    double lp0s = 0.0, lp0h = 0.0, lp1s = 0.0, lp1h = 0.0;
+    for (int idx = tid; idx < gl * dl; idx += kThreads) {
+      const int g = idx / dl, e = idx - g * dl, m = m0 + g, i = e / dc;
+      const int j = j0 + e - i * dc, eg = i * d + j;
+      const int64_t nbase = (static_cast<int64_t>(p) * n_smp + m) * dd;
+      float g_soft = 0.0f, g_hard = 0.0f;
+      if (i != j) {
+        const float es =
+            a.eps_soft != nullptr
+                ? a.eps_soft[nbase + eg]
+                : dibs::philox_logistic(
+                      eg, m, dibs::draw_counter<kShard>(pk, a.p0),
+                      a.stream_soft, k0, k1);
+        float eh;
+        if (a.eps_hard != nullptr) {
+          eh = a.eps_hard[nbase + eg];
+        } else if (a.stream_hard == a.stream_soft) {
+          eh = es;
+        } else {
+          eh = dibs::philox_logistic(
+              eg, m, dibs::draw_counter<kShard>(pk, a.p0), a.stream_hard,
+              k0, k1);
+        }
+        g_soft = 1.0f / (1.0f + expf(-__fmul_rn(a.tau, __fadd_rn(es, as_[e]))));
+        g_hard = __fadd_rn(eh, as_[e]) > 0.0f ? 1.0f : 0.0f;
+      }
+      const float ds = g_soft - sig[e], dh = g_hard - sig[e];
+      dsm[idx] = ds;
+      dhm[idx] = dh;
+      const double ts = static_cast<double>(ds * l1[e]);
+      const double th = static_cast<double>(dh * l1[e]);
+      if (g == 0) {
+        lp0s += ts;
+        lp0h += th;
+      } else {
+        lp1s += ts;
+        lp1h += th;
+      }
+    }
+    for (int k = tid; k < G * (1 + h1) * dl; k += kThreads) dgs[k] = 0.0f;
+    lp0s = warp_sum(lp0s);
+    lp0h = warp_sum(lp0h);
+    lp1s = warp_sum(lp1s);
+    lp1h = warp_sum(lp1h);
+    if (lane == 0) {
+      lpp[warp * kSlotsMax + 0] = lp0s;
+      lpp[warp * kSlotsMax + 1] = lp0h;
+      lpp[warp * kSlotsMax + 2] = lp1s;
+      lpp[warp * kSlotsMax + 3] = lp1h;
+    }
+    __syncthreads();
+
+    // --- 2. per sub-tile: the delta product and its row epilogue (u_h
+    // staged), beside x^T u of the sub-tile before ---
+    double ld = 0.0;
+    float s_db1[kH], s_dw2[kH], s_db2 = 0.0f;
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      s_db1[h] = 0.0f;
+      s_dw2[h] = 0.0f;
+    }
+
+    auto forward = [&](int c0, int rc, int buf) {
+      if (!fwd_g) return;
+      const int nq = (rc + 3) / 4;
+      const float* dgm = ((slot_f & 1) ? dhm : dsm) + gq * dl + jq;
+      float* uo = ub + (buf * 2 * G + slot_f) * stage + jq * hs;
+      for (int q = lane_r; q < nq; q += L) {
+        const int r0 = c0 + 4 * q;
+        float f[kH][4];
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) f[h][r] = 0.0f;
+        }
+        const float* xp = xT + r0;         // x^T[i][r0 ..]
+        const float* cp = dgm;             // (G - E[G])[i][jq]
+        const float* wp = w1 + jq * hs;    // W1[i][jq][0 ..]
+#pragma unroll 2
+        for (int i = 0; i < d; ++i, xp += ldt, cp += dc, wp += dc * hs) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xp);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+          const float cg = *cp;
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            const float av = (!kPad || h < h1) ? cg * wp[h] : 0.0f;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) f[h][r] = fmaf(xv[r], av, f[h][r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int n = r0 + r;
+          if (n >= c0 + rc) break;
+          const int nj = n * dc + jq;
+          const float rv = rt[nj], wv = wt[nj];
+          const float* pp = pt + nj * hs;
+          float pr[kH];
+          float md = 0.0f;
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            pr[h] = (!kPad || h < h1) ? pp[h] : 0.0f;
+            md += act_diff<kAct>(pr[h], f[h][r], pr[h] + f[h][r]) * w2r[h];
+          }
+          ld += static_cast<double>(wv * md * (md - 2.0f * rv));
+          const float del = inv_var_f * ((rv - md) * wv);
+          float* un = uo + (n - c0) * dc * hs;
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            if (!kPad || h < h1) {
+              const float pre = pr[h] + f[h][r];
+              const float u = del * dact_f<kAct>(pre) * w2r[h];
+              un[h] = u;
+              s_db1[h] += u;  // kept for the hard stream only
+              s_dw2[h] += del * act_f<kAct>(pre);
+            }
+          }
+          s_db2 += del;
+        }
+      }
+    };
+
+    auto xtu_product = [&](int c0, int rc, int buf, int xb) {
+      const int n_iq = (d + 3) / 4;
+      const int n_tasks = 2 * gl * n_iq * dc;
+      for (int k = kThreads - 1 - tid; k < n_tasks; k += kThreads) {
+        const int j = k % dc, rest = k / dc;
+        const int iq = rest % n_iq, slot = rest / n_iq;
+        float acc[kH][4];
+#pragma unroll
+        for (int h = 0; h < kH; ++h) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[h][r] = 0.0f;
+        }
+        const float* xp = xr + xb * T * ldx + c0 * ldx + 4 * iq;
+        const float* up = ub + (buf * 2 * G + slot) * stage + j * hs;
+#pragma unroll 2
+        for (int n = 0; n < rc; ++n, xp += ldx, up += dc * hs) {
+          const float4 x4 = *reinterpret_cast<const float4*>(xp);
+          const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int h = 0; h < kH; ++h) {
+            const float uv = (!kPad || h < h1) ? up[h] : 0.0f;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[h][r] = fmaf(xv[r], uv, acc[h][r]);
+          }
+        }
+        const int g = slot >> 1;
+        const bool hard = slot & 1;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 4 * iq + r;
+          if (i >= d) break;
+          const int e = i * dc + j;
+          if (hard) {
+#pragma unroll
+            for (int h = 0; h < kH; ++h) {
+              if (!kPad || h < h1) xtu[(g * h1 + h) * dl + e] += acc[h][r];
+            }
+          } else {
+            float dg = 0.0f;
+#pragma unroll
+            for (int h = 0; h < kH; ++h) {
+              if (!kPad || h < h1) dg = fmaf(w1[e * hs + h], acc[h][r], dg);
+            }
+            dgs[g * dl + e] += dg;
+          }
+        }
+      }
+    };
+
+    int c_all = 0, p_c0 = 0, p_rc = 0, p_buf = 0, p_xb = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t * T, tn = min(T, n_obs - t0), xb = t & 1;
+      if (n_tiles > 1) {
+        load_tile(t0, tn, xb);
+        __syncthreads();
+      }
+      const int n_sub = (tn + R - 1) / R;
+      for (int c = 0; c < n_sub; ++c, ++c_all) {
+        const int c0 = c * R, rc = min(R, tn - c0), buf = c_all & 1;
+        forward(c0, rc, buf);
+        if (c_all > 0) xtu_product(p_c0, p_rc, p_buf, p_xb);
+        if (t == n_tiles - 1 && c == n_sub - 1 && fwd_g) {
+          ldp[tid] = ld;
+          if (slot_f & 1) {
+#pragma unroll
+            for (int h = 0; h < kH; ++h) {
+              if (!kPad || h < h1) {
+                rs[h * (kThreads / 2) + hr] = s_db1[h];
+                rs[(h1 + h) * (kThreads / 2) + hr] = s_dw2[h];
+              }
+            }
+            rs[2 * h1 * (kThreads / 2) + hr] = s_db2;
+          }
+        }
+        p_c0 = c0;
+        p_rc = rc;
+        p_buf = buf;
+        p_xb = xb;
+        __syncthreads();
+      }
+    }
+    xtu_product(p_c0, p_rc, p_buf, p_xb);
+    __syncthreads();
+
+    // --- 3. this rank's float64 part of each (sample, stream)'s dll ---
+    double* slots = xch + parity * kSlotsMax;
+    if (warp < 2 * gl) {
+      double v = 0.0;
+      for (int k = lane; k < L * dc; k += 32) {
+        const int l = k / dc, j = k - l * dc;
+        v += ldp[l * NC + warp * dc + j];
+      }
+      v = warp_sum(v);
+      if (lane == 0) {
+        double lp = 0.0;
+        for (int k = 0; k < kWarps; ++k) lp += lpp[k * kSlotsMax + warp];
+        slots[warp] = -0.5 * a.inv_var * v + lp;
+      }
+    }
+    cluster_arrive();
+
+    // --- 4. while the other ranks arrive: each sample's terms without
+    // their softmax weights (each element by the thread that weights it in
+    // 6), the hard stream's row sums over the lanes ---
+    const float sens_c = a.tau * a.alpha;
+    for (int e = tid; e < dl; e += kThreads) {
+      const float sg = sig[e];
+      for (int g = 0; g < gl; ++g) {
+        const float gv = dsm[g * dl + e] + sg;
+        dgs[g * dl + e] = sens_c * gv * (1.0f - gv) * (l1[e] + dgs[g * dl + e]);
+        const float hv = dhm[g * dl + e] + sg > 0.5f ? 1.0f : 0.0f;
+        for (int h = 0; h < h1; ++h) {
+          float* xq = xtu + (g * h1 + h) * dl + e;
+          *xq = hv * (*xq - w1[e * hs + h] * a.inv_varp);
+        }
+      }
+    }
+    for (int k = tid; k < (2 * h1 + 1) * dc; k += kThreads) {
+      const int qq = k / dc, j = k - qq * dc;
+      for (int g = 0; g < gl; ++g) {
+        float* rq = rs + qq * (kThreads / 2) + g * dc + j;
+        float s = 0.0f;
+        for (int l = 0; l < L; ++l) s += rq[l * GD];
+        *rq = s;
+      }
+    }
+
+    // --- 5. the whole dll: the ranks' parts in rank order ---
+    cluster_wait();
+    if (tid < 2 * gl) {
+      double v = 0.0;
+      for (int r = 0; r < ranks; ++r) v += cluster_load(slots + tid, r);
+      sll[tid] = static_cast<float>(v);
+    }
+    __syncthreads();
+
+    // --- 6. online softmax, then weight and accumulate the group ---
+    float nm_s = m_s, nm_h = m_h;
+    for (int g = 0; g < gl; ++g) {
+      nm_s = fmaxf(nm_s, sll[2 * g]);
+      nm_h = fmaxf(nm_h, sll[2 * g + 1]);
+    }
+    const float sc_s = expf(m_s - nm_s), sc_h = expf(m_h - nm_h);
+    float w_s[kGroupMax], w_h[kGroupMax];
+    z_s *= sc_s;
+    z_h *= sc_h;
+#pragma unroll
+    for (int g = 0; g < kGroupMax; ++g) {
+      w_s[g] = g < gl ? expf(sll[2 * g] - nm_s) : 0.0f;
+      w_h[g] = g < gl ? expf(sll[2 * g + 1] - nm_h) : 0.0f;
+      z_s += w_s[g];
+      z_h += w_h[g];
+    }
+    m_s = nm_s;
+    m_h = nm_h;
+    for (int e = tid; e < dl; e += kThreads) {
+      float v = acc_ds[e] * sc_s;
+#pragma unroll
+      for (int g = 0; g < kGroupMax; ++g) {
+        if (g < gl) v += w_s[g] * dgs[g * dl + e];
+      }
+      acc_ds[e] = v;
+      for (int h = 0; h < h1; ++h) {
+        const int k = h * dl + e;
+        float u = acc_dw1[k] * sc_h;
+#pragma unroll
+        for (int g = 0; g < kGroupMax; ++g) {
+          if (g < gl) u += w_h[g] * xtu[(g * h1 + h) * dl + e];
+        }
+        acc_dw1[k] = u;
+      }
+    }
+    for (int k = tid; k < (2 * h1 + 1) * dc; k += kThreads) {
+      const int qq = k / dc, j = k - qq * dc;
+      float v = acc_sm[k] * sc_h;
+#pragma unroll
+      for (int g = 0; g < kGroupMax; ++g) {
+        if (g < gl) v += w_h[g] * rs[qq * (kThreads / 2) + g * dc + j];
+      }
+      acc_sm[k] = v;
+    }
+    __syncthreads();  // the next group overwrites the samples and sums
+  }
+
+  // this rank's columns of the block's partial state
+  float* out = a.part + ps * part_stride(d, h1);
+  if (rank == 0 && tid == 0) {
+    out[0] = m_s;
+    out[1] = z_s;
+    out[2] = m_h;
+    out[3] = z_h;
+  }
+  for (int e = tid; e < dl; e += kThreads) {
+    const int i = e / dc;
+    out[4 + i * d + j0 + e - i * dc] = acc_ds[e];
+  }
+  for (int k = tid; k < h1 * dl; k += kThreads) {
+    const int h = k / dl, e = k - h * dl, i = e / dc;
+    out[4 + dd + h * dd + i * d + j0 + e - i * dc] = acc_dw1[k];
+  }
+  for (int k = tid; k < (2 * h1 + 1) * dc; k += kThreads) {
+    const int qq = k / dc;
+    out[4 + (1 + h1) * dd + qq * d + j0 + k - qq * dc] = acc_sm[k];
+  }
+  // no rank leaves while another may still read its exchange slots
+  cluster_arrive();
+  cluster_wait();
+}
+
 using MainKernel = void (*)(Args);
 using RefKernel = void (*)(const float*, const float*, const float*,
                            const float*, const float*, float*, int, int, int,
@@ -766,6 +1314,28 @@ MainKernel main_kernel(int h1, int act) {
   }
 }
 
+template <int kAct>
+MainKernel cluster_kernel_for(int h1) {
+  constexpr bool kFleet = DIBS_NL_FLEET != 0, kShard = DIBS_NL_SHARD != 0;
+  if (h1 == 5) return fused_nl_cluster_kernel<5, false, kAct, kFleet, kShard>;
+  if (h1 <= 4) return fused_nl_cluster_kernel<4, true, kAct, kFleet, kShard>;
+  if (h1 <= 8) return fused_nl_cluster_kernel<8, true, kAct, kFleet, kShard>;
+  return fused_nl_cluster_kernel<kMaxH, true, kAct, kFleet, kShard>;
+}
+
+MainKernel cluster_kernel(int h1, int act) {
+  switch (act) {
+    case kRelu:
+      return cluster_kernel_for<kRelu>(h1);
+    case kTanh:
+      return cluster_kernel_for<kTanh>(h1);
+    case kSigmoid:
+      return cluster_kernel_for<kSigmoid>(h1);
+    default:
+      return cluster_kernel_for<kLeaky>(h1);
+  }
+}
+
 RefKernel ref_kernel(int act) {
   switch (act) {
     case kRelu:
@@ -789,6 +1359,19 @@ bool plan_ok(int d, int h1, int n_obs, int group, int sub_rows,
          smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs) <= kMaxSmem;
 }
 
+// a cluster of 2, 4 or 8 ranks (the portable sizes), each with a column
+bool cluster_plan_ok(int d, int h1, int n_obs, int ranks, int group,
+                     int sub_rows, int tile_rows) {
+  return (ranks == 2 || ranks == 4 || ranks == 8) && d >= ranks &&
+         h1 >= 1 && h1 <= kMaxH && n_obs >= 1 && group >= 1 &&
+         group <= kGroupMax &&
+         2 * group * ((d + ranks - 1) / ranks) <= kThreads && sub_rows >= 4 &&
+         sub_rows % 4 == 0 && tile_rows >= 1 && tile_rows <= n_obs &&
+         (tile_rows == n_obs || tile_rows % sub_rows == 0) &&
+         cluster_smem_bytes(d, h1, ranks, group, sub_rows, tile_rows, n_obs) <=
+             kMaxSmem;
+}
+
 }  // namespace
 
 #if !DIBS_NL_FLEET && !DIBS_NL_SHARD
@@ -796,6 +1379,12 @@ DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int group,
                                                 int sub_rows, int tile_rows,
                                                 int n_obs) {
   return smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs);
+}
+
+DIBS_API size_t dibs_fused_nonlinear_cluster_smem_bytes(
+    int d, int h1, int ranks, int group, int sub_rows, int tile_rows,
+    int n_obs) {
+  return cluster_smem_bytes(d, h1, ranks, group, sub_rows, tile_rows, n_obs);
 }
 #endif
 
@@ -809,7 +1398,9 @@ DIBS_API size_t dibs_fused_nonlinear_smem_bytes(int d, int h1, int group,
 // d] and their keys [B_ds] (device int64); dibs_fused_nonlinear one
 // dataset: per = P, keys null, p0 = 0; dibs_fused_nonlinear_shard (the
 // DIBS_NL_SHARD build) a particle shard of one dataset, `p0` the particle
-// counter of its first particle (its global index).
+// counter of its first particle (its global index). `ranks` 1 runs
+// fused_nl_kernel (its plan: fused_nonlinear_plan); 2, 4 or 8 the cluster
+// tier, clusters of `ranks` blocks a particle (fused_nonlinear_cluster_plan).
 #if DIBS_NL_FLEET
 DIBS_API int dibs_fused_nonlinear_fleet(
 #elif DIBS_NL_SHARD
@@ -822,18 +1413,25 @@ DIBS_API int dibs_fused_nonlinear(
     int per, uint32_t p0, const float* eps_soft,
     const float* eps_hard, float* ref, float* part, float* out_ds,
     float* out_dw1, float* out_small, int n_particles, int n_samples, int d,
-    int h1, int n_obs, int tile_rows, int sub_rows, int group, int chunk,
-    int act, uint64_t seed, uint32_t stream_soft, uint32_t stream_hard,
+    int h1, int n_obs, int ranks, int tile_rows, int sub_rows, int group,
+    int chunk, int act, uint64_t seed, uint32_t stream_soft, uint32_t stream_hard,
     float alpha, float tau, double inv_var, float inv_varp,
     cudaStream_t stream) {
-  if (!plan_ok(d, h1, n_obs, group, sub_rows, tile_rows) || n_samples < 1 ||
+  const bool cluster = ranks != 1;
+  if (!(cluster ? cluster_plan_ok(d, h1, n_obs, ranks, group, sub_rows,
+                                  tile_rows)
+                : plan_ok(d, h1, n_obs, group, sub_rows, tile_rows)) ||
+      n_samples < 1 ||
       chunk < 1 || act < kRelu || act > kLeaky || per < 1 ||
       n_particles % per != 0 || (keys != nullptr) != (DIBS_NL_FLEET != 0) ||
       (DIBS_NL_SHARD == 0 && p0 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_particles == 0) return 0;
-  const size_t smem = smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs);
+  const size_t smem =
+      cluster ? cluster_smem_bytes(d, h1, ranks, group, sub_rows, tile_rows,
+                                   n_obs)
+              : smem_bytes(d, h1, group, sub_rows, tile_rows, n_obs);
   const size_t smem_ref = ref_smem_bytes(d, h1);
   if (smem_ref > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const RefKernel reference = ref_kernel(act);
@@ -877,12 +1475,30 @@ DIBS_API int dibs_fused_nonlinear(
   a.tau = tau;
   a.inv_varp = inv_varp;
   a.inv_var = inv_var;
-  const MainKernel kernel = main_kernel(h1, act);
+  const MainKernel kernel =
+      cluster ? cluster_kernel(h1, act) : main_kernel(h1, act);
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
+  if (cluster) {
+    cudaLaunchAttribute dims[1];
+    dims[0].id = cudaLaunchAttributeClusterDimension;
+    dims[0].val.clusterDim.x = ranks;
+    dims[0].val.clusterDim.y = 1;
+    dims[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(n_particles * ranks, a.n_split);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = dims;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  } else {
+    kernel<<<dim3(n_particles, a.n_split), kThreads, smem, stream>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fused_nl_merge<<<n_particles, kThreads, 0, stream>>>(

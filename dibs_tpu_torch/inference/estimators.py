@@ -263,7 +263,8 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
             :func:`fused_linear_available` serves ``(d, N)``
         fused_nonlinear_model: a :class:`~dibs_tpu_torch.models.
             DenseNonlinearGaussian` enables kernel #8 (reparam estimator
-            only) wherever :func:`fused_nonlinear_available` serves it;
+            only) wherever :func:`fused_nonlinear_available` serves it on
+            ``x``'s device;
             elsewhere the engine warns with the reason and takes the
             generic estimators
         fused_sample_sharing: ``'hard'`` draws one noise batch for both joint
@@ -598,7 +599,7 @@ def make_estimators(*, cfg: EstimatorConfig, log_graph_prior: Callable,
         d, n_obs = x.shape[-1], x.shape[-2]
         reason = (None if fused_nonlinear_model is None else
                   fused_nonlinear_decline_reason(fused_nonlinear_model,
-                                                 n_obs))
+                                                 n_obs, x.device))
         if fused_linear_model is not None and fused_linear_available(d, n_obs):
             fused_grad_both = fused_linear
         elif fused_nonlinear_model is not None and reason is None:

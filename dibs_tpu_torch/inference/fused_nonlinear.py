@@ -34,6 +34,12 @@ the kill switch off) to the plain version in this module. A particle
 shard's ``particle_offset`` (its first particle's global index) launches
 the shard build (``csrc/fused_nonlinear_shard.cu``), a fleet's keys the
 fleet build.
+
+Two tiers: shapes whose slabs fit one block run ``fused_nl_kernel``
+(:func:`fused_nonlinear_plan`); past that, on a card that launches
+thread-block clusters, ``fused_nl_cluster_kernel`` splits each particle's
+node columns over the blocks of a cluster
+(:func:`fused_nonlinear_cluster_plan`).
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from dibs_tpu_torch.ops.gpu_kernels import (
     check_offset,
     use_kernel,
 )
+from dibs_tpu_torch.profiling import count
 
 __all__ = [
     "fused_nonlinear_available",
@@ -67,6 +74,8 @@ __all__ = [
     "fused_nonlinear_smem_bytes",
     "NonlinearPlan",
     "fused_nonlinear_plan",
+    "ClusterPlan",
+    "fused_nonlinear_cluster_plan",
     "fused_nonlinear_plan_smem_bytes",
     "fused_nonlinear_estimators",
     "fused_nonlinear",
@@ -79,6 +88,8 @@ _THREADS = 256
 _BLOCK = 512  # threads of a fused_nl_kernel block
 _MAX_H = 16  # the kernel's register arrays
 _GROUP_MAX = 2  # samples a group (csrc/fused_nonlinear.cu: kGroupMax)
+_CLUSTER_RANKS = (2, 4, 8)  # the portable cluster sizes
+_CLUSTER_CAPABILITY = (9, 0)  # the first with thread-block clusters
 _RED_BYTES = 8 * (2 * 8 + 2)
 _TILE_MAX, _TILE_MIN = 128, 8
 _MIN_CHUNK = 4  # fewest samples a block loops over
@@ -136,9 +147,21 @@ def fused_nonlinear_tile_rows(d: int, h1: int, n_obs: int) -> Optional[int]:
     return None
 
 
-def fused_nonlinear_decline_reason(model, n_obs: int) -> Optional[str]:
-    """Why the kernel does not serve ``model`` with ``N = n_obs`` rows, or
-    ``None`` when it does."""
+def _cluster_launch(device) -> bool:
+    """True where ``device`` is a CUDA device that launches thread-block
+    clusters (compute capability 9.0 or higher)."""
+    if device is None or torch.device(device).type != "cuda":
+        return False
+    return torch.cuda.get_device_capability(device) >= _CLUSTER_CAPABILITY
+
+
+def fused_nonlinear_decline_reason(model, n_obs: int,
+                                   device=None) -> Optional[str]:
+    """Why the kernel does not serve ``model`` with ``N = n_obs`` rows on
+    ``device``, or ``None`` when it does. Shapes within the one-block
+    measure are served on any device; past it, the cluster tier serves
+    those with a :func:`fused_nonlinear_cluster_plan` on a CUDA device that
+    launches clusters."""
     if len(model.hidden_layers) != 1:
         return (f"hidden_layers={model.hidden_layers}: the kernel serves one "
                 "hidden layer")
@@ -152,16 +175,25 @@ def fused_nonlinear_decline_reason(model, n_obs: int) -> Optional[str]:
     if n_obs < 1:
         return "no observations"
     if fused_nonlinear_tile_rows(d, h1, n_obs) is None:
-        return (f"d={d}, h1={h1} needs "
-                f"{fused_nonlinear_smem_bytes(d, h1, min(n_obs, _TILE_MIN))}"
-                f" bytes of shared memory at {_TILE_MIN}-row tiles, over the "
-                f"{_MAX_SMEM} a block can use")
+        block = (f"d={d}, h1={h1} needs "
+                 f"{fused_nonlinear_smem_bytes(d, h1, min(n_obs, _TILE_MIN))}"
+                 f" bytes of shared memory at {_TILE_MIN}-row tiles, over "
+                 f"the {_MAX_SMEM} a block can use")
+        if fused_nonlinear_cluster_plan(d, h1, n_obs) is None:
+            return (f"{block}, and no cluster of {_CLUSTER_RANKS} blocks "
+                    "holds its node columns (the cluster tier)")
+        if not _cluster_launch(device):
+            return (f"{block}; the cluster tier needs a CUDA device of "
+                    "compute capability "
+                    f"{'.'.join(map(str, _CLUSTER_CAPABILITY))} or higher "
+                    f"(device: {device})")
     return None
 
 
-def fused_nonlinear_available(model, n_obs: int) -> bool:
-    """True when kernel #8 serves ``model`` with ``N = n_obs`` rows."""
-    return fused_nonlinear_decline_reason(model, n_obs) is None
+def fused_nonlinear_available(model, n_obs: int, device=None) -> bool:
+    """True when kernel #8 serves ``model`` with ``N = n_obs`` rows on
+    ``device``."""
+    return fused_nonlinear_decline_reason(model, n_obs, device) is None
 
 
 class NonlinearPlan(NamedTuple):
@@ -176,7 +208,7 @@ class NonlinearPlan(NamedTuple):
 
 def fused_nonlinear_plan_smem_bytes(d: int, h1: int, group: int,
                                     sub_rows: int, tile_rows: int,
-                                    n_obs: int) -> int:
+                                    n_obs: int, ranks: int = 1) -> int:
     """Shared memory of one ``fused_nl_kernel`` block, region by region
     (``csrc/fused_nonlinear.cu: smem_bytes``): float64 row and prior
     partials; the data tile (x transposed and row-major, the row-major
@@ -185,49 +217,98 @@ def fused_nonlinear_plan_smem_bytes(d: int, h1: int, group: int,
     ``[d, d]`` slabs and W2; the accumulators; the group's sample slabs
     and x^T u sums; the hard stream's row sums and the group's dll. The
     hidden unit is the innermost index of W1, pre_ref and u_h, at the odd
-    stride ``h1 | 1``."""
+    stride ``h1 | 1``. With ``ranks`` > 1, one rank of the cluster tier
+    (``cluster_smem_bytes``): its ``ceil(d / ranks)`` node columns of every
+    region indexed by node, and the double-buffered float64 exchange slots
+    of the group's dll."""
+    cols = -(-d // ranks)
     ldt, ldx = -(-tile_rows // 4) * 4, -(-d // 4) * 4
-    dd, hs = d * d, h1 | 1  # [.., h] rows at an odd stride
+    dc, hs = d * cols, h1 | 1  # [.., h] rows at an odd stride
     doubles = _BLOCK + _BLOCK // 32 * 2 * _GROUP_MAX
+    if ranks > 1:
+        doubles += 2 * 2 * _GROUP_MAX
     x_bufs = 2 if tile_rows < n_obs else 1
-    tile = d * ldt + x_bufs * tile_rows * ldx + (2 + hs) * tile_rows * d
-    stage = 2 * 2 * group * sub_rows * d * hs
-    particle = (3 + hs) * dd + h1 * d
-    accs = (1 + h1) * dd + (2 * h1 + 1) * d
-    samples = group * (3 + h1) * dd
+    tile = d * ldt + x_bufs * tile_rows * ldx + (2 + hs) * tile_rows * cols
+    stage = 2 * 2 * group * sub_rows * cols * hs
+    particle = (3 + hs) * dc + h1 * cols
+    accs = (1 + h1) * dc + (2 * h1 + 1) * cols
+    samples = group * (3 + h1) * dc
     sums = (2 * h1 + 1) * _BLOCK // 2 + 2 * _GROUP_MAX
     return 8 * doubles + 4 * (tile + stage + particle + accs + samples + sums)
 
 
-@functools.lru_cache(maxsize=None)
-def fused_nonlinear_plan(d: int, h1: int, n_obs: int) -> Optional[NonlinearPlan]:
-    """The kernel's plan for ``(d, h1, N)``, or ``None`` where it does not
-    fit. A thread of the delta product owns one (sample, stream, node
-    column) and row quads, so a group of ``g`` samples has ``512 // (2 g
-    d)`` row lanes. First choice: every data row resident, groups of 2
-    (else 1), u_h staged in sub-tiles of whole rounds of the lanes,
-    balanced over the rows (smaller where that does not fit). Else tiles of
-    whole sub-tiles, as many rows as fit, loaded once per group."""
+def _block_plan(d, h1, n_obs, ranks, resident):
+    """``(group, sub_rows, tile_rows, smem_bytes)`` of one block (or one
+    rank of ``ranks``) at ``(d, h1, N)``, or ``None``. A thread of the
+    delta product owns one (sample, stream, node column) and row quads, so
+    a group of ``g`` samples over ``c`` columns has ``512 // (2 g c)`` row
+    lanes. ``resident``: every data row resident, groups of 2 (else 1),
+    u_h staged in sub-tiles of whole rounds of the lanes, balanced over the
+    rows (smaller where that does not fit). Else tiles of whole sub-tiles,
+    as many rows as fit, loaded once per group."""
     def smem(group, sub, tile):
-        return fused_nonlinear_plan_smem_bytes(d, h1, group, sub, tile, n_obs)
+        return fused_nonlinear_plan_smem_bytes(d, h1, group, sub, tile, n_obs,
+                                               ranks)
 
+    cols = -(-d // ranks)
     quads = -(-n_obs // 4)
-    groups = [g for g in range(_GROUP_MAX, 0, -1) if 2 * g * d <= _BLOCK]
-    for group in groups:  # all rows resident
-        lanes = _BLOCK // (2 * group * d)
-        first = 4 * -(-quads // -(-quads // lanes))
-        for sub in range(first, 0, -4):
-            if smem(group, sub, n_obs) <= _MAX_SMEM:
-                return NonlinearPlan(group, sub, n_obs, smem(group, sub, n_obs))
-    for group in groups:  # tiles of whole sub-tiles
-        lanes = _BLOCK // (2 * group * d)
+    groups = [g for g in range(_GROUP_MAX, 0, -1) if 2 * g * cols <= _BLOCK]
+    for group in groups:
+        lanes = _BLOCK // (2 * group * cols)
+        if resident:
+            first = 4 * -(-quads // -(-quads // lanes))
+            for sub in range(first, 0, -4):
+                if smem(group, sub, n_obs) <= _MAX_SMEM:
+                    return group, sub, n_obs, smem(group, sub, n_obs)
+            continue
         for sub in range(min(4 * lanes, 4 * quads), 0, -4):
             base = smem(group, sub, 0)
             per_row = smem(group, sub, 4) - base  # tiles are whole quads
             fit = (_MAX_SMEM - base) // per_row * 4 if base < _MAX_SMEM else 0
             tile = min((n_obs - 1) // sub, fit // sub) * sub
             if tile >= sub:
-                return NonlinearPlan(group, sub, tile, smem(group, sub, tile))
+                return group, sub, tile, smem(group, sub, tile)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def fused_nonlinear_plan(d: int, h1: int, n_obs: int) -> Optional[NonlinearPlan]:
+    """The kernel's plan for ``(d, h1, N)``, or ``None`` where it does not
+    fit one block: every data row resident where that fits, else tiles
+    (:func:`_block_plan`)."""
+    for resident in (True, False):
+        plan = _block_plan(d, h1, n_obs, 1, resident)
+        if plan is not None:
+            return NonlinearPlan(*plan)
+    return None
+
+
+class ClusterPlan(NamedTuple):
+    """How ``fused_nl_cluster_kernel`` runs one shape: blocks a particle's
+    cluster (each ``ceil(d / ranks)`` node columns at most), then a rank's
+    :class:`NonlinearPlan` fields."""
+    ranks: int
+    group: int
+    sub_rows: int
+    tile_rows: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def fused_nonlinear_cluster_plan(d: int, h1: int,
+                                 n_obs: int) -> Optional[ClusterPlan]:
+    """The cluster tier's plan for ``(d, h1, N)``, or ``None`` where no
+    cluster of 2, 4 or 8 blocks holds it (or where the per-particle
+    reference's block, ``[h1, d, d]`` masked weights, does not fit): the
+    fewest ranks with every data row resident, else the fewest with tiles
+    (:func:`_block_plan` for one rank)."""
+    if 4 * (h1 * d * d + (2 * h1 + 1) * d) > _MAX_SMEM:
+        return None
+    for resident in (True, False):
+        for c in _CLUSTER_RANKS:
+            plan = _block_plan(d, h1, n_obs, c, resident) if d >= c else None
+            if plan is not None:
+                return ClusterPlan(c, *plan)
     return None
 
 
@@ -333,7 +414,7 @@ def _chunk(p: int, n_samples: int, n_sms: int) -> int:
     """Samples per block: the (particle, chunk) grid fills one wave of the
     blocks the card holds at once, one an SM (a block's 512 threads take
     the SM's registers), never more, so no second wave of a few blocks
-    doubles the time."""
+    doubles the time. The cluster tier passes ``P x ranks`` blocks."""
     splits = max(1, min(n_samples // _MIN_CHUNK, n_sms // max(p, 1)))
     return -(-n_samples // splits)
 
@@ -365,15 +446,19 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
                                  f"{(p, n_samples, d, d)}, got "
                                  f"{tuple(e.shape)}")
         eps_ptrs = tuple(e.data_ptr() for e in eps)
-    reason = fused_nonlinear_decline_reason(model, n_obs)
+    reason = fused_nonlinear_decline_reason(model, n_obs, scores.device)
     if reason is not None or model.hidden_layers[0] != h1 \
             or model.n_vars != d:
         raise ValueError(f"{name}: the kernel does not serve this model: "
                          f"{reason or 'model and tensors disagree'}")
-    plan = fused_nonlinear_plan(d, h1, n_obs)
+    if fused_nonlinear_tile_rows(d, h1, n_obs) is not None:
+        plan, ranks = fused_nonlinear_plan(d, h1, n_obs), 1
+    else:  # the cluster tier
+        plan = fused_nonlinear_cluster_plan(d, h1, n_obs)
+        ranks = plan.ranks
     if plan is None:
         raise ValueError(f"{name}: no plan fits d={d}, h1={h1}, N={n_obs}")
-    chunk = _chunk(p, n_samples, torch.cuda.get_device_properties(
+    chunk = _chunk(p * ranks, n_samples, torch.cuda.get_device_properties(
         scores.device).multi_processor_count)
     n_split = -(-n_samples // chunk)
     lib = build()
@@ -394,14 +479,18 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
             None if keys is None else keys.data_ptr(), per,
             particle_offset & 0xFFFFFFFF, *eps_ptrs,
             ref.data_ptr(), part.data_ptr(), ds.data_ptr(), dw1.data_ptr(),
-            small.data_ptr(), p, n_samples, d, h1, n_obs, plan.tile_rows,
-            plan.sub_rows, plan.group, chunk, _ACT_CODES[model.activation],
+            small.data_ptr(), p, n_samples, d, h1, n_obs, ranks,
+            plan.tile_rows, plan.sub_rows, plan.group, chunk,
+            _ACT_CODES[model.activation],
             0 if keys is not None else seed & 0xFFFFFFFFFFFFFFFF,
             streams[0] & 0xFFFFFFFF, streams[1] & 0xFFFFFFFF, float(alpha),
             float(tau), 1.0 / model.obs_noise,
             1.0 / (model.sig_param * model.sig_param),
             _stream(scores.device))
     _check_launch(lib, rc, name)
+    if ranks > 1:  # the cluster tier's launches and blocks a particle
+        count("fused_nl_cluster.calls", 1)
+        count("fused_nl_cluster.ranks", ranks)
     return ds, dw1, small
 
 

@@ -202,7 +202,7 @@ def build() -> ctypes.CDLL:
                                                i32, vp]
     lib.dibs_transport_phi.restype = i32
     lib.dibs_fused_nonlinear.argtypes = ([vp] * 8 + [i32, u32] + [vp] * 7
-                                         + [i32] * 10
+                                         + [i32] * 11
                                          + [ctypes.c_uint64, u32, u32, f32,
                                             f32, f64, f32, vp])
     lib.dibs_fused_nonlinear.restype = i32
@@ -212,6 +212,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_nonlinear_shard.restype = i32
     lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32] * 6
     lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
+    lib.dibs_fused_nonlinear_cluster_smem_bytes.argtypes = [i32] * 7
+    lib.dibs_fused_nonlinear_cluster_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, vp, i32, i32, i32,
                                       ctypes.c_uint64, f32, i32, i32, vp]
     lib.dibs_acyclic_grad.restype = i32

@@ -149,6 +149,11 @@ def test_launch_counters_count_kernel_launches_only(cuda):
     tk.transport_phi_plain(k_mat, k_mat, g, g, c=-0.4)
     gk.acyclic_grad(scores, 1, 0.2, 2)
     gk.acyclic_grad_plain(scores, 1, 0.2, 2)
+    hard = (torch.rand(2, 3, 5, 5, device=cuda) > 0.5).float()
+    ratio_args = (hard, torch.rand(2, 3, device=cuda),
+                  torch.rand(2, 5, 5, device=cuda), 1.0)
+    gk.score_ratio(*ratio_args)
+    gk.score_ratio_plain(*ratio_args)
     torch.cuda.synchronize()
     assert gk.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
@@ -651,3 +656,124 @@ def test_fused_nonlinear_plan_agrees_with_the_kernel(cuda, d, h1, n):
     plan = fnl.fused_nonlinear_plan(d, h1, n)
     assert lib.dibs_fused_nonlinear_smem_bytes(d, h1, *plan[:3], n) == \
         plan.smem_bytes
+
+
+# #8's cluster tier (fused_nl_cluster_kernel): every (d, N, h1) of d = 41,
+# 50, 64, N = 1, 30, 100, 600 and h1 = 1, 5, 16 that the one-block tier
+# declines and a cluster plan holds (h1 = 1 never leaves the one-block tier
+# there), plus h1 = 1 at d = 80 and h1 = 7 at d = 50, so that the kernels of
+# every hidden width (5 exact; 4, 8, 16 padded) run; each activation
+CLUSTER_SHAPES = [(d, n, h1) for d in (41, 50, 64) for n in (1, 30, 100, 600)
+                  for h1 in (1, 5, 16)
+                  if fnl.fused_nonlinear_tile_rows(d, h1, n) is None
+                  and fnl.fused_nonlinear_cluster_plan(d, h1, n) is not None
+                  ] + [(80, 100, 1), (50, 100, 7)]
+CLUSTER_CASES = [(*s, act) for s in CLUSTER_SHAPES
+                 for act in ("relu", "tanh", "sigmoid", "leakyrelu")]
+
+
+@pytest.mark.parametrize("d,n,h1,activation", CLUSTER_CASES,
+                         ids=lambda v: str(v))
+def test_fused_nonlinear_cluster_tier_matches_plain(cuda, d, n, h1,
+                                                    activation):
+    """The cluster tier against #8's plain version within 1e-4 max(1,
+    max|ref|), with Philox noise on two streams and with injected noise;
+    two calls bitwise equal. A fault poisons the process's CUDA context:
+    on a new build run a case alone by its node id."""
+    assert fnl.fused_nonlinear_tile_rows(d, h1, n) is None
+    rng = np.random.default_rng(1000 * d + 10 * n + h1)
+    p, m = 3, 9
+    args = chip_smoke.nonlinear_problem(rng, cuda, p, d, n, h1,
+                                        5 if n == 600 else 0)
+    model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
+                                   activation=activation)
+    for noise in ("philox", "injected"):
+        kw = dict(seed=7, streams=(4, 5), alpha=1.3, tau=0.9, n_samples=m,
+                  model=model)
+        if noise == "injected":
+            kw["eps"] = (chip_smoke.logistic(rng, (p, m, d, d)).to(cuda),
+                         chip_smoke.logistic(rng, (p, m, d, d)).to(cuda))
+        chip_smoke.check_fused_nonlinear(
+            fnl, args, kw, f"cluster d={d} N={n} h1={h1} {activation} {noise}")
+
+
+@pytest.mark.parametrize("d,h1,n", [(50, 5, 100), (41, 16, 30), (64, 5, 600),
+                                    (80, 1, 100), (50, 7, 100)])
+@pytest.mark.parametrize("ranks", [None, 2, 4, 8])
+def test_fused_nonlinear_cluster_plan_agrees_with_the_kernel(cuda, d, h1, n,
+                                                             ranks):
+    """The launcher's rank footprint (C) is the wrapper's cluster plan
+    (Python), for the rule's plan and each cluster size's."""
+    lib = gk.build()
+    plan = (fnl.fused_nonlinear_cluster_plan(d, h1, n) if ranks is None
+            else chip_smoke.cluster_plan_at(fnl, d, h1, n, ranks))
+    if plan is None:
+        assert ranks is not None
+        return
+    assert lib.dibs_fused_nonlinear_cluster_smem_bytes(
+        d, h1, *plan[:4], n) == plan.smem_bytes
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+def test_fused_nonlinear_cluster_sizes_agree(cuda, monkeypatch, ranks):
+    """Config 7's shape (d = 50, N = 100, h1 = 5) on clusters of 2, 4 and 8
+    ranks: each against the plain version within 1e-4 max(1, max|ref|),
+    two calls bitwise equal."""
+    rng = np.random.default_rng(50)
+    args = chip_smoke.nonlinear_problem(rng, cuda, 4, 50, 100, 5, 0)
+    plan = chip_smoke.cluster_plan_at(fnl, 50, 5, 100, ranks)
+    monkeypatch.setattr(fnl, "fused_nonlinear_cluster_plan",
+                        lambda d, h1, n: plan)
+    kw = dict(seed=11, streams=(6, 6), alpha=0.6, tau=1.0, n_samples=12,
+              model=DenseNonlinearGaussian(n_vars=50, hidden_layers=(5,)))
+    chip_smoke.check_fused_nonlinear(fnl, args, kw, f"ranks={ranks}")
+
+
+def test_fused_nonlinear_cluster_counters(cuda):
+    """While a profiler records, a cluster-tier call counts
+    ``fused_nl_cluster.calls`` 1 and ``.ranks`` its plan's cluster size; a
+    one-block call counts neither. A JointDiBS step at d = 50 takes the
+    cluster tier (no fallback warning): one call and one cluster a step,
+    beside ``mlp_lik.pairs`` 2 P M."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dibs_tpu_torch import profiling
+    from dibs_tpu_torch.inference import JointDiBS
+    from dibs_tpu_torch.models import ScaleFreeDAGDistribution
+
+    rng = np.random.default_rng(3)
+    kw = dict(seed=1, streams=(2, 2), alpha=1.0, tau=1.0, n_samples=5)
+    small = chip_smoke.nonlinear_problem(rng, cuda, 2, 20, 100, 5, 0)
+    big = chip_smoke.nonlinear_problem(rng, cuda, 2, 50, 100, 5, 0)
+    ranks = fnl.fused_nonlinear_cluster_plan(50, 5, 100).ranks
+    with profile(activities=[ProfilerActivity.CPU]):
+        fnl.fused_nonlinear(*small, model=DenseNonlinearGaussian(
+            n_vars=20, hidden_layers=(5,)), **kw)
+        for _ in range(2):
+            fnl.fused_nonlinear(*big, model=DenseNonlinearGaussian(
+                n_vars=50, hidden_layers=(5,)), **kw)
+        torch.cuda.synchronize()
+    assert profiling.counters() == {"fused_nl_cluster.calls": 2,
+                                    "fused_nl_cluster.ranks": 2 * ranks}
+
+    p, m, steps = 4, 6, 3
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        dibs = JointDiBS(
+            x=torch.randn(100, 50, generator=torch.Generator().manual_seed(0)
+                          ).to(cuda),
+            graph_model=ScaleFreeDAGDistribution(50),
+            likelihood_model=DenseNonlinearGaussian(n_vars=50,
+                                                    hidden_layers=(5,)),
+            n_grad_mc_samples=m, n_acyclicity_mc_samples=2)
+    launches = gk.LAUNCHES["fused_nonlinear"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        dibs.sample(seed=1, n_particles=p, steps=steps)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    assert gk.LAUNCHES["fused_nonlinear"] - launches == steps
+    assert counts["fused_nl_cluster.calls"] == steps
+    assert counts["fused_nl_cluster.ranks"] == steps * ranks
+    assert counts["mlp_lik.pairs"] == steps * 2 * p * m

@@ -409,3 +409,24 @@ def test_joint_fleet_step_launches_and_matches_single_engines(cuda, model):
                                   steps=2)
     assert gs.shape == (n_ds, p, d, d)
     assert all(leaf.shape[:2] == (n_ds, p) for leaf in tree_leaves(thetas))
+
+
+# #8's cluster tier in the fleet build: config 7's shape with B = 1 and 3,
+# and the padded hidden widths (16, 4, 8) with the other activations
+FLEET_NL_CLUSTER_CASES = ([(nb, 2, 50, 100, 5, 0, 5, "relu") for nb in (1, 3)]
+                          + [(3, 2, 41, 30, 16, 0, 5, "sigmoid"),
+                             (3, 2, 80, 100, 1, 0, 5, "tanh"),
+                             (3, 2, 50, 100, 7, 0, 5, "leakyrelu")])
+
+
+@pytest.mark.parametrize("n_ds,p,d,n,h1,blocks,m,activation",
+                         FLEET_NL_CLUSTER_CASES)
+def test_fused_nonlinear_fleet_cluster_tier(cuda, n_ds, p, d, n, h1, blocks,
+                                            m, activation):
+    """The cluster tier of #8's fleet build against its plain version and
+    its unbatched launch on each dataset, within 1e-4 max(1, max|ref|);
+    two calls bitwise equal."""
+    assert fnl.fused_nonlinear_tile_rows(d, h1, n) is None
+    rng = np.random.default_rng(100 * n_ds + d + h1)
+    chip_smoke.check_fleet_nonlinear(cuda, rng, n_ds, p, d, n, h1, blocks, m,
+                                     activation)

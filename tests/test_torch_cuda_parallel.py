@@ -158,3 +158,14 @@ def test_fused_nonlinear_shards_are_one_launch(cuda, case):
     failing #8 launch poisons the process's CUDA context: run a case alone
     by its node id to isolate it)."""
     assert chip_smoke.shard_nonlinear(cuda, case, str(case)) <= 1.0
+
+
+@pytest.mark.parametrize("case", [(12, 50, 100, 5, 0, 5, "relu"),
+                                  (12, 41, 30, 16, 0, 5, "sigmoid"),
+                                  (12, 80, 100, 1, 0, 5, "tanh"),
+                                  (12, 50, 100, 7, 0, 5, "leakyrelu")],
+                         ids=lambda c: f"d{c[1]}-n{c[2]}-h{c[3]}-{c[6]}")
+def test_fused_nonlinear_cluster_shards_are_one_launch(cuda, case):
+    """#8's cluster tier through its shard build: 2, 3 and 4 shards bitwise
+    one launch, the last shard against the plain version at its offset."""
+    assert chip_smoke.shard_nonlinear(cuda, case, str(case)) <= 1.0

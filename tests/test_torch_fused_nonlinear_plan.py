@@ -133,3 +133,171 @@ def test_grid_fills_one_wave(p, m, n_sms, chunk):
     assert fnl._chunk(p, m, n_sms) == chunk
     n_split = -(-m // chunk)
     assert p * n_split <= max(p, n_sms)
+
+
+# --- the cluster tier (fused_nl_cluster_kernel): shapes past the one-block
+# measure, each particle's node columns split over a thread-block cluster ---
+
+CLUSTER_RANKS = (2, 4, 8)
+
+
+def rank_footprint(d, h1, ranks, group, sub_rows, tile_rows, n_obs):
+    """One rank's layout, restated from ``csrc/fused_nonlinear.cu``
+    (``cluster_smem_bytes``): the double-buffered float64 exchange slots,
+    then the one-block regions with every node-column axis cut to
+    ``ceil(d / ranks)``; x stays whole."""
+    cols = -(-d // ranks)
+    ldt = -(-tile_rows // 4) * 4
+    ldx = -(-d // 4) * 4
+    hs = h1 if h1 % 2 else h1 + 1
+    regions = {
+        "dll exchange slots": 8 * 2 * 4,
+        "float64 partials": 8 * (THREADS + 16 * 4),
+        "x^T": 4 * d * ldt,
+        "x, twice where tiled": 4 * tile_rows * ldx * (
+            2 if tile_rows < n_obs else 1),
+        "u_h stage": 4 * 2 * (2 * group) * sub_rows * cols * hs,
+        "w, resid_ref": 4 * 2 * tile_rows * cols,
+        "pre_ref": 4 * tile_rows * cols * hs,
+        "alpha s, E[G], L1": 4 * 3 * d * cols,
+        "W1, W2": 4 * (d * cols * hs + h1 * cols),
+        "accumulators": 4 * ((1 + h1) * d * cols + (2 * h1 + 1) * cols),
+        "samples, x^T u sums": 4 * group * (3 + h1) * d * cols,
+        "row sums, dll": 4 * ((2 * h1 + 1) * THREADS // 2 + 4),
+    }
+    return sum(regions.values())
+
+
+def old_plan(d, h1, n):
+    """The one-block tier's plan search as it was before the cluster tier
+    (the served shapes and plans must not move)."""
+    def smem(group, sub, tile):
+        return footprint(d, h1, group, sub, tile, n)
+
+    quads = -(-n // 4)
+    groups = [g for g in range(2, 0, -1) if 2 * g * d <= THREADS]
+    for group in groups:
+        lanes = THREADS // (2 * group * d)
+        first = 4 * -(-quads // -(-quads // lanes))
+        for sub in range(first, 0, -4):
+            if smem(group, sub, n) <= MAX_SMEM:
+                return (group, sub, n, smem(group, sub, n))
+    for group in groups:
+        lanes = THREADS // (2 * group * d)
+        for sub in range(min(4 * lanes, 4 * quads), 0, -4):
+            base = smem(group, sub, 0)
+            per_row = smem(group, sub, 4) - base
+            fit = (MAX_SMEM - base) // per_row * 4 if base < MAX_SMEM else 0
+            tile = min((n - 1) // sub, fit // sub) * sub
+            if tile >= sub:
+                return (group, sub, tile, smem(group, sub, tile))
+    return None
+
+
+@pytest.fixture
+def cluster_card(monkeypatch):
+    """A CUDA device that launches clusters, as the gate sees it."""
+    monkeypatch.setattr(fnl, "_cluster_launch",
+                        lambda device: device is not None
+                        and torch.device(device).type == "cuda")
+    return "cuda"
+
+
+@pytest.mark.parametrize("d,h1,ranks,group,sub_rows,tile_rows,n", [
+    (50, 5, 4, 2, 28, 100, 100), (50, 5, 2, 2, 12, 12, 100),
+    (50, 5, 8, 2, 52, 100, 100), (41, 16, 4, 1, 16, 30, 30),
+    (64, 5, 2, 1, 8, 8, 600), (41, 5, 2, 2, 4, 1, 1),
+    (80, 1, 2, 2, 20, 100, 100), (50, 7, 8, 1, 8, 16, 600)])
+def test_cluster_footprint_formula(d, h1, ranks, group, sub_rows, tile_rows,
+                                   n):
+    assert fnl.fused_nonlinear_plan_smem_bytes(
+        d, h1, group, sub_rows, tile_rows, n, ranks) == rank_footprint(
+            d, h1, ranks, group, sub_rows, tile_rows, n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 9, 30, 100, 129, 600, 4097])
+def test_one_block_tier_is_unchanged(n):
+    """The shapes the one-block tier serves and its plans are those of the
+    search before the cluster tier."""
+    for h1 in range(1, 17):
+        for d in range(1, 90):
+            want = old_plan(d, h1, n) \
+                if fnl.fused_nonlinear_tile_rows(d, h1, n) is not None \
+                else None
+            got = fnl.fused_nonlinear_plan(d, h1, n)
+            if want is not None:
+                assert got == fnl.NonlinearPlan(*want), (d, h1, n)
+            if fnl.fused_nonlinear_tile_rows(d, h1, n) is not None:
+                assert fnl.fused_nonlinear_plan_smem_bytes(
+                    d, h1, *got[:3], n) == footprint(d, h1, *got[:3], n)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 9, 30, 31, 100, 129, 600, 4097])
+def test_cluster_gate_serves_only_with_a_plan_that_fits(cluster_card, n):
+    """Every (d, h1) the gate serves on a cluster card past the one-block
+    measure has a cluster plan of 2, 4 or 8 ranks whose rank fits 227 KB,
+    groups and lanes within the block's 512 threads; the reference's block
+    fits too."""
+    served = 0
+    for h1 in range(1, 17):
+        for d in range(2, 257, 3 if h1 > 1 else 1):
+            model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
+            if fnl.fused_nonlinear_tile_rows(d, h1, n) is not None:
+                continue
+            reason = fnl.fused_nonlinear_decline_reason(model, n,
+                                                        cluster_card)
+            plan = fnl.fused_nonlinear_cluster_plan(d, h1, n)
+            assert (reason is None) == (plan is not None), (d, h1, n)
+            if plan is None:
+                assert "cluster" in reason
+                continue
+            served += 1
+            ranks, group, sub, tile, smem = plan
+            cols = -(-d // ranks)
+            assert ranks in CLUSTER_RANKS and d >= ranks
+            assert group in (1, 2) and 2 * group * cols <= THREADS
+            assert sub % 4 == 0 and 4 <= sub
+            assert tile == n or tile % sub == 0
+            assert smem == rank_footprint(d, h1, *plan[:4], n) <= MAX_SMEM
+            assert 4 * (h1 * d * d + (2 * h1 + 1) * d) <= MAX_SMEM
+    assert served > 0
+
+
+@pytest.mark.parametrize("ranks", [None, *CLUSTER_RANKS])
+def test_config7_takes_the_cluster_tier(cluster_card, ranks):
+    """d = 50, h1 = 5, N = 100 (config 7): past the one-block measure,
+    served on a cluster card; every cluster size holds it, each rank within
+    227 KB; the rule takes 4 ranks with every row resident."""
+    model = DenseNonlinearGaussian(n_vars=50, hidden_layers=(5,))
+    assert fnl.fused_nonlinear_tile_rows(50, 5, 100) is None
+    assert fnl.fused_nonlinear_available(model, 100, cluster_card)
+    if ranks is None:
+        plan = fnl.fused_nonlinear_cluster_plan(50, 5, 100)
+        assert plan == fnl.ClusterPlan(4, 2, 28, 100, 230_224)
+        return
+    plan = (fnl._block_plan(50, 5, 100, ranks, True)
+            or fnl._block_plan(50, 5, 100, ranks, False))
+    assert plan is not None and plan[-1] <= MAX_SMEM
+
+
+@pytest.mark.parametrize("device", [None, "cpu", torch.device("cpu")])
+@pytest.mark.parametrize("d,h1,n", [(41, 5, 100), (50, 5, 100), (23, 16, 100),
+                                    (68, 1, 100)])
+def test_cpu_declines_past_the_one_block_measure(device, d, h1, n):
+    """Off a cluster card the gate declines past the one-block measure as
+    before, and its reason names both tiers."""
+    model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
+    reason = fnl.fused_nonlinear_decline_reason(model, n, device)
+    assert not fnl.fused_nonlinear_available(model, n, device)
+    assert "shared memory" in reason and "cluster tier" in reason
+    assert fnl.fused_nonlinear_cluster_plan(d, h1, n) is not None
+
+
+@pytest.mark.parametrize("p,ranks,m,n_sms,chunk", [
+    (1000, 4, 32, 132, 32),  # config 7: one chunk, 4,000 blocks
+    (3, 4, 9, 132, 5),       # 12 blocks: two chunks of at least 4
+    (2, 8, 32, 132, 4),      # 16 blocks: eight chunks
+])
+def test_cluster_grid_fills_one_wave(p, ranks, m, n_sms, chunk):
+    """The cluster tier sizes its sample chunks by its P x ranks blocks."""
+    assert fnl._chunk(p * ranks, m, n_sms) == chunk

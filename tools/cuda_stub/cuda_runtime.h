@@ -54,3 +54,9 @@ template <class T> T __shfl_xor_sync(unsigned, T, int, int w = 32);
 template <class T> T atomicAdd(T*, T);
 template <class A, class B> inline auto min(A a, B b) { return a < b ? a : b; }
 template <class A, class B> inline auto max(A a, B b) { return a < b ? b : a; }
+size_t __cvta_generic_to_shared(const void*);
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+union cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t { dim3 gridDim; dim3 blockDim; size_t dynamicSmemBytes; cudaStream_t stream; cudaLaunchAttribute* attrs; unsigned numAttrs; };
+template <class... E, class... A> cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t*, void (*)(E...), A&&...);
