@@ -795,12 +795,13 @@ FLEET_NL_CASES = ([(nb, *c) for c in SHAPES_NL_EDGES for nb in (1, 3)]
 
 
 def cluster_plan_at(fnl, d, h1, n, ranks):
-    """#8's cluster plan at ``(d, h1, N)`` forced to ``ranks`` blocks (every
-    data row resident where that fits, else tiles), or ``None``."""
+    """#8's plan at ``(d, h1, N)`` forced to ``ranks`` blocks a particle (1,
+    or a cluster of 2, 4 or 8; every data row resident where that fits,
+    else tiles), or ``None``."""
     for resident in (True, False):
         plan = fnl._block_plan(d, h1, n, ranks, resident)
         if plan is not None:
-            return fnl.ClusterPlan(ranks, *plan)
+            return fnl.NonlinearPlan(ranks, *plan)
     return None
 
 
@@ -821,7 +822,7 @@ def check_fused_nonlinear(fnl, args, kw, label):
 
 
 def cluster_nonlinear(fnl, dev, rng, results):
-    """#8's cluster tier at config 7's shape (relu): against its plain
+    """#8's cluster build at config 7's shape (relu): against its plain
     version with Philox noise on one shared stream (the engine's) and with
     injected noise, one call's launches and cluster counters counted from
     zero, and its time beside the plain version's and its bound."""
@@ -833,9 +834,10 @@ def cluster_nonlinear(fnl, dev, rng, results):
     from dibs_tpu_torch.ops import gpu_kernels as gk
 
     p, d, n, h1, m = P7, D7, N7, H7, M7
-    plan = fnl.fused_nonlinear_cluster_plan(d, h1, n)
-    check(fnl.fused_nonlinear_tile_rows(d, h1, n) is None and plan is not None,
-          f"#8 at d={d}, h1={h1}, N={n} is not the cluster tier's ({plan})")
+    plan = fnl.fused_nonlinear_plan(d, h1, n)
+    check(fnl.fused_nonlinear_tile_rows(d, h1, n) is None and plan is not None
+          and plan.ranks > 1,
+          f"#8 at d={d}, h1={h1}, N={n} is not the cluster build's ({plan})")
     args = nonlinear_problem(rng, dev, p, d, n, h1, 0)
     model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,))
     kw = dict(seed=31, streams=(4, 4), alpha=2.0, tau=1.0, n_samples=m,
@@ -894,6 +896,8 @@ def phase_fused_nonlinear(dev, results):
     for p, d, n, h1, blocks in [(P, D, N_OBS, 5, 0), (20, 30, 600, 5, 5)]:
         args = nonlinear_problem(rng, dev, p, d, n, h1, blocks)
         plan = fnl.fused_nonlinear_plan(d, h1, n)
+        check(plan.ranks == 1, f"#8 at d={d}, h1={h1}, N={n} is not one "
+                               f"block's ({plan})")
         for activation in ("relu", "tanh"):
             model = DenseNonlinearGaussian(n_vars=d, hidden_layers=(h1,),
                                            activation=activation)

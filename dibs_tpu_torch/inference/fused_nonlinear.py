@@ -35,11 +35,11 @@ shard's ``particle_offset`` (its first particle's global index) launches
 the shard build (``csrc/fused_nonlinear_shard.cu``), a fleet's keys the
 fleet build.
 
-Two tiers: shapes whose slabs fit one block run ``fused_nl_kernel``
-(:func:`fused_nonlinear_plan`); past that, on a card that launches
-thread-block clusters, ``fused_nl_cluster_kernel`` splits each particle's
-node columns over the blocks of a cluster
-(:func:`fused_nonlinear_cluster_plan`).
+One kernel body, ``fused_nl_kernel``, in two builds: shapes whose slabs fit
+one block run it one block a particle; past that, on a card that launches
+thread-block clusters, its cluster build splits each particle's node
+columns over the blocks of a cluster. :func:`fused_nonlinear_plan` says
+which (``ranks``).
 """
 from __future__ import annotations
 
@@ -74,8 +74,6 @@ __all__ = [
     "fused_nonlinear_smem_bytes",
     "NonlinearPlan",
     "fused_nonlinear_plan",
-    "ClusterPlan",
-    "fused_nonlinear_cluster_plan",
     "fused_nonlinear_plan_smem_bytes",
     "fused_nonlinear_estimators",
     "fused_nonlinear",
@@ -159,8 +157,8 @@ def fused_nonlinear_decline_reason(model, n_obs: int,
                                    device=None) -> Optional[str]:
     """Why the kernel does not serve ``model`` with ``N = n_obs`` rows on
     ``device``, or ``None`` when it does. Shapes within the one-block
-    measure are served on any device; past it, the cluster tier serves
-    those with a :func:`fused_nonlinear_cluster_plan` on a CUDA device that
+    measure are served on any device; past it, the cluster build serves
+    those with a :func:`fused_nonlinear_plan` on a CUDA device that
     launches clusters."""
     if len(model.hidden_layers) != 1:
         return (f"hidden_layers={model.hidden_layers}: the kernel serves one "
@@ -179,7 +177,7 @@ def fused_nonlinear_decline_reason(model, n_obs: int,
                  f"{fused_nonlinear_smem_bytes(d, h1, min(n_obs, _TILE_MIN))}"
                  f" bytes of shared memory at {_TILE_MIN}-row tiles, over "
                  f"the {_MAX_SMEM} a block can use")
-        if fused_nonlinear_cluster_plan(d, h1, n_obs) is None:
+        if fused_nonlinear_plan(d, h1, n_obs) is None:
             return (f"{block}, and no cluster of {_CLUSTER_RANKS} blocks "
                     "holds its node columns (the cluster tier)")
         if not _cluster_launch(device):
@@ -197,9 +195,12 @@ def fused_nonlinear_available(model, n_obs: int, device=None) -> bool:
 
 
 class NonlinearPlan(NamedTuple):
-    """How ``fused_nl_kernel`` runs one shape: samples a group, rows of u_h
-    staged at once (a multiple of 4), data rows a tile (``N``: resident for
-    every sample), and the block's shared memory in bytes."""
+    """How ``fused_nl_kernel`` runs one shape: blocks a particle's work item
+    (1, or a cluster's 2, 4 or 8, each ``ceil(d / ranks)`` node columns at
+    most), samples a group, rows of u_h staged at once (a multiple of 4),
+    data rows a tile (``N``: resident for every sample), and a block's
+    shared memory in bytes."""
+    ranks: int
     group: int
     sub_rows: int
     tile_rows: int
@@ -217,10 +218,9 @@ def fused_nonlinear_plan_smem_bytes(d: int, h1: int, group: int,
     ``[d, d]`` slabs and W2; the accumulators; the group's sample slabs
     and x^T u sums; the hard stream's row sums and the group's dll. The
     hidden unit is the innermost index of W1, pre_ref and u_h, at the odd
-    stride ``h1 | 1``. With ``ranks`` > 1, one rank of the cluster tier
-    (``cluster_smem_bytes``): its ``ceil(d / ranks)`` node columns of every
-    region indexed by node, and the double-buffered float64 exchange slots
-    of the group's dll."""
+    stride ``h1 | 1``. With ``ranks`` > 1, one rank of a cluster: its
+    ``ceil(d / ranks)`` node columns of every region indexed by node, and
+    the double-buffered float64 exchange slots of the group's dll."""
     cols = -(-d // ranks)
     ldt, ldx = -(-tile_rows // 4) * 4, -(-d // 4) * 4
     dc, hs = d * cols, h1 | 1  # [.., h] rows at an odd stride
@@ -273,42 +273,20 @@ def _block_plan(d, h1, n_obs, ranks, resident):
 
 @functools.lru_cache(maxsize=None)
 def fused_nonlinear_plan(d: int, h1: int, n_obs: int) -> Optional[NonlinearPlan]:
-    """The kernel's plan for ``(d, h1, N)``, or ``None`` where it does not
-    fit one block: every data row resident where that fits, else tiles
-    (:func:`_block_plan`)."""
-    for resident in (True, False):
-        plan = _block_plan(d, h1, n_obs, 1, resident)
-        if plan is not None:
-            return NonlinearPlan(*plan)
-    return None
-
-
-class ClusterPlan(NamedTuple):
-    """How ``fused_nl_cluster_kernel`` runs one shape: blocks a particle's
-    cluster (each ``ceil(d / ranks)`` node columns at most), then a rank's
-    :class:`NonlinearPlan` fields."""
-    ranks: int
-    group: int
-    sub_rows: int
-    tile_rows: int
-    smem_bytes: int
-
-
-@functools.lru_cache(maxsize=None)
-def fused_nonlinear_cluster_plan(d: int, h1: int,
-                                 n_obs: int) -> Optional[ClusterPlan]:
-    """The cluster tier's plan for ``(d, h1, N)``, or ``None`` where no
-    cluster of 2, 4 or 8 blocks holds it (or where the per-particle
-    reference's block, ``[h1, d, d]`` masked weights, does not fit): the
-    fewest ranks with every data row resident, else the fewest with tiles
-    (:func:`_block_plan` for one rank)."""
+    """The kernel's plan for ``(d, h1, N)``, or ``None`` where none holds
+    it: one block where the gate's one-block measure fits
+    (:func:`fused_nonlinear_tile_rows`), else the fewest ranks of a cluster
+    of 2, 4 or 8 with every data row resident, else the fewest with tiles
+    (:func:`_block_plan`); none where the per-particle reference's block,
+    ``[h1, d, d]`` masked weights, does not fit."""
     if 4 * (h1 * d * d + (2 * h1 + 1) * d) > _MAX_SMEM:
         return None
+    one_block = fused_nonlinear_tile_rows(d, h1, n_obs) is not None
     for resident in (True, False):
-        for c in _CLUSTER_RANKS:
+        for c in (1,) if one_block else _CLUSTER_RANKS:
             plan = _block_plan(d, h1, n_obs, c, resident) if d >= c else None
             if plan is not None:
-                return ClusterPlan(c, *plan)
+                return NonlinearPlan(c, *plan)
     return None
 
 
@@ -414,7 +392,8 @@ def _chunk(p: int, n_samples: int, n_sms: int) -> int:
     """Samples per block: the (particle, chunk) grid fills one wave of the
     blocks the card holds at once, one an SM (a block's 512 threads take
     the SM's registers), never more, so no second wave of a few blocks
-    doubles the time. The cluster tier passes ``P x ranks`` blocks."""
+    doubles the time. A plan of ``ranks`` blocks a particle passes
+    ``P x ranks``."""
     splits = max(1, min(n_samples // _MIN_CHUNK, n_sms // max(p, 1)))
     return -(-n_samples // splits)
 
@@ -451,13 +430,10 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
             or model.n_vars != d:
         raise ValueError(f"{name}: the kernel does not serve this model: "
                          f"{reason or 'model and tensors disagree'}")
-    if fused_nonlinear_tile_rows(d, h1, n_obs) is not None:
-        plan, ranks = fused_nonlinear_plan(d, h1, n_obs), 1
-    else:  # the cluster tier
-        plan = fused_nonlinear_cluster_plan(d, h1, n_obs)
-        ranks = plan.ranks
+    plan = fused_nonlinear_plan(d, h1, n_obs)
     if plan is None:
         raise ValueError(f"{name}: no plan fits d={d}, h1={h1}, N={n_obs}")
+    ranks = plan.ranks
     chunk = _chunk(p * ranks, n_samples, torch.cuda.get_device_properties(
         scores.device).multi_processor_count)
     n_split = -(-n_samples // chunk)
@@ -488,7 +464,7 @@ def _launch(scores, w1t, l1, b1t, w2t, x, w, *, seed, streams, alpha, tau,
             1.0 / (model.sig_param * model.sig_param),
             _stream(scores.device))
     _check_launch(lib, rc, name)
-    if ranks > 1:  # the cluster tier's launches and blocks a particle
+    if ranks > 1:  # the cluster build's launches and blocks a particle
         count("fused_nl_cluster.calls", 1)
         count("fused_nl_cluster.ranks", ranks)
     return ds, dw1, small

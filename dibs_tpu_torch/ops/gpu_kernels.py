@@ -210,10 +210,8 @@ def build() -> ctypes.CDLL:
     lib.dibs_fused_nonlinear_fleet.restype = i32
     lib.dibs_fused_nonlinear_shard.argtypes = lib.dibs_fused_nonlinear.argtypes
     lib.dibs_fused_nonlinear_shard.restype = i32
-    lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32] * 6
+    lib.dibs_fused_nonlinear_smem_bytes.argtypes = [i32] * 7
     lib.dibs_fused_nonlinear_smem_bytes.restype = ctypes.c_size_t
-    lib.dibs_fused_nonlinear_cluster_smem_bytes.argtypes = [i32] * 7
-    lib.dibs_fused_nonlinear_cluster_smem_bytes.restype = ctypes.c_size_t
     lib.dibs_acyclic_grad.argtypes = [vp, vp, vp, vp, i32, i32, i32,
                                       ctypes.c_uint64, f32, i32, i32, vp]
     lib.dibs_acyclic_grad.restype = i32

@@ -65,12 +65,14 @@ def test_fused_kernels_match_plain_versions(cuda):
 
 def test_fused_nonlinear_kernel_matches_plain_version(cuda):
     """Kernel #8 against its plain version at config 3's shape and at d=30,
-    N=600 (tiled rows), relu and tanh, injected and Philox noise, within
-    1e-4 max(1, max|ref|)."""
+    N=600 (tiled rows), relu and tanh, injected and Philox noise, and at
+    config 7's shape on a cluster of blocks, within 1e-4 max(1,
+    max|ref|)."""
     results = {}
     chip_smoke.phase_fused_nonlinear(cuda, results)
-    assert set(results) == {"fused_nonlinear"}
+    assert set(results) == {"fused_nonlinear", "fused_nonlinear_cluster"}
     assert results["fused_nonlinear"]["ms"] > 0
+    assert results["fused_nonlinear_cluster"]["ms"] > 0
 
 
 def test_fused_nonlinear_wrapper_counts_and_rejects(cuda):
@@ -97,7 +99,7 @@ def test_fused_nonlinear_wrapper_counts_and_rejects(cuda):
             n_vars=5, hidden_layers=(3,), bias=False)})
     lib = gk.build()
     plan = fnl.fused_nonlinear_plan(20, 5, 100)
-    assert lib.dibs_fused_nonlinear_smem_bytes(20, 5, *plan[:3], 100) == \
+    assert lib.dibs_fused_nonlinear_smem_bytes(20, 5, *plan[:4], 100) == \
         plan.smem_bytes
 
 
@@ -654,11 +656,12 @@ def test_fused_nonlinear_plan_agrees_with_the_kernel(cuda, d, h1, n):
     """The launcher's footprint (C) is the wrapper's plan (Python)."""
     lib = gk.build()
     plan = fnl.fused_nonlinear_plan(d, h1, n)
-    assert lib.dibs_fused_nonlinear_smem_bytes(d, h1, *plan[:3], n) == \
+    assert plan.ranks == 1
+    assert lib.dibs_fused_nonlinear_smem_bytes(d, h1, *plan[:4], n) == \
         plan.smem_bytes
 
 
-# #8's cluster tier (fused_nl_cluster_kernel): every (d, N, h1) of d = 41,
+# #8's cluster build (kCluster): every (d, N, h1) of d = 41,
 # 50, 64, N = 1, 30, 100, 600 and h1 = 1, 5, 16 that the one-block tier
 # declines and a cluster plan holds (h1 = 1 never leaves the one-block tier
 # there), plus h1 = 1 at d = 80 and h1 = 7 at d = 50, so that the kernels of
@@ -666,7 +669,7 @@ def test_fused_nonlinear_plan_agrees_with_the_kernel(cuda, d, h1, n):
 CLUSTER_SHAPES = [(d, n, h1) for d in (41, 50, 64) for n in (1, 30, 100, 600)
                   for h1 in (1, 5, 16)
                   if fnl.fused_nonlinear_tile_rows(d, h1, n) is None
-                  and fnl.fused_nonlinear_cluster_plan(d, h1, n) is not None
+                  and fnl.fused_nonlinear_plan(d, h1, n) is not None
                   ] + [(80, 100, 1), (50, 100, 7)]
 CLUSTER_CASES = [(*s, act) for s in CLUSTER_SHAPES
                  for act in ("relu", "tanh", "sigmoid", "leakyrelu")]
@@ -705,28 +708,31 @@ def test_fused_nonlinear_cluster_plan_agrees_with_the_kernel(cuda, d, h1, n,
     """The launcher's rank footprint (C) is the wrapper's cluster plan
     (Python), for the rule's plan and each cluster size's."""
     lib = gk.build()
-    plan = (fnl.fused_nonlinear_cluster_plan(d, h1, n) if ranks is None
+    plan = (fnl.fused_nonlinear_plan(d, h1, n) if ranks is None
             else chip_smoke.cluster_plan_at(fnl, d, h1, n, ranks))
     if plan is None:
         assert ranks is not None
         return
-    assert lib.dibs_fused_nonlinear_cluster_smem_bytes(
+    assert plan.ranks > 1
+    assert lib.dibs_fused_nonlinear_smem_bytes(
         d, h1, *plan[:4], n) == plan.smem_bytes
 
 
-@pytest.mark.parametrize("ranks", [2, 4, 8])
-def test_fused_nonlinear_cluster_sizes_agree(cuda, monkeypatch, ranks):
+@pytest.mark.parametrize("d,ranks", [(50, 2), (50, 4), (50, 8), (20, 1),
+                                     (20, 2), (20, 4)])
+def test_fused_nonlinear_cluster_sizes_agree(cuda, monkeypatch, d, ranks):
     """Config 7's shape (d = 50, N = 100, h1 = 5) on clusters of 2, 4 and 8
-    ranks: each against the plain version within 1e-4 max(1, max|ref|),
-    two calls bitwise equal."""
-    rng = np.random.default_rng(50)
-    args = chip_smoke.nonlinear_problem(rng, cuda, 4, 50, 100, 5, 0)
-    plan = chip_smoke.cluster_plan_at(fnl, 50, 5, 100, ranks)
-    monkeypatch.setattr(fnl, "fused_nonlinear_cluster_plan",
-                        lambda d, h1, n: plan)
+    ranks, and config 3's (d = 20) on one block and on clusters of 2 and 4:
+    the one kernel body at each rank count against the plain version within
+    1e-4 max(1, max|ref|), two calls bitwise equal."""
+    rng = np.random.default_rng(d)
+    args = chip_smoke.nonlinear_problem(rng, cuda, 4, d, 100, 5, 0)
+    plan = chip_smoke.cluster_plan_at(fnl, d, 5, 100, ranks)
+    assert plan is not None and plan.ranks == ranks
+    monkeypatch.setattr(fnl, "fused_nonlinear_plan", lambda d, h1, n: plan)
     kw = dict(seed=11, streams=(6, 6), alpha=0.6, tau=1.0, n_samples=12,
-              model=DenseNonlinearGaussian(n_vars=50, hidden_layers=(5,)))
-    chip_smoke.check_fused_nonlinear(fnl, args, kw, f"ranks={ranks}")
+              model=DenseNonlinearGaussian(n_vars=d, hidden_layers=(5,)))
+    chip_smoke.check_fused_nonlinear(fnl, args, kw, f"d={d} ranks={ranks}")
 
 
 def test_fused_nonlinear_cluster_counters(cuda):
@@ -747,7 +753,7 @@ def test_fused_nonlinear_cluster_counters(cuda):
     kw = dict(seed=1, streams=(2, 2), alpha=1.0, tau=1.0, n_samples=5)
     small = chip_smoke.nonlinear_problem(rng, cuda, 2, 20, 100, 5, 0)
     big = chip_smoke.nonlinear_problem(rng, cuda, 2, 50, 100, 5, 0)
-    ranks = fnl.fused_nonlinear_cluster_plan(50, 5, 100).ranks
+    ranks = fnl.fused_nonlinear_plan(50, 5, 100).ranks
     with profile(activities=[ProfilerActivity.CPU]):
         fnl.fused_nonlinear(*small, model=DenseNonlinearGaussian(
             n_vars=20, hidden_layers=(5,)), **kw)

@@ -1,7 +1,7 @@
 """Host-side sizing of kernel #8 (``fused_nl_kernel`` in
-``csrc/fused_nonlinear.cu``): the plan (samples a group, rows of u_h staged
-at once, data rows a tile), its shared-memory footprint, the one-wave grid,
-and that the plan fits wherever the gate serves. The wrapper computes the
+``csrc/fused_nonlinear.cu``): the plan (blocks a particle, samples a group,
+rows of u_h staged at once, data rows a tile), its shared-memory footprint,
+the one-wave grid, and that the plan fits wherever the gate serves. The wrapper computes the
 plan in Python and the launcher checks it against its own arithmetic in C
 (the card-side agreement is ``tests/test_torch_cuda.py``). Runs on the CPU:
 no kernel is launched.
@@ -47,7 +47,7 @@ def test_config3_plan():
     combos x 6 row lanes; 25 row quads in 5 rounds), 201,168 B: one block
     an SM."""
     plan = fnl.fused_nonlinear_plan(20, 5, 100)
-    assert plan == fnl.NonlinearPlan(2, 20, 100, 201_168)
+    assert plan == fnl.NonlinearPlan(1, 2, 20, 100, 201_168)
     assert plan.smem_bytes == footprint(20, 5, 2, 20, 100, 100)
     assert 2 * plan.smem_bytes > MAX_SMEM
 
@@ -56,7 +56,7 @@ def test_d30_n600_plan():
     """d=30, N=600 (config 4's shape): the rows do not fit; 16-row tiles
     loaded once per group of 2 samples, 222,064 B."""
     plan = fnl.fused_nonlinear_plan(30, 5, 600)
-    assert plan == fnl.NonlinearPlan(2, 16, 16, 222_064)
+    assert plan == fnl.NonlinearPlan(1, 2, 16, 16, 222_064)
     assert plan.smem_bytes == footprint(30, 5, 2, 16, 16, 600)
 
 
@@ -75,13 +75,14 @@ def test_footprint_formula(d, h1, group, sub_rows, tile_rows, n):
     (23, 16, 1), (67, 1, 37), (68, 1, 1), (13, 7, 130), (1, 1, 1),
     (20, 5, 10_000)])
 def test_plan_rules(d, h1, n):
-    """Groups of 2 where two samples' (sample, stream, column) combos fit
-    512 threads, else 1; sub-tiles of whole row quads, at most one round of the
-    row lanes; the data resident where it fits, else tiles of whole
-    sub-tiles below N; the footprint fits one block."""
+    """One block; groups of 2 where two samples' (sample, stream, column)
+    combos fit 512 threads, else 1; sub-tiles of whole row quads, at most one
+    round of the row lanes; the data resident where it fits, else tiles of
+    whole sub-tiles below N; the footprint fits one block."""
     plan = fnl.fused_nonlinear_plan(d, h1, n)
     assert plan is not None
-    group, sub, tile = plan[:3]
+    ranks, group, sub, tile = plan[:4]
+    assert ranks == 1
     lanes = THREADS // (2 * group * d)
     assert group in (1, 2) and 2 * group * d <= THREADS
     assert sub % 4 == 0 and 4 <= sub <= 4 * lanes
@@ -135,16 +136,16 @@ def test_grid_fills_one_wave(p, m, n_sms, chunk):
     assert p * n_split <= max(p, n_sms)
 
 
-# --- the cluster tier (fused_nl_cluster_kernel): shapes past the one-block
-# measure, each particle's node columns split over a thread-block cluster ---
+# --- the cluster build (kCluster): shapes past the one-block measure, each
+# particle's node columns split over a thread-block cluster ---
 
 CLUSTER_RANKS = (2, 4, 8)
 
 
 def rank_footprint(d, h1, ranks, group, sub_rows, tile_rows, n_obs):
     """One rank's layout, restated from ``csrc/fused_nonlinear.cu``
-    (``cluster_smem_bytes``): the double-buffered float64 exchange slots,
-    then the one-block regions with every node-column axis cut to
+    (``smem_bytes`` at ``ranks`` > 1): the double-buffered float64 exchange
+    slots, then the one-block regions with every node-column axis cut to
     ``ceil(d / ranks)``; x stays whole."""
     cols = -(-d // ranks)
     ldt = -(-tile_rows // 4) * 4
@@ -169,8 +170,8 @@ def rank_footprint(d, h1, ranks, group, sub_rows, tile_rows, n_obs):
 
 
 def old_plan(d, h1, n):
-    """The one-block tier's plan search as it was before the cluster tier
-    (the served shapes and plans must not move)."""
+    """The one-block plan search as it was before clusters (the served
+    shapes and plans must not move)."""
     def smem(group, sub, tile):
         return footprint(d, h1, group, sub, tile, n)
 
@@ -217,8 +218,9 @@ def test_cluster_footprint_formula(d, h1, ranks, group, sub_rows, tile_rows,
 
 @pytest.mark.parametrize("n", [1, 2, 5, 9, 30, 100, 129, 600, 4097])
 def test_one_block_tier_is_unchanged(n):
-    """The shapes the one-block tier serves and its plans are those of the
-    search before the cluster tier."""
+    """The shapes served by one block and their plans are those of the
+    search before clusters; past the one-block measure a plan is a
+    cluster's."""
     for h1 in range(1, 17):
         for d in range(1, 90):
             want = old_plan(d, h1, n) \
@@ -226,10 +228,11 @@ def test_one_block_tier_is_unchanged(n):
                 else None
             got = fnl.fused_nonlinear_plan(d, h1, n)
             if want is not None:
-                assert got == fnl.NonlinearPlan(*want), (d, h1, n)
-            if fnl.fused_nonlinear_tile_rows(d, h1, n) is not None:
+                assert got == fnl.NonlinearPlan(1, *want), (d, h1, n)
                 assert fnl.fused_nonlinear_plan_smem_bytes(
-                    d, h1, *got[:3], n) == footprint(d, h1, *got[:3], n)
+                    d, h1, *got[1:4], n) == footprint(d, h1, *got[1:4], n)
+            elif got is not None:
+                assert got.ranks in CLUSTER_RANKS, (d, h1, n, got)
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 8, 9, 30, 31, 100, 129, 600, 4097])
@@ -246,7 +249,7 @@ def test_cluster_gate_serves_only_with_a_plan_that_fits(cluster_card, n):
                 continue
             reason = fnl.fused_nonlinear_decline_reason(model, n,
                                                         cluster_card)
-            plan = fnl.fused_nonlinear_cluster_plan(d, h1, n)
+            plan = fnl.fused_nonlinear_plan(d, h1, n)
             assert (reason is None) == (plan is not None), (d, h1, n)
             if plan is None:
                 assert "cluster" in reason
@@ -272,8 +275,8 @@ def test_config7_takes_the_cluster_tier(cluster_card, ranks):
     assert fnl.fused_nonlinear_tile_rows(50, 5, 100) is None
     assert fnl.fused_nonlinear_available(model, 100, cluster_card)
     if ranks is None:
-        plan = fnl.fused_nonlinear_cluster_plan(50, 5, 100)
-        assert plan == fnl.ClusterPlan(4, 2, 28, 100, 230_224)
+        plan = fnl.fused_nonlinear_plan(50, 5, 100)
+        assert plan == fnl.NonlinearPlan(4, 2, 28, 100, 230_224)
         return
     plan = (fnl._block_plan(50, 5, 100, ranks, True)
             or fnl._block_plan(50, 5, 100, ranks, False))
@@ -290,7 +293,7 @@ def test_cpu_declines_past_the_one_block_measure(device, d, h1, n):
     reason = fnl.fused_nonlinear_decline_reason(model, n, device)
     assert not fnl.fused_nonlinear_available(model, n, device)
     assert "shared memory" in reason and "cluster tier" in reason
-    assert fnl.fused_nonlinear_cluster_plan(d, h1, n) is not None
+    assert fnl.fused_nonlinear_plan(d, h1, n).ranks in CLUSTER_RANKS
 
 
 @pytest.mark.parametrize("p,ranks,m,n_sms,chunk", [
@@ -299,5 +302,5 @@ def test_cpu_declines_past_the_one_block_measure(device, d, h1, n):
     (2, 8, 32, 132, 4),      # 16 blocks: eight chunks
 ])
 def test_cluster_grid_fills_one_wave(p, ranks, m, n_sms, chunk):
-    """The cluster tier sizes its sample chunks by its P x ranks blocks."""
+    """A cluster plan sizes its sample chunks by its P x ranks blocks."""
     assert fnl._chunk(p * ranks, m, n_sms) == chunk

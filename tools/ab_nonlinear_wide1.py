@@ -8,8 +8,9 @@ on one CUDA card.
 runs (parent, change, change, parent) twice, each arm a process of its own
 (``--tree TREE TAG``) that imports ``dibs_tpu_torch`` from its tree, builds
 it, makes the same inputs from numpy seeds and times #8 at config 3's shape
-(P=30, d=20, N=100, h1=5, M=128) and at d=30, N=600 (P=20, 5
-interventional blocks of 100 rows), and wide pass 1 at config 5's shape
+(P=30, d=20, N=100, h1=5, M=128), at d=30, N=600 (P=20, 5
+interventional blocks of 100 rows) and at config 7's (P=1000, d=50, N=100,
+h1=5, M=32: clusters of 4 blocks), and wide pass 1 at config 5's shape
 (P=1000, d=128, N=100, M=32), with in-kernel noise on one shared stream
 (the engine's): the median of CUDA-event-timed calls after a warm-up, and
 the kernels' own device time from ``torch.profiler``. Each arm checks that
@@ -28,6 +29,7 @@ from ab_wide_pass2 import median_ms, problem
 OUT = "_tree_check/ab_out/ab_nonlinear_wide1"  # each tree's first arm
 CASES = {"nl_config3": (30, 20, 100, 0, 128, 31),
          "nl_d30_n600": (20, 30, 600, 5, 128, 32),
+         "nl_config7": (1000, 50, 100, 0, 32, 34),
          "wide1_config5": (1000, 128, 100, 0, 32, 33)}
 
 
@@ -59,7 +61,10 @@ def arm(tree, tag):
 
             def call():
                 return fnl.fused_nonlinear(*args, **kw)
-            name = "fused_nl_kernel"
+            # #8's pass, not its reference or merge: fused_nl_kernel<...>
+            # (a tree that built its clusters as a kernel of their own
+            # names that one fused_nl_cluster_kernel<...>)
+            name = "_kernel<"
         else:
             kw = dict(seed=19, streams=(6, 6), alpha=1.5, tau=1.0,
                       n_samples=m, model=LinearGaussian(n_vars=d))

@@ -1,4 +1,4 @@
-"""Kernel #8's cluster tier (``fused_nl_cluster_kernel``,
+"""Kernel #8's cluster build (``fused_nl_kernel<..., true>``,
 ``csrc/fused_nonlinear.cu``) at config 7's shape under each cluster size,
 timed on one CUDA card.
 
@@ -53,10 +53,10 @@ def main():
     args = (scores, *fnl.kernel_layout(theta, model), x, w)
     kw = dict(seed=19, streams=(6, 6), alpha=1.5, tau=1.0, n_samples=M,
               model=model)
-    rule = fnl.fused_nonlinear_cluster_plan(D, H1, N)
+    rule = fnl.fused_nonlinear_plan(D, H1, N)
     plans = {r: chip_smoke.cluster_plan_at(fnl, D, H1, N, r)
              for r in (2, 4, 8)}
-    chosen = fnl.fused_nonlinear_cluster_plan
+    chosen = fnl.fused_nonlinear_plan
 
     def call():
         return fnl.fused_nonlinear(*args, **kw)
@@ -64,7 +64,7 @@ def main():
     first, rows = None, {r: [] for r in plans}
     for turn in range(2):
         for r in (plans if turn == 0 else reversed(list(plans))):
-            fnl.fused_nonlinear_cluster_plan = \
+            fnl.fused_nonlinear_plan = \
                 lambda d, h1, n, plan=plans[r]: plan
             out, again = call(), call()
             torch.cuda.synchronize()
@@ -77,12 +77,11 @@ def main():
             rows[r].append(dict(
                 ms=median_ms(torch, call, 30),
                 call_device_ms=device_ms(torch, call, "fused_nl", 10),
-                kernel_ms=device_ms(torch, call, "fused_nl_cluster_kernel",
-                                    10),
+                kernel_ms=device_ms(torch, call, "fused_nl_kernel", 10),
                 bitwise=bitwise, err_of_bar=err))
             print(f"ranks={r} {plans[r]} " + json.dumps(rows[r][-1]),
                   flush=True)
-    fnl.fused_nonlinear_cluster_plan = chosen
+    fnl.fused_nonlinear_plan = chosen
     out = call()
     plain = fnl.fused_nonlinear_plain(*args, **kw)
     torch.cuda.synchronize()

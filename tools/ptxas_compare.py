@@ -4,7 +4,10 @@ line there and the line of the same instantiation in the second tree. Where
 the second tree added a trailing ``bool`` template argument to a kernel (a
 fleet's variant: ``kFleet`` or ``kBatched``; a particle shard's:
 ``kShard``), its ``false`` instantiation is the one compared, and its
-``true`` one is shown beside it.
+``true`` one is shown beside it. A kernel that the second tree merged into
+another as that one's trailing ``true`` (``MERGED``: a parent's
+``fused_nl_cluster_kernel<...>`` is ``fused_nl_kernel<..., true>``, the
+``kCluster`` build) is compared with that instantiation.
 
     git archive <parent commit> | tar -x -C _tree_check/parent
     python tools/ptxas_compare.py _tree_check/parent .
@@ -20,6 +23,9 @@ import os
 import re
 import subprocess
 import sys
+
+# a parent's kernel -> the kernel whose trailing `true` it became
+MERGED = {"fused_nl_cluster_kernel": "fused_nl_kernel"}
 
 
 def report(text):
@@ -63,6 +69,15 @@ def variant(name, flag):
     return f"{name}ILb{flag}EE"
 
 
+def counterpart(name):
+    """The second tree's names of the parent's kernel ``name``: the one
+    compared and the one shown beside it (or ``None``)."""
+    base, sep, args = name.partition("I")  # kernel names are lower case
+    if base in MERGED:
+        return variant(MERGED[base] + sep + args, 1), None
+    return variant(name, 0), variant(name, 1)
+
+
 def fmt(entry):
     if entry is None:
         return "-"
@@ -85,15 +100,15 @@ def main():
     old, new = reps
     differ = []
     for name in sorted(old):
-        single = new.get(variant(name, 0), new.get(name))
-        added = new.get(variant(name, 1))
+        compared, beside = counterpart(name)
+        single = new.get(compared, new.get(name))
+        added = new.get(beside)
         same = single == old[name]
         if not same:
             differ.append(name)
         print(f"{name}: parent {fmt(old[name])}; change {fmt(single)}"
               f"{'' if same else ' (DIFFERS)'}; added variant {fmt(added)}")
-    seen = {n for name in old for n in (name, variant(name, 0),
-                                        variant(name, 1))}
+    seen = {n for name in old for n in (name, *counterpart(name))}
     for name in sorted(set(new) - seen):
         print(f"{name}: new in the change {fmt(new[name])}")
     print(f"kernels {len(old)}, differing from the parent: {len(differ)} "
